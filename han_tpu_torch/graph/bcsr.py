@@ -1,0 +1,222 @@
+"""Block-sparse (BCSR / tile-list) graph container for the flash-GAT kernels
+(port of han_tpu/graph/bcsr.py).
+
+Only the **occupied (bm × bn) tiles** are stored, plus both traversal maps,
+precomputed once on the host:
+
+- ``tiles`` int8[T, bm, bn]: bitmap of each occupied tile, in row-major
+  (row-block, col-block) order.
+- forward map (row block → its occupied column tiles): drives the forward
+  kernel, one thread block per (row block, head).
+- backward map (column block → its occupied row tiles): drives the fused
+  backward kernel, one thread block per (column block, head).
+
+Map padding convention (as in han_tpu): steps past a block's count repeat
+the last active entry (index 0 for empty blocks).
+
+Tile geometry is the port's own. The kernels (csrc/flash_gat.cu) give
+``TPR`` threads to each tile row (forward) or tile column (backward), and a
+warp must hold 32 rows or 32 columns of one step, so bm and bn are
+multiples of 32 and at most 1024 / TPR. The TPU rules (bn a multiple of
+128 and a whole number of 512-wide VMEM strips) do not apply here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from han_tpu_torch.graph.containers import _to
+
+TPR = 4  # threads per tile row / column in csrc/flash_gat.cu
+_MAX_TILE = 1024 // TPR
+
+# 128 x 128: a forward block of 4·128 = 512 threads per (row block, head);
+# at the DBLP shape (N = 4057, K = 8) that is 32 x 8 = 256 blocks, two per
+# SM resident on 132 SMs. A starting point: no sweep on the H100 yet.
+DEF_BM = 128
+DEF_BN = 128
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def pick_tiles(n: int, bm: int = DEF_BM, bn: int = DEF_BN) -> tuple[int, int, int]:
+    """Clamp requested tile sizes to the node count (rounded up to a warp)
+    and return (bm, bn, n_pad) with n_pad divisible by both."""
+    for name, b in (("bm", bm), ("bn", bn)):
+        if b % 32 or not 32 <= b <= _MAX_TILE:
+            raise ValueError(
+                f"{name} must be a multiple of 32 in [32, {_MAX_TILE}], got {b}")
+    cap = _round_up(max(n, 1), 32)
+    bm, bn = min(bm, cap), min(bn, cap)
+    return bm, bn, _round_up(n, math.lcm(bm, bn))
+
+
+@dataclasses.dataclass(frozen=True)
+class BCSRGraph:
+    """Occupied-tile adjacency + precomputed forward/backward block maps."""
+
+    tiles: torch.Tensor      # int8[T_pad, bm, bn]
+    fwd_count: torch.Tensor  # int32[nb_r] occupied tiles in each row block
+    fwd_col: torch.Tensor    # int32[nb_r, c_max] column-block id per step
+    fwd_tile: torch.Tensor   # int32[nb_r, c_max] tile id per step
+    bwd_count: torch.Tensor  # int32[nb_c]
+    bwd_row: torch.Tensor    # int32[nb_c, r_max] row-block id per step
+    bwd_tile: torch.Tensor   # int32[nb_c, r_max]
+    n_nodes: int
+    n_pad: int
+    bm: int
+    bn: int
+    n_edges: int
+    n_tiles: int  # true occupied tile count (T_pad >= n_tiles)
+
+    @property
+    def nb_r(self) -> int:
+        return self.n_pad // self.bm
+
+    @property
+    def nb_c(self) -> int:
+        return self.n_pad // self.bn
+
+    @property
+    def c_max(self) -> int:
+        return int(self.fwd_col.shape[1])
+
+    @property
+    def r_max(self) -> int:
+        return int(self.bwd_row.shape[1])
+
+    def occupancy(self) -> float:
+        """Fraction of the padded dense tile grid that is occupied."""
+        return self.n_tiles / (self.nb_r * self.nb_c)
+
+    def elems_per_edge(self) -> float:
+        """Tile elements the flash kernels sweep per real edge."""
+        return self.n_tiles * self.bm * self.bn / max(self.n_edges, 1)
+
+    def to(self, device) -> "BCSRGraph":
+        return _to(self, device)
+
+
+def _group_map(block_of_step: np.ndarray, other_of_step: np.ndarray,
+               tile_of_step: np.ndarray, n_blocks: int):
+    """Group (block → [(other_block, tile_id)]) into padded count/idx/tile
+    arrays; padding repeats the last active entry (index 0 for empty rows)."""
+    counts = np.bincount(block_of_step, minlength=n_blocks).astype(np.int32)
+    width = max(int(counts.max()) if counts.size else 1, 1)
+    other = np.zeros((n_blocks, width), np.int32)
+    tile = np.zeros((n_blocks, width), np.int32)
+    start = np.zeros(n_blocks + 1, np.int64)
+    np.cumsum(counts, out=start[1:])
+    for b in range(n_blocks):
+        lo, hi = start[b], start[b + 1]
+        c = hi - lo
+        if c:
+            other[b, :c] = other_of_step[lo:hi]
+            tile[b, :c] = tile_of_step[lo:hi]
+            other[b, c:] = other[b, c - 1]
+            tile[b, c:] = tile[b, c - 1]
+    return counts, other, tile
+
+
+def build_tile_arrays(rows: np.ndarray, cols: np.ndarray, nb_r: int,
+                      nb_c: int, bm: int, bn: int):
+    """Tile-list build (host, O(E)): COO edges over an (nb_r·bm × nb_c·bn)
+    grid → (tiles, fwd_count, fwd_col, fwd_tile, bwd_count, bwd_row,
+    bwd_tile, n_tiles) numpy arrays."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    if rows.size == 0:
+        return (np.zeros((1, bm, bn), np.int8),
+                np.zeros(nb_r, np.int32), np.zeros((nb_r, 1), np.int32),
+                np.zeros((nb_r, 1), np.int32),
+                np.zeros(nb_c, np.int32), np.zeros((nb_c, 1), np.int32),
+                np.zeros((nb_c, 1), np.int32), 0)
+
+    rb = rows // bm
+    cb = cols // bn
+    key = rb * nb_c + cb
+    # tile ids in row-major (rb, cb) order
+    uniq, tid_of_edge = np.unique(key, return_inverse=True)
+    n_tiles = int(uniq.shape[0])
+
+    tiles = np.zeros((n_tiles, bm, bn), np.int8)
+    tiles[tid_of_edge, rows % bm, cols % bn] = 1
+
+    tile_rb = (uniq // nb_c).astype(np.int64)
+    tile_cb = (uniq % nb_c).astype(np.int64)
+    tids = np.arange(n_tiles, dtype=np.int32)
+
+    # forward: uniq is sorted row-major, so each row block's tiles are
+    # grouped with ascending column block
+    fwd_count, fwd_col, fwd_tile = _group_map(tile_rb, tile_cb.astype(np.int32),
+                                              tids, nb_r)
+    order = np.lexsort((tile_rb, tile_cb))  # backward: column-major
+    bwd_count, bwd_row, bwd_tile = _group_map(
+        tile_cb[order], tile_rb[order].astype(np.int32), tids[order], nb_c)
+    return (tiles, fwd_count, fwd_col, fwd_tile,
+            bwd_count, bwd_row, bwd_tile, n_tiles)
+
+
+def flat_fwd_map(fwd_count: np.ndarray, fwd_col: np.ndarray,
+                 fwd_tile: np.ndarray):
+    """Flatten the grouped forward map into one active-tile step list
+    (row-block-major): 4 int32[T_steps] arrays (row, col, tile, active),
+    with one inactive step per empty row block. This is han_tpu's sequential
+    TPU grid; the CUDA forward walks the grouped map instead, one block per
+    row block."""
+    rows_l, cols_l, tiles_l, act_l = [], [], [], []
+    for rb, c in enumerate(np.asarray(fwd_count)):
+        c = int(c)
+        if c:
+            rows_l += [rb] * c
+            cols_l += list(np.asarray(fwd_col[rb, :c]))
+            tiles_l += list(np.asarray(fwd_tile[rb, :c]))
+            act_l += [1] * c
+        else:
+            rows_l.append(rb)
+            cols_l.append(0)
+            tiles_l.append(0)
+            act_l.append(0)
+    mk = lambda x: np.asarray(x, np.int32)
+    return (mk(rows_l), mk(cols_l), mk(tiles_l), mk(act_l))
+
+
+def bcsr_from_coo(rows: np.ndarray, cols: np.ndarray, n: int, *,
+                  bm: int = DEF_BM, bn: int = DEF_BN,
+                  n_edges: int | None = None) -> BCSRGraph:
+    """Build a BCSRGraph (on the CPU) from COO edge lists (host-side, O(E))."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    bm, bn, n_pad = pick_tiles(n, bm, bn)
+    nb_r, nb_c = n_pad // bm, n_pad // bn
+    (tiles, fwd_count, fwd_col, fwd_tile, bwd_count, bwd_row, bwd_tile,
+     n_tiles) = build_tile_arrays(rows, cols, nb_r, nb_c, bm, bn)
+    t = torch.from_numpy
+    return BCSRGraph(
+        tiles=t(tiles),
+        fwd_count=t(fwd_count), fwd_col=t(fwd_col), fwd_tile=t(fwd_tile),
+        bwd_count=t(bwd_count), bwd_row=t(bwd_row), bwd_tile=t(bwd_tile),
+        n_nodes=n, n_pad=n_pad, bm=bm, bn=bn,
+        n_edges=int(rows.shape[0]) if n_edges is None else int(n_edges),
+        n_tiles=n_tiles,
+    )
+
+
+def bcsr_from_scipy(sp_mat: Any, *, bm: int = DEF_BM, bn: int = DEF_BN) -> BCSRGraph:
+    m = sp_mat.tocoo().astype(bool)
+    m.sum_duplicates()
+    return bcsr_from_coo(m.row, m.col, m.shape[0], bm=bm, bn=bn)
+
+
+def bcsr_from_dense(adj: np.ndarray, *, bm: int = DEF_BM,
+                    bn: int = DEF_BN) -> BCSRGraph:
+    a = np.asarray(adj) != 0
+    rows, cols = np.nonzero(a)
+    return bcsr_from_coo(rows, cols, a.shape[0], bm=bm, bn=bn)

@@ -1,0 +1,131 @@
+"""Seeded planted heterogeneous graphs (numpy copy of
+han_tpu/graph/synthetic.py:27-152; bit-identical output for equal
+arguments, held so by tests/test_torch_graph.py)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import scipy.sparse as sp
+
+
+@dataclasses.dataclass
+class HeteroDataset:
+    """In-memory heterogeneous node-classification dataset (host arrays)."""
+
+    metapath_adjs: list[sp.csr_matrix]  # P square N×N meta-path graphs (no self-loops implied)
+    features: np.ndarray  # float32[N, F]
+    labels: np.ndarray  # float32[N, C] one-hot
+    train_mask: np.ndarray  # bool[N]
+    val_mask: np.ndarray
+    test_mask: np.ndarray
+    name: str = "synthetic"
+    metapath_names: tuple[str, ...] = ()
+
+    @property
+    def n_nodes(self) -> int:
+        return int(self.features.shape[0])
+
+    @property
+    def n_classes(self) -> int:
+        return int(self.labels.shape[1])
+
+
+def planted_hetero(
+    *,
+    n_nodes: int = 3025,
+    n_feats: int = 1870,
+    n_classes: int = 3,
+    n_metapaths: int = 2,
+    avg_degree: float = 10.0,
+    homophily: float = 0.85,
+    feat_signal: float = 1.5,
+    train_per_class: int = 200,
+    n_val: int = 300,
+    n_communities: int | None = None,
+    shuffle_nodes: bool = False,
+    seed: int = 0,
+    name: str = "synthetic",
+) -> HeteroDataset:
+    """Planted-partition heterogeneous graph with *clustered* cross edges.
+
+    Nodes belong to ``n_communities`` contiguous communities (default
+    4 × n_classes); class = community mod n_classes. A fraction
+    ``homophily`` of each node's edges stay inside its community; the rest
+    go to the two ring-adjacent communities, so the contiguous layout gives
+    a block-tridiagonal adjacency, which the block-sparse flash kernel
+    exploits. Defaults mirror the ACM3025 shape (han.pdf Table 2).
+    """
+    rng = np.random.default_rng(seed)
+    n_comm = n_communities or max(4 * n_classes, 8)
+    comm = (np.arange(n_nodes) * n_comm) // n_nodes  # contiguous communities
+    y = comm % n_classes
+
+    members = [np.where(comm == c)[0] for c in range(n_comm)]
+
+    adjs = []
+    for p in range(n_metapaths):
+        # per-metapath homophily varies a bit so semantic attention has signal
+        h = homophily if p == 0 else max(0.55, homophily - 0.2 * p)
+        n_edges = int(n_nodes * avg_degree / 2)
+        src = rng.integers(0, n_nodes, size=n_edges)
+        stay = rng.random(n_edges) < h
+        ring = rng.integers(0, 2, size=n_edges) * 2 - 1  # ±1 neighbor community
+        dst_comm = np.where(stay, comm[src], (comm[src] + ring) % n_comm)
+        sizes = np.array([m.shape[0] for m in members])
+        offs = np.concatenate([[0], np.cumsum(sizes)])[:-1]
+        flat = np.concatenate(members)
+        dst = flat[offs[dst_comm] + rng.integers(0, 1 << 30, size=n_edges) % sizes[dst_comm]]
+        a = sp.coo_matrix(
+            (np.ones(n_edges, dtype=np.float32), (src, dst)),
+            shape=(n_nodes, n_nodes))
+        a = ((a + a.T) > 0).astype(np.float32).tocsr()
+        a.setdiag(0)
+        a.eliminate_zeros()
+        adjs.append(a)
+
+    # class-structured sparse features
+    feats = (rng.random((n_nodes, n_feats)) < 0.02).astype(np.float32)
+    block = n_feats // n_classes
+    for cidx in range(n_classes):
+        members = np.where(y == cidx)[0]
+        lo, hi = cidx * block, (cidx + 1) * block
+        boost = (rng.random((members.shape[0], hi - lo)) < 0.02 * feat_signal).astype(np.float32)
+        feats[members[:, None], np.arange(lo, hi)[None, :]] += boost
+    feats = np.minimum(feats, 1.0)
+
+    labels = np.zeros((n_nodes, n_classes), dtype=np.float32)
+    labels[np.arange(n_nodes), y] = 1.0
+
+    train_mask = np.zeros(n_nodes, dtype=bool)
+    for cidx in range(n_classes):
+        members = np.where(y == cidx)[0]
+        pick = rng.permutation(members)[:train_per_class]
+        train_mask[pick] = True
+    rest = np.where(~train_mask)[0]
+    rest = rng.permutation(rest)
+    val_mask = np.zeros(n_nodes, dtype=bool)
+    val_mask[rest[:n_val]] = True
+    test_mask = np.zeros(n_nodes, dtype=bool)
+    test_mask[rest[n_val:]] = True
+
+    if shuffle_nodes:
+        perm = rng.permutation(n_nodes)
+        adjs = [a.tocsr()[perm][:, perm] for a in adjs]
+        feats = feats[perm]
+        labels = labels[perm]
+        train_mask = train_mask[perm]
+        val_mask = val_mask[perm]
+        test_mask = test_mask[perm]
+
+    return HeteroDataset(
+        metapath_adjs=adjs,
+        features=feats,
+        labels=labels,
+        train_mask=train_mask,
+        val_mask=val_mask,
+        test_mask=test_mask,
+        name=name,
+        metapath_names=tuple(f"MP{p}" for p in range(n_metapaths)),
+    )

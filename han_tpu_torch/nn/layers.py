@@ -1,0 +1,159 @@
+"""Neural layers: multi-head graph attention and semantic attention (port of
+han_tpu/nn/layers.py:39-134,189-209).
+
+Parameters keep the flax shapes (``kernel (F,K,D)``, ``attn_dst_kernel
+(K,D)``, ...) and flax's initializers, so ``nn/convert.py`` maps a flax
+parameter tree onto a ``state_dict`` name for name.
+
+- ``GATConv`` reproduces the reference ``attn_head`` (utils/layers.py:7-46)
+  with K heads batched into single einsums: per-head feature transform W_k
+  (no bias), per-head scalar projections f_1/f_2 (with bias), LeakyReLU(0.2)
+  → mask → row softmax → per-head output bias → activation. Input dropout is
+  drawn independently per head, as the reference's per-head
+  ``tf.nn.dropout`` calls.
+- ``SemanticAttention`` reproduces ``SimpleAttLayer`` (utils/layers.py:
+  132-164) including the *per-node* softmax over meta-paths and normal(0.1)
+  initialization.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from han_tpu_torch.ops.attention import Impl, attention_aggregate
+
+
+@dataclasses.dataclass
+class DropoutGenerators:
+    """The random streams of one training run. ``device`` draws the input,
+    feature and (dense/csr) coefficient dropout masks where the tensors
+    live; ``host`` is a CPU generator that draws the flash kernels' dropout
+    seeds, so drawing one needs no device-to-host sync."""
+
+    device: torch.Generator
+    host: torch.Generator
+
+
+def glorot_uniform_(t: torch.Tensor, generator: torch.Generator | None = None):
+    """flax ``glorot_uniform``: variance_scaling(1, fan_avg, uniform) with
+    in_axis=-2, out_axis=-1, so a rank-3 (F,K,D) kernel has fan_in = K·F and
+    fan_out = D·F."""
+    receptive = math.prod(t.shape[:-2])
+    fan_in, fan_out = t.shape[-2] * receptive, t.shape[-1] * receptive
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        return t.uniform_(-limit, limit, generator=generator)
+
+
+def normal01_(t: torch.Tensor, generator: torch.Generator | None = None):
+    with torch.no_grad():
+        return t.normal_(0.0, 0.1, generator=generator)
+
+
+class GATConv(nn.Module):
+    """Multi-head graph attention convolution (reference attn_head × K heads).
+
+    Output is the concatenation over heads, (N, K * out_dim), when
+    ``concat_heads`` else the head mean, (N, out_dim).
+    """
+
+    def __init__(self, in_dim: int, out_dim: int, num_heads: int, *,
+                 activation: Callable[[torch.Tensor], torch.Tensor] = F.elu,
+                 slope: float = 0.2, attn_drop: float = 0.0,
+                 ffd_drop: float = 0.0, residual: bool = False,
+                 concat_heads: bool = True, impl: Impl = "auto",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        k, d = num_heads, out_dim
+        self.activation = activation
+        self.slope, self.attn_drop, self.ffd_drop = slope, attn_drop, ffd_drop
+        self.residual, self.concat_heads, self.impl = residual, concat_heads, impl
+        self.kernel = nn.Parameter(glorot_uniform_(torch.empty(in_dim, k, d), generator))
+        self.attn_dst_kernel = nn.Parameter(glorot_uniform_(torch.empty(k, d), generator))
+        self.attn_dst_bias = nn.Parameter(torch.zeros(k))
+        self.attn_src_kernel = nn.Parameter(glorot_uniform_(torch.empty(k, d), generator))
+        self.attn_src_bias = nn.Parameter(torch.zeros(k))
+        self.bias = nn.Parameter(torch.zeros(k, d))
+        self.res_kernel = (
+            nn.Parameter(glorot_uniform_(torch.empty(in_dim, k, d), generator))
+            if residual and in_dim != out_dim else None)
+
+    def forward(self, graph, x: torch.Tensor, *, deterministic: bool = True,
+                rngs: DropoutGenerators | None = None,
+                return_coefs: bool = False):
+        n, f = x.shape
+        k, d = self.bias.shape
+        drop_in = 0.0 if deterministic else self.ffd_drop
+        drop_coef = 0.0 if deterministic else self.attn_drop
+        if (drop_in > 0.0 or drop_coef > 0.0) and rngs is None:
+            raise ValueError("dropout needs rngs (DropoutGenerators)")
+
+        if drop_in > 0.0:
+            # independent input dropout per head (reference drops `seq`
+            # inside each attn_head call, layers.py:18-19)
+            keep = 1.0 - drop_in
+            mask = torch.rand((k, n, f), generator=rngs.device, device=x.device) < keep
+            xk = torch.where(mask, x[None] / keep, 0.0)  # (K, N, F)
+            fts = torch.einsum("knf,fkd->nkd", xk, self.kernel)
+        else:
+            fts = torch.einsum("nf,fkd->nkd", x, self.kernel)
+
+        # per-head scalar attention terms (reference f_1 / f_2, layers.py:23-24)
+        logit_dst = torch.einsum("nkd,kd->nk", fts, self.attn_dst_kernel) + self.attn_dst_bias
+        logit_src = torch.einsum("nkd,kd->nk", fts, self.attn_src_kernel) + self.attn_src_bias
+
+        # feature dropout before aggregation (reference layers.py:31-32)
+        fts_agg = fts
+        if drop_in > 0.0:
+            mask = torch.rand(fts.shape, generator=rngs.device, device=x.device) < keep
+            fts_agg = torch.where(mask, fts / keep, 0.0)
+
+        agg = attention_aggregate(
+            graph, fts_agg, logit_dst, logit_src, slope=self.slope,
+            coef_dropout=drop_coef,
+            generator=rngs.device if rngs is not None else None,
+            seed_generator=rngs.host if rngs is not None else None,
+            impl=self.impl, return_coefs=return_coefs)
+        if return_coefs:
+            agg, coefs = agg
+
+        ret = agg + self.bias[None]  # (N, K, D)
+        if self.residual:
+            if self.res_kernel is not None:
+                ret = ret + torch.einsum("nf,fkd->nkd", x, self.res_kernel)
+            else:
+                ret = ret + x[:, None, :]
+
+        out = self.activation(ret)
+        out = out.reshape(n, k * d) if self.concat_heads else out.mean(dim=1)
+        if return_coefs:
+            return out, coefs
+        return out
+
+
+class SemanticAttention(nn.Module):
+    """Fuse P per-meta-path embeddings into one (reference SimpleAttLayer).
+
+    Input (N, P, D) → (output (N, D), alphas (N, P)); alphas are per-node
+    (softmax over the meta-path axis, utils/layers.py:155-156).
+    """
+
+    def __init__(self, in_dim: int, attention_dim: int = 128, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.w_omega = nn.Parameter(normal01_(torch.empty(in_dim, attention_dim), generator))
+        self.b_omega = nn.Parameter(normal01_(torch.empty(attention_dim), generator))
+        self.u_omega = nn.Parameter(normal01_(torch.empty(attention_dim), generator))
+
+    def forward(self, inputs: torch.Tensor):
+        v = torch.tanh(torch.einsum("npd,da->npa", inputs, self.w_omega) + self.b_omega)
+        vu = torch.einsum("npa,a->np", v, self.u_omega)
+        alphas = torch.softmax(vu, dim=-1)  # (N, P)
+        output = torch.sum(inputs * alphas[:, :, None], dim=1)  # (N, D)
+        return output, alphas

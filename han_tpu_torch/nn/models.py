@@ -1,0 +1,97 @@
+"""HAN: heterogeneous graph attention network (port of han_tpu/nn/models.py
+:62-183; reference CG-Labs/HAN ``HeteGAT_multi.inference``, gat.py:34-77):
+independent GAT towers per meta-path, semantic attention fusion, and a
+classifier that averages n_heads[-1] Dense layers."""
+
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from han_tpu_torch.nn.layers import (DropoutGenerators, GATConv,
+                                     SemanticAttention, glorot_uniform_)
+from han_tpu_torch.ops.attention import Impl
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense`` with its (in, out) kernel layout, glorot-uniform
+    kernel and zero bias."""
+
+    def __init__(self, in_dim: int, out_dim: int, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.kernel = nn.Parameter(glorot_uniform_(torch.empty(in_dim, out_dim), generator))
+        self.bias = nn.Parameter(torch.zeros(out_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.kernel + self.bias
+
+
+class _MetapathTower(nn.Module):
+    """One per-meta-path GAT stack: n_heads[0] concat heads at hid_units[0],
+    then optional deeper layers (reference gat.py:42-57)."""
+
+    def __init__(self, in_dim: int, hid_units: Sequence[int],
+                 n_heads: Sequence[int], *, activation: Callable,
+                 residual: bool, attn_drop: float, ffd_drop: float,
+                 impl: Impl, generator: torch.Generator | None = None):
+        super().__init__()
+        common = dict(activation=activation, attn_drop=attn_drop,
+                      ffd_drop=ffd_drop, impl=impl, generator=generator)
+        layers = [GATConv(in_dim, hid_units[0], n_heads[0], residual=False, **common)]
+        for i in range(1, len(hid_units)):
+            layers.append(GATConv(hid_units[i - 1] * n_heads[i - 1], hid_units[i],
+                                  n_heads[i], residual=residual, **common))
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, graph, x: torch.Tensor, *, deterministic: bool = True,
+                rngs: DropoutGenerators | None = None) -> torch.Tensor:
+        h = x
+        for layer in self.layers:
+            h = layer(graph, h, deterministic=deterministic, rngs=rngs)
+        return h
+
+
+class HAN(nn.Module):
+    """Heterogeneous graph attention network (reference HeteGAT_multi).
+
+    ``forward(graphs, xs)`` takes P graphs (one per meta-path) and P feature
+    tensors (typically the same tensor repeated); returns
+    ``(logits (N, C), embedding (N, K*hid), alphas (N, P))``.
+    """
+
+    def __init__(self, in_dim: int, n_classes: int, n_metapaths: int, *,
+                 hid_units: Sequence[int] = (8,),
+                 n_heads: Sequence[int] = (8, 1), semantic_dim: int = 128,
+                 activation: Callable = F.elu, residual: bool = False,
+                 attn_drop: float = 0.0, ffd_drop: float = 0.0,
+                 impl: Impl = "auto", vmap_towers: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if vmap_towers:
+            raise NotImplementedError(
+                "vmap_towers (meta-path expert parallelism) is not ported yet")
+        self.towers = nn.ModuleList(
+            _MetapathTower(in_dim, hid_units, n_heads, activation=activation,
+                           residual=residual, attn_drop=attn_drop,
+                           ffd_drop=ffd_drop, impl=impl, generator=generator)
+            for _ in range(n_metapaths))
+        emb_dim = hid_units[-1] * n_heads[len(hid_units) - 1]
+        self.semantic = SemanticAttention(emb_dim, semantic_dim, generator=generator)
+        # classifier: mean of n_heads[-1] Dense layers (reference gat.py:66-76)
+        self.classifiers = nn.ModuleList(
+            Dense(emb_dim, n_classes, generator=generator)
+            for _ in range(n_heads[-1]))
+
+    def forward(self, graphs: Sequence, xs: Sequence[torch.Tensor], *,
+                deterministic: bool = True,
+                rngs: DropoutGenerators | None = None):
+        embeds = [tower(graph, x, deterministic=deterministic, rngs=rngs)
+                  for tower, graph, x in zip(self.towers, graphs, xs)]
+        multi = torch.stack(embeds, dim=1)  # (N, P, K*hid)
+        final, alphas = self.semantic(multi)
+        logits = sum(c(final) for c in self.classifiers) / len(self.classifiers)
+        return logits, final, alphas

@@ -1,0 +1,188 @@
+"""Graph attention aggregation ops (port of han_tpu/ops/attention.py:77-277,
+285-404).
+
+One mathematical spec, several executions:
+
+    logits[i, j, k] = leaky_relu(logit_dst[i, k] + logit_src[j, k])
+    coefs[i, :, k]  = softmax over in-neighbors j of node i
+    out[i, k, :]    = sum_j coefs[i, j, k] * fts[j, k, :]
+
+- ``dense`` — materialized (K, N, N) masked softmax; the oracle.
+- ``csr``   — edge domain: SDDMM → segment softmax (``scatter_reduce`` amax,
+  ``index_add``) → SpMM; O(E) memory.
+- ``flash`` — the fused block-sparse CUDA kernels over the occupied tiles
+  of a BCSRGraph (ops/flash_gat.py).
+
+All take features in head-major layout ``fts: (N, K, D)`` and per-head node
+logit terms ``logit_dst, logit_src: (N, K)`` and return ``(N, K, D)``.
+"""
+
+from __future__ import annotations
+
+from typing import Literal
+
+import torch
+
+from han_tpu_torch.graph.bcsr import BCSRGraph
+from han_tpu_torch.graph.containers import MASK_VALUE, CSRGraph, DenseGraph
+from han_tpu_torch.ops.flash_gat import flash_gat_attention
+
+Impl = Literal["auto", "dense", "csr", "flash"]
+
+
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(x >= 0, x, slope * x)
+
+
+def _coef_dropout(coefs: torch.Tensor, p: float,
+                  generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout on materialized coefficients; the mask is drawn on
+    the coefficients' device from ``generator``."""
+    if p <= 0.0:
+        return coefs
+    if generator is None:
+        raise ValueError("coef_dropout > 0 requires a generator")
+    keep = 1.0 - p
+    mask = torch.rand(coefs.shape, generator=generator,
+                      device=coefs.device) < keep
+    return torch.where(mask, coefs / keep, 0.0)
+
+
+def dense_attention(
+    graph: DenseGraph,
+    fts: torch.Tensor,        # (N, K, D) features used for aggregation
+    logit_dst: torch.Tensor,  # (N, K)
+    logit_src: torch.Tensor,  # (N, K)
+    *,
+    slope: float = 0.2,
+    coef_dropout: float = 0.0,
+    generator: torch.Generator | None = None,
+    return_coefs: bool = False,
+):
+    # (K, N, N) logits: row i attends over columns j
+    logits = logit_dst.T[:, :, None] + logit_src.T[:, None, :]
+    coefs = torch.softmax(leaky_relu(logits, slope) + graph.bias[None], dim=-1)
+    raw_coefs = coefs
+    coefs = _coef_dropout(coefs, coef_dropout, generator)
+    out = torch.einsum("knm,mkd->nkd", coefs, fts)
+    if return_coefs:
+        return out, raw_coefs
+    return out
+
+
+def sddmm_edge_logits(graph: CSRGraph, logit_dst: torch.Tensor,
+                      logit_src: torch.Tensor, *, slope: float = 0.2) -> torch.Tensor:
+    """Edge logits l_e = leaky_relu(logit_dst[row_e] + logit_src[col_e]).
+
+    Returns (E_pad, K); padding edges get MASK_VALUE.
+    """
+    zero = logit_dst.new_zeros((1, logit_dst.shape[1]))
+    ld_pad = torch.cat([logit_dst, zero])
+    ls_pad = torch.cat([logit_src, zero])
+    le = leaky_relu(ld_pad[graph.row_idx] + ls_pad[graph.col_idx], slope)
+    return torch.where(graph.edge_mask[:, None], le, MASK_VALUE)
+
+
+def segment_softmax(graph: CSRGraph, edge_logits: torch.Tensor) -> torch.Tensor:
+    """Numerically-stable softmax over each destination row's edges.
+
+    edge_logits: (E_pad, K) → coefs (E_pad, K); padded edges → 0; rows with
+    no edges produce no contribution anywhere.
+    """
+    n_seg = graph.n_nodes + 1  # sentinel row collects padding
+    rows = graph.row_idx
+    k = edge_logits.shape[1]
+    # the max is a shift the normalized coefficients do not depend on
+    seg_max = edge_logits.new_full((n_seg, k), float("-inf")).scatter_reduce(
+        0, rows[:, None].expand(-1, k), edge_logits.detach(), reduce="amax")
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    e = torch.exp(edge_logits - seg_max[rows])
+    e = torch.where(graph.edge_mask[:, None], e, 0.0)
+    seg_sum = e.new_zeros((n_seg, k)).index_add(0, rows, e)
+    return e / seg_sum[rows].clamp_min(1e-30)
+
+
+def spmm_aggregate(graph: CSRGraph, coefs: torch.Tensor,
+                   fts: torch.Tensor) -> torch.Tensor:
+    """out[i] = sum over edges e with row_e == i of coefs[e] * fts[col_e].
+
+    coefs: (E_pad, K); fts: (N, K, D) → out (N, K, D), in flat (K·D) layout.
+    """
+    n, k, d = fts.shape
+    fts_pad = torch.cat([fts.reshape(n, k * d), fts.new_zeros((1, k * d))])
+    vals = torch.repeat_interleave(coefs, d, dim=1) * fts_pad[graph.col_idx]
+    out = vals.new_zeros((n + 1, k * d)).index_add(0, graph.row_idx, vals)
+    return out[:n].reshape(n, k, d)
+
+
+def csr_attention(
+    graph: CSRGraph,
+    fts: torch.Tensor,
+    logit_dst: torch.Tensor,
+    logit_src: torch.Tensor,
+    *,
+    slope: float = 0.2,
+    coef_dropout: float = 0.0,
+    generator: torch.Generator | None = None,
+    return_coefs: bool = False,
+):
+    le = sddmm_edge_logits(graph, logit_dst, logit_src, slope=slope)
+    coefs = segment_softmax(graph, le)
+    # pre-dropout coefs, (E_pad, K) aligned with graph.row_idx/col_idx,
+    # padding edges exactly 0
+    raw_coefs = coefs
+    coefs = _coef_dropout(coefs, coef_dropout, generator)
+    out = spmm_aggregate(graph, coefs, fts)
+    if return_coefs:
+        return out, raw_coefs
+    return out
+
+
+def attention_aggregate(
+    graph,
+    fts: torch.Tensor,
+    logit_dst: torch.Tensor,
+    logit_src: torch.Tensor,
+    *,
+    slope: float = 0.2,
+    coef_dropout: float = 0.0,
+    generator: torch.Generator | None = None,
+    seed_generator: torch.Generator | None = None,
+    impl: Impl = "auto",
+    return_coefs: bool = False,
+):
+    """Dispatch on graph container type / requested implementation.
+
+    ``generator`` draws the dense and csr dropout masks on the features'
+    device; ``seed_generator`` (CPU) draws the flash kernels' dropout seed.
+    ``auto`` sends a BCSRGraph to flash: no flash-vs-csr crossover has been
+    measured on the H100 yet.
+    """
+    if impl == "auto":
+        if isinstance(graph, DenseGraph):
+            impl = "dense"
+        elif isinstance(graph, CSRGraph):
+            impl = "csr"
+        elif isinstance(graph, BCSRGraph):
+            impl = "flash"
+        else:
+            raise TypeError(f"unknown graph container {type(graph)}")
+    if impl == "dense":
+        return dense_attention(
+            graph, fts, logit_dst, logit_src, slope=slope,
+            coef_dropout=coef_dropout, generator=generator,
+            return_coefs=return_coefs)
+    if impl == "csr":
+        return csr_attention(
+            graph, fts, logit_dst, logit_src, slope=slope,
+            coef_dropout=coef_dropout, generator=generator,
+            return_coefs=return_coefs)
+    if return_coefs:
+        # the fused kernels never materialize per-edge coefficients
+        raise NotImplementedError(
+            "return_coefs is supported by the dense and csr impls only")
+    if impl == "flash":
+        return flash_gat_attention(
+            graph, fts, logit_dst, logit_src, slope=slope,
+            coef_dropout=coef_dropout, generator=seed_generator)
+    raise ValueError(f"unknown impl {impl!r}")

@@ -1,0 +1,380 @@
+"""Block-sparse flash-GAT attention: CUDA kernels, their plain PyTorch
+versions, and the autograd wrapper (port of han_tpu/ops/pallas/flash_gat.py
+:620-784).
+
+One pass over the *occupied* adjacency tiles of a BCSRGraph computes, per
+head, the SDDMM ``z_ij = leaky_relu(ld_i + ls_j)``, the masked softmax over
+each row's edges and the aggregation ``out_i = sum_j softmax_j(z_ij) v_j``
+without materializing the N×N coefficients; the backward recomputes the
+coefficients from the saved log-sum-exp.
+
+The kernels (csrc/flash_gat.cu, whose header says what bounds them on the
+H100 and what their design does about it) replace
+``han_tpu/ops/pallas/flash_gat.py``:
+
+- ``han_flash_fwd`` ← ``_fwd_kernel_flat`` (with ``_fwd_tile_compute`` and
+  ``_fwd_finalize``);
+- ``han_flash_bwd`` ← ``_bwd_col_kernel`` with ``fuse_dld=True`` (with
+  ``_head_dz``); dld is summed across column blocks with atomicAdd;
+- the ``drop_bits`` device function ← ``_tile_drop_keep``.
+
+Coefficient dropout is keyed per element on (seed, global row, global
+column, global head) through a murmur3-finalizer hash that exists twice:
+in the kernels and in :func:`dropout_keep` (plain torch on int64). So a
+kernel and its plain version apply bit-identical masks, the backward
+replays the forward's mask, and the mask does not depend on tile size.
+It cannot reproduce the TPU's masks (drawn from the pltpu PRNG per
+(row block, 512-wide strip, head)).
+
+Every wrapper uses the plain version only for tensors on the CPU. For a
+CUDA tensor it launches the kernel or raises; there is no fallback.
+``flash_fwd_launches`` and ``flash_bwd_launches`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from han_tpu_torch.graph.bcsr import BCSRGraph
+from han_tpu_torch.graph.containers import MASK_VALUE
+
+flash_fwd_launches = 0
+flash_bwd_launches = 0
+
+KERNEL_HEAD_DIMS = (4, 8, 16)  # the D instantiated in csrc/flash_gat.cu
+
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashMeta:
+    """Scalar arguments of both kernels: the slope, the dropout rate, and
+    han_tpu's int32 meta[4] (seed, row-block, head and column-block
+    offsets). The offsets globalize the dropout keys for sharded runs and
+    are 0 on one device."""
+
+    slope: float = 0.2
+    dropout_p: float = 0.0
+    seed: int = 0
+    row_block_offset: int = 0
+    head_offset: int = 0
+    col_block_offset: int = 0
+
+
+# ---------------------------------------------------------------------------
+# dropout hash (plain-torch copy of csrc/flash_gat.cu:fmix32 / drop_bits)
+# ---------------------------------------------------------------------------
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2**32 for 0 <= x < 2**32, with no int64 overflow."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _fmix32(h):
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def keep_threshold(p: float) -> int:
+    """A coefficient is kept iff its 32 hash bits are below this."""
+    return min(int((1.0 - p) * 2 ** 32), _M32)
+
+
+def dropout_keep(seed: int, rows: torch.Tensor, cols: torch.Tensor,
+                 head: int, p: float) -> torch.Tensor:
+    """bool[len(rows), len(cols)]: the kept coefficients of global head
+    ``head`` at global rows × columns, bit-identical to the kernels'."""
+    head_key = _fmix32((seed & _M32) ^ _fmix32((head + _GOLDEN) & _M32))
+    row_key = _fmix32(head_key ^ rows.to(torch.int64))
+    bits = _fmix32(row_key[:, None] ^ _mul32(cols.to(torch.int64), _GOLDEN)[None, :])
+    return bits < keep_threshold(p)
+
+
+def _keep_scale(meta: FlashMeta, graph: BCSRGraph, n_rows: int, n_cols: int,
+                h: int, device) -> torch.Tensor:
+    """f32 (n_rows, n_cols): 1/(1-p) where kept, 0 where dropped."""
+    rows = meta.row_block_offset * graph.bm + torch.arange(n_rows, device=device)
+    cols = meta.col_block_offset * graph.bn + torch.arange(n_cols, device=device)
+    keep = dropout_keep(meta.seed, rows, cols, meta.head_offset + h, meta.dropout_p)
+    scale = torch.tensor(1.0 / (1.0 - meta.dropout_p), dtype=torch.float32)
+    return torch.where(keep, scale.to(device), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (CPU path, and the reference the card checks against)
+# ---------------------------------------------------------------------------
+
+
+def tile_adjacency(graph: BCSRGraph) -> torch.Tensor:
+    """bool (nb_r·bm, nb_c·bn): the occupied tiles expanded to a dense mask."""
+    dev = graph.tiles.device
+    valid = (torch.arange(graph.c_max, device=dev)[None, :]
+             < graph.fwd_count.long()[:, None])
+    rb = torch.arange(graph.nb_r, device=dev)[:, None].expand_as(valid)[valid]
+    cb = graph.fwd_col.long()[valid]
+    tid = graph.fwd_tile.long()[valid]
+    blocks = torch.zeros((graph.nb_r, graph.nb_c, graph.bm, graph.bn),
+                         dtype=torch.bool, device=dev)
+    blocks[rb, cb] = graph.tiles[tid] != 0
+    return blocks.permute(0, 2, 1, 3).reshape(graph.nb_r * graph.bm,
+                                              graph.nb_c * graph.bn)
+
+
+def _lrelu(raw: torch.Tensor, slope: float) -> torch.Tensor:
+    return torch.where(raw >= 0, raw, slope * raw)
+
+
+def flash_fwd_plain(graph: BCSRGraph, ld: torch.Tensor, ls: torch.Tensor,
+                    v: torch.Tensor, meta: FlashMeta):
+    """ld (K, n_rows), ls (K, n_cols), v (n_cols, K·D) → out (n_rows, K·D),
+    lse (K, n_rows). Differentiable by autograd; one head at a time so the
+    dense (n_rows, n_cols) temporaries stay one head wide."""
+    k, n_rows = ld.shape
+    n_cols = ls.shape[1]
+    d = v.shape[1] // k
+    adj = tile_adjacency(graph)
+    outs, lses = [], []
+    for h in range(k):
+        z = torch.where(adj, _lrelu(ld[h][:, None] + ls[h][None, :], meta.slope),
+                        MASK_VALUE)
+        m = z.amax(dim=1).detach()  # a shift: softmax is invariant to it
+        has_edge = m > 0.5 * MASK_VALUE
+        p = torch.where(adj, torch.exp(z - m[:, None]), 0.0)
+        l = p.sum(dim=1).clamp_min(1e-30)
+        if meta.dropout_p > 0.0:  # l keeps the undropped p (reference order)
+            p = p * _keep_scale(meta, graph, n_rows, n_cols, h, ld.device)
+        acc = p @ v[:, h * d:(h + 1) * d]
+        outs.append(torch.where(has_edge[:, None], acc / l[:, None], 0.0))
+        lses.append(torch.where(has_edge, m + torch.log(l), MASK_VALUE))
+    return torch.cat(outs, dim=1), torch.stack(lses)
+
+
+def flash_bwd_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """The fused backward's formulas on dense tensors: with
+    c = on_edge·exp(z − lse) and c' = c·keep,
+    dz = (c'·(g·v) − c·delta)·lrelu′ → dld = Σ_j dz, dls = Σ_i dz,
+    dv = c'ᵀ g. Returns dld (K, n_rows), dls (K, n_cols), dv (n_cols, K·D)."""
+    k, n_rows = ld.shape
+    n_cols = ls.shape[1]
+    d = v.shape[1] // k
+    adj = tile_adjacency(graph)
+    dld, dls, dv = [], [], []
+    for h in range(k):
+        raw = ld[h][:, None] + ls[h][None, :]
+        # off-edge exp may overflow to +inf (edgeless rows have lse = -1e9);
+        # the select, not a multiply, zeroes it
+        c = torch.where(adj, torch.exp(_lrelu(raw, meta.slope) - lse[h][:, None]), 0.0)
+        c_agg = c
+        if meta.dropout_p > 0.0:
+            c_agg = c * _keep_scale(meta, graph, n_rows, n_cols, h, ld.device)
+        g_h = g[:, h * d:(h + 1) * d]
+        dz = c_agg * (g_h @ v[:, h * d:(h + 1) * d].T) - c * delta[h][:, None]
+        dzs = torch.where(raw >= 0, dz, meta.slope * dz)
+        dld.append(dzs.sum(dim=1))
+        dls.append(dzs.sum(dim=0))
+        dv.append(c_agg.T @ g_h)
+    return torch.stack(dld), torch.stack(dls), torch.cat(dv, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+_SCALARS = [_I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I, _I, _I, _P]
+_ARGTYPES = {
+    "han_flash_fwd": [_P, _P, _P, _P, _I] + [_P] * 5 + _SCALARS,
+    "han_flash_bwd": [_P, _P, _P, _P, _I] + [_P] * 9 + _SCALARS,
+}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built library with its entry points' signatures declared."""
+    from han_tpu_torch.ops import _build
+
+    lib = _build.load("flash_gat")
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    lib.han_error_string.argtypes = [ctypes.c_int]
+    lib.han_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(graph: BCSRGraph, maps: str, floats: dict) -> tuple[int, int, int, int]:
+    """Raise on anything the kernels do not take; returns (k, d, n_rows,
+    n_cols). ``maps`` is "fwd" or "bwd"; ``floats`` maps each float
+    argument's name to (tensor, expected shape as letters: K heads, R rows,
+    C columns, F = K·D flat features)."""
+    dev = floats["ld"][0].device
+    if dev.type != "cuda":
+        raise ValueError(f"the flash kernels take CUDA tensors, got {dev}")
+    k = floats["ld"][0].shape[0]
+    d = floats["v"][0].shape[1] // k
+    if d not in KERNEL_HEAD_DIMS:
+        raise NotImplementedError(
+            f"head dim {d} has no kernel instantiation {KERNEL_HEAD_DIMS}")
+    dims = {"K": k, "F": k * d, "R": graph.nb_r * graph.bm, "C": graph.nb_c * graph.bn}
+    for name, (t, shape) in floats.items():
+        want = tuple(dims[s] for s in shape)
+        if (t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
+                or tuple(t.shape) != want):
+            raise ValueError(f"{name}: need a contiguous float32 {want} tensor on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    for name, dt in [("tiles", torch.int8)] + [
+            (f"{maps}_{m}", torch.int32) for m in ("count", "col" if maps == "fwd" else "row", "tile")]:
+        t = getattr(graph, name)
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"graph.{name}: need a contiguous {dt} tensor on "
+                             f"{dev} (BCSRGraph.to(device))")
+    if tuple(graph.tiles.shape[1:]) != (graph.bm, graph.bn) or graph.tiles.data_ptr() % 16:
+        raise ValueError("graph.tiles must be (T, bm, bn) and 16-byte aligned")
+    return k, d, dims["R"], dims["C"]
+
+
+def _scalars(graph: BCSRGraph, n_rows, n_cols, k, d, meta: FlashMeta, dev):
+    drop = meta.dropout_p > 0.0
+    return (n_rows, n_cols, graph.bm, graph.bn, k, d, meta.slope, int(drop),
+            meta.seed & _M32, keep_threshold(meta.dropout_p) if drop else 0,
+            1.0 / (1.0 - meta.dropout_p), meta.row_block_offset,
+            meta.head_offset, meta.col_block_offset,
+            torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _raise_on(rc: int, lib, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({lib.han_error_string(rc).decode()})")
+
+
+def flash_fwd_cuda(graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
+    """The forward kernel; same contract as :func:`flash_fwd_plain`."""
+    global flash_fwd_launches
+    k, d, n_rows, n_cols = _check(graph, "fwd", {
+        "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF")})
+    out = torch.empty((n_rows, k * d), dtype=torch.float32, device=ld.device)
+    lse = torch.empty((k, n_rows), dtype=torch.float32, device=ld.device)
+    lib = _lib()
+    rc = lib.han_flash_fwd(
+        graph.tiles.data_ptr(), graph.fwd_count.data_ptr(),
+        graph.fwd_col.data_ptr(), graph.fwd_tile.data_ptr(), graph.c_max,
+        ld.data_ptr(), ls.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), *_scalars(graph, n_rows, n_cols, k, d, meta, ld.device))
+    _raise_on(rc, lib, "han_flash_fwd")
+    flash_fwd_launches += 1
+    return out, lse
+
+
+def flash_bwd_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """The fused backward kernel; same contract as :func:`flash_bwd_plain`."""
+    global flash_bwd_launches
+    k, d, n_rows, n_cols = _check(graph, "bwd", {
+        "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF"), "g": (g, "RF"),
+        "lse": (lse, "KR"), "delta": (delta, "KR")})
+    dld = torch.zeros((k, n_rows), dtype=torch.float32, device=ld.device)
+    dls = torch.empty((k, n_cols), dtype=torch.float32, device=ld.device)
+    dv = torch.empty((n_cols, k * d), dtype=torch.float32, device=ld.device)
+    lib = _lib()
+    rc = lib.han_flash_bwd(
+        graph.tiles.data_ptr(), graph.bwd_count.data_ptr(),
+        graph.bwd_row.data_ptr(), graph.bwd_tile.data_ptr(), graph.r_max,
+        ld.data_ptr(), ls.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dld.data_ptr(), dls.data_ptr(),
+        dv.data_ptr(), *_scalars(graph, n_rows, n_cols, k, d, meta, ld.device))
+    _raise_on(rc, lib, "han_flash_bwd")
+    flash_bwd_launches += 1
+    return dld, dls, dv
+
+
+def flash_fwd(graph, ld, ls, v, meta: FlashMeta):
+    if ld.device.type == "cpu":
+        return flash_fwd_plain(graph, ld, ls, v, meta)
+    return flash_fwd_cuda(graph, ld, ls, v, meta)
+
+
+def flash_bwd(graph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    if ld.device.type == "cpu":
+        return flash_bwd_plain(graph, ld, ls, v, g, lse, delta, meta)
+    return flash_bwd_cuda(graph, ld, ls, v, g, lse, delta, meta)
+
+
+class _FlashGAT(torch.autograd.Function):
+    """(ld, ls, v) → out, with the fused backward (kernel or plain)."""
+
+    @staticmethod
+    def forward(ctx, ld, ls, v, graph, meta):
+        out, lse = flash_fwd(graph, ld, ls, v, meta)
+        ctx.save_for_backward(ld, ls, v, out, lse)
+        ctx.graph, ctx.meta = graph, meta
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ld, ls, v, out, lse = ctx.saved_tensors
+        g = g.contiguous()
+        # per-head delta_i = g_i · out_i, formed outside the kernel as in
+        # han_tpu (_flash_core_flat_bwd)
+        delta = (g * out).view(g.shape[0], ld.shape[0], -1).sum(-1).T.contiguous()
+        dld, dls, dv = flash_bwd(ctx.graph, ld, ls, v, g, lse, delta, ctx.meta)
+        return dld, dls, dv, None, None
+
+
+def flash_gat_attention(
+    graph: BCSRGraph,
+    fts: torch.Tensor,        # (N, K, D)
+    logit_dst: torch.Tensor,  # (N, K)
+    logit_src: torch.Tensor,  # (N, K)
+    *,
+    slope: float = 0.2,
+    coef_dropout: float = 0.0,
+    generator: torch.Generator | None = None,
+    row_block_offset: int = 0,
+    head_offset: int = 0,
+) -> torch.Tensor:
+    """Drop-in implementation for ops.attention.attention_aggregate.
+
+    Coefficient dropout is fused: its seed is drawn from ``generator``, a
+    CPU ``torch.Generator`` (so no device-to-host sync per call), and the
+    backward replays the forward's mask; no mask is materialized on the
+    kernel path. Returns (N, K, D) float32.
+    """
+    if not 0.0 <= coef_dropout < 1.0:
+        raise ValueError(f"coef_dropout must be in [0, 1), got {coef_dropout}")
+    if coef_dropout > 0.0 and generator is None:
+        raise ValueError("coef_dropout > 0 requires a generator")
+    if not 0.0 <= slope <= 1.0:
+        # the kernels compute leaky_relu as max(x, slope*x)
+        raise ValueError(f"slope must be in [0, 1], got {slope}")
+    if not isinstance(graph, BCSRGraph):
+        raise TypeError("flash impl needs a BCSRGraph (graph/bcsr.py builders; "
+                        "graph_format='bcsr' in the trainer)")
+    if fts.dtype != torch.float32:
+        raise NotImplementedError(
+            f"flash takes float32 features, got {fts.dtype} (bf16 is not ported yet)")
+    n, k, d = fts.shape
+    pad = graph.n_pad - n
+    v = F.pad(fts.reshape(n, k * d), (0, 0, 0, pad))
+    ld = F.pad(logit_dst.to(torch.float32).T, (0, pad))
+    ls = F.pad(logit_src.to(torch.float32).T, (0, pad))
+    seed = 0
+    if coef_dropout > 0.0:
+        if generator.device.type != "cpu":
+            raise ValueError("the dropout seed generator must be a CPU "
+                             "torch.Generator (no device sync per call)")
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+    meta = FlashMeta(slope=float(slope), dropout_p=float(coef_dropout),
+                     seed=seed, row_block_offset=int(row_block_offset),
+                     head_offset=int(head_offset))
+    out = _FlashGAT.apply(ld, ls, v, graph, meta)
+    return out[:n].view(n, k, d)

@@ -1,0 +1,240 @@
+"""Semi-supervised node-classification trainer (port of
+han_tpu/train/trainer.py:41-134,157-306,316-425,466-521, single device).
+
+Reproduces the reference training dynamics (ex_acm3025.py:121-293):
+full-graph steps, Adam + an explicit global L2 term over all parameters
+(base_gattn.py:12-24), dropout in training and none in eval, and the
+reference early-stopping policy (ex_acm3025.py:225-240):
+
+- keep the parameters as best when val_acc >= best_acc AND
+  val_loss <= best_loss;
+- the patience counter resets when val_acc >= best_acc OR
+  val_loss <= best_loss;
+- stop after ``patience`` epochs without either, restore the best
+  parameters and evaluate on the test nodes.
+
+Not ported yet: checkpoint/resume, KNN/KMeans embedding evaluation, the
+sampled and inductive trainers and the multi-device paths.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import pathlib
+import statistics
+import time
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from han_tpu_torch.datasets.registry import load_dataset
+from han_tpu_torch.graph.build import metapath_to_bcsr, metapath_to_csr, metapath_to_dense
+from han_tpu_torch.graph.synthetic import HeteroDataset
+from han_tpu_torch.nn.layers import DropoutGenerators
+from han_tpu_torch.nn.losses import (l2_regularizer, masked_accuracy,
+                                     masked_softmax_cross_entropy)
+from han_tpu_torch.nn.models import HAN
+from han_tpu_torch.train.config import Config
+
+
+def build_graphs(ds: HeteroDataset, cfg: Config, device: torch.device | str = "cpu"):
+    """One graph container per meta-path, with self-loops, on ``device``."""
+    if cfg.mesh.graph_axis * cfg.mesh.head_axis * cfg.mesh.mp_axis > 1:
+        raise NotImplementedError("multi-device meshes are not ported yet")
+    fmt = cfg.data.graph_format
+    if fmt == "dense":
+        graphs = [metapath_to_dense(a) for a in ds.metapath_adjs]
+    elif fmt == "csr":
+        graphs = [metapath_to_csr(a, edge_pad_to=cfg.data.edge_pad_to)
+                  for a in ds.metapath_adjs]
+    elif fmt == "bcsr":
+        graphs = [metapath_to_bcsr(a, bm=cfg.data.tile_bm or None,
+                                   bn=cfg.data.tile_bn or None)
+                  for a in ds.metapath_adjs]
+    else:
+        raise ValueError(f"graph_format {fmt!r} is not ported "
+                         "(dense | csr | bcsr)")
+    return [g.to(device) for g in graphs]
+
+
+def build_model(ds: HeteroDataset, cfg: Config,
+                generator: torch.Generator | None = None) -> nn.Module:
+    m = cfg.model
+    if m.arch != "han":
+        raise NotImplementedError(f"arch {m.arch!r} is not ported (han only)")
+    if m.dtype != "float32":
+        raise NotImplementedError(f"dtype {m.dtype!r} is not ported (float32 only)")
+    in_dim = ds.n_nodes if cfg.data.featype == "adj" else ds.features.shape[1]
+    return HAN(in_dim, ds.n_classes, len(ds.metapath_adjs),
+               hid_units=tuple(m.hid_units), n_heads=tuple(m.n_heads),
+               semantic_dim=m.semantic_dim, residual=m.residual,
+               attn_drop=m.attn_drop, ffd_drop=m.ffd_drop, impl=m.impl,
+               vmap_towers=m.vmap_towers, generator=generator)
+
+
+@dataclasses.dataclass
+class EarlyStopState:
+    """Mirrors vlss_mn / vacc_mx / curr_step (ex_acm3025.py:159-161)."""
+
+    best_val_loss: float = float("inf")
+    best_val_acc: float = 0.0
+    bad_epochs: int = 0
+
+    def update(self, val_loss: float, val_acc: float) -> tuple[bool, bool]:
+        """Returns (keep_as_best, no_improvement)."""
+        improved_any = (val_acc >= self.best_val_acc) or (val_loss <= self.best_val_loss)
+        improved_both = (val_acc >= self.best_val_acc) and (val_loss <= self.best_val_loss)
+        if improved_any:
+            self.best_val_acc = max(self.best_val_acc, val_acc)
+            self.best_val_loss = min(self.best_val_loss, val_loss)
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+        return improved_both, not improved_any
+
+
+class MetricLogger:
+    """Structured jsonl metric logging."""
+
+    def __init__(self, path: str = "", echo: bool = True):
+        self.path = pathlib.Path(path) if path else None
+        self.echo = echo
+        if self.path:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+
+    def log(self, record: dict[str, Any]) -> None:
+        if self.path:
+            with open(self.path, "a") as f:
+                f.write(json.dumps(record) + "\n")
+        if self.echo:
+            parts = " ".join(
+                f"{k}={v:.5f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in record.items())
+            print(parts, flush=True)
+
+
+class Trainer:
+    """Full-graph HAN training on one device (CUDA when available)."""
+
+    def __init__(self, ds: HeteroDataset, cfg: Config, *,
+                 device: torch.device | str | None = None,
+                 logger: MetricLogger | None = None):
+        if cfg.train.sampled:
+            raise NotImplementedError("sampled training is not ported yet")
+        # float32 stays full float32 on the card (TF32 off for matmuls and
+        # cuDNN convolutions alike)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.ds = ds
+        self.cfg = cfg
+        self.device = torch.device(
+            device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.logger = logger or MetricLogger(cfg.train.log_file)
+        self.graphs = build_graphs(ds, cfg, self.device)
+        self.model = build_model(
+            ds, cfg, generator=torch.Generator().manual_seed(cfg.train.seed)
+        ).to(self.device)
+        if cfg.data.featype == "adj":
+            # ablation: each tower's input features are its meta-path's
+            # dense adjacency rows (ex_acm3025.py:92-93)
+            self.xs = [torch.from_numpy(a.toarray().astype(np.float32)).to(self.device)
+                       for a in ds.metapath_adjs]
+        else:
+            x = torch.from_numpy(ds.features).to(self.device)
+            self.xs = [x for _ in ds.metapath_adjs]
+        self.labels = torch.from_numpy(ds.labels).to(self.device)
+        self.masks = {k: torch.from_numpy(m).to(self.device) for k, m in
+                      (("train", ds.train_mask), ("val", ds.val_mask),
+                       ("test", ds.test_mask))}
+        self._total_edges = int(sum(a.nnz for a in ds.metapath_adjs))
+        self.opt = torch.optim.Adam(self.model.parameters(), lr=cfg.train.lr)
+        self.rngs = DropoutGenerators(
+            device=torch.Generator(self.device).manual_seed(cfg.train.seed + 1),
+            host=torch.Generator().manual_seed(cfg.train.seed + 1))
+
+    def train_step(self):
+        """One Adam step on the train nodes; returns (loss, acc, mean
+        semantic alphas) as device tensors, from the pre-update forward."""
+        self.opt.zero_grad(set_to_none=True)
+        logits, _, alphas = self.model(self.graphs, self.xs,
+                                       deterministic=False, rngs=self.rngs)
+        loss = (masked_softmax_cross_entropy(logits, self.labels, self.masks["train"])
+                + l2_regularizer(self.model.parameters(), self.cfg.train.l2_coef))
+        loss.backward()
+        self.opt.step()
+        with torch.no_grad():
+            acc = masked_accuracy(logits, self.labels, self.masks["train"])
+            return loss.detach(), acc, alphas.mean(dim=0)
+
+    @torch.no_grad()
+    def eval_step(self, mask: torch.Tensor):
+        """(loss, acc, logits, embedding) at the current parameters."""
+        logits, embed, _ = self.model(self.graphs, self.xs, deterministic=True)
+        loss = masked_softmax_cross_entropy(logits, self.labels, mask)
+        return loss, masked_accuracy(logits, self.labels, mask), logits, embed
+
+    def fit(self) -> dict[str, Any]:
+        cfg = self.cfg.train
+        es = EarlyStopState()
+        best = {"state": self._snapshot(), "epoch": -1}
+        train_losses, step_times = [], []
+        t_start = time.perf_counter()
+        for epoch in range(cfg.epochs):
+            t0 = time.perf_counter()
+            tr_loss, tr_acc, alphas = self.train_step()
+            tr_loss, tr_acc = float(tr_loss), float(tr_acc)  # waits for the step
+            t_train = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            vl_loss, vl_acc, _, _ = self.eval_step(self.masks["val"])
+            vl_loss, vl_acc = float(vl_loss), float(vl_acc)
+            t_eval = time.perf_counter() - t1
+            train_losses.append(tr_loss)
+            step_times.append(t_train)
+            self.logger.log({
+                "epoch": epoch, "train_loss": tr_loss, "train_acc": tr_acc,
+                "val_loss": vl_loss, "val_acc": vl_acc,
+                "semantic_alphas": [round(float(a), 4) for a in alphas.cpu()],
+                "step_time_s": round(t_train, 4),
+                "eval_time_s": round(t_eval, 4),
+                # real meta-path edges × heads processed per second
+                "edges_per_s": round(self._total_edges *
+                                     self.cfg.model.n_heads[0] / t_train, 1),
+            })
+            keep, _ = es.update(vl_loss, vl_acc)
+            if keep:
+                best = {"state": self._snapshot(), "epoch": epoch}
+            if es.bad_epochs >= cfg.patience:
+                self.logger.log({"early_stop": epoch,
+                                 "best_val_loss": es.best_val_loss,
+                                 "best_val_acc": es.best_val_acc})
+                break
+
+        # restore best & final evaluation (ex_acm3025.py:247-291)
+        self.model.load_state_dict(best["state"])
+        ts_loss, ts_acc, _, _ = self.eval_step(self.masks["test"])
+        result = {
+            "test_loss": float(ts_loss), "test_acc": float(ts_acc),
+            "best_epoch": best["epoch"],
+            "train_time_s": time.perf_counter() - t_start,
+            "median_step_time_s": statistics.median(step_times) if step_times else None,
+        }
+        if self.device.type == "cuda":
+            result["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.device)
+        self.logger.log(result)
+        result["epoch_train_loss"] = train_losses
+        result["epoch_step_time_s"] = step_times
+        return result
+
+    def _snapshot(self) -> dict[str, torch.Tensor]:
+        return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+
+def run(cfg: Config, ds: HeteroDataset | None = None, *,
+        device: torch.device | str | None = None) -> dict[str, Any]:
+    """One-call train+eval entry point (the ex_acm3025.py equivalent)."""
+    if ds is None:
+        ds = load_dataset(cfg.data.dataset)
+    return Trainer(ds, cfg, device=device).fit()
