@@ -1,7 +1,17 @@
-"""Smoke test of han_tpu_torch on one CUDA card: builds the flash-GAT
-kernels, holds each against its plain PyTorch version at the DBLP shape,
-checks a small HAN against the dense path, then trains the dblp preset for
-10 epochs on the DBLP-shaped dataset and shows, by the launch counters,
+"""Smoke test of han_tpu_torch on one CUDA card. Builds the kernels (the
+flash-GAT pair and the fused ELL forward, one nvcc per source, started
+together, and the C++ sampler), then drives both ported paths:
+
+- full-graph: holds the flash kernels against their plain PyTorch versions
+  at the DBLP shape, checks a small HAN against the dense path, and trains
+  the dblp preset for 10 epochs on the DBLP-shaped dataset;
+- sampled: holds the ell_fused kernel against its plain version at the
+  sampled block's shape (and at a large odd fanout), trains the 100M-edge
+  sampled configuration (500,000 nodes, 2 meta-paths of degree 100, acm
+  preset widths, batch 512, fanout 16, the host sampler, impl ell_fused)
+  for 2 epochs through run(), and runs 10 steps of the device sampler.
+
+The launch counters, set to 0 before each path and read after it, show
 that every step went through the kernels.
 
     python3 chip_smoke.py
@@ -11,17 +21,48 @@ fails. The last line is ``{"ok": true, "device": {...}}``; the line before
 it holds the per-kernel measurements as one JSON object.
 """
 
+import dataclasses
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def timed(fn, reps=20):
+    """Median CUDA-event time of fn() in ms, after 3 warm-up calls."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def check(name, got, want, atol, rtol):
+    import torch
+
+    err = (got - want).abs()
+    bad = err > atol + rtol * want.abs()
+    max_err = float(err.max())
+    print(f"  {name}: max_abs_err {max_err:.3e} (atol {atol}, rtol {rtol})", flush=True)
+    if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+        fail(f"{name}: {int(bad.sum())} elements outside tolerance, max err {max_err}")
+    return max_err
 
 
 def main() -> None:
@@ -32,6 +73,7 @@ def main() -> None:
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
     import numpy as np
 
+    from han_tpu_torch import native
     from han_tpu_torch.datasets.registry import dblp_synthetic
     from han_tpu_torch.graph.build import metapath_to_bcsr
     from han_tpu_torch.ops import _build
@@ -46,14 +88,23 @@ def main() -> None:
     print(card, flush=True)  # the card's name and power limit, as nvidia-smi gives them
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # -- phase 2: build ------------------------------------------------------
-    cached = _build.library_path("flash_gat").exists()
+    # -- phase 2: build (nvcc per kernel source and g++ for the sampler, all
+    # at once) ----------------------------------------------------------------
+    names = ("flash_gat", "ell_fused")
+    cached = [n for n in names if _build.library_path(n).exists()]
     t0 = time.perf_counter()
-    so = _build.build("flash_gat")
-    _build.load("flash_gat")
-    print(f"build: {so.relative_to(pathlib.Path(__file__).resolve().parent)} "
-          f"{'(already built) ' if cached else ''}in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        sampler_built = pool.submit(native.available)
+        libs = _build.build_all(names)
+        if not sampler_built.result():
+            fail("the C++ sampler (han_tpu_torch/native/graphcore.cpp) did not build")
+    for name in names:
+        _build.load(name)
+    root = pathlib.Path(__file__).resolve().parent
+    print(f"build: {', '.join(str(so.relative_to(root)) for so in libs)} and "
+          f"{native.library_path().relative_to(root)} "
+          f"{f'(already built: {cached}) ' if cached else ''}"
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # -- phase 3: kernels vs plain at the DBLP shape -------------------------
     t0 = time.perf_counter()
@@ -77,28 +128,6 @@ def main() -> None:
     v[pad_rows] = 0.0
     g = rnd(n, k * d)
     g[pad_rows] = 0.0
-
-    def timed(fn, reps=20):
-        for _ in range(3):
-            fn()
-        times = []
-        for _ in range(reps):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
-    def check(name, got, want, atol, rtol):
-        err = (got - want).abs()
-        bad = err > atol + rtol * want.abs()
-        max_err = float(err.max())
-        print(f"  {name}: max_abs_err {max_err:.3e} (atol {atol}, rtol {rtol})", flush=True)
-        if bool(bad.any()) or not bool(torch.isfinite(got).all()):
-            fail(f"{name}: {int(bad.sum())} elements outside tolerance, max err {max_err}")
-        return max_err
 
     stats = {"fwd": {"err": 0.0}, "bwd": {"err": 0.0}}
     for p in (0.0, 0.6):
@@ -164,6 +193,13 @@ def main() -> None:
           f"{statistics.median(result['epoch_step_time_s'][1:]) * 1e3:.3f} ms, "
           f"max_memory_allocated {result['max_memory_allocated']} B", flush=True)
 
+    del ds, graph
+    torch.cuda.empty_cache()
+
+    # -- phases 5-7: the sampled path ------------------------------------------
+    ell = check_ell_fused(dev)
+    ell_n = train_sampled(dev, native)
+
     src = "han_tpu_torch/csrc/flash_gat.cu"
     kernels = [
         {"name": "flash_gat_fwd", "route": "cuda", "source": src,
@@ -174,6 +210,9 @@ def main() -> None:
          "replaces": "han_tpu/ops/pallas/flash_gat.py:395", "launches": bwd_n,
          "max_abs_err": stats["bwd"]["err"], "ms": stats["bwd"]["ms"],
          "plain_ms": stats["bwd"]["plain_ms"]},
+        {"name": "ell_fused_fwd", "route": "cuda", "source": "han_tpu_torch/csrc/ell_fused.cu",
+         "replaces": "han_tpu/ops/pallas/ell_fused.py:54", "launches": ell_n,
+         "max_abs_err": ell["err"], "ms": ell["ms"], "plain_ms": ell["plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -211,6 +250,141 @@ def check_small_han(dev) -> None:
           f"logits, embedding, alphas and {len(outs['flash']) - 3} gradients", flush=True)
     if not err < 1e-4:
         fail(f"small HAN flash vs dense: {err}")
+
+
+def check_ell_fused(dev) -> dict:
+    """Phases 5-6: the ell_fused kernel against its plain version, one keep
+    mask for both, at the sampled block's shape (8,704 rows: 512 seed rows
+    with up to 16 valid slots, the rest edgeless, as in a one-hop block;
+    K = 8, D = 8) with dropout 0 and 0.6, and at a large odd fanout (F =
+    101, as in exact eval); median CUDA-event times at the block shape. The
+    plain-torch backward is held on the card against the same backward on
+    the CPU (the card's index_add_ sums with atomics in a varying order)."""
+    import torch
+
+    from han_tpu_torch.ops import ell_fused as ef
+
+    gen = torch.Generator(dev).manual_seed(1)
+    k, d = 8, 8
+
+    def block(n, f, n_seed):
+        nbr = torch.full((n, f), n, dtype=torch.int32, device=dev)
+        real = torch.randint(0, n, (n_seed, f), generator=gen, device=dev,
+                             dtype=torch.int32)
+        empty = torch.rand((n_seed, f), generator=gen, device=dev) < 0.1
+        nbr[:n_seed] = torch.where(empty, n, real)
+        nbr[3] = n  # a seed row with no valid slot
+        rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+        return nbr, rnd(n, k), rnd(n, k), rnd(n, k * d)
+
+    out = {"err": 0.0}
+    for n, f, n_seed in ((8704, 16, 512), (16384, 101, 2048)):
+        nbr, ld, ls, fts = block(n, f, n_seed)
+        for p in (0.0, 0.6):
+            keep = ef.draw_keep(n, f, k, p, gen, dev) if p else None
+            print(f"ell_fused {n} x F={f}, {n_seed} rows with slots, dropout {p}:", flush=True)
+            got = ef.ell_fused_fwd_cuda(nbr, ld, ls, fts, keep, 0.2, p)
+            want = ef.ell_fused_fwd_plain(nbr, ld, ls, fts, keep, 0.2, p)
+            torch.cuda.synchronize()
+            out["err"] = max(out["err"], check("out", got, want, 1e-5, 1e-4))
+            if not bool((got[n_seed:] == 0).all() and (got[3] == 0).all()):
+                fail("ell_fused: an edgeless row is not exactly 0")
+            if f == 16:
+                ms = timed(lambda: ef.ell_fused_fwd_cuda(nbr, ld, ls, fts, keep, 0.2, p))
+                plain_ms = timed(lambda: ef.ell_fused_fwd_plain(nbr, ld, ls, fts, keep, 0.2, p))
+                print(f"  median ms: kernel {ms:.4f}, plain {plain_ms:.4f}", flush=True)
+                out.update(ms=ms, plain_ms=plain_ms)  # the train shape (p = 0.6) last
+                g = torch.randn(n, k * d, generator=gen, device=dev)
+                bwd = ef.ell_fused_bwd(nbr, ld, ls, fts, keep, g, 0.2, p)
+                cpu = lambda t: None if t is None else t.cpu()
+                ref = ef.ell_fused_bwd(*map(cpu, (nbr, ld, ls, fts, keep, g)), 0.2, p)
+                for name, a, b in zip(("d_fts", "d_ld", "d_ls"), bwd, ref):
+                    check(f"backward {name} (card vs cpu)", a.cpu(), b, 1e-4, 1e-3)
+    return out
+
+
+def train_sampled(dev, native) -> int:
+    """Phase 7: the 100M-edge sampled configuration through run() for 2
+    epochs with the host sampler and impl ell_fused; then the host/device
+    split of its step; then 10 steps of the device sampler. Returns the
+    ell_fused launches of the 2-epoch run."""
+    import numpy as np
+    import torch
+
+    from han_tpu_torch.graph.synthetic import scale_dataset
+    from han_tpu_torch.ops import ell_fused as ef
+    from han_tpu_torch.ops import tree_ell
+    from han_tpu_torch.train.config import preset
+    from han_tpu_torch.train.sampled import SampledTrainer, step_breakdown
+    from han_tpu_torch.train.trainer import run
+
+    if not native.available():
+        fail("the C++ sampler is not in use (han_tpu_torch.native.available() is false)")
+    t0 = time.perf_counter()
+    ds = scale_dataset(500_000, 100, n_train=15_360, n_val=512, n_test=2_048, seed=0)
+    edges = sum(int(a.nnz) for a in ds.metapath_adjs)
+    print(f"scale dataset: {ds.n_nodes} nodes, {edges} edges in "
+          f"{len(ds.metapath_adjs)} meta-paths, built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    def cfg_for(sampler, epochs):
+        cfg = preset("acm")  # hid 8, heads (8, 1), semantic 128, dropouts 0.6
+        cfg.model.impl = "ell_fused"
+        cfg.train.sampled, cfg.train.sampler, cfg.train.epochs = True, sampler, epochs
+        cfg.train.batch_size, cfg.train.fanout = 512, 16
+        return cfg
+
+    n_mp = len(ds.metapath_adjs)
+    cfg = cfg_for("host", 2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ef.ell_fused_launches = 0
+    result = run(cfg, ds, device=dev)
+    torch.cuda.synchronize()
+    launches = ef.ell_fused_launches
+    losses = result["epoch_train_loss"]
+    if len(losses) != 2 or not all(np.isfinite(losses)) or not np.isfinite(result["test_loss"]):
+        fail(f"sampled train losses not finite or short: {losses}, test {result['test_loss']}")
+    if not losses[-1] < losses[0]:
+        fail(f"sampled train loss did not fall: {losses[0]} -> {losses[-1]}")
+    steps = 2 * (15_360 // 512)
+    eval_batches = 2 * 1 + 2_048 // 512  # a val batch each epoch, the test batches
+    if launches != n_mp * (steps + eval_batches):
+        fail(f"ell_fused launches {launches}, want {n_mp} per train step and per "
+             f"eval batch = {n_mp * (steps + eval_batches)}")
+    step_ms = result["median_step_time_s"] * 1e3
+    print(f"sampled train: losses {losses[0]:.5f} -> {losses[-1]:.5f}, test_acc "
+          f"{result['test_acc']:.4f}; ell_fused launches {launches} = {n_mp} per "
+          f"train step ({steps}) and eval batch ({eval_batches})", flush=True)
+    print(f"sampled train: median step {step_ms:.3f} ms, host block (prefetch thread) "
+          f"{result['median_host_block_ms']:.3f} ms, sampled edges·heads/s "
+          f"{result['edges_heads_per_s']:.1f}, max_memory_allocated "
+          f"{result.get('max_memory_allocated')} B", flush=True)
+
+    split = step_breakdown(SampledTrainer(ds, cfg_for("host", 1), device=dev),
+                           np.where(ds.train_mask)[0])
+    dev_ms = split["device_ms"]
+    print(f"sampled step split: host block {split['host_block_ms']:.3f} ms, device "
+          + (f"{dev_ms:.3f} ms (share {dev_ms / step_ms:.3f} of the median step)"
+             if dev_ms else "not measured (the profiler recorded no device events)"),
+          flush=True)
+
+    # device sampler: 10 train steps, one val and four test batches
+    ds10 = dataclasses.replace(ds, train_mask=np.arange(ds.n_nodes) < 10 * 512)
+    tree_ell.tree_ell_calls = 0
+    ef.ell_fused_launches = 0
+    res = run(cfg_for("device", 1), ds10, device=dev)
+    torch.cuda.synchronize()
+    want_calls = n_mp * (10 + 1 + 2_048 // 512)
+    if not np.isfinite(res["epoch_train_loss"]).all() or not np.isfinite(res["test_loss"]):
+        fail(f"device-sampler losses not finite: {res['epoch_train_loss']}")
+    if tree_ell.tree_ell_calls != want_calls or ef.ell_fused_launches:
+        fail(f"device sampler: {tree_ell.tree_ell_calls} tree attention calls (want "
+             f"{want_calls}), {ef.ell_fused_launches} ell_fused launches (want 0)")
+    print(f"device sampler: train loss {res['epoch_train_loss'][0]:.5f}, test_acc "
+          f"{res['test_acc']:.4f}, median step {res['median_step_time_s'] * 1e3:.3f} ms, "
+          f"sampled edges·heads/s {res['edges_heads_per_s']:.1f}; every block through "
+          f"tree attention ({tree_ell.tree_ell_calls} calls)", flush=True)
+    return launches
 
 
 if __name__ == "__main__":

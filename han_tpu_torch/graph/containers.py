@@ -4,6 +4,9 @@
   attention bias; the small-graph oracle path.
 - :class:`CSRGraph` — row_ptr/col_idx with the edge arrays padded to a fixed
   length; padding edges point at the sentinel row ``n_nodes``.
+- :class:`EllGraph` — ELLPACK: per-row neighbor lists padded to a fixed
+  fanout ``(N, F)``; the sampled mini-batch blocks. :class:`TreeEllGraph`
+  adds the parent maps of the device sampler's tree-shaped blocks.
 
 Each container moves between devices with ``.to(device)``.
 """
@@ -70,6 +73,48 @@ class CSRGraph:
         return _to(self, device)
 
 
+@dataclasses.dataclass(frozen=True)
+class EllGraph:
+    """ELLPACK: fixed-fanout padded neighbor lists.
+
+    ``nbr[i, f]`` is the f-th in-neighbor of node i, or the sentinel
+    ``n_nodes`` when ``f >= degree(i)``. Gather targets are therefore
+    padded with one extra zero row at index ``n_nodes``.
+    """
+
+    nbr: torch.Tensor  # int32[N, F], pad = n_nodes
+    deg: torch.Tensor  # int32[N] true degree (may exceed F if truncated/sampled)
+    n_nodes: int
+    n_edges: int
+
+    @property
+    def fanout(self) -> int:
+        return int(self.nbr.shape[1])
+
+    @property
+    def nbr_mask(self) -> torch.Tensor:
+        """bool[N, F]: True where a real neighbor is stored."""
+        return self.nbr < self.n_nodes
+
+    def to(self, device) -> "EllGraph":
+        return _to(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeEllGraph(EllGraph):
+    """ELL block whose rows form a tree: every non-root row is referenced by
+    exactly one (row, slot) of ``nbr`` — the no-dedup L-hop layout of the
+    device sampler (train/sampled._device_sample_block).
+
+    ``parent_row[j] / parent_slot[j]`` invert that reference (sentinel
+    n_nodes when j is a root or pad row), so the attention backward's
+    transposes are gathers (ops/tree_ell.py).
+    """
+
+    parent_row: torch.Tensor = None   # int32[N], sentinel = n_nodes
+    parent_slot: torch.Tensor = None  # int32[N], sentinel = 0
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -111,4 +156,24 @@ def csr_from_scipy(sp_mat: Any, *, edge_pad_to: int = 128) -> CSRGraph:
         row_idx=torch.from_numpy(row_idx),
         n_nodes=n,
         n_edges=nnz,
+    )
+
+
+def ell_from_csr(csr: CSRGraph, *, fanout: int | None = None, pad_to: int = 8) -> EllGraph:
+    """Convert padded CSR (host) to ELLPACK with fanout = max degree (or given)."""
+    row_ptr = csr.row_ptr.cpu().numpy().astype(np.int64)
+    col_idx = csr.col_idx.cpu().numpy()[: csr.n_edges]
+    n = csr.n_nodes
+    deg = np.diff(row_ptr)
+    f = int(deg.max()) if fanout is None else int(fanout)
+    f = max(_round_up(max(f, 1), pad_to), pad_to)
+    nbr = np.full((n, f), n, dtype=np.int32)
+    for i in range(n):
+        d = min(int(deg[i]), f)
+        nbr[i, :d] = col_idx[row_ptr[i] : row_ptr[i] + d]
+    return EllGraph(
+        nbr=torch.from_numpy(nbr),
+        deg=torch.from_numpy(deg.astype(np.int32)),
+        n_nodes=n,
+        n_edges=csr.n_edges,
     )

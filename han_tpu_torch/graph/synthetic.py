@@ -1,6 +1,9 @@
-"""Seeded planted heterogeneous graphs (numpy copy of
-han_tpu/graph/synthetic.py:27-152; bit-identical output for equal
-arguments, held so by tests/test_torch_graph.py)."""
+"""Seeded synthetic heterogeneous graphs: the planted generator (numpy copy
+of han_tpu/graph/synthetic.py:27-152) and the scale configuration's graph
+and data (``big_csr`` and ``scale_dataset``, copies of
+scripts/bench_scale.py:30-46,77-91); bit-identical output for equal
+arguments, held so by tests/test_torch_graph.py and
+tests/test_torch_sampled.py."""
 
 from __future__ import annotations
 
@@ -129,3 +132,47 @@ def planted_hetero(
         name=name,
         metapath_names=tuple(f"MP{p}" for p in range(n_metapaths)),
     )
+
+
+def big_csr(n: int, avg_degree: int, *, n_comm: int = 64, seed: int = 0) -> sp.csr_matrix:
+    """Community-clustered fixed-degree CSR built directly from index arrays
+    (never materializes COO duplicates or dense forms)."""
+    rng = np.random.default_rng(seed)
+    deg = avg_degree
+    row_ptr = (np.arange(n + 1, dtype=np.int64) * deg)
+    comm_of = (np.arange(n, dtype=np.int64) * n_comm) // n
+    comm_size = n // n_comm
+    # 80% of neighbors inside the node's community, rest uniform
+    local = rng.integers(0, max(comm_size, 1), size=(n, deg), dtype=np.int64)
+    base = (comm_of * comm_size)[:, None]
+    cols = base + local
+    far = rng.random((n, deg)) > 0.8
+    cols[far] = rng.integers(0, n, size=int(far.sum()), dtype=np.int64)
+    cols = np.minimum(cols, n - 1).astype(np.int32).reshape(-1)
+    data = np.ones(cols.shape[0], dtype=np.float32)
+    return sp.csr_matrix((data, cols, row_ptr), shape=(n, n))
+
+
+def scale_dataset(n: int, avg_degree: int, *, n_metapaths: int = 2,
+                  n_feats: int = 64, n_classes: int = 8, n_train: int,
+                  n_val: int, n_test: int | None = None,
+                  seed: int = 0) -> HeteroDataset:
+    """The scale benchmark's dataset: ``n_metapaths`` big_csr meta-path
+    graphs, standard-normal features and uniform random labels; the first
+    ``n_train`` nodes train, the last ``n_val`` validate, and the
+    ``n_test`` nodes after the train nodes test (all the rest when None)."""
+    rng = np.random.default_rng(seed)
+    adjs = [big_csr(n, avg_degree, seed=seed + 31 * p) for p in range(n_metapaths)]
+    feats = rng.standard_normal((n, n_feats)).astype(np.float32)
+    y = rng.integers(0, n_classes, size=n)
+    labels = np.zeros((n, n_classes), np.float32)
+    labels[np.arange(n), y] = 1.0
+    train_mask = np.zeros(n, bool)
+    train_mask[:n_train] = True
+    val_mask = np.zeros(n, bool)
+    val_mask[-n_val:] = True
+    test_mask = ~(train_mask | val_mask)
+    if n_test is not None:
+        test_mask[n_train + n_test:] = False
+    return HeteroDataset(adjs, feats, labels, train_mask, val_mask, test_mask,
+                         name="scale")

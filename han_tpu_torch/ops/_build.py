@@ -41,20 +41,31 @@ def library_path(name: str) -> pathlib.Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def build_all(names) -> list[pathlib.Path]:
+    """Compile every csrc/<name>.cu whose library is not built yet, one nvcc
+    process per source, all started together."""
+    procs = []
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((so, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    for so, tmp, cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{out}{err}")
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    return [library_path(name) for name in names]
+
+
 def build(name: str) -> pathlib.Path:
     """Compile csrc/<name>.cu unless its library is already built."""
-    so = library_path(name)
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
-    return so
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,10 +8,17 @@ One mathematical spec, several executions:
     out[i, k, :]    = sum_j coefs[i, j, k] * fts[j, k, :]
 
 - ``dense`` — materialized (K, N, N) masked softmax; the oracle.
+- ``ell``   — gather over fixed-fanout ELLPACK neighbor lists; O(N·F)
+  memory; plain torch.
 - ``csr``   — edge domain: SDDMM → segment softmax (``scatter_reduce`` amax,
   ``index_add``) → SpMM; O(E) memory.
+- ``ell_fused`` — the fused ELL CUDA forward kernel with a plain-torch
+  backward (ops/ell_fused.py).
 - ``flash`` — the fused block-sparse CUDA kernels over the occupied tiles
   of a BCSRGraph (ops/flash_gat.py).
+
+A TreeEllGraph (device-sampled block) goes to the gather-only tree
+attention (ops/tree_ell.py) whatever ``impl`` says.
 
 All take features in head-major layout ``fts: (N, K, D)`` and per-head node
 logit terms ``logit_dst, logit_src: (N, K)`` and return ``(N, K, D)``.
@@ -24,10 +31,13 @@ from typing import Literal
 import torch
 
 from han_tpu_torch.graph.bcsr import BCSRGraph
-from han_tpu_torch.graph.containers import MASK_VALUE, CSRGraph, DenseGraph
+from han_tpu_torch.graph.containers import (MASK_VALUE, CSRGraph, DenseGraph,
+                                            EllGraph, TreeEllGraph)
+from han_tpu_torch.ops.ell_fused import ell_fused_attention
 from han_tpu_torch.ops.flash_gat import flash_gat_attention
+from han_tpu_torch.ops.tree_ell import tree_ell_attention
 
-Impl = Literal["auto", "dense", "csr", "flash"]
+Impl = Literal["auto", "dense", "ell", "ell_fused", "csr", "flash"]
 
 
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -68,6 +78,38 @@ def dense_attention(
     if return_coefs:
         return out, raw_coefs
     return out
+
+
+def ell_attention(
+    graph: EllGraph,
+    fts: torch.Tensor,        # (N, K, D)
+    logit_dst: torch.Tensor,  # (N, K)
+    logit_src: torch.Tensor,  # (N, K)
+    *,
+    slope: float = 0.2,
+    coef_dropout: float = 0.0,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Gather attention over ELL neighbor lists. The feature table is
+    gathered in the flat (N, K·D) layout with a zero sentinel row at index
+    N; the (N, F, K) keep mask is ``torch.rand((N, F, K), generator) <
+    1 - p``, the draw ell_fused and tree_ell make."""
+    n, k, d = fts.shape
+    f = graph.nbr.shape[1]
+    valid = graph.nbr_mask  # (N, F)
+    nbr = graph.nbr.long()  # sentinel n
+    fts_pad = torch.cat([fts.reshape(n, k * d), fts.new_zeros((1, k * d))])
+    ls_pad = torch.cat([logit_src, logit_src.new_zeros((1, k))])
+    logits = leaky_relu(logit_dst[:, None, :] + ls_pad[nbr], slope)  # (N, F, K)
+    logits = torch.where(valid[:, :, None], logits, MASK_VALUE)
+    # stable softmax over F (the max is a shift the coefficients do not
+    # depend on); fully-padded rows produce exactly 0 output
+    m = logits.amax(dim=1, keepdim=True).detach()
+    e = torch.where(valid[:, :, None], torch.exp(logits - m), 0.0)
+    coefs = e / e.sum(dim=1, keepdim=True).clamp_min(1e-30)  # (N, F, K)
+    coefs = _coef_dropout(coefs, coef_dropout, generator)
+    g_fts = fts_pad[nbr].view(n, f, k, d)
+    return torch.einsum("nfk,nfkd->nkd", coefs, g_fts)
 
 
 def sddmm_edge_logits(graph: CSRGraph, logit_dst: torch.Tensor,
@@ -153,14 +195,25 @@ def attention_aggregate(
 ):
     """Dispatch on graph container type / requested implementation.
 
-    ``generator`` draws the dense and csr dropout masks on the features'
-    device; ``seed_generator`` (CPU) draws the flash kernels' dropout seed.
-    ``auto`` sends a BCSRGraph to flash: no flash-vs-csr crossover has been
-    measured on the H100 yet.
+    ``generator`` draws the dense, csr, ell, ell_fused and tree dropout
+    masks on the features' device; ``seed_generator`` (CPU) draws the flash
+    kernels' dropout seed. ``auto`` sends a BCSRGraph to flash (no
+    flash-vs-csr crossover has been measured on the H100 yet) and an
+    EllGraph to ell, as han_tpu does.
     """
+    if isinstance(graph, TreeEllGraph):
+        # device-sampled tree blocks: gather-only backward through the
+        # parent maps (ops/tree_ell.py)
+        if return_coefs:
+            raise NotImplementedError("return_coefs unsupported on TreeEllGraph")
+        return tree_ell_attention(
+            graph, fts, logit_dst, logit_src, slope=slope,
+            coef_dropout=coef_dropout, generator=generator)
     if impl == "auto":
         if isinstance(graph, DenseGraph):
             impl = "dense"
+        elif isinstance(graph, EllGraph):
+            impl = "ell"
         elif isinstance(graph, CSRGraph):
             impl = "csr"
         elif isinstance(graph, BCSRGraph):
@@ -181,6 +234,14 @@ def attention_aggregate(
         # the fused kernels never materialize per-edge coefficients
         raise NotImplementedError(
             "return_coefs is supported by the dense and csr impls only")
+    if impl == "ell":
+        return ell_attention(
+            graph, fts, logit_dst, logit_src, slope=slope,
+            coef_dropout=coef_dropout, generator=generator)
+    if impl == "ell_fused":
+        return ell_fused_attention(
+            graph, fts, logit_dst, logit_src, slope=slope,
+            coef_dropout=coef_dropout, generator=generator)
     if impl == "flash":
         return flash_gat_attention(
             graph, fts, logit_dst, logit_src, slope=slope,

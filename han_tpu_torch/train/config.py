@@ -22,7 +22,7 @@ class ModelConfig:
     residual: bool = False
     attn_drop: float = 0.6
     ffd_drop: float = 0.6
-    impl: str = "auto"  # dense | csr | flash (needs bcsr graphs) | auto
+    impl: str = "auto"  # dense | csr | flash (bcsr graphs) | ell | ell_fused (sampled) | auto
     vmap_towers: bool = False  # meta-path EP (not ported)
     dtype: str = "float32"  # only float32 is ported
 
@@ -47,10 +47,10 @@ class TrainConfig:
     checkpoint_dir: str = "checkpoints"  # (checkpointing is not ported)
     checkpoint_every: int = 0
     log_file: str = ""  # jsonl metrics log ("" = stdout only)
-    sampled: bool = False  # neighbor-sampled training (not ported)
+    sampled: bool = False  # neighbor-sampled mini-batch training (train/sampled.py)
     batch_size: int = 512
     fanout: int = 16
-    sampler: str = "host"
+    sampler: str = "host"  # host (C++ sampler) | device
 
 
 @dataclasses.dataclass

@@ -1,0 +1,623 @@
+"""Mini-batch HAN training via L-hop neighbor-sampled blocks (port of
+han_tpu/train/sampled.py:49-805, one device).
+
+The full-graph trainer needs every meta-path adjacency and the whole
+feature matrix resident per step; this trainer is the sampled GNN recipe
+for graphs far larger than that (BASELINE.json's synthetic 100M-edge
+configuration):
+
+- each step trains on a fixed-size seed-node batch;
+- per meta-path, an L-hop bounded-fanout block is sampled around the seeds,
+  on the host by the C++ sampler (graph/sampling.sample_subgraph; L = #GAT
+  layers, so seed outputs are exact message passing over the sampled
+  fanout), or on the device (``sampler="device"``, ``_device_sample_block``)
+  from CSRs resident in device memory;
+- blocks have static shapes (block_size × fanout) and seed rows come first,
+  so the per-node semantic attention fuses aligned rows across meta-path
+  towers; loss and metrics mask to the seed rows;
+- the next batch's block is sampled on a worker thread while the device
+  runs the current step; the worker returns CPU (pinned) tensors and the
+  main thread issues the host-to-device copies.
+
+Differences from han_tpu:
+
+- ``impl="auto"`` trains on ``ell_fused`` (the CUDA forward kernel), not
+  ``ell``: han_tpu chose ``ell`` only because Mosaic could not compile the
+  fused kernel's gathers on the TPU;
+- the device sampler clamps its sampled offset to ``deg - 1``
+  (:func:`sample_offsets`); han_tpu relies on float32 rounding to keep
+  ``floor(u·deg)`` below ``deg`` and drops the slot if it does not;
+- ``fit()`` folds the device sampler's edge counts in every epoch instead
+  of letting the pending list grow;
+- the best parameters are kept in memory; checkpoint/resume, the
+  preemption cursor, ``steps_per_call > 1`` and the data-parallel trainer
+  are not ported and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import statistics
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any
+
+import numpy as np
+import torch
+
+from han_tpu_torch.graph.build import with_self_loops
+from han_tpu_torch.graph.containers import EllGraph, TreeEllGraph
+from han_tpu_torch.graph.sampling import sample_subgraph
+from han_tpu_torch.graph.synthetic import HeteroDataset
+from han_tpu_torch.nn.layers import DropoutGenerators
+from han_tpu_torch.nn.losses import (l2_regularizer, masked_accuracy,
+                                     masked_softmax_cross_entropy)
+from han_tpu_torch.ops.tree_ell import tree_parent_maps
+from han_tpu_torch.train.config import Config
+from han_tpu_torch.train.trainer import EarlyStopState, MetricLogger, build_model
+
+
+def _resident_gather(tab: torch.Tensor, nd: torch.Tensor) -> torch.Tensor:
+    """Rows ``nd`` of the device-resident table; pad slots (nd < 0) → zero."""
+    out = tab[nd.clamp_min(0).long()]
+    return torch.where((nd >= 0)[..., None], out, 0.0)
+
+
+def sample_offsets(u: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
+    """Uniform offsets ``floor(u·deg)`` in [0, deg) for u in [0, 1).
+
+    The product is float32, which holds integers past 2**24 only
+    approximately; the clamp keeps the offset below ``deg`` by construction
+    rather than by the rounding (han_tpu's sampler drops a slot that
+    reaches ``deg``)."""
+    return torch.minimum(torch.floor(u * deg).long(), deg - 1)
+
+
+def _device_sample_block(row_ptr, col_idx, seeds, valid, generator, *,
+                         fanout: int, hops: int, block_size: int):
+    """L-hop neighbor sampling on the device, from the CSR resident there.
+
+    Block layout (no dedup, static shapes): level 0 = the S seed rows;
+    level l+1 = the F sampled in-neighbor slots of every level-l row, in
+    slot order, so every ELL neighbor list is a static iota into the next
+    level (a tree: graph/containers.TreeEllGraph). Nodes with degree <= F
+    take their full neighbor list (exact when F >= max degree, like the
+    host sampler); larger degrees sample F uniformly with replacement
+    (GraphSAGE-style; the host sampler samples without replacement).
+    ``generator`` (on the device) draws the offsets.
+
+    Returns (nbr (B, F) int32 sentinel=B, deg (B,) int32, nodes (B,) int32
+    global ids pad=-1, n_real_edges 0-d int64 tensor).
+    """
+    dev = seeds.device
+    s, f = seeds.shape[0], fanout
+    e_max = col_idx.shape[0] - 1
+    level = torch.where(valid, seeds.long(), -1)  # (S,)
+    nodes_parts, nbr_parts = [level], []
+    n_edges = torch.zeros((), dtype=torch.int64, device=dev)
+    idx_seq = torch.arange(f, device=dev)[None, :]
+    base_next = s
+    for _ in range(hops):
+        lsz = level.shape[0]
+        base_next += lsz * f
+        sv = level.clamp_min(0)
+        start = row_ptr[sv]
+        deg = (row_ptr[sv + 1] - start)[:, None]               # (L, 1)
+        u = torch.rand((lsz, f), generator=generator, device=dev)
+        off = torch.where(deg <= f, idx_seq, sample_offsets(u, deg))
+        child_valid = (level >= 0)[:, None] & (off < deg)
+        addr = (start[:, None] + off).clamp_max(e_max)
+        child = torch.where(child_valid, col_idx[addr].long(), -1)
+        # this level's ELL rows: slot f of row r holds the next level's row
+        # base + r*F + f — a static iota, masked to the sentinel
+        slots = (base_next - lsz * f
+                 + torch.arange(lsz, device=dev)[:, None] * f + idx_seq)
+        nbr_parts.append(torch.where(child_valid, slots, block_size))
+        n_edges += child_valid.sum()
+        level = child.reshape(-1)
+        nodes_parts.append(level)
+    # deepest level + padding rows aggregate nothing
+    nbr = torch.cat(nbr_parts + [torch.full(
+        (block_size - (base_next - level.shape[0]), f), block_size,
+        dtype=torch.int64, device=dev)])
+    nodes = torch.cat(nodes_parts + [torch.full(
+        (block_size - base_next,), -1, dtype=torch.int64, device=dev)])
+    deg_out = (nbr < block_size).sum(dim=1)
+    return nbr.int(), deg_out.int(), nodes.int(), n_edges
+
+
+@dataclasses.dataclass
+class _HostBatch:
+    """Host-sampled blocks as CPU tensors (pinned when training on CUDA)."""
+
+    nbrs: list        # per meta-path (block, fanout) int16/int32, pad = block
+    degs: list        # per meta-path (block,)
+    xs: list          # per meta-path global node ids (resident) or features
+    labels: Any       # (block, C) float32, or None in resident mode
+    mask: torch.Tensor  # (block,) float32, 1 on valid seed rows
+    block_size: int
+    fanout: int
+    n_edges: int      # real sampled edges, all meta-paths
+
+
+@dataclasses.dataclass
+class _Descriptor:
+    """A device-sampler batch: seed ids | valid mask (one int32 tensor), and
+    the sampling seed, which seeds the device generator from the host."""
+
+    packed: torch.Tensor
+    sample_seed: int
+
+
+class SampledTrainer:
+    """HAN training over seed-node batches of a huge heterogeneous graph."""
+
+    def __init__(self, ds: HeteroDataset, cfg: Config, *,
+                 batch_size: int = 512, fanout: int = 16,
+                 hops: int | None = None, block_size: int | None = None,
+                 eval_batches: int | None = None,
+                 logger: MetricLogger | None = None,
+                 guard=None, resident_features: bool | None = None,
+                 sampler: str = "host", steps_per_call: int = 1,
+                 device: torch.device | str | None = None):
+        if sampler not in ("host", "device"):
+            raise ValueError("sampler must be 'host' or 'device'")
+        if steps_per_call != 1:
+            raise NotImplementedError(
+                "steps_per_call > 1 is not ported yet (its GPU counterpart is "
+                "a CUDA graph of several steps)")
+        if guard is not None:
+            raise NotImplementedError(
+                "preemption (guard and batch cursor) is not ported yet")
+        if cfg.model.impl not in ("auto", "ell", "ell_fused"):
+            raise ValueError(
+                "sampled training runs on the ell or ell_fused backends")
+        if cfg.model.impl == "auto":
+            cfg.model.impl = "ell_fused"
+        # float32 stays full float32 on the card
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.ds = ds
+        self.cfg = cfg
+        self.device = torch.device(
+            device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.sampler = sampler
+        self.batch_size = batch_size
+        self.fanout = fanout
+        self.hops = hops if hops is not None else len(cfg.model.hid_units)
+        # default block capacity: seeds + fanout neighbors per hop
+        self.block_size = block_size or int(
+            batch_size * (fanout + 1) ** self.hops)
+        self.eval_batches = eval_batches
+        self.logger = logger or MetricLogger(cfg.train.log_file)
+
+        self.model = build_model(
+            ds, cfg, generator=torch.Generator().manual_seed(cfg.train.seed)
+        ).to(self.device)
+        self.opt = torch.optim.Adam(self.model.parameters(), lr=cfg.train.lr)
+        self.rngs = DropoutGenerators(
+            device=torch.Generator(self.device).manual_seed(cfg.train.seed + 1),
+            host=torch.Generator().manual_seed(cfg.train.seed + 1))
+        # self-loops match the full-graph path; one host CSR view per
+        # meta-path, index dtypes converted once
+        self.csrs = [_ScipyCSRView(with_self_loops(a)) for a in ds.metapath_adjs]
+        self.features = np.ascontiguousarray(ds.features, dtype=np.float32)
+        self.labels = np.asarray(ds.labels, dtype=np.float32)
+        # real sampled edges of the uploaded batches (the device sampler's
+        # counts wait on the device in _pending_edge_counts until flushed)
+        self.sampled_edge_count = 0
+        self._pending_edge_counts: list[torch.Tensor] = []
+        self.host_block_s: list[float] = []
+        # resident mode (default when the tables fit): features and labels
+        # live on the device and batches carry node ids only
+        if resident_features is None:
+            resident_features = (self.features.nbytes
+                                 + self.labels.nbytes) <= (2 << 30)
+        if sampler == "device" and not resident_features:
+            raise ValueError("sampler='device' needs resident features")
+        self.resident = bool(resident_features)
+        if self.resident:
+            self._fts_dev = torch.from_numpy(self.features).to(self.device)
+            self._lbl_dev = torch.from_numpy(self.labels).to(self.device)
+        if sampler == "device":
+            # no-dedup block layout: levels S, S·F, …, S·F^hops must fit
+            need = sum(batch_size * fanout ** h for h in range(self.hops + 1))
+            if need > self.block_size:
+                raise ValueError(f"device sampler needs block_size >= {need}")
+            self._csr_dev = [(torch.from_numpy(c.row_ptr).to(self.device),
+                              torch.from_numpy(c.col_idx).to(self.device))
+                             for c in self.csrs]
+            pr, ps = tree_parent_maps(batch_size, fanout, self.hops, self.block_size)
+            self._parent_row = torch.from_numpy(pr).to(self.device)
+            self._parent_slot = torch.from_numpy(ps).to(self.device)
+            self._sample_gen = torch.Generator(self.device)
+
+    # -- batch assembly ----------------------------------------------------
+    def _pinned(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def _prepare(self, seeds: np.ndarray, valid: np.ndarray, sample_seed: int,
+                 *, fanout: int | None = None, block_size: int | None = None):
+        """The host half of a batch (runs on the prefetch thread): a device
+        sampler descriptor, or host-sampled blocks. Custom fanout/block_size
+        requests (exact eval) always sample on the host."""
+        if (self.sampler == "device" and fanout is None
+                and block_size is None):
+            b = seeds.shape[0]
+            packed = np.empty(2 * b, np.int32)
+            packed[:b] = seeds
+            packed[b:] = valid
+            return _Descriptor(self._pinned(packed), int(sample_seed))
+        return self._sample_host(seeds, valid, sample_seed, fanout=fanout,
+                                 block_size=block_size)
+
+    def _sample_host(self, seeds, valid, sample_seed, *, fanout=None,
+                     block_size=None) -> _HostBatch:
+        """Host-sampled blocks (C++ sampler) as CPU tensors. ``valid`` masks
+        padded seed slots (eval tail batches); every batch of one
+        (fanout, block_size) has the same shapes."""
+        fanout = fanout if fanout is not None else self.fanout
+        block_size = block_size if block_size is not None else self.block_size
+        # block-local ids fit int16 at typical block sizes: half the bytes
+        # to copy; widened to int32 on the device
+        idx_dt = np.int16 if block_size + 1 < 2 ** 15 else np.int32
+        nbrs, degs, xs, n_edges = [], [], [], 0
+        lbl = (None if self.resident
+               else np.zeros((block_size, self.labels.shape[1]), np.float32))
+        mask = np.zeros(block_size, np.float32)
+        for p, csr in enumerate(self.csrs):
+            sb = sample_subgraph(
+                csr, seeds, fanout=fanout, hops=self.hops,
+                block_size=block_size, seed=sample_seed * 7919 + p)
+            real = sb.nbr < block_size
+            n_edges += int(real.sum())
+            nbrs.append(self._pinned(sb.nbr.astype(idx_dt)))
+            degs.append(self._pinned(real.sum(axis=1).astype(idx_dt)))
+            if self.resident:
+                xs.append(self._pinned(sb.nodes.astype(np.int32)))
+            else:
+                xs.append(self._pinned(sb.gather_features(self.features)))
+            if p == 0:
+                mask[: seeds.shape[0]] = valid.astype(np.float32)
+                if not self.resident:
+                    r = sb.nodes >= 0
+                    lbl[r] = self.labels[sb.nodes[r]]
+        return _HostBatch(nbrs, degs, xs,
+                          None if lbl is None else self._pinned(lbl),
+                          self._pinned(mask), block_size, fanout, n_edges)
+
+    def _upload(self, batch):
+        """Host half → the step's (graphs, xs, labels, mask) on the device
+        (non-blocking copies from pinned memory, on the main thread, which
+        also counts the batch's sampled edges)."""
+        h2d = lambda t: t.to(self.device, non_blocking=True)
+        if isinstance(batch, _Descriptor):
+            return dataclasses.replace(batch, packed=h2d(batch.packed)), None, None, None
+        self.sampled_edge_count += batch.n_edges
+        graphs = [EllGraph(nbr=h2d(nb).int(), deg=h2d(dg).int(),
+                           n_nodes=batch.block_size,
+                           n_edges=batch.block_size * batch.fanout)
+                  for nb, dg in zip(batch.nbrs, batch.degs)]
+        return (graphs, [h2d(x) for x in batch.xs],
+                None if batch.labels is None else h2d(batch.labels),
+                h2d(batch.mask))
+
+    def _make_batch(self, seeds: np.ndarray, valid: np.ndarray,
+                    sample_seed: int, *, fanout: int | None = None,
+                    block_size: int | None = None):
+        """One seed batch → the step's batch arguments on the device."""
+        return self._upload(self._prepare(seeds, valid, sample_seed,
+                                          fanout=fanout, block_size=block_size))
+
+    def _device_blocks(self, desc: _Descriptor):
+        """Tree blocks sampled on the device around a descriptor's seeds."""
+        b = desc.packed.shape[0] // 2
+        seeds, valid = desc.packed[:b], desc.packed[b:] != 0
+        graphs, xs = [], []
+        for p, (rp, ci) in enumerate(self._csr_dev):
+            self._sample_gen.manual_seed(desc.sample_seed * 7919 + p)
+            nbr, deg, nodes, ne = _device_sample_block(
+                rp, ci, seeds, valid, self._sample_gen, fanout=self.fanout,
+                hops=self.hops, block_size=self.block_size)
+            graphs.append(TreeEllGraph(
+                nbr=nbr, deg=deg, n_nodes=self.block_size,
+                n_edges=self.block_size * self.fanout,
+                parent_row=self._parent_row, parent_slot=self._parent_slot))
+            xs.append(nodes)
+            self._pending_edge_counts.append(ne)
+        mask = torch.zeros(self.block_size, device=self.device)
+        mask[:b] = valid.float()
+        return graphs, xs, mask
+
+    def _materialize(self, graphs, xs, labels, mask):
+        """Device batch → (graphs, feature rows, labels, mask): descriptors
+        get their blocks sampled; resident mode gathers the block's rows
+        from the device tables (xs carries global node ids, pad = -1)."""
+        if isinstance(graphs, _Descriptor):
+            graphs, xs, mask = self._device_blocks(graphs)
+        if self.resident:
+            labels = _resident_gather(self._lbl_dev, xs[0])
+            xs = [_resident_gather(self._fts_dev, nd) for nd in xs]
+        return graphs, xs, labels, mask
+
+    # -- steps -------------------------------------------------------------
+    def _train_step(self, graphs, xs, labels, mask):
+        """One Adam step; returns (loss, acc) as device tensors, from the
+        pre-update forward."""
+        graphs, xs, labels, mask = self._materialize(graphs, xs, labels, mask)
+        self.opt.zero_grad(set_to_none=True)
+        logits, _, _ = self.model(graphs, xs, deterministic=False, rngs=self.rngs)
+        loss = (masked_softmax_cross_entropy(logits, labels, mask)
+                + l2_regularizer(self.model.parameters(), self.cfg.train.l2_coef))
+        loss.backward()
+        self.opt.step()
+        with torch.no_grad():
+            return loss.detach(), masked_accuracy(logits, labels, mask)
+
+    @torch.no_grad()
+    def _eval_step(self, graphs, xs, labels, mask):
+        """(sum of masked loss, sum of masked correct, sum of mask, embed)."""
+        graphs, xs, labels, mask = self._materialize(graphs, xs, labels, mask)
+        logits, embed, _ = self.model(graphs, xs, deterministic=True)
+        loss_i = -(labels * torch.log_softmax(logits, dim=-1)).sum(dim=-1)
+        correct = (logits.argmax(-1) == labels.argmax(-1)).float()
+        return (loss_i * mask).sum(), (correct * mask).sum(), mask.sum(), embed
+
+    def flush_sampled_edges(self) -> int:
+        """Fold the device sampler's pending real-edge counts into
+        ``sampled_edge_count`` (one device sync)."""
+        if self._pending_edge_counts:
+            self.sampled_edge_count += int(torch.stack(self._pending_edge_counts).sum())
+            self._pending_edge_counts = []
+        return self.sampled_edge_count
+
+    def _timed_prepare(self, *args):
+        t0 = time.perf_counter()
+        out = self._prepare(*args)
+        self.host_block_s.append(time.perf_counter() - t0)
+        return out
+
+    def _prefetched_indexed(self, indexed_iter, sample_seed_fn):
+        """One-ahead pipelined batch assembly: the next batch's host half is
+        built on a worker thread while the device runs the current step;
+        the main thread uploads it. ``indexed_iter`` yields (batch_index,
+        (seeds, valid)); the index keys the deterministic sample seed."""
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            fut = None
+            for bi, (seeds, valid) in indexed_iter:
+                nxt = (bi, pool.submit(self._timed_prepare, seeds, valid,
+                                       sample_seed_fn(bi)))
+                if fut is not None:
+                    yield fut[0], self._upload(fut[1].result())
+                fut = nxt
+            if fut is not None:
+                yield fut[0], self._upload(fut[1].result())
+
+    # -- batch iteration ---------------------------------------------------
+    def _seed_batches(self, idx: np.ndarray, *, shuffle: bool, epoch: int):
+        rng = np.random.default_rng(self.cfg.train.seed * 1_000_003 + epoch)
+        order = rng.permutation(idx) if shuffle else idx
+        b = self.batch_size
+        for i in range(0, order.shape[0], b):
+            chunk = order[i : i + b]
+            valid = np.ones(chunk.shape[0], bool)
+            if chunk.shape[0] < b:  # pad tail batch, mask the padding out
+                # repeat an in-batch seed (not node 0): with duplicate seeds
+                # the sampler attaches neighbors to the first occurrence, so
+                # the real (mask=1) row keeps its edges and only the masked
+                # pad rows are edgeless
+                pad = np.full(b - chunk.shape[0], chunk[0], chunk.dtype)
+                valid = np.concatenate([valid, np.zeros(pad.shape[0], bool)])
+                chunk = np.concatenate([chunk, pad])
+            yield chunk.astype(np.int32), valid
+
+    def exact_eval_plan(self, idx: np.ndarray | None = None,
+                        max_block: int = 4_000_000):
+        """(fanout, block_size) for exact evaluation of the nodes in
+        ``idx``: block_size = the largest true L-hop reachable set of any
+        eval batch (computed on the host from the CSRs), fanout = the max
+        in-degree among nodes whose neighborhoods get expanded (BFS depth
+        < L). Returns None when any batch's true block exceeds
+        ``max_block``. ``idx=None`` gives the conservative global
+        worst-case bound (no batch structure to measure)."""
+        if idx is None:
+            deg_max = max(
+                int(np.diff(c.row_ptr).max()) if c.n_edges else 1
+                for c in self.csrs)
+            block = self.batch_size
+            width = self.batch_size
+            for _ in range(self.hops):
+                width = width * deg_max  # worst-case frontier growth
+                block = block + min(width, max_block)
+                if block > max_block:
+                    return None
+            return deg_max, int(block)
+
+        fanout_need = 1
+        block_need = self.batch_size
+        for seeds, _valid in self._seed_batches(np.asarray(idx),
+                                                shuffle=False, epoch=0):
+            for csr in self.csrs:
+                u_seeds = np.unique(seeds.astype(np.int64))
+                reached = u_seeds
+                frontier = reached
+                # the block keeps one row per seed slot (duplicate/padded
+                # seeds occupy slots without adding reachable nodes), plus
+                # one row per non-seed reached node
+                slack = self.batch_size - u_seeds.size
+                for _hop in range(self.hops):
+                    # expanded nodes need their full in-neighbor list to fit
+                    # the ELL width
+                    degs = np.diff(csr.row_ptr)[frontier]
+                    if degs.size:
+                        fanout_need = max(fanout_need, int(degs.max()))
+                    cols = _gather_neighbors(csr, frontier)
+                    frontier = np.setdiff1d(np.unique(cols), reached,
+                                            assume_unique=True)
+                    reached = np.union1d(reached, frontier)
+                    if reached.size + slack > max_block:
+                        return None
+                block_need = max(block_need, int(reached.size) + slack)
+        if block_need > max_block:
+            return None
+        return fanout_need, int(block_need)
+
+    def evaluate(self, idx: np.ndarray, *, epoch: int = 0,
+                 exact: bool = False):
+        """Masked loss/accuracy over ``idx`` at the current parameters.
+        Default: sampled blocks — every node in ``idx`` is scored once, but
+        its logits see only the bounded-fanout sampled neighborhood
+        (deterministic in ``epoch``). ``exact=True``: full-neighborhood
+        blocks (fanout = max degree), so the metric equals full-graph
+        evaluation; falls back to sampled with an
+        ``exact_eval_unavailable`` log line when they exceed capacity."""
+        fanout = block = None
+        if exact:
+            plan = self.exact_eval_plan(np.asarray(idx))
+            if plan is None:
+                self.logger.log({"exact_eval_unavailable":
+                                 "full-neighborhood blocks exceed capacity",
+                                 "fallback": "sampled"})
+            else:
+                fanout, block = plan
+        tot = torch.zeros(3, device=self.device)
+        for bi, (seeds, valid) in enumerate(
+                self._seed_batches(idx, shuffle=False, epoch=0)):
+            if self.eval_batches is not None and bi >= self.eval_batches:
+                break
+            batch = self._make_batch(seeds, valid, sample_seed=10_000_019 + epoch,
+                                     fanout=fanout, block_size=block)
+            tot += torch.stack(self._eval_step(*batch)[:3])
+        tot_l, tot_c, tot_n = tot.tolist()
+        tot_n = max(tot_n, 1.0)
+        return tot_l / tot_n, tot_c / tot_n
+
+    def fit(self, *, resume: bool = False) -> dict[str, Any]:
+        if resume:
+            raise NotImplementedError(
+                "checkpoint/resume of the sampled trainer is not ported yet")
+        cfg = self.cfg.train
+        es = EarlyStopState()
+        best = {"state": self._snapshot(), "epoch": -1}
+        train_idx = np.where(self.ds.train_mask)[0]
+        val_idx = np.where(self.ds.val_mask)[0]
+        train_losses, step_times, train_edges = [], [], 0
+        self.host_block_s = []
+        t_start = time.perf_counter()
+        for epoch in range(cfg.epochs):
+            t0 = time.perf_counter()
+            edges0 = self.flush_sampled_edges()
+            loss_sum = acc_sum = 0.0
+            n_done = 0
+            batches = enumerate(
+                self._seed_batches(train_idx, shuffle=True, epoch=epoch))
+            t_step = time.perf_counter()
+            for _, batch in self._prefetched_indexed(
+                    batches, lambda bi: epoch * 65_537 + bi):
+                loss, acc = self._train_step(*batch)
+                loss, acc = torch.stack([loss, acc]).tolist()  # waits for the step
+                loss_sum += loss
+                acc_sum += acc
+                n_done += 1
+                now = time.perf_counter()
+                step_times.append(now - t_step)
+                t_step = now
+            # fold the device sampler's counts in every epoch
+            train_edges += self.flush_sampled_edges() - edges0
+            train_losses.append(loss_sum / max(n_done, 1))
+            vl_loss, vl_acc = self.evaluate(val_idx, epoch=epoch)
+            self.logger.log({
+                "epoch": epoch, "train_loss": train_losses[-1],
+                "train_acc": acc_sum / max(n_done, 1), "val_loss": vl_loss,
+                "val_acc": vl_acc, "epoch_time_s": round(time.perf_counter() - t0, 4),
+            })
+            keep, _ = es.update(vl_loss, vl_acc)
+            if keep:
+                best = {"state": self._snapshot(), "epoch": epoch}
+            if es.bad_epochs >= cfg.patience:
+                break
+
+        self.model.load_state_dict(best["state"])
+        ts_loss, ts_acc = self.evaluate(np.where(self.ds.test_mask)[0], epoch=0)
+        self.flush_sampled_edges()
+        heads = self.cfg.model.n_heads[0]
+        result = {
+            "test_loss": ts_loss, "test_acc": ts_acc,
+            "best_epoch": best["epoch"],
+            "train_time_s": time.perf_counter() - t_start,
+            "median_step_time_s": statistics.median(step_times) if step_times else None,
+            "median_host_block_ms": (statistics.median(self.host_block_s) * 1e3
+                                     if self.host_block_s else None),
+            # real sampled edges × heads of the train blocks per second of
+            # train step
+            "edges_heads_per_s": (train_edges * heads / sum(step_times)
+                                  if step_times else None),
+        }
+        if self.device.type == "cuda":
+            result["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.device)
+        self.logger.log(result)
+        result["epoch_train_loss"] = train_losses
+        result["step_time_s"] = step_times
+        return result
+
+    def _snapshot(self) -> dict[str, torch.Tensor]:
+        return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+
+def step_breakdown(trainer: SampledTrainer, idx: np.ndarray, *,
+                   n_steps: int = 5, epoch: int = 7) -> dict[str, Any]:
+    """Where one sampled train step's time goes, on the card.
+
+    host_block_ms: median time to build one batch's host half (the C++
+    sampler, index conversion, pinning) — the prefetch thread's work per
+    step. device_ms: device time per train step (uploads included), the
+    sum of the CUDA kernel and copy times ``torch.profiler`` records over
+    ``n_steps`` steps, or None when the profiler records no device events.
+    The steps train the model further."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batches, host_s = [], []
+    for i, (seeds, valid) in zip(range(n_steps), trainer._seed_batches(
+            np.asarray(idx), shuffle=True, epoch=epoch)):
+        t0 = time.perf_counter()
+        batches.append(trainer._prepare(seeds, valid, 900 + i))
+        host_s.append(time.perf_counter() - t0)
+    trainer._train_step(*trainer._upload(batches[0]))  # warm
+    torch.cuda.synchronize(trainer.device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            trainer._train_step(*trainer._upload(b))
+        torch.cuda.synchronize(trainer.device)
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    trainer.flush_sampled_edges()
+    return {"host_block_ms": statistics.median(host_s) * 1e3,
+            "device_ms": dev_us / 1e3 / len(batches) if dev_us else None}
+
+
+def _gather_neighbors(csr, nodes: np.ndarray) -> np.ndarray:
+    """All in-neighbors of ``nodes`` (concatenated, with duplicates) from a
+    CSR view — vectorized range-gather, O(total neighbor count)."""
+    starts = csr.row_ptr[nodes]
+    counts = csr.row_ptr[nodes + 1] - starts
+    total = int(counts.sum())
+    if total == 0:
+        return np.empty(0, dtype=csr.col_idx.dtype)
+    cum = np.concatenate([[0], np.cumsum(counts)])
+    pos = (np.arange(total, dtype=np.int64)
+           - np.repeat(cum[:-1], counts) + np.repeat(starts, counts))
+    return csr.col_idx[pos]
+
+
+class _ScipyCSRView:
+    """Duck-typed CSRGraph view over a scipy matrix (host arrays; index
+    dtypes normalized once at construction)."""
+
+    def __init__(self, m):
+        m = m.tocsr()
+        self.row_ptr = np.ascontiguousarray(m.indptr, np.int64)
+        self.col_idx = np.ascontiguousarray(m.indices, np.int32)
+        self.n_nodes = m.shape[0]
+        self.n_edges = int(m.nnz)

@@ -13,8 +13,9 @@ reference early-stopping policy (ex_acm3025.py:225-240):
 - stop after ``patience`` epochs without either, restore the best
   parameters and evaluate on the test nodes.
 
-Not ported yet: checkpoint/resume, KNN/KMeans embedding evaluation, the
-sampled and inductive trainers and the multi-device paths.
+``run()`` routes ``cfg.train.sampled`` to the sampled mini-batch trainer
+(train/sampled.py). Not ported yet: checkpoint/resume, KNN/KMeans
+embedding evaluation, the inductive trainer and the multi-device paths.
 """
 
 from __future__ import annotations
@@ -122,8 +123,6 @@ class Trainer:
     def __init__(self, ds: HeteroDataset, cfg: Config, *,
                  device: torch.device | str | None = None,
                  logger: MetricLogger | None = None):
-        if cfg.train.sampled:
-            raise NotImplementedError("sampled training is not ported yet")
         # float32 stays full float32 on the card (TF32 off for matmuls and
         # cuDNN convolutions alike)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -234,7 +233,21 @@ class Trainer:
 
 def run(cfg: Config, ds: HeteroDataset | None = None, *,
         device: torch.device | str | None = None) -> dict[str, Any]:
-    """One-call train+eval entry point (the ex_acm3025.py equivalent)."""
+    """One-call train+eval entry point (the ex_acm3025.py equivalent).
+    ``cfg.train.sampled`` selects mini-batch neighbor-sampled training over
+    ELL blocks, sampled on the host or (``train.sampler=device``) on the
+    device."""
     if ds is None:
         ds = load_dataset(cfg.data.dataset)
+    if cfg.train.sampled:
+        from han_tpu_torch.train.sampled import SampledTrainer
+
+        if cfg.model.impl not in ("auto", "ell", "ell_fused"):
+            cfg.model.impl = "auto"
+        if cfg.mesh.graph_axis > 1:
+            raise NotImplementedError(
+                "data-parallel sampled training (DPSampledTrainer) is not ported yet")
+        return SampledTrainer(ds, cfg, batch_size=cfg.train.batch_size,
+                              fanout=cfg.train.fanout, sampler=cfg.train.sampler,
+                              device=device).fit()
     return Trainer(ds, cfg, device=device).fit()

@@ -1,7 +1,11 @@
 """han_tpu_torch attention ops against han_tpu's: dense and csr (outputs and
 gradients, with an edgeless row and padded edges), the plain flash path
-against JAX's interpreted Pallas kernels, and the fused coefficient
-dropout inside the port (mask replay, keep rate, finite differences)."""
+against JAX's interpreted Pallas kernels, the fused coefficient dropout
+inside the port (mask replay, keep rate, finite differences), and the ELL
+ops of the sampled path: ell_fused's plain version against JAX's
+interpreted Pallas kernel and its segment-op VJP with one keep mask, ell
+against han_tpu's and against ell_fused with dropout on, and tree_ell
+against han_tpu's ``_tree_core``."""
 
 import math
 
@@ -17,13 +21,20 @@ import torch  # noqa: E402
 from han_tpu.graph.bcsr import bcsr_from_dense as j_bcsr  # noqa: E402
 from han_tpu.graph.containers import csr_from_scipy as j_csr  # noqa: E402
 from han_tpu.graph.containers import dense_from_numpy as j_dense  # noqa: E402
+from han_tpu.graph.containers import EllGraph as JEll  # noqa: E402
 from han_tpu.ops import attention as jatt  # noqa: E402
+from han_tpu.ops import tree_ell as jtree  # noqa: E402
+from han_tpu.ops.pallas import ell_fused as jef  # noqa: E402
 from han_tpu.ops.pallas.flash_gat import flash_gat_attention as j_flash  # noqa: E402
 from han_tpu_torch.graph.bcsr import BCSRGraph, bcsr_from_dense as t_bcsr  # noqa: E402
+from han_tpu_torch.graph.containers import EllGraph as TEll  # noqa: E402
+from han_tpu_torch.graph.containers import TreeEllGraph as TTree  # noqa: E402
 from han_tpu_torch.graph.containers import csr_from_scipy as t_csr  # noqa: E402
 from han_tpu_torch.graph.containers import dense_from_numpy as t_dense  # noqa: E402
 from han_tpu_torch.ops import attention as tatt  # noqa: E402
+from han_tpu_torch.ops import ell_fused as tef  # noqa: E402
 from han_tpu_torch.ops import flash_gat as tfg  # noqa: E402
+from han_tpu_torch.ops import tree_ell as ttree  # noqa: E402
 
 EMPTY_ROW = 5
 
@@ -185,3 +196,143 @@ def test_flash_wrapper_rejects_and_never_falls_back():
     np.testing.assert_array_equal(out.numpy(), tfg.flash_gat_attention(graph, fts_t, ld_t, ls_t).numpy())
     with pytest.raises(NotImplementedError):
         tatt.attention_aggregate(graph, fts_t, ld_t, ls_t, return_coefs=True)
+
+
+# ---------------------------------------------------------------------------
+# ELL ops of the sampled path
+# ---------------------------------------------------------------------------
+
+
+def ell_case(n, f, k, d, seed):
+    """Random ELL lists (sentinel n) with about a quarter of the slots empty,
+    one edgeless row, and float inputs; F need not be a multiple of 8."""
+    rng = np.random.default_rng(seed)
+    nbr = rng.integers(0, n, (n, f)).astype(np.int32)
+    nbr[rng.random((n, f)) < 0.25] = n
+    nbr[EMPTY_ROW] = n
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return nbr, f32(n, k, d), f32(n, k), f32(n, k), f32(n, k, d)
+
+
+def keep_mask(n, f, k, p, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.random((n, f, k)) < 1 - p).astype(np.uint8)
+
+
+@pytest.mark.parametrize("f,p", [(5, 0.0), (5, 0.4), (16, 0.4)])
+def test_ell_fused_plain_matches_jax_interpreted(f, p):
+    """The kernel's plain version and the plain-torch backward against
+    han_tpu's _ell_fused_core (Pallas forward in interpret mode, segment-op
+    VJP), fed one numpy keep mask: atol 1e-5 on outputs and gradients (the
+    same math in another summation order)."""
+    n, k, d = 40, 3, 8
+    nbr, fts, ld, ls, w = ell_case(n, f, k, d, seed=f)
+    keep = keep_mask(n, f, k, p, seed=1) if p else None
+    jkeep = jnp.asarray(keep if p else np.zeros((1, 1, 1), np.uint8))
+    want = run_jax(lambda *x: jef._ell_fused_core(jnp.asarray(nbr), jkeep, *x, 0.2, 128, True, p),
+                   fts, ld, ls, w)
+    tkeep = torch.from_numpy(keep) if p else None
+    got = run_torch(lambda fts_, ld_, ls_: tef._EllFused.apply(
+        fts_.reshape(n, k * d), ld_, ls_, torch.from_numpy(nbr), tkeep, 0.2, p).view(n, k, d),
+        fts, ld, ls, w)
+    np.testing.assert_array_equal(got[0][EMPTY_ROW], 0.0)
+    assert_all_close(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.4])
+def test_ell_attention_matches_jax_and_ell_fused(p):
+    """ell against han_tpu's ell_attention (dropout off; outputs and
+    gradients, atol 1e-5), and, inside the port, ell against ell_fused with
+    dropout on: both draw their keep mask from the same generator state, so
+    outputs and gradients agree to float rounding (atol 1e-5)."""
+    n, f, k, d = 40, 6, 2, 8
+    nbr, fts, ld, ls, w = ell_case(n, f, k, d, seed=3)
+    tg = TEll(nbr=torch.from_numpy(nbr), deg=torch.from_numpy((nbr < n).sum(1).astype(np.int32)),
+              n_nodes=n, n_edges=int((nbr < n).sum()))
+    if p == 0.0:
+        jg = JEll(nbr=jnp.asarray(nbr), deg=jnp.asarray(tg.deg.numpy()), n_nodes=n,
+                  n_edges=tg.n_edges)
+        want = run_jax(lambda *x: jatt.ell_attention(jg, *x), fts, ld, ls, w)
+        got = run_torch(lambda *x: tatt.attention_aggregate(tg, *x), fts, ld, ls, w)  # auto → ell
+        assert_all_close(got, want, atol=1e-5)
+        return
+    outs = {}
+    for impl in ("ell", "ell_fused"):
+        gen = torch.Generator().manual_seed(9)
+        outs[impl] = run_torch(lambda *x: tatt.attention_aggregate(
+            tg, *x, impl=impl, coef_dropout=p, generator=gen), fts, ld, ls, w)
+    assert_all_close(outs["ell_fused"], outs["ell"], atol=1e-5)
+    undropped = tatt.ell_attention(tg, *(torch.from_numpy(x) for x in (fts, ld, ls)))
+    assert not np.allclose(outs["ell"][0], undropped.numpy())
+
+
+def make_tree_block(batch=6, fanout=3, hops=2, seed=0):
+    """A random tree block in the device-sampler layout (as
+    tests/test_tree_ell.py builds it): some child slots empty, pad rows at
+    the tail."""
+    rng = np.random.default_rng(seed)
+    total = sum(batch * fanout ** h for h in range(hops + 1))
+    block = total + 5
+    nbr = np.full((block, fanout), block, np.int32)
+    base, size = 0, batch
+    for _ in range(hops):
+        child = base + size
+        for r in range(size):
+            for f in range(fanout):
+                if rng.random() < 0.8:
+                    nbr[base + r, f] = child + r * fanout + f
+        base, size = child, size * fanout
+    return nbr, block
+
+
+@pytest.mark.parametrize("p", [0.0, 0.4])
+def test_tree_ell_matches_jax(p):
+    """tree_ell (gather-only backward through the parent maps) against
+    han_tpu's _tree_core with the same keep mask: outputs and gradients at
+    atol 1e-5; the parent maps are equal to han_tpu's."""
+    nbr, block = make_tree_block()
+    pr, ps = ttree.tree_parent_maps(6, 3, 2, block)
+    jpr, jps = jtree.tree_parent_maps(6, 3, 2, block)
+    np.testing.assert_array_equal(pr, jpr)
+    np.testing.assert_array_equal(ps, jps)
+    k, d = 2, 4
+    rng = np.random.default_rng(5)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)
+    fts, ld, ls, w = f32(block, k, d), f32(block, k), f32(block, k), f32(block, k, d)
+    keep = keep_mask(block, 3, k, p, seed=2) if p else None
+    jkeep = jnp.asarray(keep if p else np.zeros((1, 1, 1), np.uint8))
+    want = run_jax(lambda *x: jtree._tree_core(
+        jnp.asarray(nbr), jnp.asarray(pr), jnp.asarray(ps), jkeep, *x, 0.2, p), fts, ld, ls, w)
+    tkeep = torch.from_numpy(keep) if p else None
+    got = run_torch(lambda f_, a, b: ttree._TreeEll.apply(
+        f_.reshape(block, k * d), a, b, torch.from_numpy(nbr), torch.from_numpy(pr),
+        torch.from_numpy(ps), tkeep, 0.2, p).view(block, k, d), fts, ld, ls, w)
+    assert_all_close(got, want, atol=1e-5)
+    if p:
+        return
+    # dispatch: a TreeEllGraph goes to tree attention whatever impl says
+    tg = TTree(nbr=torch.from_numpy(nbr), deg=torch.from_numpy((nbr < block).sum(1).astype(np.int32)),
+               n_nodes=block, n_edges=block * 3, parent_row=torch.from_numpy(pr),
+               parent_slot=torch.from_numpy(ps))
+    out = tatt.attention_aggregate(tg, *(torch.from_numpy(x) for x in (fts, ld, ls)), impl="ell_fused")
+    np.testing.assert_allclose(out.numpy(), want[0], atol=1e-5)
+
+
+def test_ell_fused_wrapper_rejects_and_never_falls_back():
+    """A non-CPU tensor goes to the kernel wrapper, which raises on what it
+    cannot launch; it never runs the plain version."""
+    n, f, k, d = 16, 4, 2, 8
+    meta_dev = lambda *s, dt=torch.float32: torch.empty(*s, device="meta", dtype=dt)
+    with pytest.raises(ValueError, match="CUDA"):
+        tef.ell_fused_fwd(meta_dev(n, f, dt=torch.int32), meta_dev(n, k), meta_dev(n, k),
+                          meta_dev(n, k * d), None, 0.2, 0.0)
+    nbr, fts, ld, ls, _ = ell_case(n, f, k, d, seed=0)
+    g = TEll(nbr=torch.from_numpy(nbr), deg=torch.zeros(n, dtype=torch.int32), n_nodes=n,
+             n_edges=0)
+    fts_t, ld_t, ls_t = (torch.from_numpy(x) for x in (fts, ld, ls))
+    with pytest.raises(NotImplementedError, match="float32"):
+        tef.ell_fused_attention(g, fts_t.double(), ld_t, ls_t)
+    with pytest.raises(ValueError, match="generator"):
+        tef.ell_fused_attention(g, fts_t, ld_t, ls_t, coef_dropout=0.5)
+    with pytest.raises(NotImplementedError):
+        tatt.attention_aggregate(g, fts_t, ld_t, ls_t, impl="ell_fused", return_coefs=True)

@@ -1,6 +1,7 @@
 """han_tpu_torch's copies of the numpy host code equal han_tpu's: the
-planted generator array for array, the meta-path containers, and the BCSR
-tile lists and block maps at a tile geometry both builders accept."""
+planted generator array for array, the meta-path containers (ELL
+included), and the BCSR tile lists and block maps at a tile geometry both
+builders accept."""
 
 import subprocess
 import sys
@@ -12,9 +13,11 @@ pytest.importorskip("jax")
 
 from han_tpu.graph import bcsr as jbcsr  # noqa: E402
 from han_tpu.graph import build as jbuild  # noqa: E402
+from han_tpu.graph import containers as jcont  # noqa: E402
 from han_tpu.graph import synthetic as jsyn  # noqa: E402
 from han_tpu_torch.graph import bcsr as tbcsr  # noqa: E402
 from han_tpu_torch.graph import build as tbuild  # noqa: E402
+from han_tpu_torch.graph import containers as tcont  # noqa: E402
 from han_tpu_torch.graph import synthetic as tsyn  # noqa: E402
 
 PLANTED = [
@@ -56,6 +59,23 @@ def test_metapath_containers_match():
         sym.toarray(), jbuild.symmetric_metapath(ds.metapath_adjs[0][:, :50]).toarray())
 
 
+@pytest.mark.parametrize("fanout", [None, 5])
+def test_ell_from_csr_matches(fanout):
+    """ELL lists from the same CSR, at full (max-degree) and truncated
+    fanout; the port's containers move with .to()."""
+    adj = jsyn.planted_hetero(**PLANTED[0]).metapath_adjs[0]
+    je = jcont.ell_from_csr(jbuild.metapath_to_csr(adj), fanout=fanout)
+    te = tcont.ell_from_csr(tbuild.metapath_to_csr(adj), fanout=fanout)
+    assert (te.n_nodes, te.n_edges, te.fanout) == (je.n_nodes, je.n_edges, je.fanout)
+    for f in ("nbr", "deg", "nbr_mask"):
+        np.testing.assert_array_equal(getattr(te, f).numpy(), np.asarray(getattr(je, f)))
+    tree = tcont.TreeEllGraph(nbr=te.nbr, deg=te.deg, n_nodes=te.n_nodes, n_edges=te.n_edges,
+                              parent_row=te.deg, parent_slot=te.deg)
+    moved = tree.to("cpu")
+    assert isinstance(moved, tcont.TreeEllGraph) and moved.n_edges == te.n_edges
+    assert moved.parent_row is not None and moved.nbr.dtype == te.nbr.dtype
+
+
 def _coo(n, seed, empty_rows=()):
     rng = np.random.default_rng(seed)
     a = rng.random((n, n)) < 0.05
@@ -90,8 +110,8 @@ def test_pick_tiles_rules():
 
 
 def test_port_imports_no_jax():
-    """The port, its entry script and the chip smoke test load neither jax
-    nor han_tpu."""
+    """The port (every module, the sampled path's included), its entry
+    scripts and the chip smoke test load neither jax nor han_tpu."""
     code = (
         "import importlib, pathlib, pkgutil, runpy, sys\n"
         "import han_tpu_torch\n"
@@ -99,6 +119,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "runpy.run_path('scripts/train_torch.py', run_name='not_main')\n"
+        "runpy.run_path('scripts/bench_scale_torch.py', run_name='not_main')\n"
+        "import han_tpu_torch.train.sampled, han_tpu_torch.native\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'han_tpu.'))"
         " or m == 'han_tpu']\n"
         "assert not bad, bad\n")

@@ -1,0 +1,286 @@
+"""The sampled path of han_tpu_torch against han_tpu: the copied C++ sampler
+and the generators, the device sampler, the port's counterparts of
+tests/test_sampled_trainer.py's exactness checks, and the slice as a whole
+(three sampled train steps with ell_fused in both packages, on the same
+host-sampled blocks and the same flax initial weights)."""
+
+import filecmp
+import runpy
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from han_tpu import native as jnative  # noqa: E402
+from han_tpu.graph import sampling as jsampling  # noqa: E402
+from han_tpu.graph import synthetic as jsyn  # noqa: E402
+from han_tpu.train import sampled as jsampled  # noqa: E402
+from han_tpu.train.config import preset as jpreset  # noqa: E402
+from han_tpu_torch import native as tnative  # noqa: E402
+from han_tpu_torch.graph import sampling as tsampling  # noqa: E402
+from han_tpu_torch.graph import synthetic as tsyn  # noqa: E402
+from han_tpu_torch.graph.build import metapath_to_csr  # noqa: E402
+from han_tpu_torch.graph.containers import ell_from_csr  # noqa: E402
+from han_tpu_torch.nn.convert import params_from_flax  # noqa: E402
+from han_tpu_torch.train import sampled as tsampled  # noqa: E402
+from han_tpu_torch.train.config import preset as tpreset  # noqa: E402
+from han_tpu_torch.train.trainer import MetricLogger, run  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def small_ds():
+    return jsyn.planted_hetero(
+        n_nodes=128, n_feats=24, n_classes=3, n_metapaths=2,
+        avg_degree=6.0, train_per_class=16, n_val=24, seed=3)
+
+
+def small_cfg(preset, impl="ell", epochs=5):
+    cfg = preset("acm")
+    cfg.model.impl = impl
+    cfg.model.hid_units = (8,)
+    cfg.model.n_heads = (4, 1)
+    cfg.model.attn_drop = cfg.model.ffd_drop = 0.0
+    cfg.train.epochs, cfg.train.patience = epochs, 50
+    cfg.train.log_file = ""
+    return cfg
+
+
+def make_trainer(ds, *, impl="ell", epochs=5, **kw):
+    return tsampled.SampledTrainer(ds, small_cfg(tpreset, impl, epochs), device="cpu",
+                                   logger=MetricLogger(echo=False), **kw)
+
+
+def max_degree(ds):
+    # +1: the trainer adds self-loops, as the full-graph path does
+    return 1 + max(int(np.diff(a.indptr).max()) for a in ds.metapath_adjs)
+
+
+def full_graph_logits(t, ds):
+    """The port's model on the whole graph (ell over full ELL lists)."""
+    graphs = [ell_from_csr(metapath_to_csr(a)) for a in ds.metapath_adjs]
+    x = torch.from_numpy(np.asarray(ds.features, np.float32))
+    with torch.no_grad():
+        return t.model(graphs, [x, x])[0]
+
+
+# -- copied host code ---------------------------------------------------------
+
+
+def test_native_sampler_is_a_copy():
+    """graphcore.cpp is byte for byte han_tpu's, the C++ library builds, and
+    every binding gives han_tpu.native's arrays."""
+    assert filecmp.cmp("han_tpu_torch/native/graphcore.cpp",
+                       "han_tpu/native/graphcore.cpp", shallow=False)
+    assert tnative.available() and jnative.available()
+    csr = sp.random(300, 300, density=0.05, random_state=4, format="csr")
+    rp, ci = csr.indptr.astype(np.int64), csr.indices.astype(np.int32)
+    seeds = np.array([3, 7, 7, 150, 299, 0], np.int32)
+    for hops, fanout, block in ((1, 4, 30), (2, 3, 80), (2, 50, 300)):
+        got = tnative.sample_block(rp, ci, seeds, fanout=fanout, hops=hops,
+                                   block_size=block, seed=11)
+        want = jnative.sample_block(rp, ci, seeds, fanout=fanout, hops=hops,
+                                    block_size=block, seed=11)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(tnative.sample_neighbors(rp, ci, 4, seed=2),
+                                  jnative.sample_neighbors(rp, ci, 4, seed=2))
+    coo = csr.tocoo()
+    for fn, args in ((tnative.csr_from_coo, (300, coo.row, coo.col)),
+                     (tnative.spgemm_binary, (rp, ci, rp, ci, 300, 300)),
+                     (tnative.connected_components, (rp, ci))):
+        for g, w in zip(fn(*args), getattr(jnative, fn.__name__)(*args)):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_sample_subgraph_and_neighbor_sampler_match(small_ds):
+    jcsr = jsampled._ScipyCSRView(small_ds.metapath_adjs[0])
+    tcsr = tsampled._ScipyCSRView(small_ds.metapath_adjs[0])
+    seeds = np.arange(10, 26, dtype=np.int32)
+    a = jsampling.sample_subgraph(jcsr, seeds, fanout=3, hops=2, block_size=100, seed=5)
+    b = tsampling.sample_subgraph(tcsr, seeds, fanout=3, hops=2, block_size=100, seed=5)
+    for f in ("nodes", "nbr", "seed_mask"):
+        np.testing.assert_array_equal(getattr(b, f), getattr(a, f))
+    assert b.n_real == a.n_real
+    np.testing.assert_array_equal(b.ell().deg.numpy(), np.asarray(a.ell().deg))
+    ja = jsampling.NeighborSampler(jcsr, fanout=4, seed=1).sample(3)
+    tb = tsampling.NeighborSampler(tcsr, fanout=4, seed=1).sample(3)
+    np.testing.assert_array_equal(tb.nbr.numpy(), np.asarray(ja.nbr))
+    assert tb.n_edges == ja.n_edges
+
+
+def test_big_csr_is_bench_scale_copy():
+    """graph/synthetic.big_csr is bit-identical to scripts/bench_scale.py's;
+    scale_dataset's meta-paths are big_csr at seeds seed + 31·p, with the
+    requested splits."""
+    ref = runpy.run_path("scripts/bench_scale.py", run_name="not_main")["big_csr"]
+    for n, deg, seed in ((2000, 12, 0), (1500, 7, 31)):
+        a, b = ref(n, deg, seed=seed), tsyn.big_csr(n, deg, seed=seed)
+        for attr in ("indptr", "indices", "data"):
+            np.testing.assert_array_equal(getattr(b, attr), getattr(a, attr))
+            assert getattr(b, attr).dtype == getattr(a, attr).dtype
+    ds = tsyn.scale_dataset(1500, 7, n_train=300, n_val=100, n_test=200, seed=0)
+    np.testing.assert_array_equal(ds.metapath_adjs[1].indices, ref(1500, 7, seed=31).indices)
+    assert ds.train_mask[:300].all() and ds.val_mask[-100:].all() and ds.test_mask[300:500].all()
+    assert (ds.train_mask.sum(), ds.val_mask.sum(), ds.test_mask.sum()) == (300, 100, 200)
+    assert ds.features.shape == (1500, 64) and ds.labels.sum(1).tolist() == [1.0] * 1500
+
+
+# -- device sampler -----------------------------------------------------------
+
+
+def test_device_sample_block_exhaustive_matches_jax(small_ds):
+    """With fanout >= max degree the device sampler takes every neighbor, so
+    the port's blocks equal han_tpu's whatever the random streams: nbr,
+    deg, nodes and the edge count, one and two hops, with masked seeds."""
+    csr = tsampled._ScipyCSRView(small_ds.metapath_adjs[1])
+    f = max_degree(small_ds)
+    seeds = np.array([0, 5, 9, 33, 64, 127], np.int32)
+    valid = np.array([1, 1, 0, 1, 1, 1], bool)
+    for hops in (1, 2):
+        block = sum(6 * f ** h for h in range(hops + 1)) + 3
+        want = jsampled._device_sample_block(
+            jnp.asarray(csr.row_ptr, jnp.int32), jnp.asarray(csr.col_idx), jnp.asarray(seeds),
+            jnp.asarray(valid), jax.random.PRNGKey(0), fanout=f, hops=hops, block_size=block)
+        got = tsampled._device_sample_block(
+            torch.from_numpy(csr.row_ptr), torch.from_numpy(csr.col_idx),
+            torch.from_numpy(seeds), torch.from_numpy(valid),
+            torch.Generator().manual_seed(0), fanout=f, hops=hops, block_size=block)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_sample_offsets_stay_below_degree():
+    """The draw fed u = 1 - 2**-24 (the largest float32 below 1) at degrees
+    from 2**24 up, where float32 spaces its integers 2 to 256 apart: every
+    offset stays in [deg - 256, deg). At u = 1 the clamp, not the rounding,
+    keeps the offset at deg - 1."""
+    u = torch.full((1, 1), 1.0 - 2.0 ** -24)
+    degs = torch.cat([torch.arange(2 ** 24, 2 ** 24 + 64),
+                      torch.arange(2 ** 31 - 64, 2 ** 31)])[:, None]
+    off = tsampled.sample_offsets(u, degs)
+    assert bool((off < degs).all()) and bool((off >= degs - 256).all())
+    degs = torch.tensor([[1], [7], [2 ** 24 + 3]])
+    np.testing.assert_array_equal(tsampled.sample_offsets(torch.ones(1, 1), degs),
+                                  degs - 1)
+
+
+# -- the trainer --------------------------------------------------------------
+
+
+def test_train_steps_match_jax(small_ds):
+    """The slice as a whole: han_tpu's SampledTrainer(impl="ell_fused", its
+    Pallas kernel interpreted) and the port run three train steps on the
+    same seed batches and the same host-sampled blocks (asserted equal),
+    from the same flax initial weights, dropout off. Loss and accuracy agree
+    at rtol 1e-4 (Adam amplifies float differences of small gradients)."""
+    import tempfile
+
+    jcfg = small_cfg(jpreset, "ell_fused")
+    jcfg.train.checkpoint_dir = tempfile.mkdtemp()
+    jt = jsampled.SampledTrainer(small_ds, jcfg, batch_size=16, fanout=4)
+    tt = make_trainer(small_ds, impl="ell_fused", batch_size=16, fanout=4)
+    train_idx = np.where(small_ds.train_mask)[0]
+    jseeds = list(jt._seed_batches(train_idx, shuffle=True, epoch=0))[:3]
+    tseeds = list(tt._seed_batches(train_idx, shuffle=True, epoch=0))[:3]
+    params = opt_state = None
+    rng = jax.random.PRNGKey(0)
+    for bi, ((js, jv), (ts, tv)) in enumerate(zip(jseeds, tseeds)):
+        np.testing.assert_array_equal(ts, js)
+        np.testing.assert_array_equal(tv, jv)
+        jb = jt._make_batch(js, jv, sample_seed=bi)
+        tb = tt._make_batch(ts, tv, sample_seed=bi)
+        for jg, tg, jx, tx in zip(jb[0], tb[0], jb[1], tb[1]):
+            np.testing.assert_array_equal(tg.nbr.numpy(), np.asarray(jg.nbr))
+            np.testing.assert_array_equal(tg.deg.numpy(), np.asarray(jg.deg))
+            np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
+        np.testing.assert_array_equal(tb[3].numpy(), np.asarray(jb[3]))
+        if params is None:
+            params = jt._init_params_from(jax.random.PRNGKey(0), jb[0], jb[1])
+            opt_state = jt.tx.init(params)
+            tt.model.load_state_dict(params_from_flax(params))
+        params, opt_state, rng, jloss, jacc = jt._train_step(params, opt_state, rng, *jb)
+        tloss, tacc = tt._train_step(*tb)
+        np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-4, err_msg=f"step {bi}")
+        np.testing.assert_allclose(float(tacc), float(jacc), rtol=1e-4, err_msg=f"step {bi}")
+    assert tt.sampled_edge_count == jt.sampled_edge_count > 0
+
+
+@pytest.mark.parametrize("sampler,resident", [("host", True), ("host", False),
+                                              ("device", True)])
+def test_seed_rows_match_full_graph(small_ds, sampler, resident):
+    """With fanout >= max degree and hops = #layers, the sampled block gives
+    the seeds exactly their full neighborhood, so their logits equal the
+    full-graph forward (port of tests/test_sampled_trainer.py:37-61, plus
+    streamed (non-resident) features and the device sampler's tree
+    blocks)."""
+    f = max_degree(small_ds)
+    t = make_trainer(small_ds, batch_size=16, fanout=f, block_size=16 * (f + 1),
+                     sampler=sampler, resident_features=resident)
+    seeds = np.arange(16, dtype=np.int32)
+    graphs, xs, _, _ = t._materialize(*t._make_batch(seeds, np.ones(16, bool), 0))
+    assert type(graphs[0]).__name__ == ("TreeEllGraph" if sampler == "device" else "EllGraph")
+    with torch.no_grad():
+        block_logits = t.model(graphs, xs)[0]
+    np.testing.assert_allclose(block_logits[:16].numpy(),
+                               full_graph_logits(t, small_ds)[seeds].numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_exact_eval_matches_full_graph(small_ds):
+    """evaluate(exact=True) builds full-neighborhood blocks (fanout = max
+    degree), so the metric equals full-graph evaluation whatever the
+    trainer's own small fanout (port of
+    tests/test_sampled_trainer.py:64-94)."""
+    t = make_trainer(small_ds, batch_size=16, fanout=3)
+    val_idx = np.where(small_ds.val_mask)[0]
+    l_s, _ = t.evaluate(val_idx)
+    l_e, a_e = t.evaluate(val_idx, exact=True)
+    logits = full_graph_logits(t, small_ds)[val_idx]
+    lbl = torch.from_numpy(small_ds.labels[val_idx])
+    ref_l = float(-(lbl * torch.log_softmax(logits, -1)).sum(-1).mean())
+    ref_a = float((logits.argmax(-1) == lbl.argmax(-1)).float().mean())
+    np.testing.assert_allclose(l_e, ref_l, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(a_e, ref_a, rtol=1e-6)
+    assert abs(l_s - ref_l) > 1e-6  # the sampled metric really is sampled
+    assert t.exact_eval_plan(max_block=64) is None
+
+
+def test_device_sampler_fit_learns_and_flushes_edge_counts(small_ds):
+    """fit() with the device sampler and ell_fused dropout on: finite
+    losses, learning above chance, and the device edge counts folded in
+    every epoch (han_tpu lets the pending list grow)."""
+    cfg = small_cfg(tpreset, "auto", epochs=12)
+    cfg.model.attn_drop = cfg.model.ffd_drop = 0.3
+    t = tsampled.SampledTrainer(small_ds, cfg, batch_size=24, fanout=6, sampler="device",
+                                device="cpu", logger=MetricLogger(echo=False))
+    assert cfg.model.impl == "ell_fused"  # auto trains on the fused kernel
+    result = t.fit()
+    assert np.isfinite(result["epoch_train_loss"]).all()
+    assert result["test_acc"] > 0.55  # 3 classes → chance is 0.33
+    assert t._pending_edge_counts == [] and t.sampled_edge_count > 0
+    assert result["edges_heads_per_s"] > 0
+
+
+def test_run_routes_sampled_training_and_rejects_unported():
+    """scripts/train_torch.py --set train.sampled=true reaches the sampled
+    trainer through run(); unported options raise."""
+    main = runpy.run_path("scripts/train_torch.py", run_name="not_main")["main"]
+    result = main(["--dataset", "acm_synthetic", "--set", "train.sampled=true",
+                   "--set", "train.batch_size=64", "--set", "train.epochs=1",
+                   "--set", "model.ffd_drop=0.0"])
+    assert len(result["epoch_train_loss"]) == 1 and np.isfinite(result["test_loss"])
+    ds = jsyn.planted_hetero(n_nodes=64, n_feats=8, n_classes=2, n_metapaths=1,
+                             avg_degree=4.0, train_per_class=8, n_val=8, seed=0)
+    cfg = small_cfg(tpreset)
+    with pytest.raises(NotImplementedError, match="resume"):
+        tsampled.SampledTrainer(ds, cfg, batch_size=8, fanout=3, device="cpu").fit(resume=True)
+    with pytest.raises(NotImplementedError, match="steps_per_call"):
+        tsampled.SampledTrainer(ds, cfg, batch_size=8, fanout=3, steps_per_call=2)
+    cfg.train.sampled, cfg.mesh.graph_axis = True, 2
+    with pytest.raises(NotImplementedError, match="DPSampledTrainer"):
+        run(cfg, ds, device="cpu")
