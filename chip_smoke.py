@@ -1,10 +1,18 @@
-"""Smoke test of han_tpu_torch on one CUDA card. Builds the kernels (the
-flash-GAT pair and the fused ELL forward, one nvcc per source, started
-together, and the C++ sampler), then drives both ported paths:
+"""Smoke test of han_tpu_torch on CUDA cards. Builds the kernels (the
+flash-GAT kernels and the fused ELL forward, one nvcc per source, started
+together, and the C++ sampler), then drives the ported paths:
 
-- full-graph: holds the flash kernels against their plain PyTorch versions
-  at the DBLP shape, checks a small HAN against the dense path, and trains
-  the dblp preset for 10 epochs on the DBLP-shaped dataset;
+- full-graph: holds the flash kernels (forward, fused backward, and the
+  split backward's row and column sweeps) against their plain PyTorch
+  versions at the DBLP shape, and on the strips of a 4-way partition of
+  DBLP's largest meta-path (every shard of partition_bcsr, and ring cells
+  with a non-zero column offset); checks a small HAN against the dense
+  path; trains the dblp preset for 10 epochs on the DBLP-shaped dataset;
+- multi-device: in a world of torch.cuda.device_count() NCCL ranks (one
+  process per card, spawned), trains the dblp preset 10 epochs with
+  graph_format partitioned_bcsr, then ring_bcsr under
+  torch.use_deterministic_algorithms(True) (the split backward), and holds
+  both loss trajectories against the one-device run;
 - sampled: holds the ell_fused kernel against its plain version at the
   sampled block's shape (and at a large odd fanout), trains the 100M-edge
   sampled configuration (500,000 nodes, 2 meta-paths of degree 100, acm
@@ -129,7 +137,7 @@ def main() -> None:
     g = rnd(n, k * d)
     g[pad_rows] = 0.0
 
-    stats = {"fwd": {"err": 0.0}, "bwd": {"err": 0.0}}
+    stats = {name: {"err": 0.0} for name in ("fwd", "bwd", "row", "col")}
     for p in (0.0, 0.6):
         meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=1234567)
         print(f"dropout {p}:", flush=True)
@@ -150,12 +158,35 @@ def main() -> None:
              "bwd_ms": timed(lambda: fg.flash_bwd_cuda(graph, ld, ls, v, g, lse_k, delta, meta)),
              "bwd_plain_ms": timed(lambda: fg.flash_bwd_plain(graph, ld, ls, v, g, lse_k, delta, meta))}
         print("  median ms: " + ", ".join(f"{a} {b:.4f}" for a, b in t.items()), flush=True)
+        # the split backward: each sweep against its plain version
+        args = (graph, ld, ls, v, g, lse_k, delta, meta)
+        er = check("dld (row sweep)", fg.flash_bwd_row_cuda(*args), fg.flash_bwd_row_plain(*args),
+                   1e-4, 1e-3)
+        ec = max(check(f"{name} (column sweep)", a, b, 1e-4, 1e-3) for name, a, b in zip(
+            ("dls", "dv"), fg.flash_bwd_col_cuda(*args), fg.flash_bwd_col_plain(*args)))
+        ts = {"row_ms": timed(lambda: fg.flash_bwd_row_cuda(*args)),
+              "row_plain_ms": timed(lambda: fg.flash_bwd_row_plain(*args)),
+              "col_ms": timed(lambda: fg.flash_bwd_col_cuda(*args)),
+              "col_plain_ms": timed(lambda: fg.flash_bwd_col_plain(*args)),
+              "split_ms": timed(lambda: (fg.flash_bwd_row_cuda(*args),
+                                         fg.flash_bwd_col_cuda(*args))),
+              "fused_ms": timed(lambda: fg.flash_bwd_cuda(*args))}
+        print("  split backward median ms: " + ", ".join(f"{a} {b:.4f}" for a, b in ts.items())
+              + f"; split / fused {ts['split_ms'] / ts['fused_ms']:.3f}", flush=True)
         stats["fwd"] = {"err": max(stats["fwd"]["err"], e), "ms": t["fwd_ms"],
                         "plain_ms": t["fwd_plain_ms"]}
         stats["bwd"] = {"err": max(stats["bwd"]["err"], eb), "ms": t["bwd_ms"],
                         "plain_ms": t["bwd_plain_ms"]}
+        stats["row"] = {"err": max(stats["row"]["err"], er), "ms": ts["row_ms"],
+                        "plain_ms": ts["row_plain_ms"]}
+        stats["col"] = {"err": max(stats["col"]["err"], ec), "ms": ts["col_ms"],
+                        "plain_ms": ts["col_plain_ms"]}
     del out_p, lse_p, bp
     torch.cuda.empty_cache()
+
+    # -- phase 3c: the kernels on the strips of a 4-way partition ------------
+    for name, err in check_strips(dev, ds.metapath_adjs[big]).items():
+        stats[name]["err"] = max(stats[name]["err"], err)
 
     # -- phase 3b: a small HAN through the kernels vs the dense path ---------
     check_small_han(dev)
@@ -196,20 +227,26 @@ def main() -> None:
     del ds, graph
     torch.cuda.empty_cache()
 
+    # -- phase 4b: multi-device training through the partitioned backends ----
+    mesh = train_multi_device(losses, cfg.train.epochs, n_mp)
+
     # -- phases 5-7: the sampled path ------------------------------------------
     ell = check_ell_fused(dev)
     ell_n = train_sampled(dev, native)
 
+    # launches: the dblp run (phase 4) and the multi-device runs (phase 4b)
+    part, ring = mesh["partitioned_bcsr"]["launches"], mesh["ring_bcsr"]["launches"]
+    launches = {"fwd": fwd_n + part["fwd"] + ring["fwd"], "bwd": bwd_n + part["bwd"],
+                "row": ring["row"], "col": ring["col"]}
     src = "han_tpu_torch/csrc/flash_gat.cu"
+    tpu = "han_tpu/ops/pallas/flash_gat.py"
     kernels = [
-        {"name": "flash_gat_fwd", "route": "cuda", "source": src,
-         "replaces": "han_tpu/ops/pallas/flash_gat.py:187", "launches": fwd_n,
-         "max_abs_err": stats["fwd"]["err"], "ms": stats["fwd"]["ms"],
-         "plain_ms": stats["fwd"]["plain_ms"]},
-        {"name": "flash_gat_bwd", "route": "cuda", "source": src,
-         "replaces": "han_tpu/ops/pallas/flash_gat.py:395", "launches": bwd_n,
-         "max_abs_err": stats["bwd"]["err"], "ms": stats["bwd"]["ms"],
-         "plain_ms": stats["bwd"]["plain_ms"]},
+        {"name": f"flash_gat_{name}", "route": "cuda", "source": src,
+         "replaces": f"{tpu}:{line}", "launches": launches[key],
+         "max_abs_err": stats[key]["err"], "ms": stats[key]["ms"],
+         "plain_ms": stats[key]["plain_ms"]}
+        for name, key, line in (("fwd", "fwd", "97,187"), ("bwd", "bwd", 395),
+                                ("bwd_row", "row", 354), ("bwd_col", "col", 395))] + [
         {"name": "ell_fused_fwd", "route": "cuda", "source": "han_tpu_torch/csrc/ell_fused.cu",
          "replaces": "han_tpu/ops/pallas/ell_fused.py:54", "launches": ell_n,
          "max_abs_err": ell["err"], "ms": ell["ms"], "plain_ms": ell["plain_ms"]},
@@ -218,6 +255,141 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def check_strips(dev, adj) -> dict:
+    """Phase 3c: the flash kernels on rectangles, at dropout 0 and 0.6.
+    DBLP's largest meta-path (with self-loops) cut four ways with 128x128
+    tiles: every shard of partition_bcsr (1,024 local rows x 4,096 global
+    columns, a non-zero row-block offset) and the ring cells (s, 1 + s mod
+    3) of ring_partition_bcsr (t >= 1, so the column-block offset is not
+    0). On each: forward vs plain (out and lse, atol 1e-5, rtol 1e-4); row
+    and column sweeps vs plain, and the split vs the fused backward (atol
+    1e-4, rtol 1e-3); the split run twice, bitwise equal (torch.equal).
+    Returns the largest errors per kernel."""
+    import torch
+
+    from han_tpu_torch.graph.build import with_self_loops
+    from han_tpu_torch.ops import flash_gat as fg
+    from han_tpu_torch.parallel.flash_shard import partition_bcsr
+    from han_tpu_torch.parallel.ring_bcsr import ring_partition_bcsr
+
+    a = with_self_loops(adj)
+    pg = partition_bcsr(a, 4, bm=128, bn=128).to(dev)
+    rg = ring_partition_bcsr(a, 4, bm=128, bn=128).to(dev)
+    strips = [(f"shard {s}", pg.strip(s), dict(row_block_offset=pg.row_block_off[s]))
+              for s in range(4)]
+    strips += [(f"ring cell ({s},{t})", rg.cell(s, t),
+                dict(row_block_offset=s * rg.nb_r_loc,
+                     col_block_offset=rg.cs_of_step[s][t] * rg.nb_c_loc))
+               for s in range(4) for t in (1 + s % 3,)]
+    gen = torch.Generator(dev).manual_seed(2)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    k, d = 8, 8
+    errs = {"fwd": 0.0, "row": 0.0, "col": 0.0, "bwd": 0.0}
+    for label, graph, off in strips:
+        n_rows, n_cols = graph.nb_r * graph.bm, graph.nb_c * graph.bn
+        ld, ls, v, g = rnd(k, n_rows), rnd(k, n_cols), rnd(n_cols, k * d), rnd(n_rows, k * d)
+        print(f"{label}: {n_rows} x {n_cols}, {int(graph.fwd_count.sum())} tiles, "
+              f"offsets {off}", flush=True)
+        for p in (0.0, 0.6):
+            meta = fg.FlashMeta(dropout_p=p, seed=7654321, **off)
+            out, lse = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
+            out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
+            errs["fwd"] = max(errs["fwd"], check(f"p={p} out", out, out_p, 1e-5, 1e-4),
+                              check(f"p={p} lse", lse, lse_p, 1e-5, 1e-4))
+            delta = (g * out).view(n_rows, k, d).sum(-1).T.contiguous()
+            args = (graph, ld, ls, v, g, lse, delta, meta)
+            split = (fg.flash_bwd_row_cuda(*args), *fg.flash_bwd_col_cuda(*args))
+            plain = (fg.flash_bwd_row_plain(*args), *fg.flash_bwd_col_plain(*args))
+            fused = fg.flash_bwd_cuda(*args)
+            again = (fg.flash_bwd_row_cuda(*args), *fg.flash_bwd_col_cuda(*args))
+            torch.cuda.synchronize()
+            for i, name in enumerate(("dld", "dls", "dv")):
+                key = "row" if i == 0 else "col"
+                errs[key] = max(errs[key], check(f"p={p} {name}", split[i], plain[i], 1e-4, 1e-3))
+                errs["bwd"] = max(errs["bwd"], check(f"p={p} {name} split vs fused", split[i],
+                                                     fused[i], 1e-4, 1e-3))
+                if not torch.equal(split[i], again[i]):
+                    fail(f"{label}: the split backward's {name} differs between two runs")
+        print(f"  {label}: split backward bitwise equal over two runs", flush=True)
+    return errs
+
+
+def mesh_train_rank(epochs: int) -> dict:
+    """One rank of phase 4b: the dblp preset through run() with
+    graph_format partitioned_bcsr, then ring_bcsr under deterministic mode;
+    each run's losses, step time, memory and launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from han_tpu_torch.datasets.registry import dblp_synthetic
+    from han_tpu_torch.ops import flash_gat as fg
+    from han_tpu_torch.train.config import preset
+    from han_tpu_torch.train.trainer import run
+
+    counters = {"fwd": "flash_fwd_launches", "bwd": "flash_bwd_launches",
+                "row": "flash_bwd_row_launches", "col": "flash_bwd_col_launches"}
+    ds = dblp_synthetic(seed=0)
+    out = {}
+    for fmt, deterministic in (("partitioned_bcsr", False), ("ring_bcsr", True)):
+        cfg = preset("dblp")
+        cfg.train.epochs = epochs
+        cfg.data.graph_format = fmt
+        cfg.mesh.graph_axis = dist.get_world_size()
+        torch.cuda.reset_peak_memory_stats()
+        for attr in counters.values():
+            setattr(fg, attr, 0)
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            result = run(cfg, ds)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out[fmt] = {"losses": result["epoch_train_loss"], "test_loss": result["test_loss"],
+                    "median_step_ms": statistics.median(result["epoch_step_time_s"][1:]) * 1e3,
+                    "max_memory_allocated": result["max_memory_allocated"],
+                    "launches": {k: getattr(fg, v) for k, v in counters.items()}}
+    return out
+
+
+def train_multi_device(want_losses, epochs: int, n_mp: int) -> dict:
+    """Phase 4b: mesh_train_rank in a world of one NCCL rank per card. Each
+    run's losses must match the one-device run's (rtol 2e-4, atol 2e-5:
+    the dropout keys are global, so the masks replay); the launch counts
+    are exact: per rank and epoch, the forward on every train and eval
+    pass (S steps a pass on the ring), the fused backward on the partitioned
+    run, the split pair and no fused backward on the deterministic ring
+    run. CUBLAS_WORKSPACE_CONFIG, which deterministic mode needs, is set in
+    the ranks only, so the phases in this process keep their numbers."""
+    import numpy as np
+    import torch
+
+    from han_tpu_torch.parallel.launch import spawn
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    res = spawn(mesh_train_rank, world, "nccl", args=(epochs,),
+                env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})[0]
+    print(f"multi-device: {world} NCCL rank(s), two runs in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    passes = n_mp * (2 * epochs + 1)
+    want = {"partitioned_bcsr": {"fwd": passes, "bwd": n_mp * epochs, "row": 0, "col": 0},
+            "ring_bcsr": {"fwd": world * passes, "bwd": 0, "row": world * n_mp * epochs,
+                          "col": world * n_mp * epochs}}
+    for fmt, run in res.items():
+        got = run["losses"]
+        if not np.allclose(got, want_losses, rtol=2e-4, atol=2e-5):
+            fail(f"{fmt}: losses {got} do not match the one-device run {want_losses}")
+        if run["launches"] != want[fmt]:
+            fail(f"{fmt}: launches {run['launches']}, want {want[fmt]}")
+        dev = max(abs(a - b) / abs(b) for a, b in zip(got, want_losses))
+        print(f"{fmt} (graph axis {world}{', deterministic' if fmt == 'ring_bcsr' else ''}): "
+              f"losses {got[0]:.5f} -> {got[-1]:.5f}, largest relative difference from the "
+              f"one-device run {dev:.3e}; launches {run['launches']}; median step "
+              f"{run['median_step_ms']:.3f} ms, max_memory_allocated "
+              f"{run['max_memory_allocated']} B", flush=True)
+    return res
 
 
 def check_small_han(dev) -> None:

@@ -70,19 +70,23 @@ class BCSRGraph:
     bwd_row: torch.Tensor    # int32[nb_c, r_max] row-block id per step
     bwd_tile: torch.Tensor   # int32[nb_c, r_max]
     n_nodes: int
-    n_pad: int
+    n_pad: int  # padded rows (and columns, on a square graph)
     bm: int
     bn: int
     n_edges: int
     n_tiles: int  # true occupied tile count (T_pad >= n_tiles)
 
+    # the block counts come from the maps, so the same container holds a
+    # rectangle: a graph-axis shard's strip (local rows × global columns)
+    # or a ring cell (parallel/); on a square graph they are n_pad / bm
+    # and n_pad / bn
     @property
     def nb_r(self) -> int:
-        return self.n_pad // self.bm
+        return int(self.fwd_count.shape[0])
 
     @property
     def nb_c(self) -> int:
-        return self.n_pad // self.bn
+        return int(self.bwd_count.shape[0])
 
     @property
     def c_max(self) -> int:

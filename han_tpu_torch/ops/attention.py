@@ -18,7 +18,9 @@ One mathematical spec, several executions:
   of a BCSRGraph (ops/flash_gat.py).
 
 A TreeEllGraph (device-sampled block) goes to the gather-only tree
-attention (ops/tree_ell.py) whatever ``impl`` says.
+attention (ops/tree_ell.py), a PartitionedBCSR to the edge-partitioned flash
+backend (parallel/flash_shard.py) and a RingBCSR to the ring backend
+(parallel/ring_bcsr.py), whatever ``impl`` says.
 
 All take features in head-major layout ``fts: (N, K, D)`` and per-head node
 logit terms ``logit_dst, logit_src: (N, K)`` and return ``(N, K, D)``.
@@ -36,6 +38,8 @@ from han_tpu_torch.graph.containers import (MASK_VALUE, CSRGraph, DenseGraph,
 from han_tpu_torch.ops.ell_fused import ell_fused_attention
 from han_tpu_torch.ops.flash_gat import flash_gat_attention
 from han_tpu_torch.ops.tree_ell import tree_ell_attention
+from han_tpu_torch.parallel.flash_shard import PartitionedBCSR, sharded_flash_attention
+from han_tpu_torch.parallel.ring_bcsr import RingBCSR, ring_flash_attention
 
 Impl = Literal["auto", "dense", "ell", "ell_fused", "csr", "flash"]
 
@@ -209,6 +213,20 @@ def attention_aggregate(
         return tree_ell_attention(
             graph, fts, logit_dst, logit_src, slope=slope,
             coef_dropout=coef_dropout, generator=generator)
+    # the partitioned containers are the distribution strategy: the same
+    # model code runs the sharded kernels over the default process group
+    if isinstance(graph, PartitionedBCSR):
+        if return_coefs:
+            raise NotImplementedError("return_coefs unsupported on PartitionedBCSR")
+        return sharded_flash_attention(
+            graph, fts, logit_dst, logit_src, slope=slope,
+            coef_dropout=coef_dropout, generator=seed_generator)
+    if isinstance(graph, RingBCSR):
+        if return_coefs:
+            raise NotImplementedError("return_coefs unsupported on RingBCSR")
+        return ring_flash_attention(
+            graph, fts, logit_dst, logit_src, slope=slope,
+            coef_dropout=coef_dropout, generator=seed_generator)
     if impl == "auto":
         if isinstance(graph, DenseGraph):
             impl = "dense"

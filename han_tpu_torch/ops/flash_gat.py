@@ -12,11 +12,30 @@ The kernels (csrc/flash_gat.cu, whose header says what bounds them on the
 H100 and what their design does about it) replace
 ``han_tpu/ops/pallas/flash_gat.py``:
 
-- ``han_flash_fwd`` ← ``_fwd_kernel_flat`` (with ``_fwd_tile_compute`` and
-  ``_fwd_finalize``);
-- ``han_flash_bwd`` ← ``_bwd_col_kernel`` with ``fuse_dld=True`` (with
-  ``_head_dz``); dld is summed across column blocks with atomicAdd;
+- ``han_flash_fwd`` ← ``_fwd_kernel`` (l.97, the rectangular grid) and
+  ``_fwd_kernel_flat`` (l.187, the flat step list), with
+  ``_fwd_tile_compute`` and ``_fwd_finalize``: one thread block per row
+  block walks that block's occupied tiles;
+- ``han_flash_bwd`` and ``han_flash_bwd_col`` ← ``_bwd_col_kernel`` (with
+  ``_head_dz``), one CUDA kernel templated, like it, on ``fuse_dld``: the
+  fused backward sums dld across column blocks with atomicAdd, the column
+  sweep writes dls and dv only;
+- ``han_flash_bwd_row`` ← ``_bwd_row_kernel`` (dld): with the column sweep,
+  the split backward, which has no atomics;
 - the ``drop_bits`` device function ← ``_tile_drop_keep``.
+
+The row domain (``ld.shape[1]``) and the column domain (``ls.shape[1]``)
+come from the tensors and may differ: a graph-axis shard passes its strip
+of local rows against the global columns, a ring step one cell
+(parallel/flash_shard.py, parallel/ring_bcsr.py); the maps are checked
+against them.
+
+:func:`flash_bwd` takes the fused kernel, or, when
+``torch.are_deterministic_algorithms_enabled()``, the row sweep then the
+column sweep: each output element is summed by one thread block in a fixed
+order, so the split backward is bitwise reproducible. It is han_tpu's
+fallback pair; han_tpu picks it when its resident dld window passes 12 MB
+of VMEM, a v5e limit that is not carried over.
 
 Coefficient dropout is keyed per element on (seed, global row, global
 column, global head) through a murmur3-finalizer hash that exists twice:
@@ -28,7 +47,8 @@ It cannot reproduce the TPU's masks (drawn from the pltpu PRNG per
 
 Every wrapper uses the plain version only for tensors on the CPU. For a
 CUDA tensor it launches the kernel or raises; there is no fallback.
-``flash_fwd_launches`` and ``flash_bwd_launches`` count kernel launches.
+``flash_fwd_launches``, ``flash_bwd_launches``, ``flash_bwd_row_launches``
+and ``flash_bwd_col_launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -45,6 +65,8 @@ from han_tpu_torch.graph.containers import MASK_VALUE
 
 flash_fwd_launches = 0
 flash_bwd_launches = 0
+flash_bwd_row_launches = 0
+flash_bwd_col_launches = 0
 
 KERNEL_HEAD_DIMS = (4, 8, 16)  # the D instantiated in csrc/flash_gat.cu
 
@@ -116,7 +138,9 @@ def _keep_scale(meta: FlashMeta, graph: BCSRGraph, n_rows: int, n_cols: int,
 
 
 def tile_adjacency(graph: BCSRGraph) -> torch.Tensor:
-    """bool (nb_r·bm, nb_c·bn): the occupied tiles expanded to a dense mask."""
+    """bool (nb_r·bm, nb_c·bn): the occupied tiles expanded to a dense mask
+    (nb_r and nb_c from the maps, so a strip or a ring cell gives its own
+    rectangle)."""
     dev = graph.tiles.device
     valid = (torch.arange(graph.c_max, device=dev)[None, :]
              < graph.fwd_count.long()[:, None])
@@ -159,16 +183,14 @@ def flash_fwd_plain(graph: BCSRGraph, ld: torch.Tensor, ls: torch.Tensor,
     return torch.cat(outs, dim=1), torch.stack(lses)
 
 
-def flash_bwd_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
-    """The fused backward's formulas on dense tensors: with
-    c = on_edge·exp(z − lse) and c' = c·keep,
-    dz = (c'·(g·v) − c·delta)·lrelu′ → dld = Σ_j dz, dls = Σ_i dz,
-    dv = c'ᵀ g. Returns dld (K, n_rows), dls (K, n_cols), dv (n_cols, K·D)."""
+def _bwd_terms(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """Per head h, the dense (n_rows, n_cols) terms of han_tpu's ``_head_dz``:
+    with c = on_edge·exp(z − lse) and c' = c·keep, yields (h, dzs, c', g_h)
+    where dzs = (c'·(g·v) − c·delta)·lrelu′."""
     k, n_rows = ld.shape
     n_cols = ls.shape[1]
     d = v.shape[1] // k
     adj = tile_adjacency(graph)
-    dld, dls, dv = [], [], []
     for h in range(k):
         raw = ld[h][:, None] + ls[h][None, :]
         # off-edge exp may overflow to +inf (edgeless rows have lse = -1e9);
@@ -179,11 +201,34 @@ def flash_bwd_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta)
             c_agg = c * _keep_scale(meta, graph, n_rows, n_cols, h, ld.device)
         g_h = g[:, h * d:(h + 1) * d]
         dz = c_agg * (g_h @ v[:, h * d:(h + 1) * d].T) - c * delta[h][:, None]
-        dzs = torch.where(raw >= 0, dz, meta.slope * dz)
+        yield h, torch.where(raw >= 0, dz, meta.slope * dz), c_agg, g_h
+
+
+def flash_bwd_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """The fused backward on dense tensors: dld = Σ_j dz, dls = Σ_i dz,
+    dv = c'ᵀ g (see :func:`_bwd_terms`). Returns dld (K, n_rows), dls
+    (K, n_cols), dv (n_cols, K·D)."""
+    dld, dls, dv = [], [], []
+    for _, dzs, c_agg, g_h in _bwd_terms(graph, ld, ls, v, g, lse, delta, meta):
         dld.append(dzs.sum(dim=1))
         dls.append(dzs.sum(dim=0))
         dv.append(c_agg.T @ g_h)
     return torch.stack(dld), torch.stack(dls), torch.cat(dv, dim=1)
+
+
+def flash_bwd_row_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """The row sweep: dld (K, n_rows) only."""
+    return torch.stack([dzs.sum(dim=1) for _, dzs, _, _ in
+                        _bwd_terms(graph, ld, ls, v, g, lse, delta, meta)])
+
+
+def flash_bwd_col_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """The column sweep: dls (K, n_cols) and dv (n_cols, K·D) only."""
+    dls, dv = [], []
+    for _, dzs, c_agg, g_h in _bwd_terms(graph, ld, ls, v, g, lse, delta, meta):
+        dls.append(dzs.sum(dim=0))
+        dv.append(c_agg.T @ g_h)
+    return torch.stack(dls), torch.cat(dv, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +240,8 @@ _SCALARS = [_I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I, _I, _I, _P]
 _ARGTYPES = {
     "han_flash_fwd": [_P, _P, _P, _P, _I] + [_P] * 5 + _SCALARS,
     "han_flash_bwd": [_P, _P, _P, _P, _I] + [_P] * 9 + _SCALARS,
+    "han_flash_bwd_row": [_P, _P, _P, _P, _I] + [_P] * 7 + _SCALARS,
+    "han_flash_bwd_col": [_P, _P, _P, _P, _I] + [_P] * 8 + _SCALARS,
 }
 
 
@@ -214,18 +261,25 @@ def _lib() -> ctypes.CDLL:
 
 def _check(graph: BCSRGraph, maps: str, floats: dict) -> tuple[int, int, int, int]:
     """Raise on anything the kernels do not take; returns (k, d, n_rows,
-    n_cols). ``maps`` is "fwd" or "bwd"; ``floats`` maps each float
+    n_cols). The row domain is ``ld.shape[1]`` and the column domain
+    ``ls.shape[1]``; both maps' block counts must match them. ``maps`` is
+    "fwd" or "bwd", the map the kernel walks; ``floats`` maps each float
     argument's name to (tensor, expected shape as letters: K heads, R rows,
     C columns, F = K·D flat features)."""
     dev = floats["ld"][0].device
     if dev.type != "cuda":
         raise ValueError(f"the flash kernels take CUDA tensors, got {dev}")
-    k = floats["ld"][0].shape[0]
+    k, n_rows = floats["ld"][0].shape
+    n_cols = floats["ls"][0].shape[1]
     d = floats["v"][0].shape[1] // k
     if d not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
             f"head dim {d} has no kernel instantiation {KERNEL_HEAD_DIMS}")
-    dims = {"K": k, "F": k * d, "R": graph.nb_r * graph.bm, "C": graph.nb_c * graph.bn}
+    if (n_rows != graph.nb_r * graph.bm or n_cols != graph.nb_c * graph.bn):
+        raise ValueError(f"the graph's maps cover {graph.nb_r * graph.bm} rows x "
+                         f"{graph.nb_c * graph.bn} columns, the tensors "
+                         f"{n_rows} x {n_cols}")
+    dims = {"K": k, "F": k * d, "R": n_rows, "C": n_cols}
     for name, (t, shape) in floats.items():
         want = tuple(dims[s] for s in shape)
         if (t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
@@ -240,7 +294,7 @@ def _check(graph: BCSRGraph, maps: str, floats: dict) -> tuple[int, int, int, in
                              f"{dev} (BCSRGraph.to(device))")
     if tuple(graph.tiles.shape[1:]) != (graph.bm, graph.bn) or graph.tiles.data_ptr() % 16:
         raise ValueError("graph.tiles must be (T, bm, bn) and 16-byte aligned")
-    return k, d, dims["R"], dims["C"]
+    return k, d, n_rows, n_cols
 
 
 def _scalars(graph: BCSRGraph, n_rows, n_cols, k, d, meta: FlashMeta, dev):
@@ -276,25 +330,63 @@ def flash_fwd_cuda(graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
     return out, lse
 
 
-def flash_bwd_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
-    """The fused backward kernel; same contract as :func:`flash_bwd_plain`."""
-    global flash_bwd_launches
+def _bwd_col_sweep(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta,
+                   fuse_dld: bool):
+    """Launch the column-sweep kernel: han_flash_bwd (with the atomic dld)
+    or han_flash_bwd_col (dls and dv only). Returns (dld or None, dls, dv)."""
     k, d, n_rows, n_cols = _check(graph, "bwd", {
         "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF"), "g": (g, "RF"),
         "lse": (lse, "KR"), "delta": (delta, "KR")})
-    dld = torch.zeros((k, n_rows), dtype=torch.float32, device=ld.device)
+    dld = (torch.zeros((k, n_rows), dtype=torch.float32, device=ld.device)
+           if fuse_dld else None)
     dls = torch.empty((k, n_cols), dtype=torch.float32, device=ld.device)
     dv = torch.empty((n_cols, k * d), dtype=torch.float32, device=ld.device)
     lib = _lib()
-    rc = lib.han_flash_bwd(
+    name = "han_flash_bwd" if fuse_dld else "han_flash_bwd_col"
+    rc = getattr(lib, name)(
         graph.tiles.data_ptr(), graph.bwd_count.data_ptr(),
         graph.bwd_row.data_ptr(), graph.bwd_tile.data_ptr(), graph.r_max,
         ld.data_ptr(), ls.data_ptr(), v.data_ptr(), g.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dld.data_ptr(), dls.data_ptr(),
-        dv.data_ptr(), *_scalars(graph, n_rows, n_cols, k, d, meta, ld.device))
-    _raise_on(rc, lib, "han_flash_bwd")
-    flash_bwd_launches += 1
+        lse.data_ptr(), delta.data_ptr(),
+        *([dld.data_ptr()] if fuse_dld else []), dls.data_ptr(), dv.data_ptr(),
+        *_scalars(graph, n_rows, n_cols, k, d, meta, ld.device))
+    _raise_on(rc, lib, name)
     return dld, dls, dv
+
+
+def flash_bwd_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """The fused backward kernel; same contract as :func:`flash_bwd_plain`."""
+    global flash_bwd_launches
+    out = _bwd_col_sweep(graph, ld, ls, v, g, lse, delta, meta, fuse_dld=True)
+    flash_bwd_launches += 1
+    return out
+
+
+def flash_bwd_row_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """The row-sweep kernel; same contract as :func:`flash_bwd_row_plain`."""
+    global flash_bwd_row_launches
+    k, d, n_rows, n_cols = _check(graph, "fwd", {
+        "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF"), "g": (g, "RF"),
+        "lse": (lse, "KR"), "delta": (delta, "KR")})
+    dld = torch.empty((k, n_rows), dtype=torch.float32, device=ld.device)
+    lib = _lib()
+    rc = lib.han_flash_bwd_row(
+        graph.tiles.data_ptr(), graph.fwd_count.data_ptr(),
+        graph.fwd_col.data_ptr(), graph.fwd_tile.data_ptr(), graph.c_max,
+        ld.data_ptr(), ls.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dld.data_ptr(),
+        *_scalars(graph, n_rows, n_cols, k, d, meta, ld.device))
+    _raise_on(rc, lib, "han_flash_bwd_row")
+    flash_bwd_row_launches += 1
+    return dld
+
+
+def flash_bwd_col_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """The column-sweep kernel; same contract as :func:`flash_bwd_col_plain`."""
+    global flash_bwd_col_launches
+    _, dls, dv = _bwd_col_sweep(graph, ld, ls, v, g, lse, delta, meta, fuse_dld=False)
+    flash_bwd_col_launches += 1
+    return dls, dv
 
 
 def flash_fwd(graph, ld, ls, v, meta: FlashMeta):
@@ -303,14 +395,34 @@ def flash_fwd(graph, ld, ls, v, meta: FlashMeta):
     return flash_fwd_cuda(graph, ld, ls, v, meta)
 
 
+def flash_bwd_row(graph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    if ld.device.type == "cpu":
+        return flash_bwd_row_plain(graph, ld, ls, v, g, lse, delta, meta)
+    return flash_bwd_row_cuda(graph, ld, ls, v, g, lse, delta, meta)
+
+
+def flash_bwd_col(graph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    if ld.device.type == "cpu":
+        return flash_bwd_col_plain(graph, ld, ls, v, g, lse, delta, meta)
+    return flash_bwd_col_cuda(graph, ld, ls, v, g, lse, delta, meta)
+
+
 def flash_bwd(graph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """(dld, dls, dv): the fused backward, or under
+    ``torch.use_deterministic_algorithms(True)`` the split backward (row
+    sweep, then column sweep), which sums without atomics. The same rule
+    holds for CPU tensors, with the plain versions."""
+    if torch.are_deterministic_algorithms_enabled():
+        dld = flash_bwd_row(graph, ld, ls, v, g, lse, delta, meta)
+        return (dld, *flash_bwd_col(graph, ld, ls, v, g, lse, delta, meta))
     if ld.device.type == "cpu":
         return flash_bwd_plain(graph, ld, ls, v, g, lse, delta, meta)
     return flash_bwd_cuda(graph, ld, ls, v, g, lse, delta, meta)
 
 
 class _FlashGAT(torch.autograd.Function):
-    """(ld, ls, v) → out, with the fused backward (kernel or plain)."""
+    """(ld, ls, v) → out; the backward is :func:`flash_bwd` (fused, or split
+    under deterministic mode; kernels or plain versions)."""
 
     @staticmethod
     def forward(ctx, ld, ls, v, graph, meta):
@@ -328,6 +440,33 @@ class _FlashGAT(torch.autograd.Function):
         delta = (g * out).view(g.shape[0], ld.shape[0], -1).sum(-1).T.contiguous()
         dld, dls, dv = flash_bwd(ctx.graph, ld, ls, v, g, lse, delta, ctx.meta)
         return dld, dls, dv, None, None
+
+
+def check_args(slope: float, coef_dropout: float,
+               generator: torch.Generator | None, fts: torch.Tensor) -> None:
+    """The argument checks every flash entry point shares."""
+    if not 0.0 <= coef_dropout < 1.0:
+        raise ValueError(f"coef_dropout must be in [0, 1), got {coef_dropout}")
+    if coef_dropout > 0.0 and generator is None:
+        raise ValueError("coef_dropout > 0 requires a generator")
+    if not 0.0 <= slope <= 1.0:
+        # the kernels compute leaky_relu as max(x, slope*x)
+        raise ValueError(f"slope must be in [0, 1], got {slope}")
+    if fts.dtype != torch.float32:
+        raise NotImplementedError(
+            f"flash takes float32 features, got {fts.dtype} (bf16 is not ported yet)")
+
+
+def draw_seed(coef_dropout: float, generator: torch.Generator | None) -> int:
+    """The kernels' dropout seed, drawn from a CPU generator (no device sync
+    per call); 0 when dropout is off. Every shard of a partitioned run
+    draws the same seed from the same generator state."""
+    if coef_dropout <= 0.0:
+        return 0
+    if generator.device.type != "cpu":
+        raise ValueError("the dropout seed generator must be a CPU "
+                         "torch.Generator (no device sync per call)")
+    return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
 
 
 def flash_gat_attention(
@@ -349,32 +488,18 @@ def flash_gat_attention(
     backward replays the forward's mask; no mask is materialized on the
     kernel path. Returns (N, K, D) float32.
     """
-    if not 0.0 <= coef_dropout < 1.0:
-        raise ValueError(f"coef_dropout must be in [0, 1), got {coef_dropout}")
-    if coef_dropout > 0.0 and generator is None:
-        raise ValueError("coef_dropout > 0 requires a generator")
-    if not 0.0 <= slope <= 1.0:
-        # the kernels compute leaky_relu as max(x, slope*x)
-        raise ValueError(f"slope must be in [0, 1], got {slope}")
+    check_args(slope, coef_dropout, generator, fts)
     if not isinstance(graph, BCSRGraph):
         raise TypeError("flash impl needs a BCSRGraph (graph/bcsr.py builders; "
                         "graph_format='bcsr' in the trainer)")
-    if fts.dtype != torch.float32:
-        raise NotImplementedError(
-            f"flash takes float32 features, got {fts.dtype} (bf16 is not ported yet)")
     n, k, d = fts.shape
     pad = graph.n_pad - n
     v = F.pad(fts.reshape(n, k * d), (0, 0, 0, pad))
     ld = F.pad(logit_dst.to(torch.float32).T, (0, pad))
     ls = F.pad(logit_src.to(torch.float32).T, (0, pad))
-    seed = 0
-    if coef_dropout > 0.0:
-        if generator.device.type != "cpu":
-            raise ValueError("the dropout seed generator must be a CPU "
-                             "torch.Generator (no device sync per call)")
-        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
     meta = FlashMeta(slope=float(slope), dropout_p=float(coef_dropout),
-                     seed=seed, row_block_offset=int(row_block_offset),
+                     seed=draw_seed(coef_dropout, generator),
+                     row_block_offset=int(row_block_offset),
                      head_offset=int(head_offset))
     out = _FlashGAT.apply(ld, ls, v, graph, meta)
     return out[:n].view(n, k, d)

@@ -1,0 +1,199 @@
+"""Edge-partitioned flash-GAT over the graph axis (port of
+han_tpu/parallel/flash_shard.py).
+
+Destination rows are split into contiguous row-block-aligned strips, one
+per rank. Each rank owns its rows' incoming edge tiles as a BCSR strip
+(rows local, columns global) and sweeps them with the same CUDA flash
+kernels as one device (ops/flash_gat.py), at ``row_block_offset`` = its
+first global row block, so the dropout keys, and the masks, are those of a
+one-device run.
+
+Source features and logit_src are replicated: the model outside attention
+runs replicated on every rank. The collectives (parallel/mesh.py) are
+those ``shard_map``'s AD gives han_tpu:
+
+- forward: rank s slices its strip's logit_dst through ``perm``, runs the
+  strip, all-gathers the strips and reorders them by ``perm``;
+- backward: each rank's strip gives dld for its rows (all-gathered) and
+  partial dls and dv over all columns (all-reduced), so every rank returns
+  the same full gradients and the replicated parameters stay equal with no
+  data-parallel pass.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from han_tpu_torch.graph.bcsr import DEF_BM, DEF_BN, BCSRGraph, build_tile_arrays, pick_tiles
+from han_tpu_torch.graph.containers import _to
+from han_tpu_torch.ops import flash_gat as fg
+from han_tpu_torch.parallel.mesh import (Mesh, gather_rows, local_rows,
+                                         make_mesh, sum_grads)
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedBCSR:
+    """Per-shard BCSR row strips with common shapes.
+
+    tiles:     int8[S, T_max, bm, bn]: shard-local occupied tiles
+    fwd_*:     per-shard forward map over its nb_r_loc local row blocks
+    bwd_*:     per-shard backward map over the nb_c GLOBAL column blocks
+    row_block_off: each shard's first global row block (host ints)
+    perm:      int64[n_nodes]: global row → padded slot (s·n_loc + local)
+    mesh:      the mesh attention runs on (set by the trainer); None: every
+               rank of the default process group
+    """
+
+    tiles: torch.Tensor
+    fwd_count: torch.Tensor
+    fwd_col: torch.Tensor
+    fwd_tile: torch.Tensor
+    bwd_count: torch.Tensor
+    bwd_row: torch.Tensor
+    bwd_tile: torch.Tensor
+    row_block_off: tuple[int, ...]
+    perm: torch.Tensor
+    n_nodes: int
+    n_pad: int   # global column padding (multiple of bm and bn)
+    n_loc: int   # rows per shard (multiple of bm)
+    bm: int
+    bn: int
+    n_edges: int
+    n_shards: int
+    mesh: Mesh | None = None
+
+    def strip(self, s: int) -> BCSRGraph:
+        """Shard s as a BCSRGraph over n_loc rows × n_pad columns (views of
+        the stacked tensors; edge counts per shard are not kept)."""
+        return BCSRGraph(
+            tiles=self.tiles[s], fwd_count=self.fwd_count[s],
+            fwd_col=self.fwd_col[s], fwd_tile=self.fwd_tile[s],
+            bwd_count=self.bwd_count[s], bwd_row=self.bwd_row[s],
+            bwd_tile=self.bwd_tile[s], n_nodes=self.n_loc, n_pad=self.n_loc,
+            bm=self.bm, bn=self.bn, n_edges=0, n_tiles=int(self.tiles.shape[1]))
+
+    def to(self, device) -> "PartitionedBCSR":
+        return _to(self, device)
+
+
+def partition_bcsr(adj, n_shards: int, *, bm: int = DEF_BM, bn: int = DEF_BN,
+                   balance_edges: bool = True) -> PartitionedBCSR:
+    """Host-side partitioner: scipy adjacency → S row-strip BCSR shards
+    (numpy copy of han_tpu's, with the port's tile rules).
+
+    Strip boundaries are chosen on row-block (bm) granularity, balancing
+    edge counts across shards, and every shard's row blocks keep their
+    GLOBAL block indices via row_block_off: the one-device tile grid is
+    partitioned, never re-tiled.
+    """
+    m = adj.tocoo().astype(bool)
+    m.sum_duplicates()
+    rows = np.asarray(m.row, np.int64)
+    cols = np.asarray(m.col, np.int64)
+    n = m.shape[0]
+    nnz = int(rows.shape[0])
+
+    bm, bn, n_pad = pick_tiles(n, bm, bn)
+    nb_r = n_pad // bm
+    nb_c = n_pad // bn
+
+    # edge-balanced boundaries in row-block units
+    blk_edges = np.bincount(rows // bm, minlength=nb_r).astype(np.int64)
+    cum = np.concatenate([[0], np.cumsum(blk_edges)])
+    if balance_edges and nnz > 0:
+        targets = (np.arange(1, n_shards) * nnz) / n_shards
+        bounds = np.searchsorted(cum, targets, side="left")
+    else:
+        per = -(-nb_r // n_shards)
+        bounds = np.minimum(np.arange(1, n_shards) * per, nb_r)
+    starts = np.concatenate([[0], np.clip(bounds, 0, nb_r), [nb_r]])
+    starts = np.maximum.accumulate(starts)
+
+    nb_r_loc = int(max((starts[1:] - starts[:-1]).max(), 1))
+    n_loc = nb_r_loc * bm
+
+    order = np.argsort(rows, kind="stable")
+    rows_s, cols_s = rows[order], cols[order]
+    row_bounds = np.searchsorted(rows_s, starts * bm)
+
+    parts = []
+    for s in range(n_shards):
+        lo, hi = row_bounds[s], row_bounds[s + 1]
+        local_rows_ = rows_s[lo:hi] - starts[s] * bm
+        parts.append(build_tile_arrays(local_rows_, cols_s[lo:hi],
+                                       nb_r_loc, nb_c, bm, bn))
+
+    t_max = max(max(p[0].shape[0] for p in parts), 1)
+    c_max = max(p[2].shape[1] for p in parts)
+    r_max = max(p[5].shape[1] for p in parts)
+
+    def pad_tiles(t):
+        return np.pad(t, ((0, t_max - t.shape[0]), (0, 0), (0, 0)))
+
+    def pad_map(a, w):
+        # repeat the last column (the map padding convention) out to width w
+        return np.concatenate(
+            [a] + [a[:, -1:]] * (w - a.shape[1]), axis=1) if a.shape[1] < w else a
+
+    perm = np.zeros(n, np.int64)
+    for s in range(n_shards):
+        r0 = int(starts[s]) * bm
+        r1 = min(int(starts[s + 1]) * bm, n)
+        if r1 > r0:
+            perm[r0:r1] = s * n_loc + np.arange(r1 - r0, dtype=np.int64)
+
+    t = torch.from_numpy
+    return PartitionedBCSR(
+        tiles=t(np.stack([pad_tiles(p[0]) for p in parts])),
+        fwd_count=t(np.stack([p[1] for p in parts])),
+        fwd_col=t(np.stack([pad_map(p[2], c_max) for p in parts])),
+        fwd_tile=t(np.stack([pad_map(p[3], c_max) for p in parts])),
+        bwd_count=t(np.stack([p[4] for p in parts])),
+        bwd_row=t(np.stack([pad_map(p[5], r_max) for p in parts])),
+        bwd_tile=t(np.stack([pad_map(p[6], r_max) for p in parts])),
+        row_block_off=tuple(int(x) for x in starts[:-1]),
+        perm=t(perm),
+        n_nodes=n, n_pad=n_pad, n_loc=n_loc, bm=bm, bn=bn,
+        n_edges=nnz, n_shards=n_shards,
+    )
+
+
+def sharded_flash_attention(
+    graph: PartitionedBCSR,
+    fts: torch.Tensor,        # (N, K, D), replicated
+    logit_dst: torch.Tensor,  # (N, K), replicated
+    logit_src: torch.Tensor,  # (N, K), replicated
+    *,
+    mesh: Mesh | None = None,
+    slope: float = 0.2,
+    coef_dropout: float = 0.0,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Distributed sibling of flash_gat_attention: the same math and
+    kernels, one row strip per rank; global tensors in, global (N, K, D)
+    out on every rank. ``mesh`` defaults to ``graph.mesh``, else every rank
+    of the default process group; ``generator`` (CPU) draws the dropout
+    seed, the same on every rank."""
+    fg.check_args(slope, coef_dropout, generator, fts)
+    mesh = mesh or graph.mesh or make_mesh(device=fts.device)
+    if graph.n_shards != mesh.size:
+        raise ValueError(f"the graph has {graph.n_shards} shards, the mesh "
+                         f"{mesh.size} ranks")
+    n, k, d = fts.shape
+    s = mesh.rank
+    fts = sum_grads(fts, mesh)
+    logit_src = sum_grads(logit_src, mesh)
+    v = F.pad(fts.reshape(n, k * d), (0, 0, 0, graph.n_pad - n))
+    ls = F.pad(logit_src.to(torch.float32).T, (0, graph.n_pad - n)).contiguous()
+    ld_all = logit_dst.new_zeros((graph.n_shards * graph.n_loc, k)).index_copy(
+        0, graph.perm, logit_dst.to(torch.float32))
+    ld = local_rows(ld_all, mesh).T.contiguous()  # (k, n_loc)
+    meta = fg.FlashMeta(slope=float(slope), dropout_p=float(coef_dropout),
+                        seed=fg.draw_seed(coef_dropout, generator),
+                        row_block_offset=graph.row_block_off[s])
+    out = fg._FlashGAT.apply(ld, ls, v, graph.strip(s), meta)  # (n_loc, k·d)
+    return gather_rows(out, mesh).index_select(0, graph.perm).view(n, k, d)

@@ -1,9 +1,10 @@
 """Typed configuration (copy of han_tpu/train/config.py) with per-dataset
 presets reproducing the reference hyperparameters (ex_acm3025.py:16-31).
 
-Differences from han_tpu: no TPU scoped-VMEM budget, and the ``dblp``
-preset also answers to ``dblp_synthetic`` (the DBLP-shaped planted dataset,
-datasets/registry.py), as ``acm`` does to ``acm_synthetic``.
+Differences from han_tpu: no TPU scoped-VMEM budget; the ``dblp`` preset
+also answers to ``dblp_synthetic`` (the DBLP-shaped planted dataset,
+datasets/registry.py), as ``acm`` does to ``acm_synthetic``; and the mesh
+has the graph axis only (one process per device, train/trainer.py).
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ class DataConfig:
     dataset: str = "acm"
     featype: str = "fea"  # 'fea' | 'adj' (ex_acm3025.py:92-93)
     edge_pad_to: int = 128
-    graph_format: str = "dense"  # dense | csr | bcsr
+    # dense | csr | bcsr; on a mesh (or as a 1-shard partition):
+    # partitioned_bcsr (= bcsr with graph_axis > 1) | ring_bcsr
+    graph_format: str = "dense"
     tile_bm: int = 0  # BCSR tile height (0 = graph/bcsr.py default)
     tile_bn: int = 0  # BCSR tile width  (0 = default)
 
@@ -55,7 +58,9 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class MeshConfig:
-    """Device mesh axes: graph × heads × mp (only 1×1×1 is ported)."""
+    """Device mesh axes: graph × heads × mp. The graph axis is the world
+    size of the process group (torchrun); heads and mp stay 1 (not
+    ported)."""
 
     graph_axis: int = 1
     head_axis: int = 1

@@ -14,8 +14,20 @@ reference early-stopping policy (ex_acm3025.py:225-240):
   parameters and evaluate on the test nodes.
 
 ``run()`` routes ``cfg.train.sampled`` to the sampled mini-batch trainer
-(train/sampled.py). Not ported yet: checkpoint/resume, KNN/KMeans
-embedding evaluation, the inductive trainer and the multi-device paths.
+(train/sampled.py).
+
+Graph-axis multi-device training (``cfg.mesh.graph_axis`` = S = the world
+size of the process group, one process per device): the graphs are
+partitioned (``partitioned_bcsr`` or ``bcsr`` → parallel/flash_shard.py,
+``ring_bcsr`` → parallel/ring_bcsr.py) and attention runs sharded; every
+rank builds the same model from ``cfg.train.seed``, draws the same dropout
+streams and runs the model outside attention replicated, so the
+collectives inside attention leave every rank with the same gradients and
+parameters. Only rank 0 logs. Both partitioned formats are also accepted
+at S = 1 (a 1-shard partition, with or without a process group). Not
+ported yet: checkpoint/resume, KNN/KMeans embedding evaluation, the
+inductive trainer, the heads and mp mesh axes, the csr/ring (segment-op)
+partitions and data-parallel sampled training.
 """
 
 from __future__ import annotations
@@ -32,21 +44,54 @@ import torch
 from torch import nn
 
 from han_tpu_torch.datasets.registry import load_dataset
-from han_tpu_torch.graph.build import metapath_to_bcsr, metapath_to_csr, metapath_to_dense
+from han_tpu_torch.graph.bcsr import DEF_BM, DEF_BN
+from han_tpu_torch.graph.build import (metapath_to_bcsr, metapath_to_csr,
+                                       metapath_to_dense, with_self_loops)
 from han_tpu_torch.graph.synthetic import HeteroDataset
 from han_tpu_torch.nn.layers import DropoutGenerators
 from han_tpu_torch.nn.losses import (l2_regularizer, masked_accuracy,
                                      masked_softmax_cross_entropy)
 from han_tpu_torch.nn.models import HAN
+from han_tpu_torch.parallel.flash_shard import partition_bcsr
+from han_tpu_torch.parallel.mesh import Mesh, make_mesh
+from han_tpu_torch.parallel.ring_bcsr import ring_partition_bcsr
 from han_tpu_torch.train.config import Config
 
+PARTITIONED_FORMATS = ("partitioned_bcsr", "ring_bcsr")
 
-def build_graphs(ds: HeteroDataset, cfg: Config, device: torch.device | str = "cpu"):
-    """One graph container per meta-path, with self-loops, on ``device``."""
-    if cfg.mesh.graph_axis * cfg.mesh.head_axis * cfg.mesh.mp_axis > 1:
-        raise NotImplementedError("multi-device meshes are not ported yet")
+
+def on_mesh(cfg: Config) -> bool:
+    """Whether the run partitions its graphs over the graph axis."""
+    return cfg.mesh.graph_axis > 1 or cfg.data.graph_format in PARTITIONED_FORMATS
+
+
+def build_graphs(ds: HeteroDataset, cfg: Config, device: torch.device | str = "cpu",
+                 mesh: Mesh | None = None):
+    """One graph container per meta-path, with self-loops, on ``device``; on
+    a mesh, a partition of it into ``cfg.mesh.graph_axis`` shards that
+    carries ``mesh`` to attention."""
+    if cfg.mesh.head_axis > 1 or cfg.mesh.mp_axis > 1:
+        raise NotImplementedError("the heads and mp mesh axes are not ported "
+                                  "(graph axis only)")
     fmt = cfg.data.graph_format
-    if fmt == "dense":
+    if on_mesh(cfg):
+        shards = cfg.mesh.graph_axis
+        bm, bn = cfg.data.tile_bm or DEF_BM, cfg.data.tile_bn or DEF_BN
+        if fmt in ("bcsr", "partitioned_bcsr"):
+            part = partition_bcsr
+        elif fmt == "ring_bcsr":
+            part = ring_partition_bcsr
+        elif fmt in ("csr", "partitioned", "ring"):
+            raise NotImplementedError(
+                f"graph_format {fmt!r} on a mesh (edge_partition/shard_attn, "
+                "ring_attn) is not ported yet (partitioned_bcsr | ring_bcsr)")
+        else:
+            raise ValueError(f"graph_format {fmt!r} has no partitioned variant "
+                             "(partitioned_bcsr | ring_bcsr)")
+        graphs = [dataclasses.replace(
+            part(with_self_loops(a), shards, bm=bm, bn=bn), mesh=mesh)
+            for a in ds.metapath_adjs]
+    elif fmt == "dense":
         graphs = [metapath_to_dense(a) for a in ds.metapath_adjs]
     elif fmt == "csr":
         graphs = [metapath_to_csr(a, edge_pad_to=cfg.data.edge_pad_to)
@@ -57,7 +102,7 @@ def build_graphs(ds: HeteroDataset, cfg: Config, device: torch.device | str = "c
                   for a in ds.metapath_adjs]
     else:
         raise ValueError(f"graph_format {fmt!r} is not ported "
-                         "(dense | csr | bcsr)")
+                         "(dense | csr | bcsr | partitioned_bcsr | ring_bcsr)")
     return [g.to(device) for g in graphs]
 
 
@@ -118,7 +163,8 @@ class MetricLogger:
 
 
 class Trainer:
-    """Full-graph HAN training on one device (CUDA when available)."""
+    """Full-graph HAN training on one device (CUDA when available), or on
+    this rank's device of a graph-axis mesh."""
 
     def __init__(self, ds: HeteroDataset, cfg: Config, *,
                  device: torch.device | str | None = None,
@@ -131,8 +177,16 @@ class Trainer:
         self.cfg = cfg
         self.device = torch.device(
             device or ("cuda" if torch.cuda.is_available() else "cpu"))
-        self.logger = logger or MetricLogger(cfg.train.log_file)
-        self.graphs = build_graphs(ds, cfg, self.device)
+        self.mesh = None
+        if on_mesh(cfg):
+            # raises unless graph_axis is the world size and the device
+            # matches the backend
+            self.mesh = make_mesh(graph=cfg.mesh.graph_axis, device=self.device)
+            self.device = self.mesh.device
+        coordinator = self.mesh is None or self.mesh.rank == 0
+        self.logger = logger or MetricLogger(
+            cfg.train.log_file if coordinator else "", echo=coordinator)
+        self.graphs = build_graphs(ds, cfg, self.device, mesh=self.mesh)
         self.model = build_model(
             ds, cfg, generator=torch.Generator().manual_seed(cfg.train.seed)
         ).to(self.device)
@@ -244,7 +298,7 @@ def run(cfg: Config, ds: HeteroDataset | None = None, *,
 
         if cfg.model.impl not in ("auto", "ell", "ell_fused"):
             cfg.model.impl = "auto"
-        if cfg.mesh.graph_axis > 1:
+        if on_mesh(cfg):
             raise NotImplementedError(
                 "data-parallel sampled training (DPSampledTrainer) is not ported yet")
         return SampledTrainer(ds, cfg, batch_size=cfg.train.batch_size,

@@ -1,12 +1,16 @@
-"""Train HAN with han_tpu_torch on one device (CUDA when available) — the
-PyTorch counterpart of scripts/train.py.
+"""Train HAN with han_tpu_torch on one device (CUDA when available), or on a
+graph-axis mesh of one process per device — the PyTorch counterpart of
+scripts/train.py.
 
     python3 scripts/train_torch.py --dataset dblp_synthetic
     python3 scripts/train_torch.py --dataset dblp_synthetic --set train.epochs=10
     python3 scripts/train_torch.py --dataset acm_synthetic --set data.graph_format=csr --set model.impl=csr
+    torchrun --nproc-per-node 4 scripts/train_torch.py --dataset dblp_synthetic \
+        --set mesh.graph_axis=4 --set data.graph_format=ring_bcsr
 
 Prints per-epoch metrics (train/val loss and accuracy, mean semantic
-attention, step time) and the final test metrics.
+attention, step time) and the final test metrics; under torchrun only rank
+0 prints.
 """
 
 import pathlib
@@ -16,11 +20,19 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
 def main(argv=None):
+    from han_tpu_torch.parallel import launch
     from han_tpu_torch.train import trainer
     from han_tpu_torch.train.config import parse_cli
 
-    result = trainer.run(parse_cli(argv))
-    print({k: v for k, v in result.items() if not k.startswith("epoch_")})
+    cfg = parse_cli(argv)
+    launch.init_distributed()  # no-op unless started by torchrun
+    try:
+        result = trainer.run(cfg)
+    finally:
+        coordinator = launch.is_coordinator()
+        launch.shutdown()
+    if coordinator:
+        print({k: v for k, v in result.items() if not k.startswith("epoch_")})
     return result
 
 

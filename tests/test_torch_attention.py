@@ -183,9 +183,11 @@ def test_flash_wrapper_rejects_and_never_falls_back():
     n = graph.n_pad
     with pytest.raises(ValueError, match="CUDA"):
         tfg.flash_fwd(graph, meta_dev(2, n), meta_dev(2, n), meta_dev(n, 16), tfg.FlashMeta())
-    with pytest.raises(ValueError, match="CUDA"):
-        tfg.flash_bwd(graph, meta_dev(2, n), meta_dev(2, n), meta_dev(n, 16),
-                      meta_dev(n, 16), meta_dev(2, n), meta_dev(2, n), tfg.FlashMeta())
+    bwd_args = (meta_dev(2, n), meta_dev(2, n), meta_dev(n, 16), meta_dev(n, 16),
+                meta_dev(2, n), meta_dev(2, n), tfg.FlashMeta())
+    for bwd in (tfg.flash_bwd, tfg.flash_bwd_row, tfg.flash_bwd_col):
+        with pytest.raises(ValueError, match="CUDA"):
+            bwd(graph, *bwd_args)
     fts_t, ld_t, ls_t = (torch.from_numpy(x) for x in (fts, ld, ls))
     with pytest.raises(NotImplementedError, match="float32"):
         tfg.flash_gat_attention(graph, fts_t.bfloat16(), ld_t, ls_t)

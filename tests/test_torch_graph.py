@@ -110,8 +110,9 @@ def test_pick_tiles_rules():
 
 
 def test_port_imports_no_jax():
-    """The port (every module, the sampled path's included), its entry
-    scripts and the chip smoke test load neither jax nor han_tpu."""
+    """The port (every module, the sampled path's and the multi-device
+    ones included), its entry scripts and the chip smoke test load neither
+    jax nor han_tpu."""
     code = (
         "import importlib, pathlib, pkgutil, runpy, sys\n"
         "import han_tpu_torch\n"
@@ -120,7 +121,11 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "runpy.run_path('scripts/train_torch.py', run_name='not_main')\n"
         "runpy.run_path('scripts/bench_scale_torch.py', run_name='not_main')\n"
+        "runpy.run_path('scripts/prof_mesh_torch.py', run_name='not_main')\n"
         "import han_tpu_torch.train.sampled, han_tpu_torch.native\n"
+        "import han_tpu_torch.parallel.mesh, han_tpu_torch.parallel.launch\n"
+        "import han_tpu_torch.parallel.flash_shard, han_tpu_torch.parallel.ring_bcsr\n"
+        "import han_tpu_torch.parallel.dryrun\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'han_tpu.'))"
         " or m == 'han_tpu']\n"
         "assert not bad, bad\n")

@@ -1,0 +1,426 @@
+"""han_tpu_torch's graph-axis multi-device backends against han_tpu.
+
+- The strip kernels' plain versions against JAX's ``_flash_fwd`` (the
+  ``_fwd_kernel`` grid) and ``_flash_bwd``'s split branch, called directly
+  on one shard of ``partition_bcsr`` and one ring cell with non-zero meta
+  offsets (dropout 0: the two packages' masks differ by design).
+- Sharded and ring attention in gloo worlds of 2 and 4 ranks against JAX's
+  one-device ``flash_gat_attention`` (forward, gradients), with dropout
+  against the port's own one-device run; HAN logits with converted flax
+  weights against JAX under ``make_mesh(graph=4)``; ``Trainer`` on both
+  formats against the one-device loss trajectory, with the parameters
+  equal across ranks; the dry run. One world is spawned per size and runs
+  all its checks (tests/torch_parallel_ranks.py); the tests read its
+  results.
+- The deterministic dispatch of ``flash_bwd`` to the split backward, the
+  1-shard partitions on one process, the mesh's refusals, and the numpy
+  partitioners against han_tpu's.
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+import torch_parallel_ranks as ranks  # noqa: E402
+from han_tpu.graph.bcsr import bcsr_from_scipy as j_bcsr  # noqa: E402
+from han_tpu.graph.build import with_self_loops as j_self_loops  # noqa: E402
+from han_tpu.graph.synthetic import planted_hetero as j_planted  # noqa: E402
+from han_tpu.nn.models import HAN as JHAN  # noqa: E402
+from han_tpu.ops.pallas import flash_gat as jfg  # noqa: E402
+from han_tpu.parallel import flash_shard as jshard  # noqa: E402
+from han_tpu.parallel import ring_bcsr as jring  # noqa: E402
+from han_tpu.parallel.mesh import make_mesh as j_make_mesh  # noqa: E402
+from han_tpu_torch.graph.bcsr import bcsr_from_scipy as t_bcsr  # noqa: E402
+from han_tpu_torch.nn.convert import params_from_flax  # noqa: E402
+from han_tpu_torch.ops import flash_gat as tfg  # noqa: E402
+from han_tpu_torch.parallel import flash_shard as tshard  # noqa: E402
+from han_tpu_torch.parallel import launch  # noqa: E402
+from han_tpu_torch.parallel import ring_bcsr as tring  # noqa: E402
+from han_tpu_torch.parallel.mesh import make_mesh  # noqa: E402
+from han_tpu_torch.train import trainer as ttrainer  # noqa: E402
+
+EMPTY_ROW = 5
+TRAIN_EPOCHS = 4
+
+
+def make_case(n=400, k=4, d=8, seed=3, density=0.03, bm=128, bn=128):
+    """tests/test_flash_shard.py's case (skewed rows, an edgeless row), in
+    numpy, plus loss weights w."""
+    rng = np.random.default_rng(seed)
+    p_row = 0.5 * density + density * (np.arange(n) < n // 8) * 8
+    a = (rng.random((n, n)) < p_row[:, None]).astype(np.float32)
+    np.fill_diagonal(a, 1.0)
+    a[EMPTY_ROW, :] = 0.0
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return dict(adj=sp.csr_matrix(a), fts=f32(n, k, d), ld=f32(n, k), ls=f32(n, k),
+                w=f32(n, k, d), bm=bm, bn=bn)
+
+
+def assert_all_close(got, want, atol, rtol=0.0):
+    for name, g, w in zip(("out", "d_fts", "d_logit_dst", "d_logit_src"), got, want):
+        np.testing.assert_allclose(g, w, atol=atol, rtol=rtol, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def case():
+    return make_case()
+
+
+@pytest.fixture(scope="module")
+def jax_ref(case):
+    """JAX's one-device flash (Pallas in interpret mode): out and the
+    gradients of sum(out·w)."""
+    g = j_bcsr(case["adj"], bm=case["bm"], bn=case["bn"])
+    fn = lambda *x: jfg.flash_gat_attention(g, *x, interpret=True)
+    args = tuple(jnp.asarray(case[x]) for x in ("fts", "ld", "ls"))
+    grads = jax.grad(lambda *x: jnp.sum(fn(*x) * case["w"]), argnums=(0, 1, 2))(*args)
+    return [np.asarray(fn(*args))] + [np.asarray(x) for x in grads]
+
+
+@pytest.fixture(scope="module")
+def han_case():
+    """A small HAN, flax weights from init under make_mesh(graph=4), and
+    JAX's logits on both partitioned formats (dropout off)."""
+    ds = j_planted(n_nodes=256, n_feats=16, n_classes=3, n_metapaths=2,
+                   avg_degree=6.0, train_per_class=10, n_val=20, seed=2)
+    adjs = [j_self_loops(a) for a in ds.metapath_adjs]
+    graphs = {"sharded": [jshard.partition_bcsr(a, 4, bm=64, bn=128) for a in adjs],
+              "ring": [jring.ring_partition_bcsr(a, 4, bm=64, bn=128) for a in adjs]}
+    model = JHAN(n_classes=3, hid_units=(8,), n_heads=(4, 1))
+    x = jnp.asarray(ds.features)
+    logits = {}
+    with jax.set_mesh(j_make_mesh(graph=4, heads=1)):
+        params = model.init(jax.random.PRNGKey(0), graphs["sharded"], [x, x])
+        apply = jax.jit(lambda p, gs: model.apply(p, gs, [x, x], deterministic=True)[0])
+        for name, gs in graphs.items():
+            logits[name] = np.asarray(apply(params, gs))
+    state = {k: v.numpy() for k, v in params_from_flax(params).items()}
+    return {"logits": logits, "ranks": dict(features=ds.features, adjs=adjs, n_classes=3,
+                                            bm=64, bn=128, state=state)}
+
+
+@pytest.fixture(scope="module")
+def world2(case):
+    return launch.spawn(ranks.world_checks, 2, "gloo", args=(case, None, 0))
+
+
+@pytest.fixture(scope="module")
+def world4(case, han_case):
+    return launch.spawn(ranks.world_checks, 4, "gloo",
+                        args=(case, han_case["ranks"], TRAIN_EPOCHS))
+
+
+# ---------------------------------------------------------------------------
+# strip kernels (plain versions) against JAX's rectangular grid
+# ---------------------------------------------------------------------------
+
+
+def strip_setup(part, seed=0):
+    """One strip of the 4-way partitions of make_case's graph, in both
+    packages: (port BCSRGraph, JAX maps and tiles, meta offsets, n_rows,
+    n_cols). 'shard' is partition_bcsr's shard 2, 'ring_cell' ring
+    shard 1 at step 2 (column strip 3): both with non-zero offsets."""
+    adj = make_case(seed=seed)["adj"]
+    if part == "shard":
+        tg, jg, s = tshard.partition_bcsr(adj, 4, bm=128, bn=128), jshard.partition_bcsr(
+            adj, 4, bm=128, bn=128), 2
+        graph = tg.strip(s)
+        idx = (s,)
+        off = dict(row_block_offset=tg.row_block_off[s], col_block_offset=0)
+        n_rows, n_cols = tg.n_loc, tg.n_pad
+    else:
+        tg, jg, s, t = tring.ring_partition_bcsr(adj, 4, bm=128, bn=128), \
+            jring.ring_partition_bcsr(adj, 4, bm=128, bn=128), 1, 2
+        graph = tg.cell(s, t)
+        idx = (s, t)
+        off = dict(row_block_offset=s * tg.nb_r_loc,
+                   col_block_offset=tg.cs_of_step[s][t] * tg.nb_c_loc)
+        n_rows = n_cols = tg.n_loc
+    assert off["row_block_offset"] > 0
+    assert part == "shard" or off["col_block_offset"] > 0
+    jmaps = [np.asarray(getattr(jg, f))[idx] for f in
+             ("fwd_count", "fwd_col", "fwd_tile", "bwd_count", "bwd_row", "bwd_tile")]
+    jtiles = np.asarray(jg.tiles)[idx[0]].reshape(-1, 128)
+    return graph, jmaps, jtiles, off, n_rows, n_cols
+
+
+def strip_inputs(n_rows, n_cols, k=4, d=8, seed=1):
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return f32(k, n_rows), f32(k, n_cols), f32(n_cols, k * d), f32(n_rows, k * d)
+
+
+def jax_meta(off, head=3):
+    return jnp.asarray([1234, off["row_block_offset"], head, off["col_block_offset"]],
+                       jnp.int32)
+
+
+def pad_heads(x, kp=8, value=0.0):
+    return jnp.pad(jnp.asarray(x), ((0, kp - x.shape[0]), (0, 0)), constant_values=value)
+
+
+@pytest.mark.parametrize("part", ["shard", "ring_cell"])
+def test_strip_forward_matches_jax(part):
+    """The forward's plain version on a strip (n_rows ≠ n_cols or a cell),
+    with the strip's offsets, against JAX's _flash_fwd: atol 1e-5."""
+    graph, jm, jtiles, off, n_rows, n_cols = strip_setup(part)
+    ld, ls, v, _ = strip_inputs(n_rows, n_cols)
+    k = ld.shape[0]
+    meta = tfg.FlashMeta(seed=1234, head_offset=3, **off)
+    out, lse = tfg.flash_fwd_plain(graph, *map(torch.from_numpy, (ld, ls, v)), meta)
+    jout, jlse = jfg._flash_fwd(*map(jnp.asarray, jm[:3]), jax_meta(off), jnp.asarray(jtiles),
+                                pad_heads(ld), pad_heads(ls), jnp.asarray(v).reshape(n_cols, k, -1),
+                                slope=0.2, bm=128, bn=128, interpret=True)
+    assert out.shape == (n_rows, v.shape[1]) and (out != 0).any()
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout).reshape(n_rows, -1), atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse)[:k], atol=1e-5)
+
+
+@pytest.mark.parametrize("part", ["shard", "ring_cell"])
+def test_split_backward_matches_jax(part, monkeypatch):
+    """The row sweep's and the column sweep's plain versions on a strip
+    against _flash_bwd's split branch (reached by setting
+    _FUSED_DLD_BYTES to 0): dld, dls, dv at atol 1e-5; and the pair equals
+    the fused plain backward."""
+    monkeypatch.setattr(jfg, "_FUSED_DLD_BYTES", 0)
+    graph, jm, jtiles, off, n_rows, n_cols = strip_setup(part)
+    ld, ls, v, g = strip_inputs(n_rows, n_cols, seed=2)
+    k = ld.shape[0]
+    meta = tfg.FlashMeta(seed=1234, head_offset=3, **off)
+    tt = [torch.from_numpy(x) for x in (ld, ls, v, g)]
+    out, lse = tfg.flash_fwd_plain(graph, *tt[:3], meta)
+    delta = (tt[3] * out).view(n_rows, k, -1).sum(-1).T.contiguous()
+    dld = tfg.flash_bwd_row_plain(graph, *tt, lse, delta, meta)
+    dls, dv = tfg.flash_bwd_col_plain(graph, *tt, lse, delta, meta)
+    jd = jfg._flash_bwd(*map(jnp.asarray, jm), jax_meta(off), jnp.asarray(jtiles),
+                        pad_heads(ld), pad_heads(ls), jnp.asarray(v).reshape(n_cols, k, -1),
+                        jnp.asarray(g), pad_heads(lse.numpy(), value=-1e9),
+                        pad_heads(delta.numpy()), slope=0.2, bm=128, bn=128, interpret=True)
+    for name, got, want in (("dld", dld, np.asarray(jd[0])[:k]),
+                            ("dls", dls, np.asarray(jd[1])[:k]),
+                            ("dv", dv, np.asarray(jd[2]).reshape(n_cols, -1))):
+        assert (got != 0).any(), name
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, err_msg=name)
+    fused = tfg.flash_bwd_plain(graph, *tt, lse, delta, meta)
+    for got, want in zip((dld, dls, dv), fused):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("s_n", [2, 4])
+def test_strips_and_cells_tile_the_graph(s_n):
+    """tile_adjacency of the shards' strips (through perm) and of every ring
+    cell reassemble the one-device tile mask."""
+    adj = make_case(n=300, seed=4)["adj"]
+    want = tfg.tile_adjacency(t_bcsr(adj, bm=64, bn=64))[:300, :300]
+    pg = tshard.partition_bcsr(adj, s_n, bm=64, bn=64)
+    rows = torch.cat([tfg.tile_adjacency(pg.strip(s)) for s in range(s_n)])
+    assert torch.equal(rows[pg.perm][:, :300], want)
+    rg = tring.ring_partition_bcsr(adj, s_n, bm=64, bn=64)
+    n_loc = rg.n_loc
+    full = torch.zeros((rg.n_pad, rg.n_pad), dtype=torch.bool)
+    for s in range(s_n):
+        for t in range(s_n):
+            cs = rg.cs_of_step[s][t]
+            full[s * n_loc:(s + 1) * n_loc, cs * n_loc:(cs + 1) * n_loc] = \
+                tfg.tile_adjacency(rg.cell(s, t))
+    assert torch.equal(full[:300, :300], want)
+
+
+# ---------------------------------------------------------------------------
+# the distributed backends in spawned gloo worlds
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s_n", [2, 4])
+@pytest.mark.parametrize("backend", ["sharded", "ring"])
+def test_attention_matches_jax_single_device(request, jax_ref, backend, s_n):
+    """Every rank's output and gradients, dropout off, against JAX's
+    one-device flash: forward atol 2e-5 (the edgeless row exactly 0),
+    gradients atol 5e-4; the ranks agree bit for bit."""
+    world = request.getfixturevalue(f"world{s_n}")
+    got = world[0]["attention"][backend]
+    np.testing.assert_allclose(got[0], jax_ref[0], atol=2e-5, rtol=2e-5)
+    np.testing.assert_array_equal(got[0][EMPTY_ROW], 0.0)
+    for name, g, w in zip(("d_fts", "d_logit_dst", "d_logit_src"), got[1:], jax_ref[1:]):
+        np.testing.assert_allclose(g, w, atol=5e-4, rtol=5e-4, err_msg=name)
+    for r in range(1, s_n):
+        for a, b in zip(world[r]["attention"][backend], got):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("s_n", [2, 4])
+@pytest.mark.parametrize("backend", ["sharded", "ring"])
+def test_dropout_replays_single_device_masks(request, backend, s_n):
+    """Dropout 0.4: the distributed run against the port's one-device run
+    with the same seed generator: forward atol 1e-6 (the same global
+    masks), gradients atol 1e-5."""
+    res = request.getfixturevalue(f"world{s_n}")[0]["dropout"]
+    got, want = res[backend], res["single"]
+    np.testing.assert_allclose(got[0], want[0], atol=1e-6)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g, w, atol=1e-5)
+    assert not np.allclose(got[0], request.getfixturevalue(f"world{s_n}")[0]
+                           ["attention"][backend][0])
+
+
+@pytest.mark.parametrize("backend", ["sharded", "ring"])
+def test_han_logits_match_jax_mesh(world4, han_case, backend):
+    """HAN with flax weights converted by nn/convert.py: the port in 4 gloo
+    ranks against JAX under make_mesh(graph=4), dropout off: atol 1e-5."""
+    for rank in world4:
+        np.testing.assert_allclose(rank["han"][backend], han_case["logits"][backend],
+                                   atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def single_device_run():
+    return ranks.train("bcsr", 1, TRAIN_EPOCHS)
+
+
+@pytest.mark.parametrize("fmt", ["partitioned_bcsr", "ring_bcsr"])
+def test_trainer_on_mesh_matches_single_device(world4, single_device_run, fmt):
+    """Trainer with graph_axis=4 (the dblp preset, dropouts 0.6) matches
+    the one-device loss trajectory (rtol 2e-4, atol 2e-5); the parameters
+    are equal on every rank after training."""
+    runs = [rank["train"][fmt] for rank in world4]
+    np.testing.assert_allclose(runs[0]["losses"], single_device_run["losses"],
+                               rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(runs[0]["test_loss"], single_device_run["test_loss"],
+                               rtol=2e-4, atol=2e-5)
+    for run in runs[1:]:
+        assert run["losses"] == runs[0]["losses"]
+        for k, v in runs[0]["state"].items():
+            np.testing.assert_array_equal(run["state"][k], v, err_msg=k)
+
+
+@pytest.mark.parametrize("s_n", [2, 4])
+def test_dryrun(request, s_n):
+    """The dry run's deterministic losses agree across backends (< 1e-4)
+    and its train step is finite on every rank."""
+    for rank in request.getfixturevalue(f"world{s_n}"):
+        res = rank["dryrun"]
+        assert res["graph"] == s_n and res["det_max_dev"] < 1e-4
+        assert all(np.isfinite(v) for v in res["losses"].values())
+
+
+# ---------------------------------------------------------------------------
+# one process
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fmt", ["partitioned_bcsr", "ring_bcsr"])
+def test_one_shard_partition_matches_bcsr(single_device_run, fmt):
+    """graph_axis = 1 with a partitioned format: a 1-shard partition on one
+    process (no process group) trains as the one-device bcsr run."""
+    got = ranks.train(fmt, 1, TRAIN_EPOCHS)
+    np.testing.assert_allclose(got["losses"], single_device_run["losses"], rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("fmt", ["partitioned_bcsr", "ring_bcsr"])
+def test_trainer_graphs_carry_its_mesh(monkeypatch, fmt):
+    """The trainer's partitioned graphs carry its mesh to attention, so a
+    train step builds no mesh of its own."""
+    t = ttrainer.Trainer(ranks.trainer_ds(), ranks.trainer_cfg(fmt, 1, 1), device="cpu",
+                         logger=ttrainer.MetricLogger(echo=False))
+    assert t.mesh is not None and all(g.mesh is t.mesh for g in t.graphs)
+
+    def no_mesh(*args, **kwargs):
+        raise AssertionError("attention built a mesh of its own")
+
+    monkeypatch.setattr(tshard, "make_mesh", no_mesh)
+    monkeypatch.setattr(tring, "make_mesh", no_mesh)
+    assert np.isfinite(float(t.train_step()[0]))
+
+
+def test_deterministic_mode_takes_the_split_backward(monkeypatch):
+    """Under torch.use_deterministic_algorithms(True) flash_bwd runs the
+    row sweep and the column sweep (a spy on the plain functions), not the
+    fused backward; the gradients equal the fused ones, and two runs are
+    bitwise equal."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    calls = []
+    for name in ("flash_bwd_plain", "flash_bwd_row_plain", "flash_bwd_col_plain"):
+        orig = getattr(tfg, name)
+        monkeypatch.setattr(tfg, name, lambda *a, _f=orig, _n=name: (calls.append(_n), _f(*a))[1])
+    c = make_case(n=200, seed=6)
+    graph = t_bcsr(c["adj"], bm=64, bn=64)
+
+    def grads():
+        args = [torch.tensor(c[x], requires_grad=True) for x in ("fts", "ld", "ls")]
+        out = tfg.flash_gat_attention(graph, *args, coef_dropout=0.3,
+                                      generator=torch.Generator().manual_seed(2))
+        return torch.autograd.grad((out * torch.from_numpy(c["w"])).sum(), args)
+
+    fused = grads()
+    assert calls == ["flash_bwd_plain"]
+    torch.use_deterministic_algorithms(True)
+    try:
+        calls.clear()
+        split = grads()
+        assert calls == ["flash_bwd_row_plain", "flash_bwd_col_plain"]
+        again = grads()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b, f in zip(split, again, fused):
+        assert torch.equal(a, b)
+        np.testing.assert_allclose(a.numpy(), f.numpy(), atol=1e-6)
+
+
+def test_mesh_and_trainer_refusals():
+    """The mesh needs graph = world size and no heads/mp axis; a mesh run
+    refuses the unported formats and sampled training."""
+    assert make_mesh(graph=1).size == 1 and make_mesh().rank == 0
+    with pytest.raises(ValueError, match="world size"):
+        make_mesh(graph=2)
+    with pytest.raises(NotImplementedError):
+        make_mesh(graph=1, heads=2)
+    ds = ranks.trainer_ds()
+    cfg = ranks.trainer_cfg("bcsr", 1, 1)
+    cfg.mesh.head_axis = 2
+    with pytest.raises(NotImplementedError):
+        ttrainer.build_graphs(ds, cfg)
+    for fmt in ("csr", "ring"):
+        cfg = ranks.trainer_cfg(fmt, 2, 1)
+        with pytest.raises(NotImplementedError):
+            ttrainer.build_graphs(ds, cfg)
+    cfg = ranks.trainer_cfg("bcsr", 2, 1)
+    with pytest.raises(ValueError, match="world size"):
+        ttrainer.Trainer(ds, cfg, device="cpu")
+    cfg = ranks.trainer_cfg("ring_bcsr", 1, 1)
+    cfg.train.sampled = True
+    with pytest.raises(NotImplementedError, match="DPSampledTrainer"):
+        ttrainer.run(cfg, ds, device="cpu")
+
+
+def test_init_distributed_is_a_noop_without_torchrun(monkeypatch):
+    """Without torchrun's environment the entry script's start-up joins no
+    process group and this process is the one that logs."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    launch.init_distributed()
+    assert not torch.distributed.is_initialized()
+    assert launch.is_coordinator()
+    launch.shutdown()
+
+
+@pytest.mark.parametrize("s_n", [1, 3, 4])
+def test_partitioners_match_han_tpu(s_n):
+    """partition_bcsr and ring_partition_bcsr equal han_tpu's, field by
+    field, at a tile geometry both packages accept."""
+    adj = make_case(n=900, seed=s_n)["adj"]
+    for tfn, jfn in ((tshard.partition_bcsr, jshard.partition_bcsr),
+                     (tring.ring_partition_bcsr, jring.ring_partition_bcsr)):
+        tg, jg = tfn(adj, s_n, bm=128, bn=128), jfn(adj, s_n, bm=128, bn=128)
+        for f in ("n_nodes", "n_pad", "n_loc", "bm", "bn", "n_edges", "n_shards"):
+            assert getattr(tg, f) == getattr(jg, f), f
+        arrays = ["tiles", "fwd_count", "fwd_col", "fwd_tile", "bwd_count", "bwd_row",
+                  "bwd_tile"] + (["row_block_off", "perm"] if hasattr(jg, "perm")
+                                 else ["cs_of_step"])
+        for f in arrays:
+            got = getattr(tg, f)
+            got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+            np.testing.assert_array_equal(got, np.asarray(getattr(jg, f)), err_msg=f)

@@ -1,0 +1,103 @@
+"""Rank bodies of tests/test_torch_parallel.py: each runs inside one process
+of a spawned gloo world (han_tpu_torch.parallel.launch.spawn) and returns
+numpy results for the test process, which holds them against han_tpu. This
+module imports torch and the port only, so the ranks never load jax."""
+
+import torch
+
+from han_tpu_torch.graph.bcsr import bcsr_from_scipy
+from han_tpu_torch.graph.synthetic import planted_hetero
+from han_tpu_torch.nn.models import HAN
+from han_tpu_torch.ops import flash_gat as fg
+from han_tpu_torch.parallel import dryrun
+from han_tpu_torch.parallel.flash_shard import partition_bcsr, sharded_flash_attention
+from han_tpu_torch.parallel.mesh import make_mesh
+from han_tpu_torch.parallel.ring_bcsr import ring_flash_attention, ring_partition_bcsr
+from han_tpu_torch.train import trainer as ttrainer
+from han_tpu_torch.train.config import preset
+
+BACKENDS = {"sharded": (partition_bcsr, sharded_flash_attention),
+            "ring": (ring_partition_bcsr, ring_flash_attention)}
+
+
+def out_and_grads(fn, fts, ld, ls, w):
+    """fn's output and d(sum(out·w))/d(fts, ld, ls), as numpy."""
+    args = [torch.tensor(x, requires_grad=True) for x in (fts, ld, ls)]
+    out = fn(*args)
+    grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(), args)
+    return [out.detach().numpy()] + [g.numpy() for g in grads]
+
+
+def attention(case, p):
+    """Both backends on case's inputs, at coefficient dropout p (seed drawn
+    from a generator seeded 11); for p > 0 also the port's one-device flash
+    with the same generator."""
+    adj, bm, bn = case["adj"], case["bm"], case["bn"]
+    x = (case["fts"], case["ld"], case["ls"], case["w"])
+    gen = lambda: torch.Generator().manual_seed(11)
+    res = {}
+    s_n = make_mesh(graph=0).size
+    for name, (part, attn) in BACKENDS.items():
+        graph = part(adj, s_n, bm=bm, bn=bn)
+        res[name] = out_and_grads(
+            lambda *a: attn(graph, *a, coef_dropout=p, generator=gen()), *x)
+    if p:
+        single = bcsr_from_scipy(adj, bm=bm, bn=bn)
+        res["single"] = out_and_grads(lambda *a: fg.flash_gat_attention(
+            single, *a, coef_dropout=p, generator=gen()), *x)
+    return res
+
+
+def han_logits(han):
+    """HAN logits with the converted flax weights, dropout off, on both
+    partitioned formats."""
+    s_n = make_mesh(graph=0).size
+    x = torch.from_numpy(han["features"])
+    out = {}
+    for name, (part, _) in BACKENDS.items():
+        graphs = [part(a, s_n, bm=han["bm"], bn=han["bn"]) for a in han["adjs"]]
+        model = HAN(x.shape[1], han["n_classes"], len(graphs), hid_units=(8,),
+                    n_heads=(4, 1))
+        model.load_state_dict({k: torch.from_numpy(v) for k, v in han["state"].items()})
+        with torch.no_grad():
+            out[name] = model(graphs, [x] * len(graphs))[0].numpy()
+    return out
+
+
+def trainer_cfg(fmt, graph_axis, epochs):
+    """The dblp preset (full widths, dropouts 0.6) at 64×64 tiles."""
+    cfg = preset("dblp")
+    cfg.data.graph_format = fmt
+    cfg.data.tile_bm = cfg.data.tile_bn = 64
+    cfg.mesh.graph_axis = graph_axis
+    cfg.train.epochs = epochs
+    return cfg
+
+
+def trainer_ds():
+    return planted_hetero(n_nodes=250, n_feats=24, n_classes=3, n_metapaths=2,
+                          avg_degree=10.0, train_per_class=20, n_val=30, seed=5)
+
+
+def train(fmt, graph_axis, epochs):
+    """Trainer.fit on the trainer dataset; the train losses, the test loss
+    and the final parameters."""
+    t = ttrainer.Trainer(trainer_ds(), trainer_cfg(fmt, graph_axis, epochs), device="cpu",
+                         logger=ttrainer.MetricLogger(echo=False))
+    result = t.fit()
+    return {"losses": result["epoch_train_loss"], "test_loss": result["test_loss"],
+            "state": {k: v.numpy().copy() for k, v in t.model.state_dict().items()}}
+
+
+def world_checks(case, han, epochs):
+    """Everything one world checks; ``han`` and ``epochs`` are None in the
+    worlds that skip the HAN and trainer checks."""
+    res = {"attention": attention(case, 0.0), "dropout": attention(case, 0.4),
+           "dryrun": dryrun.dryrun_step()}
+    if han is not None:
+        res["han"] = han_logits(han)
+    if epochs:
+        res["train"] = {fmt: train(fmt, make_mesh(graph=0).size, epochs)
+                        for fmt in ("partitioned_bcsr", "ring_bcsr")}
+    return res
+
