@@ -19,8 +19,31 @@ together, and the C++ sampler), then drives the ported paths:
   preset widths, batch 512, fanout 16, the host sampler, impl ell_fused)
   for 2 epochs through run(), and runs 10 steps of the device sampler.
 
+- bf16 features: the flash kernels with bf16 v against their plain
+  versions at the DBLP shape (dropout 0 and 0.6), and 3 epochs of the dblp
+  preset with model.dtype=bfloat16;
+- calibration: builds csrc/calibrate.cu with the other sources, holds each
+  of its four kernels against its plain version (all 14 primitive (op,
+  dtype) pairs and the three strip bodies, R = 64; the bf16 strip's
+  tolerance must reject the body computed in f32), then runs
+  scripts/cal_vpu_torch.py at its full R (every rate at most 105 % of its
+  ceiling, every R -> 2R time ratio in [1.9, 2.1]) and prints the JSON;
+- benchmark: the flash kernels against their plain versions at the
+  benchmark's shapes (N = n_pad = 8192, both meta-paths, v f32 and bf16,
+  dropout 0), then bench_torch.py's f32 and bf16 arms (its roofline
+  calibrated in the same process), each printing its JSON line.
+
 The launch counters, set to 0 before each path and read after it, show
-that every step went through the kernels.
+that every step went through the kernels. Each kernel's ``bound_ms`` is
+the larger of the bytes it must move (inputs read once, outputs written
+once) over 3.35e12 B/s and its operations over the published peaks:
+67e12 f32 FLOP/s outside the tensor cores, 2 x that for bf16 elementwise
+work (packed bf16x2 on the same lanes), and 132 SMs x 16 SFU results a
+clock x 1.98 GHz = 4.18e12 exp/s; the work is counted on the edges (or
+valid ELL slots) of this run's inputs, per edge and head: forward and row
+sweep 2D + 9 FLOPs and one exp, fused backward 4D + 10, column sweep
+4D + 9 (lower bounds: dropout hashing and the adjacency tests are not
+counted).
 
     python3 chip_smoke.py
 
@@ -73,6 +96,37 @@ def check(name, got, want, atol, rtol):
     return max_err
 
 
+HBM_BW = 3.35e12                # B/s, H100 SXM (published)
+F32_PEAK = 67e12                # f32 FLOP/s outside the tensor cores (published)
+BF16_EW_PEAK = 2 * F32_PEAK     # bf16 elementwise: packed bf16x2 on the same lanes
+EXP_PEAK = 132 * 16 * 1.98e9    # 16 SFU results a clock per SM at the 1.98 GHz boost
+
+
+def bound(bytes_, flops=0.0, exps=0.0, bf16_flops=0.0):
+    """(bound_ms, bound_by): the larger of bytes over HBM_BW and the
+    operations over their peaks (the slowest unit)."""
+    t_bytes = bytes_ / HBM_BW
+    t_ops = max(flops / F32_PEAK, bf16_flops / BF16_EW_PEAK, exps / EXP_PEAK)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_bounds(graph, k, d, v_bytes=4) -> dict:
+    """The flash kernels' bounds on this graph: its occupied tiles and maps,
+    the (K, N) f32 vectors and the features each kernel reads and writes
+    once, and the work of its edges (module docstring)."""
+    e = graph.n_edges * k
+    n_rows, n_cols = graph.nb_r * graph.bm, graph.nb_c * graph.bn
+    tiles = graph.n_tiles * graph.bm * graph.bn
+    fmap = 4 * sum(t.numel() for t in (graph.fwd_count, graph.fwd_col, graph.fwd_tile))
+    bmap = 4 * sum(t.numel() for t in (graph.bwd_count, graph.bwd_row, graph.bwd_tile))
+    vec, v, feat = 4 * k * n_rows, n_cols * k * d * v_bytes, n_rows * k * d * 4
+    dv = n_cols * k * d * 4
+    return {"fwd": bound(tiles + fmap + 3 * vec + v + feat, e * (2 * d + 9), e),
+            "bwd": bound(tiles + bmap + 6 * vec + v + feat + dv, e * (4 * d + 10), e),
+            "row": bound(tiles + fmap + 5 * vec + v + feat, e * (2 * d + 9), e),
+            "col": bound(tiles + bmap + 5 * vec + v + feat + dv, e * (4 * d + 9), e)}
+
+
 def main() -> None:
     import torch
 
@@ -98,7 +152,7 @@ def main() -> None:
 
     # -- phase 2: build (nvcc per kernel source and g++ for the sampler, all
     # at once) ----------------------------------------------------------------
-    names = ("flash_gat", "ell_fused")
+    names = ("flash_gat", "ell_fused", "calibrate")
     cached = [n for n in names if _build.library_path(n).exists()]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
@@ -183,6 +237,9 @@ def main() -> None:
                         "plain_ms": ts["col_plain_ms"]}
     del out_p, lse_p, bp
     torch.cuda.empty_cache()
+    library_fwd_ms = sdpa_yardstick(graph, ld, ls, v, k, d)
+    bf16 = check_flash_bf16(graph, ld, ls, v, g, k, d)
+    bounds = flash_bounds(graph, k, d)
 
     # -- phase 3c: the kernels on the strips of a 4-way partition ------------
     for name, err in check_strips(dev, ds.metapath_adjs[big]).items():
@@ -224,6 +281,7 @@ def main() -> None:
           f"{statistics.median(result['epoch_step_time_s'][1:]) * 1e3:.3f} ms, "
           f"max_memory_allocated {result['max_memory_allocated']} B", flush=True)
 
+    bf16_train = train_bf16(ds, dev, n_mp)
     del ds, graph
     torch.cuda.empty_cache()
 
@@ -234,23 +292,43 @@ def main() -> None:
     ell = check_ell_fused(dev)
     ell_n = train_sampled(dev, native)
 
-    # launches: the dblp run (phase 4) and the multi-device runs (phase 4b)
+    # -- phase 8: the calibration kernels, then the calibration run ---------
+    cal_stats = check_calibration(dev)
+    cal_n = run_calibration(root)
+
+    # -- phase 9: the benchmark's kernels vs plain, then its f32 and bf16 arms
+    for name, err in check_bench_shape(root, dev).items():
+        stats[name]["err"] = max(stats[name]["err"], err)
+    bench = run_bench(root)
+
+    # launches: the dblp runs (phases 4, 4a), the multi-device runs (phase
+    # 4b) and the benchmark (phase 9)
     part, ring = mesh["partitioned_bcsr"]["launches"], mesh["ring_bcsr"]["launches"]
-    launches = {"fwd": fwd_n + part["fwd"] + ring["fwd"], "bwd": bwd_n + part["bwd"],
+    launches = {"fwd": fwd_n + bf16_train["fwd"] + part["fwd"] + ring["fwd"] + bench["fwd"],
+                "bwd": bwd_n + bf16_train["bwd"] + part["bwd"] + bench["bwd"],
                 "row": ring["row"], "col": ring["col"]}
     src = "han_tpu_torch/csrc/flash_gat.cu"
     tpu = "han_tpu/ops/pallas/flash_gat.py"
     kernels = [
         {"name": f"flash_gat_{name}", "route": "cuda", "source": src,
          "replaces": f"{tpu}:{line}", "launches": launches[key],
-         "max_abs_err": stats[key]["err"], "ms": stats[key]["ms"],
-         "plain_ms": stats[key]["plain_ms"]}
+         "max_abs_err": max(stats[key]["err"], bf16[key]["err"]), "ms": stats[key]["ms"],
+         "plain_ms": stats[key]["plain_ms"], "bound_ms": bounds[key][0],
+         "bound_by": bounds[key][1], "library_ms": library_fwd_ms if key == "fwd" else None}
         for name, key, line in (("fwd", "fwd", "97,187"), ("bwd", "bwd", 395),
                                 ("bwd_row", "row", 354), ("bwd_col", "col", 395))] + [
         {"name": "ell_fused_fwd", "route": "cuda", "source": "han_tpu_torch/csrc/ell_fused.cu",
          "replaces": "han_tpu/ops/pallas/ell_fused.py:54", "launches": ell_n,
-         "max_abs_err": ell["err"], "ms": ell["ms"], "plain_ms": ell["plain_ms"]},
-    ]
+         "max_abs_err": ell["err"], "ms": ell["ms"], "plain_ms": ell["plain_ms"],
+         "bound_ms": ell["bound"][0], "bound_by": ell["bound"][1], "library_ms": None},
+    ] + [
+        {"name": f"cal_{key}", "route": "cuda", "source": "han_tpu_torch/csrc/calibrate.cu",
+         "replaces": f"scripts/cal_vpu.py:{line}", "launches": cal_n[key],
+         "max_abs_err": cal_stats[key]["err"], "ms": cal_stats[key]["ms"],
+         "plain_ms": cal_stats[key]["plain_ms"], "bound_ms": cal_stats[key]["bound"][0],
+         "bound_by": cal_stats[key]["bound"][1], "library_ms": None}
+        for key, line in (("prim", 63), ("fwd_strip", 74), ("fwd_strip_bf16", 112),
+                          ("bwd_strip", 144))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -466,6 +544,11 @@ def check_ell_fused(dev) -> dict:
                 plain_ms = timed(lambda: ef.ell_fused_fwd_plain(nbr, ld, ls, fts, keep, 0.2, p))
                 print(f"  median ms: kernel {ms:.4f}, plain {plain_ms:.4f}", flush=True)
                 out.update(ms=ms, plain_ms=plain_ms)  # the train shape (p = 0.6) last
+                valid = int((nbr < n).sum())  # the slots this block's softmax sums
+                out["bound"] = bound(
+                    nbr.numel() * 4 + 2 * ld.numel() * 4 + 2 * fts.numel() * 4
+                    + (keep.numel() if keep is not None else 0),
+                    valid * k * (2 * d + 9), valid * k)
                 g = torch.randn(n, k * d, generator=gen, device=dev)
                 bwd = ef.ell_fused_bwd(nbr, ld, ls, fts, keep, g, 0.2, p)
                 cpu = lambda t: None if t is None else t.cpu()
@@ -557,6 +640,311 @@ def train_sampled(dev, native) -> int:
           f"sampled edges·heads/s {res['edges_heads_per_s']:.1f}; every block through "
           f"tree attention ({tree_ell.tree_ell_calls} calls)", flush=True)
     return launches
+
+
+def sdpa_yardstick(graph, ld, ls, v, k, d) -> float:
+    """library_ms of the flash forward: one scaled_dot_product_attention
+    call with q = k = 0 (so q·kᵀ = 0) and the additive mask z = lrelu(ld_i
+    + ls_j) on edges, -1e9 off them, is softmax(z)·v: the flash forward at
+    dropout 0 on the rows with edges, held so (atol 1e-4, rtol 1e-3:
+    another kernel's exp and summation order). A yardstick only: the port
+    never calls it. Returns its median ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from han_tpu_torch.ops import flash_gat as fg
+
+    n = ld.shape[1]
+    adj = fg.tile_adjacency(graph)
+    raw = ld[:, :, None] + ls[:, None, :]
+    mask = torch.where(adj, torch.maximum(raw, 0.2 * raw), -1e9)[None]  # (1, K, n, n)
+    del raw
+    q = torch.zeros((1, k, n, d), device=ld.device)
+    vv = v.view(n, k, d).permute(1, 0, 2)[None].contiguous()
+    out = F.scaled_dot_product_attention(q, q, vv, attn_mask=mask)[0].permute(1, 0, 2)
+    want, _ = fg.flash_fwd_cuda(graph, ld, ls, v, fg.FlashMeta())
+    real = adj.any(dim=1)
+    check("SDPA yardstick vs the forward kernel (rows with edges)",
+          out.reshape(n, k * d)[real], want[real], 1e-4, 1e-3)
+    ms = timed(lambda: F.scaled_dot_product_attention(q, q, vv, attn_mask=mask))
+    print(f"  SDPA yardstick median ms {ms:.4f}", flush=True)
+    del mask, adj
+    torch.cuda.empty_cache()
+    return ms
+
+
+def check_flash_bf16(graph, ld, ls, v, g, k, d) -> dict:
+    """The flash kernels with bf16 v at the DBLP shape, dropout 0 and 0.6,
+    against their plain versions, which widen the same bf16 values: the
+    f32 tolerances (forward atol 1e-5, rtol 1e-4; backward atol 1e-4, rtol
+    1e-3, dld summed with atomics). Median ms at dropout 0.6."""
+    import torch
+
+    from han_tpu_torch.ops import flash_gat as fg
+
+    n = v.shape[0]
+    v16 = v.to(torch.bfloat16)
+    out = {key: {"err": 0.0} for key in ("fwd", "bwd", "row", "col")}
+    for p in (0.0, 0.6):
+        meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=1234567)
+        print(f"bf16 v, dropout {p}:", flush=True)
+        out_k, lse_k = fg.flash_fwd_cuda(graph, ld, ls, v16, meta)
+        out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v16, meta)
+        torch.cuda.synchronize()
+        e = max(check("out", out_k, out_p, 1e-5, 1e-4), check("lse", lse_k, lse_p, 1e-5, 1e-4))
+        delta = (g * out_k).view(n, k, d).sum(-1).T.contiguous()
+        args = (graph, ld, ls, v16, g, lse_k, delta, meta)
+        eb = max(check(name, a, b, 1e-4, 1e-3) for name, a, b in
+                 zip(("dld", "dls", "dv"), fg.flash_bwd_cuda(*args), fg.flash_bwd_plain(*args)))
+        er = check("dld (row sweep)", fg.flash_bwd_row_cuda(*args), fg.flash_bwd_row_plain(*args),
+                   1e-4, 1e-3)
+        ec = max(check(f"{name} (column sweep)", a, b, 1e-4, 1e-3) for name, a, b in zip(
+            ("dls", "dv"), fg.flash_bwd_col_cuda(*args), fg.flash_bwd_col_plain(*args)))
+        for key, err in (("fwd", e), ("bwd", eb), ("row", er), ("col", ec)):
+            out[key]["err"] = max(out[key]["err"], err)
+    t = {"fwd_ms": timed(lambda: fg.flash_fwd_cuda(graph, ld, ls, v16, meta)),
+         "bwd_ms": timed(lambda: fg.flash_bwd_cuda(*args)),
+         "row_ms": timed(lambda: fg.flash_bwd_row_cuda(*args)),
+         "col_ms": timed(lambda: fg.flash_bwd_col_cuda(*args))}
+    print("  bf16 v median ms (dropout 0.6): " + ", ".join(f"{a} {b:.4f}" for a, b in t.items()),
+          flush=True)
+    return out
+
+
+def train_bf16(ds, dev, n_mp: int) -> dict:
+    """Phase 4a: the dblp preset with model.dtype=bfloat16 for 3 epochs
+    through run(): losses finite and falling, launch counts exact."""
+    import numpy as np
+    import torch
+
+    from han_tpu_torch.ops import flash_gat as fg
+    from han_tpu_torch.train.config import preset
+    from han_tpu_torch.train.trainer import run
+
+    cfg = preset("dblp")
+    cfg.model.dtype = "bfloat16"
+    cfg.train.epochs = 3
+    fg.flash_fwd_launches = 0
+    fg.flash_bwd_launches = 0
+    result = run(cfg, ds, device=dev)
+    torch.cuda.synchronize()
+    n = {"fwd": fg.flash_fwd_launches, "bwd": fg.flash_bwd_launches}
+    losses = result["epoch_train_loss"]
+    if len(losses) != 3 or not all(np.isfinite(losses)) or not np.isfinite(result["test_loss"]):
+        fail(f"bf16 train losses not finite or short: {losses}, test {result['test_loss']}")
+    if not losses[-1] < losses[0]:
+        fail(f"bf16 train loss did not fall: {losses}")
+    want = {"fwd": n_mp * (2 * 3 + 1), "bwd": n_mp * 3}
+    if n != want:
+        fail(f"bf16 train launches {n}, want {want}")
+    print(f"bf16 train (model.dtype=bfloat16, 3 epochs): losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}, test_acc {result['test_acc']:.4f}; "
+          f"launches {n}; median step {result['median_step_time_s'] * 1e3:.3f} ms, "
+          f"max_memory_allocated {result['max_memory_allocated']} B", flush=True)
+    return n
+
+
+CAL_COUNTERS = {"prim": "prim_launches", "fwd_strip": "fwd_strip_launches",
+                "fwd_strip_bf16": "fwd_strip_bf16_launches", "bwd_strip": "bwd_strip_launches"}
+# (atol, rtol) of the bf16 forward strip against its plain version at R =
+# 64: outputs reach about 2,800 and the kernel's largest error was 5.9e-3
+# (NVIDIA H100 80GB HBM3, 700 W); the plain body in f32 differs from the
+# bf16 one by up to 4.4, median 0.12 (96 strips)
+BF16_STRIP_TOL = (2e-2, 1e-5)
+
+
+def check_calibration(dev) -> dict:
+    """Phase 8a: each calibration kernel against its plain version at R =
+    64 on the card-wide strip (132 x 8 tiles of 128 x 128): all 14
+    primitive (op, dtype) pairs, the f32 forward body with and without
+    p·v, the bf16 forward body and the backward body. Tolerances: f32
+    primitives atol 1e-5, rtol 1e-4 (the same ops; the row sums in another
+    order); bf16 primitives rtol 2e-2 (bf16 steps); f32 strips rtol 1e-4
+    and atol 1e-5 of the largest |value| (sums of exps in another order
+    over 64 chained passes; the backward's output adds dv, dls and dld
+    terms whose sum may be near 0, and sums dld with atomics); the bf16
+    strip BF16_STRIP_TOL (kernel and plain round the same f32 raw to bf16,
+    so only the f32 sums differ in order), and the same body computed in
+    f32 must fall outside it on most elements. Per kernel: the largest
+    error, median ms of the kernel and of its plain version (summed over
+    the launches of the check), and the bound."""
+    import torch
+
+    from han_tpu_torch.ops import calibrate as cal
+
+    n_strips, reps = 132 * 8, 64
+    inp = {key: torch.from_numpy(x).to(dev) for key, x in cal.make_inputs(n_strips).items()}
+    a = [inp[key] for key in ("ld", "ls", "adj", "v")]
+    v16, g = inp["v"].to(torch.bfloat16), inp["g"]
+    elems, edges = inp["x"].numel(), int((inp["adj"] != 0).sum())
+    strip_bytes = sum(t.numel() * t.element_size() for t in a)
+    out = {key: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound": (0.0, "operations")}
+           for key in CAL_COUNTERS}
+
+    def add(key, name, kernel, plain, atol, rtol, bnd):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        st = out[key]
+        st["err"] = max(st["err"], check(f"cal {name}", got.float(), want.float(), atol, rtol))
+        st["ms"] += timed(kernel, reps=5)
+        st["plain_ms"] += timed(plain, reps=5)
+        st["bound"] = (st["bound"][0] + bnd[0], bnd[1])
+
+    ops = {"add": 1, "mul": 1, "lrelu": 2, "select": 2, "exp": 1, "rowmax": 2, "rowsum": 3}
+    for op in cal.OPS:
+        for x, bf16 in ((inp["x"], False), (inp["x"].to(torch.bfloat16), True)):
+            work = reps * elems * ops[op]
+            bnd = bound(2 * x.numel() * x.element_size(), 0 if bf16 else work,
+                        reps * elems if op == "exp" else 0, work if bf16 else 0)
+            add("prim", f"{op} {x.dtype}", lambda x=x, op=op: cal.prim_cuda(x, op, reps),
+                lambda x=x, op=op: cal.prim_plain(x, op, reps),
+                1e-5, 2e-2 if bf16 else 1e-4, bnd)
+    scaled = lambda want, f: f * float(want.abs().max())
+    for mxu in (False, True):
+        want = cal.fwd_strip_plain(*a, reps, mxu)
+        add("fwd_strip", f"fwd strip f32 mxu={mxu}", lambda mxu=mxu: cal.fwd_strip_cuda(*a, reps, mxu),
+            lambda mxu=mxu: cal.fwd_strip_plain(*a, reps, mxu), scaled(want, 1e-5), 1e-4,
+            bound(strip_bytes + n_strips * 128 * 64 * 4,
+                  reps * edges * ((2 * 8 + 9) if mxu else 9), reps * edges))
+    atol, rtol = BF16_STRIP_TOL
+    add("fwd_strip_bf16", "fwd strip bf16", lambda: cal.fwd_strip_bf16_cuda(*a[:3], v16, reps),
+        lambda: cal.fwd_strip_bf16_plain(*a[:3], v16, reps), atol, rtol,
+        bound(strip_bytes + n_strips * 128 * 8 * 4, reps * edges * (2 * 8 + 9), reps * edges))
+    # control: the same body in f32 must fall outside that tolerance
+    want = cal.fwd_strip_bf16_plain(*a[:3], v16, reps)
+    ctl = cal.fwd_strip_bf16_plain(*a[:3], v16, reps, strip_dtype=torch.float32)
+    outside = int(((ctl - want).abs() > atol + rtol * want.abs()).sum())
+    print(f"cal fwd strip bf16 control (the body in f32): {outside} of {want.numel()} "
+          f"elements outside the tolerance, max_abs_err {float((ctl - want).abs().max()):.3e}",
+          flush=True)
+    if outside < want.numel() // 2:
+        fail("the bf16 strip tolerance does not reject the body computed in f32")
+    want = cal.bwd_strip_plain(*a, g, reps)
+    add("bwd_strip", "bwd strip", lambda: cal.bwd_strip_cuda(*a, g, reps),
+        lambda: cal.bwd_strip_plain(*a, g, reps), scaled(want, 1e-5), 1e-4,
+        bound(strip_bytes + g.numel() * 4 + n_strips * 128 * 64 * 4,
+              reps * edges * (4 * 8 + 10), reps * edges))
+    for key, st in out.items():
+        print(f"cal {key}: max_abs_err {st['err']:.3e}, kernel {st['ms']:.4f} ms, plain "
+              f"{st['plain_ms']:.4f} ms, bound {st['bound'][0]:.4f} ms ({st['bound'][1]}) "
+              f"at R = {reps}", flush=True)
+    del inp, a, v16, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_calibration(root) -> dict:
+    """Phase 8b: scripts/cal_vpu_torch.py at its full R (16,384 primitive
+    passes, 2,048 strip passes) on the card-wide strip; prints its JSON and
+    returns the launches (each timing: two warm-up and ten timed launches;
+    the strip bodies: f32 with and without p·v, bf16, backward)."""
+    import runpy
+
+    import torch
+
+    from han_tpu_torch.ops import calibrate as cal
+
+    for attr in CAL_COUNTERS.values():
+        setattr(cal, attr, 0)
+    t0 = time.perf_counter()
+    main = runpy.run_path(str(root / "scripts" / "cal_vpu_torch.py"), run_name="not_main")["main"]
+    result = main(["--out", str(root / "build" / "CALIBRATION_H100.json")])
+    torch.cuda.synchronize()
+    n = {key: getattr(cal, attr) for key, attr in CAL_COUNTERS.items()}
+    want = {"prim": 14 * 12, "fwd_strip": 2 * 12, "fwd_strip_bf16": 12, "bwd_strip": 12}
+    if n != want:
+        fail(f"calibration launches {n}, want {want}")
+    print(f"calibration: {time.perf_counter() - t0:.2f} s, launches {n}", flush=True)
+    print(json.dumps(result), flush=True)
+    return n
+
+
+def check_bench_shape(root, dev) -> dict:
+    """Phase 9a: the flash kernels at the benchmark's shapes: its graphs
+    (bench_torch.build_workload: N = n_pad = 8192, no padding rows, 2
+    meta-paths in bfs order), K = D = 8, dropout 0, v in f32 and in bf16;
+    forward, fused backward and both sweeps of each meta-path against their
+    plain versions with the DBLP check's f32 tolerances (forward atol 1e-5,
+    rtol 1e-4; backward atol 1e-4, rtol 1e-3). Returns the largest errors
+    per kernel."""
+    import runpy
+
+    import torch
+
+    from han_tpu_torch.graph.build import metapath_to_bcsr
+    from han_tpu_torch.ops import flash_gat as fg
+
+    build_workload = runpy.run_path(str(root / "bench_torch.py"),
+                                    run_name="not_main")["build_workload"]
+    ds, _, _ = build_workload(8192, 2, 128.0, "bfs")
+    gen = torch.Generator(dev).manual_seed(3)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    k, d = 8, 8
+    meta = fg.FlashMeta(slope=0.2)
+    errs = {"fwd": 0.0, "bwd": 0.0, "row": 0.0, "col": 0.0}
+    for name, adj in zip(ds.metapath_names, ds.metapath_adjs):
+        graph = metapath_to_bcsr(adj).to(dev)
+        n = graph.n_pad
+        if n != ds.n_nodes:
+            fail(f"bench graph {name}: n_pad {n}, want N = {ds.n_nodes} (no padding rows)")
+        ld, ls, v32, g = rnd(k, n), rnd(k, n), rnd(n, k * d), rnd(n, k * d)
+        for v in (v32, v32.to(torch.bfloat16)):
+            print(f"bench shape, {name}: {graph.n_tiles} tiles, n_pad {n}, v {v.dtype}",
+                  flush=True)
+            out_k, lse_k = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
+            out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
+            torch.cuda.synchronize()
+            errs["fwd"] = max(errs["fwd"], check("out", out_k, out_p, 1e-5, 1e-4),
+                              check("lse", lse_k, lse_p, 1e-5, 1e-4))
+            del out_p, lse_p
+            delta = (g * out_k).view(n, k, d).sum(-1).T.contiguous()
+            args = (graph, ld, ls, v, g, lse_k, delta, meta)
+            errs["bwd"] = max(errs["bwd"], *(check(f"{t}", a, b, 1e-4, 1e-3) for t, a, b in zip(
+                ("dld", "dls", "dv"), fg.flash_bwd_cuda(*args), fg.flash_bwd_plain(*args))))
+            errs["row"] = max(errs["row"], check("dld (row sweep)", fg.flash_bwd_row_cuda(*args),
+                                                 fg.flash_bwd_row_plain(*args), 1e-4, 1e-3))
+            errs["col"] = max(errs["col"], *(check(f"{t} (column sweep)", a, b, 1e-4, 1e-3)
+                                             for t, a, b in zip(("dls", "dv"),
+                                                                fg.flash_bwd_col_cuda(*args),
+                                                                fg.flash_bwd_col_plain(*args))))
+            torch.cuda.empty_cache()
+    return errs
+
+
+def run_bench(root) -> dict:
+    """Phase 9: bench_torch.py's f32 and bf16 arms (defaults: N = 8192, P =
+    2, K = D = 8, degree 128, bfs order, 20 iterations; fwd+bwd, the dense
+    baseline, then fwd alone), each printing its JSON line; the flash and
+    in-process calibration launches are exact."""
+    import runpy
+
+    import torch
+
+    from han_tpu_torch.ops import calibrate as cal
+    from han_tpu_torch.ops import flash_gat as fg
+
+    main = runpy.run_path(str(root / "bench_torch.py"), run_name="not_main")["main"]
+    calls, n_mp = 2 + 5 * 20, 2  # warm-up + best of 5 x 20 iterations
+    total = {"fwd": 0, "bwd": 0}
+    for arm, argv in (("f32", []), ("bf16", ["--dtype", "bfloat16"])):
+        fg.flash_fwd_launches = fg.flash_bwd_launches = 0
+        for attr in CAL_COUNTERS.values():
+            setattr(cal, attr, 0)
+        t0 = time.perf_counter()
+        res = main(argv)
+        torch.cuda.synchronize()
+        n = {"fwd": fg.flash_fwd_launches, "bwd": fg.flash_bwd_launches,
+             **{key: getattr(cal, attr) for key, attr in CAL_COUNTERS.items()}}
+        want = {"fwd": 2 * n_mp * calls, "bwd": n_mp * calls, "prim": 0,
+                "fwd_strip": 24, "fwd_strip_bf16": 12, "bwd_strip": 12}
+        if n != want:
+            fail(f"bench {arm}: launches {n}, want {want}")
+        if not (res["value"] > 0 and res["vs_baseline"] and "roofline" in res["detail"]):
+            fail(f"bench {arm}: {res}")
+        print(f"bench {arm}: {time.perf_counter() - t0:.2f} s, launches {n}", flush=True)
+        total["fwd"] += n["fwd"]
+        total["bwd"] += n["bwd"]
+    return total
 
 
 if __name__ == "__main__":

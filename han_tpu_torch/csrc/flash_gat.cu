@@ -35,7 +35,10 @@
 //   dld_i  = sum_j dz_ij,  dls_j = sum_i dz_ij,  dv_j = sum_i c'_ij g_i
 // The softmax denominator uses the undropped p and the accumulator the
 // dropped one (reference order); rows without edges give out = 0 and
-// lse = -1e9.
+// lse = -1e9. v may be f32 or bf16 (the VT template argument, as
+// han_tpu/ops/pallas/flash_gat.py:749-758 streams bf16 features): it is
+// widened to f32 right after each load, and everything else, dv included,
+// is f32.
 //
 // What bounds it on the H100, and what the design does about it:
 // - The work is elementwise over the swept tile area (bm*bn*K per occupied
@@ -69,8 +72,11 @@
 //   storing it, the mask does not depend on the tile size, and the meta
 //   offsets (row block, head, column block) keep it global for sharded runs.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -113,17 +119,22 @@ __device__ __forceinline__ uint32_t drop_bits(uint32_t row_key, uint32_t col) {
   return fmix32(row_key ^ (col * 0x9E3779B9u));
 }
 
+// v is float or bf16 (VT); it is widened to f32 in registers right after the
+// load, and everything else computes and accumulates in f32
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
 // ---------------------------------------------------------------------------
 // forward: block (row block rb, head h); thread (r, q) owns tile row r and
 // the q-th quarter of every tile's columns.
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, typename VT>
 __global__ void __launch_bounds__(1024) fwd_kernel(
     const int8_t* __restrict__ tiles, const int* __restrict__ fcount,
     const int* __restrict__ fcol, const int* __restrict__ ftile, int c_pitch,
     const float* __restrict__ ld, const float* __restrict__ ls,
-    const float* __restrict__ v, float* __restrict__ out,
+    const VT* __restrict__ v, float* __restrict__ out,
     float* __restrict__ lse, int n_rows, int n_cols, int bm, int bn, int k,
     float slope, Drop drop, Offsets off) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -166,7 +177,7 @@ __global__ void __launch_bounds__(1024) fwd_kernel(
       ls_s[j] = ls[(size_t)h * n_cols + (size_t)cb * bn + j];
     for (int i = tid; i < bn * D; i += nthr) {
       const int j = i / D;
-      v_s[i] = v[((size_t)cb * bn + j) * kd + h * D + (i - j * D)];
+      v_s[i] = to_f32(v[((size_t)cb * bn + j) * kd + h * D + (i - j * D)]);
     }
     __syncthreads();
 
@@ -260,12 +271,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D, bool FUSE_DLD>
+template <int D, bool FUSE_DLD, typename VT>
 __global__ void __launch_bounds__(1024) bwd_col_kernel(
     const int8_t* __restrict__ tiles, const int* __restrict__ bcount,
     const int* __restrict__ brow, const int* __restrict__ btile, int r_pitch,
     const float* __restrict__ ld, const float* __restrict__ ls,
-    const float* __restrict__ v, const float* __restrict__ g,
+    const VT* __restrict__ v, const float* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dld, float* __restrict__ dls, float* __restrict__ dv,
     int n_rows, int n_cols, int bm, int bn, int k, float slope, Drop drop,
@@ -290,7 +301,7 @@ __global__ void __launch_bounds__(1024) bwd_col_kernel(
   float v_j[D], dv_j[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    v_j[d] = v[(size_t)col * kd + h * D + d];
+    v_j[d] = to_f32(v[(size_t)col * kd + h * D + d]);
     dv_j[d] = 0.f;
   }
   float dls_j = 0.f;
@@ -395,12 +406,12 @@ __global__ void __launch_bounds__(1024) bwd_col_kernel(
 // columns, as in fwd_kernel. Writes dld only, once per row: no atomics.
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, typename VT>
 __global__ void __launch_bounds__(1024) bwd_row_kernel(
     const int8_t* __restrict__ tiles, const int* __restrict__ fcount,
     const int* __restrict__ fcol, const int* __restrict__ ftile, int c_pitch,
     const float* __restrict__ ld, const float* __restrict__ ls,
-    const float* __restrict__ v, const float* __restrict__ g,
+    const VT* __restrict__ v, const float* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dld, int n_rows, int n_cols, int bm, int bn, int k,
     float slope, Drop drop, Offsets off) {
@@ -445,7 +456,7 @@ __global__ void __launch_bounds__(1024) bwd_row_kernel(
       ls_s[j] = ls[(size_t)h * n_cols + (size_t)cb * bn + j];
     for (int i = tid; i < bn * D; i += nthr) {
       const int j = i / D;
-      v_s[i] = v[((size_t)cb * bn + j) * kd + h * D + (i - j * D)];
+      v_s[i] = to_f32(v[((size_t)cb * bn + j) * kd + h * D + (i - j * D)]);
     }
     __syncthreads();
 
@@ -512,24 +523,24 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int D>
+template <int D, typename VT>
 int launch_fwd(const void* tiles, const void* fcount, const void* fcol,
                const void* ftile, int c_pitch, const void* ld, const void* ls,
                const void* v, void* out, void* lse, int n_rows, int n_cols,
                int bm, int bn, int k, float slope, Drop drop, Offsets off,
                cudaStream_t stream) {
   const size_t smem = fwd_smem(bm, bn, D);
-  cudaError_t err = set_smem(fwd_kernel<D>, smem);
+  cudaError_t err = set_smem(fwd_kernel<D, VT>, smem);
   if (err != cudaSuccess) return (int)err;
-  fwd_kernel<D><<<dim3(n_rows / bm, k), bm * TPR, smem, stream>>>(
+  fwd_kernel<D, VT><<<dim3(n_rows / bm, k), bm * TPR, smem, stream>>>(
       (const int8_t*)tiles, (const int*)fcount, (const int*)fcol,
       (const int*)ftile, c_pitch, (const float*)ld, (const float*)ls,
-      (const float*)v, (float*)out, (float*)lse, n_rows, n_cols, bm, bn, k,
+      (const VT*)v, (float*)out, (float*)lse, n_rows, n_cols, bm, bn, k,
       slope, drop, off);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool FUSE_DLD>
+template <int D, bool FUSE_DLD, typename VT>
 int launch_bwd(const void* tiles, const void* bcount, const void* brow,
                const void* btile, int r_pitch, const void* ld, const void* ls,
                const void* v, const void* g, const void* lse,
@@ -537,40 +548,18 @@ int launch_bwd(const void* tiles, const void* bcount, const void* brow,
                int n_cols, int bm, int bn, int k, float slope, Drop drop,
                Offsets off, cudaStream_t stream) {
   const size_t smem = bwd_smem(bm, bn, D, FUSE_DLD);
-  cudaError_t err = set_smem(bwd_col_kernel<D, FUSE_DLD>, smem);
+  cudaError_t err = set_smem(bwd_col_kernel<D, FUSE_DLD, VT>, smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_col_kernel<D, FUSE_DLD><<<dim3(n_cols / bn, k), bn * TPR, smem, stream>>>(
+  bwd_col_kernel<D, FUSE_DLD, VT><<<dim3(n_cols / bn, k), bn * TPR, smem, stream>>>(
       (const int8_t*)tiles, (const int*)bcount, (const int*)brow,
       (const int*)btile, r_pitch, (const float*)ld, (const float*)ls,
-      (const float*)v, (const float*)g, (const float*)lse,
+      (const VT*)v, (const float*)g, (const float*)lse,
       (const float*)delta, (float*)dld, (float*)dls, (float*)dv, n_rows,
       n_cols, bm, bn, k, slope, drop, off);
   return (int)cudaGetLastError();
 }
 
-// The column sweep at head dim d, with or without the fused dld.
-template <bool FUSE_DLD>
-int bwd_entry(const void* tiles, const void* bcount, const void* brow,
-              const void* btile, int r_pitch, const void* ld, const void* ls,
-              const void* v, const void* g, const void* lse,
-              const void* delta, void* dld, void* dls, void* dv, int n_rows,
-              int n_cols, int bm, int bn, int k, int d, float slope,
-              int drop_on, unsigned seed, unsigned thresh, float drop_scale,
-              int row_block_off, int head_off, int col_block_off,
-              void* stream) {
-  if (bad_geometry(n_rows, n_cols, bm, bn, k)) return (int)cudaErrorInvalidValue;
-  const Drop drop{drop_on, seed, thresh, drop_scale};
-  const Offsets off{row_block_off, head_off, col_block_off};
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 4: return launch_bwd<4, FUSE_DLD>(tiles, bcount, brow, btile, r_pitch, ld, ls, v, g, lse, delta, dld, dls, dv, n_rows, n_cols, bm, bn, k, slope, drop, off, st);
-    case 8: return launch_bwd<8, FUSE_DLD>(tiles, bcount, brow, btile, r_pitch, ld, ls, v, g, lse, delta, dld, dls, dv, n_rows, n_cols, bm, bn, k, slope, drop, off, st);
-    case 16: return launch_bwd<16, FUSE_DLD>(tiles, bcount, brow, btile, r_pitch, ld, ls, v, g, lse, delta, dld, dls, dv, n_rows, n_cols, bm, bn, k, slope, drop, off, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <int D>
+template <int D, typename VT>
 int launch_bwd_row(const void* tiles, const void* fcount, const void* fcol,
                    const void* ftile, int c_pitch, const void* ld,
                    const void* ls, const void* v, const void* g,
@@ -578,15 +567,56 @@ int launch_bwd_row(const void* tiles, const void* fcount, const void* fcol,
                    int n_cols, int bm, int bn, int k, float slope, Drop drop,
                    Offsets off, cudaStream_t stream) {
   const size_t smem = row_smem(bm, bn, D);
-  cudaError_t err = set_smem(bwd_row_kernel<D>, smem);
+  cudaError_t err = set_smem(bwd_row_kernel<D, VT>, smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_row_kernel<D><<<dim3(n_rows / bm, k), bm * TPR, smem, stream>>>(
+  bwd_row_kernel<D, VT><<<dim3(n_rows / bm, k), bm * TPR, smem, stream>>>(
       (const int8_t*)tiles, (const int*)fcount, (const int*)fcol,
       (const int*)ftile, c_pitch, (const float*)ld, (const float*)ls,
-      (const float*)v, (const float*)g, (const float*)lse,
+      (const VT*)v, (const float*)g, (const float*)lse,
       (const float*)delta, (float*)dld, n_rows, n_cols, bm, bn, k, slope,
       drop, off);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// Calls f(dim, tag) with the head dim d (4, 8 or 16) as an
+// std::integral_constant and v's element type (float, or bf16 when v_bf16)
+// as a Tag.
+template <typename F>
+int dispatch(int d, int v_bf16, F&& f) {
+  auto by_type = [&](auto dim) {
+    return v_bf16 ? f(dim, Tag<__nv_bfloat16>{}) : f(dim, Tag<float>{});
+  };
+  switch (d) {
+    case 4: return by_type(std::integral_constant<int, 4>{});
+    case 8: return by_type(std::integral_constant<int, 8>{});
+    case 16: return by_type(std::integral_constant<int, 16>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The column sweep, with or without the fused dld.
+template <bool FUSE_DLD>
+int bwd_entry(const void* tiles, const void* bcount, const void* brow,
+              const void* btile, int r_pitch, const void* ld, const void* ls,
+              const void* v, const void* g, const void* lse,
+              const void* delta, void* dld, void* dls, void* dv, int n_rows,
+              int n_cols, int bm, int bn, int k, int d, int v_bf16,
+              float slope, int drop_on, unsigned seed, unsigned thresh,
+              float drop_scale, int row_block_off, int head_off,
+              int col_block_off, void* stream) {
+  if (bad_geometry(n_rows, n_cols, bm, bn, k)) return (int)cudaErrorInvalidValue;
+  const Drop drop{drop_on, seed, thresh, drop_scale};
+  const Offsets off{row_block_off, head_off, col_block_off};
+  return dispatch(d, v_bf16, [&](auto dim, auto tag) {
+    return launch_bwd<decltype(dim)::value, FUSE_DLD, typename decltype(tag)::type>(
+        tiles, bcount, brow, btile, r_pitch, ld, ls, v, g, lse, delta, dld, dls,
+        dv, n_rows, n_cols, bm, bn, k, slope, drop, off, (cudaStream_t)stream);
+  });
 }
 
 }  // namespace
@@ -594,43 +624,41 @@ int launch_bwd_row(const void* tiles, const void* fcount, const void* fcol,
 extern "C" {
 
 // Forward. tiles int8 [T, bm, bn]; fcount int32 [nb_r]; fcol, ftile int32
-// [nb_r, c_pitch]; ld f32 [k, n_rows]; ls f32 [k, n_cols]; v f32
-// [n_cols, k*d] -> out f32 [n_rows, k*d], lse f32 [k, n_rows].
+// [nb_r, c_pitch]; ld f32 [k, n_rows]; ls f32 [k, n_cols]; v f32, or bf16
+// when v_bf16, [n_cols, k*d] -> out f32 [n_rows, k*d], lse f32 [k, n_rows].
 // Returns a cudaError_t code (0 = launched).
 int han_flash_fwd(const void* tiles, const void* fcount, const void* fcol,
                   const void* ftile, int c_pitch, const void* ld,
                   const void* ls, const void* v, void* out, void* lse,
                   int n_rows, int n_cols, int bm, int bn, int k, int d,
-                  float slope, int drop_on, unsigned seed, unsigned thresh,
-                  float drop_scale, int row_block_off, int head_off,
-                  int col_block_off, void* stream) {
+                  int v_bf16, float slope, int drop_on, unsigned seed,
+                  unsigned thresh, float drop_scale, int row_block_off,
+                  int head_off, int col_block_off, void* stream) {
   if (bad_geometry(n_rows, n_cols, bm, bn, k)) return (int)cudaErrorInvalidValue;
   const Drop drop{drop_on, seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 4: return launch_fwd<4>(tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, out, lse, n_rows, n_cols, bm, bn, k, slope, drop, off, st);
-    case 8: return launch_fwd<8>(tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, out, lse, n_rows, n_cols, bm, bn, k, slope, drop, off, st);
-    case 16: return launch_fwd<16>(tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, out, lse, n_rows, n_cols, bm, bn, k, slope, drop, off, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(d, v_bf16, [&](auto dim, auto tag) {
+    return launch_fwd<decltype(dim)::value, typename decltype(tag)::type>(
+        tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, out, lse, n_rows,
+        n_cols, bm, bn, k, slope, drop, off, (cudaStream_t)stream);
+  });
 }
 
 // Fused backward. Adds bcount int32 [nb_c]; brow, btile int32 [nb_c, r_pitch];
 // g f32 [n_rows, k*d]; lse, delta f32 [k, n_rows] -> dld f32 [k, n_rows]
 // (zeroed by the caller, accumulated with atomicAdd), dls f32 [k, n_cols],
-// dv f32 [n_cols, k*d] (written once).
+// dv f32 [n_cols, k*d] (written once; f32 whatever v's type).
 int han_flash_bwd(const void* tiles, const void* bcount, const void* brow,
                   const void* btile, int r_pitch, const void* ld,
                   const void* ls, const void* v, const void* g,
                   const void* lse, const void* delta, void* dld, void* dls,
                   void* dv, int n_rows, int n_cols, int bm, int bn, int k,
-                  int d, float slope, int drop_on, unsigned seed,
+                  int d, int v_bf16, float slope, int drop_on, unsigned seed,
                   unsigned thresh, float drop_scale, int row_block_off,
                   int head_off, int col_block_off, void* stream) {
   return bwd_entry<true>(tiles, bcount, brow, btile, r_pitch, ld, ls, v, g,
                          lse, delta, dld, dls, dv, n_rows, n_cols, bm, bn, k,
-                         d, slope, drop_on, seed, thresh, drop_scale,
+                         d, v_bf16, slope, drop_on, seed, thresh, drop_scale,
                          row_block_off, head_off, col_block_off, stream);
 }
 
@@ -641,19 +669,17 @@ int han_flash_bwd_row(const void* tiles, const void* fcount, const void* fcol,
                       const void* ls, const void* v, const void* g,
                       const void* lse, const void* delta, void* dld,
                       int n_rows, int n_cols, int bm, int bn, int k, int d,
-                      float slope, int drop_on, unsigned seed, unsigned thresh,
-                      float drop_scale, int row_block_off, int head_off,
-                      int col_block_off, void* stream) {
+                      int v_bf16, float slope, int drop_on, unsigned seed,
+                      unsigned thresh, float drop_scale, int row_block_off,
+                      int head_off, int col_block_off, void* stream) {
   if (bad_geometry(n_rows, n_cols, bm, bn, k)) return (int)cudaErrorInvalidValue;
   const Drop drop{drop_on, seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 4: return launch_bwd_row<4>(tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, g, lse, delta, dld, n_rows, n_cols, bm, bn, k, slope, drop, off, st);
-    case 8: return launch_bwd_row<8>(tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, g, lse, delta, dld, n_rows, n_cols, bm, bn, k, slope, drop, off, st);
-    case 16: return launch_bwd_row<16>(tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, g, lse, delta, dld, n_rows, n_cols, bm, bn, k, slope, drop, off, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(d, v_bf16, [&](auto dim, auto tag) {
+    return launch_bwd_row<decltype(dim)::value, typename decltype(tag)::type>(
+        tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, g, lse, delta, dld,
+        n_rows, n_cols, bm, bn, k, slope, drop, off, (cudaStream_t)stream);
+  });
 }
 
 // Split backward, column sweep: the backward's map and the same float
@@ -663,13 +689,14 @@ int han_flash_bwd_col(const void* tiles, const void* bcount, const void* brow,
                       const void* ls, const void* v, const void* g,
                       const void* lse, const void* delta, void* dls, void* dv,
                       int n_rows, int n_cols, int bm, int bn, int k, int d,
-                      float slope, int drop_on, unsigned seed, unsigned thresh,
-                      float drop_scale, int row_block_off, int head_off,
-                      int col_block_off, void* stream) {
+                      int v_bf16, float slope, int drop_on, unsigned seed,
+                      unsigned thresh, float drop_scale, int row_block_off,
+                      int head_off, int col_block_off, void* stream) {
   return bwd_entry<false>(tiles, bcount, brow, btile, r_pitch, ld, ls, v, g,
                           lse, delta, nullptr, dls, dv, n_rows, n_cols, bm, bn,
-                          k, d, slope, drop_on, seed, thresh, drop_scale,
-                          row_block_off, head_off, col_block_off, stream);
+                          k, d, v_bf16, slope, drop_on, seed, thresh,
+                          drop_scale, row_block_off, head_off, col_block_off,
+                          stream);
 }
 
 const char* han_error_string(int code) {

@@ -10,7 +10,10 @@ parameter tree onto a ``state_dict`` name for name.
   (no bias), per-head scalar projections f_1/f_2 (with bias), LeakyReLU(0.2)
   → mask → row softmax → per-head output bias → activation. Input dropout is
   drawn independently per head, as the reference's per-head
-  ``tf.nn.dropout`` calls.
+  ``tf.nn.dropout`` calls. ``dtype`` is the compute type of the features
+  (han_tpu/nn/layers.py:55-61): x and ``kernel`` are cast to it, the
+  einsums sum in f32 and are cast back, the attention logits and the
+  output are f32, and the parameters stay f32.
 - ``SemanticAttention`` reproduces ``SimpleAttLayer`` (utils/layers.py:
   132-164) including the *per-node* softmax over meta-paths and normal(0.1)
   initialization.
@@ -68,9 +71,11 @@ class GATConv(nn.Module):
                  slope: float = 0.2, attn_drop: float = 0.0,
                  ffd_drop: float = 0.0, residual: bool = False,
                  concat_heads: bool = True, impl: Impl = "auto",
+                 dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
         k, d = num_heads, out_dim
+        self.dtype = dtype
         self.activation = activation
         self.slope, self.attn_drop, self.ffd_drop = slope, attn_drop, ffd_drop
         self.residual, self.concat_heads, self.impl = residual, concat_heads, impl
@@ -89,6 +94,8 @@ class GATConv(nn.Module):
                 return_coefs: bool = False):
         n, f = x.shape
         k, d = self.bias.shape
+        x = x.to(self.dtype)
+        w = self.kernel.to(self.dtype)
         drop_in = 0.0 if deterministic else self.ffd_drop
         drop_coef = 0.0 if deterministic else self.attn_drop
         if (drop_in > 0.0 or drop_coef > 0.0) and rngs is None:
@@ -100,13 +107,14 @@ class GATConv(nn.Module):
             keep = 1.0 - drop_in
             mask = torch.rand((k, n, f), generator=rngs.device, device=x.device) < keep
             xk = torch.where(mask, x[None] / keep, 0.0)  # (K, N, F)
-            fts = torch.einsum("knf,fkd->nkd", xk, self.kernel)
+            fts = torch.einsum("knf,fkd->nkd", xk.float(), w.float()).to(self.dtype)
         else:
-            fts = torch.einsum("nf,fkd->nkd", x, self.kernel)
+            fts = torch.einsum("nf,fkd->nkd", x.float(), w.float()).to(self.dtype)
 
-        # per-head scalar attention terms (reference f_1 / f_2, layers.py:23-24)
-        logit_dst = torch.einsum("nkd,kd->nk", fts, self.attn_dst_kernel) + self.attn_dst_bias
-        logit_src = torch.einsum("nkd,kd->nk", fts, self.attn_src_kernel) + self.attn_src_bias
+        # per-head scalar attention terms (reference f_1 / f_2, layers.py:23-24),
+        # f32 whatever the compute dtype
+        logit_dst = torch.einsum("nkd,kd->nk", fts.float(), self.attn_dst_kernel) + self.attn_dst_bias
+        logit_src = torch.einsum("nkd,kd->nk", fts.float(), self.attn_src_kernel) + self.attn_src_bias
 
         # feature dropout before aggregation (reference layers.py:31-32)
         fts_agg = fts
@@ -123,12 +131,12 @@ class GATConv(nn.Module):
         if return_coefs:
             agg, coefs = agg
 
-        ret = agg + self.bias[None]  # (N, K, D)
+        ret = agg.float() + self.bias[None]  # (N, K, D), f32
         if self.residual:
             if self.res_kernel is not None:
-                ret = ret + torch.einsum("nf,fkd->nkd", x, self.res_kernel)
+                ret = ret + torch.einsum("nf,fkd->nkd", x.float(), self.res_kernel)
             else:
-                ret = ret + x[:, None, :]
+                ret = ret + x[:, None, :].float()
 
         out = self.activation(ret)
         out = out.reshape(n, k * d) if self.concat_heads else out.mean(dim=1)

@@ -37,10 +37,11 @@ class _MetapathTower(nn.Module):
     def __init__(self, in_dim: int, hid_units: Sequence[int],
                  n_heads: Sequence[int], *, activation: Callable,
                  residual: bool, attn_drop: float, ffd_drop: float,
-                 impl: Impl, generator: torch.Generator | None = None):
+                 impl: Impl, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
         super().__init__()
         common = dict(activation=activation, attn_drop=attn_drop,
-                      ffd_drop=ffd_drop, impl=impl, generator=generator)
+                      ffd_drop=ffd_drop, impl=impl, dtype=dtype, generator=generator)
         layers = [GATConv(in_dim, hid_units[0], n_heads[0], residual=False, **common)]
         for i in range(1, len(hid_units)):
             layers.append(GATConv(hid_units[i - 1] * n_heads[i - 1], hid_units[i],
@@ -60,7 +61,9 @@ class HAN(nn.Module):
 
     ``forward(graphs, xs)`` takes P graphs (one per meta-path) and P feature
     tensors (typically the same tensor repeated); returns
-    ``(logits (N, C), embedding (N, K*hid), alphas (N, P))``.
+    ``(logits (N, C), embedding (N, K*hid), alphas (N, P))``. ``dtype`` is
+    the towers' compute type (see ``GATConv``); the semantic attention and
+    the classifier run in f32.
     """
 
     def __init__(self, in_dim: int, n_classes: int, n_metapaths: int, *,
@@ -68,7 +71,8 @@ class HAN(nn.Module):
                  n_heads: Sequence[int] = (8, 1), semantic_dim: int = 128,
                  activation: Callable = F.elu, residual: bool = False,
                  attn_drop: float = 0.0, ffd_drop: float = 0.0,
-                 impl: Impl = "auto", vmap_towers: bool = False,
+                 impl: Impl = "auto", dtype: torch.dtype = torch.float32,
+                 vmap_towers: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         if vmap_towers:
@@ -77,7 +81,8 @@ class HAN(nn.Module):
         self.towers = nn.ModuleList(
             _MetapathTower(in_dim, hid_units, n_heads, activation=activation,
                            residual=residual, attn_drop=attn_drop,
-                           ffd_drop=ffd_drop, impl=impl, generator=generator)
+                           ffd_drop=ffd_drop, impl=impl, dtype=dtype,
+                           generator=generator)
             for _ in range(n_metapaths))
         emb_dim = hid_units[-1] * n_heads[len(hid_units) - 1]
         self.semantic = SemanticAttention(emb_dim, semantic_dim, generator=generator)

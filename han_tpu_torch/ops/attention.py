@@ -24,6 +24,9 @@ backend (parallel/flash_shard.py) and a RingBCSR to the ring backend
 
 All take features in head-major layout ``fts: (N, K, D)`` and per-head node
 logit terms ``logit_dst, logit_src: (N, K)`` and return ``(N, K, D)``.
+Features may be bfloat16 on dense, csr, ell and flash: the logits and
+coefficients stay f32, the aggregate is summed in f32 and cast back to
+``fts.dtype`` (han_tpu/ops/attention.py:106-108,156-159,217).
 """
 
 from __future__ import annotations
@@ -78,7 +81,7 @@ def dense_attention(
     coefs = torch.softmax(leaky_relu(logits, slope) + graph.bias[None], dim=-1)
     raw_coefs = coefs
     coefs = _coef_dropout(coefs, coef_dropout, generator)
-    out = torch.einsum("knm,mkd->nkd", coefs, fts)
+    out = torch.einsum("knm,mkd->nkd", coefs, fts.float()).to(fts.dtype)
     if return_coefs:
         return out, raw_coefs
     return out
@@ -113,7 +116,7 @@ def ell_attention(
     coefs = e / e.sum(dim=1, keepdim=True).clamp_min(1e-30)  # (N, F, K)
     coefs = _coef_dropout(coefs, coef_dropout, generator)
     g_fts = fts_pad[nbr].view(n, f, k, d)
-    return torch.einsum("nfk,nfkd->nkd", coefs, g_fts)
+    return torch.einsum("nfk,nfkd->nkd", coefs, g_fts.float()).to(fts.dtype)
 
 
 def sddmm_edge_logits(graph: CSRGraph, logit_dst: torch.Tensor,
@@ -158,7 +161,7 @@ def spmm_aggregate(graph: CSRGraph, coefs: torch.Tensor,
     fts_pad = torch.cat([fts.reshape(n, k * d), fts.new_zeros((1, k * d))])
     vals = torch.repeat_interleave(coefs, d, dim=1) * fts_pad[graph.col_idx]
     out = vals.new_zeros((n + 1, k * d)).index_add(0, graph.row_idx, vals)
-    return out[:n].reshape(n, k, d)
+    return out[:n].reshape(n, k, d).to(fts.dtype)
 
 
 def csr_attention(

@@ -1,0 +1,465 @@
+"""Calibration kernels: CUDA wrappers, their plain PyTorch versions, launch
+counters and the marginal-time helper (port of scripts/cal_vpu.py:35-201).
+
+Each kernel (csrc/calibrate.cu, whose header names the TPU kernel it
+replaces and the card ceiling that bounds it) runs R dependency-chained
+passes over data it holds on chip, so that ``time_marginal`` — the time
+between R and 2R in-kernel passes — is the card's compute rate for one
+pass, free of device-memory traffic:
+
+- ``prim_cuda`` ← ``_prim_kernel``: one primitive (``OPS``) over every
+  element, in float32 or bfloat16;
+- ``fwd_strip_cuda`` ← ``_fwd_strip_kernel``: the flash forward's
+  per-(head, tile) body, with (``mxu``) or without p·v;
+- ``fwd_strip_bf16_cuda`` ← ``_fwd_strip_kernel_bf16``: the same with
+  bf16 strip math and f32 reductions;
+- ``bwd_strip_cuda`` ← ``_bwd_strip_kernel``: the fused backward's body.
+
+Shapes. The plain versions take cal_vpu.py's arrays with any leading batch
+dimensions: x (..., bm, sub); ld (..., 8, bm) and ls (..., 8, sub), of
+which row 0 is used, as cal_vpu.py does; adj int8 (..., bm, sub); v (...,
+sub, d); g (..., bm, d). The kernels take a batch of ``n_strips`` strips of
+the port's 128×128 flash tile (bm = sub = 128, d = 8), one thread block
+each: a launch covers the whole card. Every strip row holds at least one
+edge (``make_inputs`` sets one): on an edgeless row cal_vpu.py's dense f32
+forward sums exp(0) over the masked entries, which the port's kernels, like
+its flash kernels, skip.
+
+The plain versions (``*_plain``) compute the chain step by step as
+cal_vpu.py's bodies do, with chain constants in the data's type, so a
+bf16 pass rounds where the JAX body rounds; the CPU tests hold them to
+cal_vpu.py and ``chip_smoke.py`` holds each kernel to them on the card.
+The calibration times the card only, so each wrapper launches its kernel
+or raises (on CPU tensors too) and never falls back. ``prim_launches``,
+``fwd_strip_launches``, ``fwd_strip_bf16_launches`` and
+``bwd_strip_launches`` count kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import subprocess
+
+import numpy as np
+import torch
+
+OPS = ("add", "mul", "lrelu", "select", "exp", "rowmax", "rowsum")
+TILE = 128   # strip side of the kernels: the port's flash tile
+HEADS = 8    # head slots; the f32 strip bodies unroll passes by 8
+D = 8        # head dim of the kernels
+SLOPE = 0.2
+
+prim_launches = 0
+fwd_strip_launches = 0
+fwd_strip_bf16_launches = 0
+bwd_strip_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+
+def _const(value: float, like: torch.Tensor) -> torch.Tensor:
+    """A chain constant in ``like``'s type (bf16 constants are exact: 1 ±
+    2**-7, cal_vpu.py:37-41)."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def _prim_body(op: str, acc: torch.Tensor, aux: torch.Tensor):
+    """One pass (cal_vpu.py:_prim_body); returns (acc, aux)."""
+    c = lambda value: _const(value, acc)
+    if op == "add":
+        return acc + c(0.0078125), aux
+    if op == "mul":
+        return acc * c(0.9921875), aux
+    if op == "lrelu":
+        return torch.maximum(acc, c(0.2) * acc), aux
+    if op == "select":
+        return torch.where(acc >= 0, acc, acc * c(0.9921875)), aux
+    if op == "exp":
+        return torch.exp(acc * c(1e-9)), aux
+    if op == "rowmax":
+        return acc, aux * c(0.5) + (acc + aux[..., None] * c(1e-9)).amax(dim=-1)
+    if op == "rowsum":
+        return acc, aux * c(0.5) + (acc * c(1e-9) + aux[..., None] * c(1e-9)).sum(dim=-1)
+    raise ValueError(f"unknown op {op!r} (one of {OPS})")
+
+
+def prim_plain(x: torch.Tensor, op: str, reps: int) -> torch.Tensor:
+    """``reps`` chained passes of ``op`` over x (..., bm, sub) in x's type;
+    returns acc + aux, as _prim_kernel writes it."""
+    acc, aux = x, torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for _ in range(reps):
+        acc, aux = _prim_body(op, acc, aux)
+    return acc + aux[..., None]
+
+
+def fwd_strip_plain(ld, ls, adj, v, reps: int, mxu: bool = True,
+                    slope: float = SLOPE) -> torch.Tensor:
+    """_fwd_strip_kernel: reps // 8 × 8 passes of the forward body; one (m,
+    l) carry, the p·v of pass p into head slot p % 8. Returns (..., bm, 8·d)
+    = acc + m + l (every slot; cal_vpu.py outputs slot 0)."""
+    on_edge = adj != 0
+    ld0, ls0 = ld[..., 0, :], ls[..., 0, :]
+    m = torch.full_like(ld0, -1e9)
+    l = torch.zeros_like(ld0)
+    acc = ld0.new_zeros((*ld0.shape, HEADS, v.shape[-1]))
+    for p in range(reps // HEADS * HEADS):
+        raw = (ld0 + m * 1e-9)[..., :, None] + ls0[..., None, :]
+        z = torch.where(on_edge, torch.maximum(raw, slope * raw), -1e9)
+        m_new = torch.maximum(m, z.amax(dim=-1))
+        scale = torch.exp(m - m_new)
+        pe = torch.exp(z - m_new[..., None])
+        l = l * scale + pe.sum(dim=-1)
+        if mxu:
+            h = p % HEADS
+            acc[..., h, :] = acc[..., h, :] * scale[..., None] + pe @ v
+        m = m_new
+    return acc.flatten(-2) + (m + l)[..., None]
+
+
+def fwd_strip_bf16_plain(ld, ls, adj, v, reps: int, slope: float = SLOPE,
+                         strip_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """_fwd_strip_kernel_bf16 (mxu): raw and z in bf16, max, exp, sums and
+    the accumulator in f32, p rounded to bf16 for p·v; one accumulator.
+    v is bf16. Returns (..., bm, d) = acc + m + l. ``strip_dtype=float32``
+    skips the bf16 roundings: the f32 body that chip_smoke.py shows its
+    tolerance for this kernel rejects."""
+    on_edge = adj != 0
+    ld0, ls0 = ld[..., 0, :], ls[..., 0, :]
+    m = torch.full_like(ld0, -1e9)
+    l = torch.zeros_like(ld0)
+    acc = ld0.new_zeros((*ld0.shape, v.shape[-1]))
+    slope16 = torch.tensor(slope, dtype=strip_dtype, device=ld.device)
+    masked = torch.tensor(-3e38, dtype=strip_dtype, device=ld.device)
+    for _ in range(reps):
+        raw = ((ld0 + m * 1e-9)[..., :, None] + ls0[..., None, :]).to(strip_dtype)
+        z = torch.where(on_edge, torch.maximum(raw, slope16 * raw), masked)
+        m_new = torch.maximum(m, z.amax(dim=-1).float())
+        scale = torch.exp(m - m_new)
+        pe = torch.exp(z.float() - m_new[..., None])
+        l = l * scale + pe.sum(dim=-1)
+        acc = acc * scale[..., None] + pe.to(strip_dtype).float() @ v.float()
+        m = m_new
+    return acc + (m + l)[..., None]
+
+
+def bwd_strip_plain(ld, ls, adj, v, g, reps: int, slope: float = SLOPE) -> torch.Tensor:
+    """_bwd_strip_kernel: reps // 8 × 8 passes of the fused backward body
+    with cal_vpu.py's carries (dls, dld and the pass's dv slot decay by
+    0.5; ld + dld·1e-9 feeds the next pass). Returns (..., sub, 8·d) =
+    dv + dls + dld[:d] (every slot)."""
+    on_edge = adj != 0
+    ld0, ls0 = ld[..., 0, :], ls[..., 0, :]
+    d = v.shape[-1]
+    dls = ls0.new_zeros(ls0.shape)
+    dld = ld0.new_zeros(ld0.shape)
+    dv = ls0.new_zeros((*ls0.shape, HEADS, d))
+    gv = g @ v.transpose(-1, -2)  # (..., bm, sub): the same every pass
+    for p in range(reps // HEADS * HEADS):
+        ldp = ld0 + dld * 1e-9
+        lse, delta = ldp * 0.5, ldp * 0.25
+        raw = ldp[..., :, None] + ls0[..., None, :]
+        c = torch.where(on_edge, torch.exp(torch.maximum(raw, slope * raw) - lse[..., None]), 0.0)
+        dz = c * gv - c * delta[..., None]
+        dzs = torch.where(raw >= 0, dz, slope * dz)
+        dls = dls * 0.5 + dzs.sum(dim=-2)
+        h = p % HEADS
+        dv[..., h, :] = dv[..., h, :] * 0.5 + c.transpose(-1, -2) @ g
+        dld = dld * 0.5 + dzs.sum(dim=-1)
+    return (dv + dls[..., None, None] + dld[..., None, None, :d]).flatten(-2)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "han_cal_prim": [_I, _I, _P, _P, _I, _I, _P],
+    "han_cal_fwd_strip": [_I, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "han_cal_fwd_strip_bf16": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "han_cal_bwd_strip": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The built library with its entry points' signatures declared."""
+    from han_tpu_torch.ops import _build
+
+    lib = _build.load("calibrate")
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    lib.han_cal_error_string.argtypes = [ctypes.c_int]
+    lib.han_cal_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(**tensors) -> int:
+    """Raise on anything the kernels do not take; returns n_strips. Each
+    keyword maps a name to (tensor, dtype, shape after the strip axis)."""
+    first = next(iter(tensors.values()))[0]
+    if first.device.type != "cuda":
+        raise ValueError(f"the calibration kernels take CUDA tensors, got {first.device}")
+    n_strips = first.shape[0]
+    for name, (t, dt, shape) in tensors.items():
+        want = (n_strips, *shape)
+        if (t.device != first.device or t.dtype != dt or not t.is_contiguous()
+                or tuple(t.shape) != want):
+            raise ValueError(f"{name}: need a contiguous {dt} {want} tensor on "
+                             f"{first.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return n_strips
+
+
+def _strip_args(ld, ls, adj, v, v_dtype):
+    return dict(ld=(ld, torch.float32, (HEADS, TILE)), ls=(ls, torch.float32, (HEADS, TILE)),
+                adj=(adj, torch.int8, (TILE, TILE)), v=(v, v_dtype, (TILE, D)))
+
+
+def _launch(name: str, *args) -> None:
+    lib = _lib()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({lib.han_cal_error_string(rc).decode()})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_reps(reps: int, multiple: int = 1) -> None:
+    if reps < 0 or reps % multiple:
+        raise ValueError(f"reps must be a non-negative multiple of {multiple}, got {reps}")
+
+
+def prim_cuda(x: torch.Tensor, op: str, reps: int) -> torch.Tensor:
+    """The primitive kernel on x (n_strips, 128, 128), f32 or bf16."""
+    global prim_launches
+    if op not in OPS:
+        raise ValueError(f"unknown op {op!r} (one of {OPS})")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x: need float32 or bfloat16, got {x.dtype}")
+    _check_reps(reps)
+    n_strips = _check(x=(x, x.dtype, (TILE, TILE)))
+    out = torch.empty_like(x)
+    _launch("han_cal_prim", OPS.index(op), int(x.dtype == torch.bfloat16), x.data_ptr(),
+            out.data_ptr(), n_strips * TILE, reps, _stream(x))
+    prim_launches += 1
+    return out
+
+
+def fwd_strip_cuda(ld, ls, adj, v, reps: int, mxu: bool = True,
+                   slope: float = SLOPE) -> torch.Tensor:
+    """The f32 forward strip kernel; same contract as
+    :func:`fwd_strip_plain` at bm = sub = 128, d = 8, reps % 8 == 0."""
+    global fwd_strip_launches
+    _check_reps(reps, HEADS)
+    n_strips = _check(**_strip_args(ld, ls, adj, v, torch.float32))
+    out = torch.empty((n_strips, TILE, HEADS * D), dtype=torch.float32, device=ld.device)
+    _launch("han_cal_fwd_strip", int(mxu), ld.data_ptr(), ls.data_ptr(), adj.data_ptr(),
+            v.data_ptr(), out.data_ptr(), n_strips, reps, slope, _stream(ld))
+    fwd_strip_launches += 1
+    return out
+
+
+def fwd_strip_bf16_cuda(ld, ls, adj, v, reps: int, slope: float = SLOPE) -> torch.Tensor:
+    """The bf16 forward strip kernel; same contract as
+    :func:`fwd_strip_bf16_plain` at bm = sub = 128, d = 8 (v bf16)."""
+    global fwd_strip_bf16_launches
+    _check_reps(reps)
+    n_strips = _check(**_strip_args(ld, ls, adj, v, torch.bfloat16))
+    out = torch.empty((n_strips, TILE, D), dtype=torch.float32, device=ld.device)
+    _launch("han_cal_fwd_strip_bf16", ld.data_ptr(), ls.data_ptr(), adj.data_ptr(),
+            v.data_ptr(), out.data_ptr(), n_strips, reps, slope, _stream(ld))
+    fwd_strip_bf16_launches += 1
+    return out
+
+
+def bwd_strip_cuda(ld, ls, adj, v, g, reps: int, slope: float = SLOPE) -> torch.Tensor:
+    """The backward strip kernel; same contract as :func:`bwd_strip_plain`
+    at bm = sub = 128, d = 8, reps % 8 == 0."""
+    global bwd_strip_launches
+    _check_reps(reps, HEADS)
+    n_strips = _check(**_strip_args(ld, ls, adj, v, torch.float32),
+                      g=(g, torch.float32, (TILE, D)))
+    out = torch.empty((n_strips, TILE, HEADS * D), dtype=torch.float32, device=ld.device)
+    _launch("han_cal_bwd_strip", ld.data_ptr(), ls.data_ptr(), adj.data_ptr(), v.data_ptr(),
+            g.data_ptr(), out.data_ptr(), n_strips, reps, slope, _stream(ld))
+    bwd_strip_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# inputs and timing
+# ---------------------------------------------------------------------------
+
+
+def make_inputs(n_strips: int, bm: int = TILE, sub: int = TILE, d: int = D,
+                seed: int = 0, density: float = 0.03) -> dict[str, np.ndarray]:
+    """cal_vpu.py's inputs for ``n_strips`` strips, from a seeded numpy
+    generator: x (standard normal), ld (8, bm), ls (8, sub), adj at
+    ``density`` plus one edge in every row (column i mod sub), v (sub, d)
+    and g (bm, d). All float32 but adj (int8); the bf16 arms round x and
+    v."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda *s: rng.standard_normal((n_strips, *s)).astype(np.float32)
+    adj = (rng.random((n_strips, bm, sub)) < density).astype(np.int8)
+    adj[:, np.arange(bm), np.arange(bm) % sub] = 1
+    return {"x": f32(bm, sub), "ld": f32(HEADS, bm), "ls": f32(HEADS, sub), "adj": adj,
+            "v": f32(sub, d), "g": f32(bm, d)}
+
+
+def time_marginal(fn, r_lo: int, r_hi: int, outer: int = 5) -> tuple[float, float, float]:
+    """Seconds per extra in-kernel pass between ``fn(r_lo)`` and
+    ``fn(r_hi)`` (each one launch): CUDA events, one warm-up call each, the
+    minimum of ``outer`` runs. Returns (seconds per pass, t(r_lo),
+    t(r_hi)); t(r_hi) / t(r_lo) near r_hi / r_lo shows the passes were
+    not folded."""
+    def once(r):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(r)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e-3
+
+    for r in (r_lo, r_hi):
+        once(r)
+    t_lo = min(once(r_lo) for _ in range(outer))
+    t_hi = min(once(r_hi) for _ in range(outer))
+    return max((t_hi - t_lo) / (r_hi - r_lo), 1e-12), t_lo, t_hi
+
+
+# ---------------------------------------------------------------------------
+# the calibration run (scripts/cal_vpu_torch.py, bench_torch.py)
+# ---------------------------------------------------------------------------
+
+FOLD_LIMIT = 1.05  # a rate above this share of its ceiling is a folded chain
+SCALING = (1.9, 2.1)  # t(2R)/t(R) of a chain that runs all its passes
+STRIP_CEILING = {"fwd_strip_s": "fwd_strip", "fwd_strip_s_mxu": "fwd_strip",
+                 "fwd_strip_s_bf16_mxu": "fwd_strip", "bwd_strip_s_mxu": "bwd_strip"}
+
+
+def card_info() -> dict:
+    """The card's name, power limit, count, SM count and maximum SM clock."""
+    name, limit, clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.splitlines()[0].split(", ")
+    return {"name": name, "power_limit": limit, "count": torch.cuda.device_count(),
+            "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+            "max_sm_clock_hz": float(clock.split()[0]) * 1e6}
+
+
+def ceilings(sms: int, clock_hz: float) -> dict:
+    """Elements/s ceilings of csrc/calibrate.cu's header: 128 FP32 lanes
+    (and thread-instructions) a clock per SM, twice that for packed bf16,
+    16 MUFU.EX2 a clock per SM; the forward strip body needs at least one
+    instruction per 4 swept elements of a thread's slice (a word test), the
+    backward one per element (a byte test)."""
+    lanes = sms * 128 * clock_hz
+    return {"f32": lanes, "bf16": 2 * lanes, "exp": sms * 16 * clock_hz,
+            "fwd_strip": 4 * lanes, "bwd_strip": lanes}
+
+
+def prim_ceiling(op: str, dtype: str, ceil: dict) -> float:
+    return ceil["exp"] if op == "exp" else ceil[dtype]
+
+
+def _inputs(n_strips: int) -> dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(v).to("cuda") for k, v in make_inputs(n_strips).items()}
+
+
+def calibrate_strips(n_strips: int, strip_reps: int) -> dict:
+    """The four strip timings (seconds per card-wide pass), with
+    ``elems_per_strip``, the time per 128×128 tile-head, elements/s and the
+    R → 2R time ratio of each."""
+    inp = _inputs(n_strips)
+    a = [inp[k] for k in ("ld", "ls", "adj", "v")]
+    v16 = inp["v"].to(torch.bfloat16)
+    bodies = {
+        "fwd_strip_s": (lambda r: fwd_strip_cuda(*a, r, mxu=False), strip_reps),
+        "fwd_strip_s_mxu": (lambda r: fwd_strip_cuda(*a, r, mxu=True), strip_reps),
+        "fwd_strip_s_bf16_mxu": (lambda r: fwd_strip_bf16_cuda(*a[:3], v16, r), strip_reps),
+        # half the passes, as cal_vpu.py:335 (the backward body is the longer)
+        "bwd_strip_s_mxu": (lambda r: bwd_strip_cuda(*a, inp["g"], r), strip_reps // 2),
+    }
+    elems = n_strips * TILE * TILE
+    out = {"elems_per_strip": elems, "n_strips": n_strips, "tile_s": {},
+           "card_elems_per_s": {}, "scaling": {}}
+    for key, (fn, reps) in bodies.items():
+        tp, t_lo, t_hi = time_marginal(fn, reps, 2 * reps)
+        out[key] = tp
+        out["tile_s"][key] = tp / n_strips
+        out["card_elems_per_s"][key] = elems / tp
+        out["scaling"][key] = t_hi / t_lo
+        print(f"{key:22s}: {tp * 1e6:9.3f} us/pass, {tp / n_strips * 1e9:8.3f} ns per "
+              f"tile-head, {elems / tp:.4e} elements/s, t(2R)/t(R) {t_hi / t_lo:.3f}",
+              flush=True)
+    return out
+
+
+def calibrate_prims(n_strips: int, reps: int) -> dict:
+    """Elements/s of each (op, dtype) primitive pass, and its R → 2R time
+    ratio."""
+    x32 = _inputs(n_strips)["x"]
+    elems = x32.numel()
+    rates, scaling = {}, {}
+    for op in OPS:
+        for name, x in (("f32", x32), ("bf16", x32.to(torch.bfloat16))):
+            tp, t_lo, t_hi = time_marginal(lambda r, op=op, x=x: prim_cuda(x, op, r),
+                                           reps, 2 * reps)
+            rates[f"{op}_{name}"] = elems / tp
+            scaling[f"{op}_{name}"] = t_hi / t_lo
+            print(f"{op:7s} {name:4s}: {tp * 1e6:8.3f} us/pass -> {elems / tp / 1e12:7.3f} "
+                  f"Te/s, t(2R)/t(R) {t_hi / t_lo:.3f}", flush=True)
+    return {"prim_rates_eps": rates, "prim_scaling": scaling}
+
+
+def check_ceilings(result: dict) -> list[str]:
+    """Rates above FOLD_LIMIT × their ceiling, and R → 2R time ratios
+    outside SCALING (each a folded or hoisted chain). The strip ceilings
+    sit far above the strip rates, so for the strip bodies the ratio is
+    the test that can fire."""
+    ceil = result["ceilings_eps"]
+    bad = []
+    for key, rate in result.get("prim_rates_eps", {}).items():
+        op, dtype = key.rsplit("_", 1)
+        if rate > FOLD_LIMIT * prim_ceiling(op, dtype, ceil):
+            bad.append(f"{key}: {rate:.4e} > {FOLD_LIMIT} x {prim_ceiling(op, dtype, ceil):.4e}")
+    for key, rate in result.get("card_elems_per_s", {}).items():
+        c = ceil[STRIP_CEILING[key]]
+        if rate > FOLD_LIMIT * c:
+            bad.append(f"{key}: {rate:.4e} elements/s > {FOLD_LIMIT} x {c:.4e}")
+    lo, hi = SCALING
+    for key, ratio in {**result.get("prim_scaling", {}), **result.get("scaling", {})}.items():
+        if not lo <= ratio <= hi:
+            bad.append(f"{key}: t(2R)/t(R) = {ratio:.4f}, outside [{lo}, {hi}]")
+    return bad
+
+
+def calibrate(bm: int, sub: int, d: int, reps: int, strip_reps: int,
+              strips_only: bool = False, previous: dict | None = None) -> dict:
+    """The whole calibration on the current card as one dict (``previous``
+    keeps its primitive rates when ``strips_only``)."""
+    if d != D or bm % TILE or sub % TILE:
+        raise ValueError(f"the kernels take d = {D} and bm, sub multiples of {TILE}; "
+                         f"got d={d}, bm={bm}, sub={sub}")
+    n_strips = bm // TILE * (sub // TILE)
+    card = card_info()
+    result = dict(previous or {})
+    result.update({"bm": bm, "sub": sub, "d": d, "tile": TILE,
+                   "device": card, "ceilings_eps": ceilings(card["sms"], card["max_sm_clock_hz"])})
+    if not strips_only:
+        result.update(calibrate_prims(n_strips, reps))
+    result.update(calibrate_strips(n_strips, strip_reps))
+    result["frac_of_ceiling"] = {
+        **{k: r / prim_ceiling(*k.rsplit("_", 1), result["ceilings_eps"])
+           for k, r in result.get("prim_rates_eps", {}).items()},
+        **{k: r / result["ceilings_eps"][STRIP_CEILING[k]]
+           for k, r in result["card_elems_per_s"].items()}}
+    return result

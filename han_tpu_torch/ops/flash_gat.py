@@ -45,6 +45,11 @@ replays the forward's mask, and the mask does not depend on tile size.
 It cannot reproduce the TPU's masks (drawn from the pltpu PRNG per
 (row block, 512-wide strip, head)).
 
+``v`` may be bfloat16 (bf16 features, ``V_DTYPES``): the kernels widen it
+to f32 after each load and compute everything else in f32, and the
+backward's dv is cast back to v's type outside them, as han_tpu does
+(flash_gat.py:749-758, 701).
+
 Every wrapper uses the plain version only for tensors on the CPU. For a
 CUDA tensor it launches the kernel or raises; there is no fallback.
 ``flash_fwd_launches``, ``flash_bwd_launches``, ``flash_bwd_row_launches``
@@ -69,6 +74,7 @@ flash_bwd_row_launches = 0
 flash_bwd_col_launches = 0
 
 KERNEL_HEAD_DIMS = (4, 8, 16)  # the D instantiated in csrc/flash_gat.cu
+V_DTYPES = (torch.float32, torch.bfloat16)  # v's types; all else is float32
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -166,6 +172,7 @@ def flash_fwd_plain(graph: BCSRGraph, ld: torch.Tensor, ls: torch.Tensor,
     k, n_rows = ld.shape
     n_cols = ls.shape[1]
     d = v.shape[1] // k
+    v = v.to(ld.dtype)  # a bf16 v widened, as the kernels do after each load
     adj = tile_adjacency(graph)
     outs, lses = [], []
     for h in range(k):
@@ -190,6 +197,7 @@ def _bwd_terms(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
     k, n_rows = ld.shape
     n_cols = ls.shape[1]
     d = v.shape[1] // k
+    v = v.to(ld.dtype)
     adj = tile_adjacency(graph)
     for h in range(k):
         raw = ld[h][:, None] + ls[h][None, :]
@@ -236,7 +244,7 @@ def flash_bwd_col_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashM
 # ---------------------------------------------------------------------------
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-_SCALARS = [_I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I, _I, _I, _P]
+_SCALARS = [_I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I, _I, _I, _P]
 _ARGTYPES = {
     "han_flash_fwd": [_P, _P, _P, _P, _I] + [_P] * 5 + _SCALARS,
     "han_flash_bwd": [_P, _P, _P, _P, _I] + [_P] * 9 + _SCALARS,
@@ -265,7 +273,8 @@ def _check(graph: BCSRGraph, maps: str, floats: dict) -> tuple[int, int, int, in
     ``ls.shape[1]``; both maps' block counts must match them. ``maps`` is
     "fwd" or "bwd", the map the kernel walks; ``floats`` maps each float
     argument's name to (tensor, expected shape as letters: K heads, R rows,
-    C columns, F = K·D flat features)."""
+    C columns, F = K·D flat features). Every float argument is float32,
+    except ``v``, which may be bfloat16."""
     dev = floats["ld"][0].device
     if dev.type != "cuda":
         raise ValueError(f"the flash kernels take CUDA tensors, got {dev}")
@@ -282,10 +291,12 @@ def _check(graph: BCSRGraph, maps: str, floats: dict) -> tuple[int, int, int, in
     dims = {"K": k, "F": k * d, "R": n_rows, "C": n_cols}
     for name, (t, shape) in floats.items():
         want = tuple(dims[s] for s in shape)
-        if (t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
+        dtypes = V_DTYPES if name == "v" else (torch.float32,)
+        if (t.device != dev or t.dtype not in dtypes or not t.is_contiguous()
                 or tuple(t.shape) != want):
-            raise ValueError(f"{name}: need a contiguous float32 {want} tensor on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+            raise ValueError(f"{name}: need a contiguous {' or '.join(map(str, dtypes))} "
+                             f"{want} tensor on {dev}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
     for name, dt in [("tiles", torch.int8)] + [
             (f"{maps}_{m}", torch.int32) for m in ("count", "col" if maps == "fwd" else "row", "tile")]:
         t = getattr(graph, name)
@@ -297,13 +308,14 @@ def _check(graph: BCSRGraph, maps: str, floats: dict) -> tuple[int, int, int, in
     return k, d, n_rows, n_cols
 
 
-def _scalars(graph: BCSRGraph, n_rows, n_cols, k, d, meta: FlashMeta, dev):
+def _scalars(graph: BCSRGraph, v, n_rows, n_cols, k, d, meta: FlashMeta):
     drop = meta.dropout_p > 0.0
-    return (n_rows, n_cols, graph.bm, graph.bn, k, d, meta.slope, int(drop),
+    return (n_rows, n_cols, graph.bm, graph.bn, k, d, int(v.dtype == torch.bfloat16),
+            meta.slope, int(drop),
             meta.seed & _M32, keep_threshold(meta.dropout_p) if drop else 0,
             1.0 / (1.0 - meta.dropout_p), meta.row_block_offset,
             meta.head_offset, meta.col_block_offset,
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(v.device).cuda_stream)
 
 
 def _raise_on(rc: int, lib, name: str) -> None:
@@ -324,7 +336,7 @@ def flash_fwd_cuda(graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
         graph.tiles.data_ptr(), graph.fwd_count.data_ptr(),
         graph.fwd_col.data_ptr(), graph.fwd_tile.data_ptr(), graph.c_max,
         ld.data_ptr(), ls.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *_scalars(graph, n_rows, n_cols, k, d, meta, ld.device))
+        lse.data_ptr(), *_scalars(graph, v, n_rows, n_cols, k, d, meta))
     _raise_on(rc, lib, "han_flash_fwd")
     flash_fwd_launches += 1
     return out, lse
@@ -349,7 +361,7 @@ def _bwd_col_sweep(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta,
         ld.data_ptr(), ls.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         *([dld.data_ptr()] if fuse_dld else []), dls.data_ptr(), dv.data_ptr(),
-        *_scalars(graph, n_rows, n_cols, k, d, meta, ld.device))
+        *_scalars(graph, v, n_rows, n_cols, k, d, meta))
     _raise_on(rc, lib, name)
     return dld, dls, dv
 
@@ -375,7 +387,7 @@ def flash_bwd_row_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMe
         graph.fwd_col.data_ptr(), graph.fwd_tile.data_ptr(), graph.c_max,
         ld.data_ptr(), ls.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dld.data_ptr(),
-        *_scalars(graph, n_rows, n_cols, k, d, meta, ld.device))
+        *_scalars(graph, v, n_rows, n_cols, k, d, meta))
     _raise_on(rc, lib, "han_flash_bwd_row")
     flash_bwd_row_launches += 1
     return dld
@@ -439,12 +451,16 @@ class _FlashGAT(torch.autograd.Function):
         # han_tpu (_flash_core_flat_bwd)
         delta = (g * out).view(g.shape[0], ld.shape[0], -1).sum(-1).T.contiguous()
         dld, dls, dv = flash_bwd(ctx.graph, ld, ls, v, g, lse, delta, ctx.meta)
-        return dld, dls, dv, None, None
+        # dv is f32 from the kernels, cast to v's type outside them as in
+        # han_tpu (flash_gat.py:701)
+        return dld, dls, dv.to(v.dtype), None, None
 
 
 def check_args(slope: float, coef_dropout: float,
-               generator: torch.Generator | None, fts: torch.Tensor) -> None:
-    """The argument checks every flash entry point shares."""
+               generator: torch.Generator | None, fts: torch.Tensor,
+               dtypes: tuple = V_DTYPES) -> None:
+    """The argument checks every flash entry point shares; ``dtypes`` are
+    the feature types the entry point takes."""
     if not 0.0 <= coef_dropout < 1.0:
         raise ValueError(f"coef_dropout must be in [0, 1), got {coef_dropout}")
     if coef_dropout > 0.0 and generator is None:
@@ -452,9 +468,10 @@ def check_args(slope: float, coef_dropout: float,
     if not 0.0 <= slope <= 1.0:
         # the kernels compute leaky_relu as max(x, slope*x)
         raise ValueError(f"slope must be in [0, 1], got {slope}")
-    if fts.dtype != torch.float32:
+    if fts.dtype not in dtypes:
         raise NotImplementedError(
-            f"flash takes float32 features, got {fts.dtype} (bf16 is not ported yet)")
+            f"this flash entry point takes {' or '.join(map(str, dtypes))} "
+            f"features, got {fts.dtype}")
 
 
 def draw_seed(coef_dropout: float, generator: torch.Generator | None) -> int:
@@ -486,7 +503,10 @@ def flash_gat_attention(
     Coefficient dropout is fused: its seed is drawn from ``generator``, a
     CPU ``torch.Generator`` (so no device-to-host sync per call), and the
     backward replays the forward's mask; no mask is materialized on the
-    kernel path. Returns (N, K, D) float32.
+    kernel path. bf16 features stream to the kernels as bf16 and are
+    widened in registers; logits, softmax and accumulators are f32, and the
+    result is cast to ``fts.dtype`` (han_tpu/ops/pallas/flash_gat.py:749-784).
+    Returns (N, K, D) in ``fts.dtype``.
     """
     check_args(slope, coef_dropout, generator, fts)
     if not isinstance(graph, BCSRGraph):
@@ -494,12 +514,14 @@ def flash_gat_attention(
                         "graph_format='bcsr' in the trainer)")
     n, k, d = fts.shape
     pad = graph.n_pad - n
-    v = F.pad(fts.reshape(n, k * d), (0, 0, 0, pad))
-    ld = F.pad(logit_dst.to(torch.float32).T, (0, pad))
-    ls = F.pad(logit_src.to(torch.float32).T, (0, pad))
+    # contiguous: with no padding (n == n_pad) F.pad returns the transposed
+    # view, which the kernels refuse
+    v = F.pad(fts.reshape(n, k * d), (0, 0, 0, pad)).contiguous()
+    ld = F.pad(logit_dst.to(torch.float32).T, (0, pad)).contiguous()
+    ls = F.pad(logit_src.to(torch.float32).T, (0, pad)).contiguous()
     meta = FlashMeta(slope=float(slope), dropout_p=float(coef_dropout),
                      seed=draw_seed(coef_dropout, generator),
                      row_block_offset=int(row_block_offset),
                      head_offset=int(head_offset))
     out = _FlashGAT.apply(ld, ls, v, graph, meta)
-    return out[:n].view(n, k, d)
+    return out[:n].view(n, k, d).to(fts.dtype)

@@ -6,8 +6,8 @@ program on every chip. Here each device has its own process:
 - under ``torchrun`` every process calls :func:`init_distributed`, which
   reads the environment torchrun sets (``RANK``, ``WORLD_SIZE``,
   ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), pins the process to
-  ``cuda:LOCAL_RANK`` and joins an NCCL group (gloo on a machine without
-  CUDA); with no such environment it does nothing::
+  ``cuda:LOCAL_RANK`` and joins an NCCL group (gloo when the caller asks
+  for the CPU); with no such environment it does nothing::
 
       torchrun --nproc-per-node 4 scripts/train_torch.py --dataset dblp_synthetic \\
           --set mesh.graph_axis=4 --set data.graph_format=ring_bcsr
@@ -28,12 +28,16 @@ import tempfile
 import torch
 import torch.distributed as dist
 
+from han_tpu_torch.utils.device import resolve_device
 
-def init_distributed() -> None:
-    """Join torchrun's process group; a no-op when single-process."""
+
+def init_distributed(device: torch.device | str = "cuda") -> None:
+    """Join torchrun's process group, NCCL for a CUDA ``device`` (pinned to
+    ``cuda:LOCAL_RANK``) and gloo for the CPU; a no-op when
+    single-process."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1 and not dist.is_initialized():
-        if torch.cuda.is_available():
+        if resolve_device(device).type == "cuda":
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
             backend = "nccl"
         else:

@@ -32,6 +32,9 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
+from han_tpu_torch.utils.device import resolve_device
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The graph axis: a process group of ``size`` ranks, one device each."""
@@ -53,8 +56,9 @@ def make_mesh(graph: int = 0, heads: int = 1, mp: int = 1,
     """The graph-axis mesh over the default process group; ``graph=0`` takes
     every rank. Raises when ``graph`` is not the world size, and when the
     device does not match the backend (CUDA needs NCCL, the CPU gloo).
-    ``device`` defaults to the current CUDA device under NCCL, else the
-    CPU."""
+    ``device`` defaults to the CPU in a gloo group and to the current CUDA
+    device otherwise (with no process group too; raising when CUDA is
+    unavailable: pass ``device="cpu"``)."""
     if heads != 1 or mp != 1:
         raise NotImplementedError(
             "only the graph mesh axis is ported (heads and mp axes raise)")
@@ -68,9 +72,7 @@ def make_mesh(graph: int = 0, heads: int = 1, mp: int = 1,
         raise ValueError(
             f"mesh graph axis {graph} != world size {size}: one process per "
             f"device (torchrun --nproc-per-node {graph}, or parallel/launch.spawn)")
-    if device is None:
-        device = "cuda" if backend == "nccl" else "cpu"
-    device = torch.device(device)
+    device = resolve_device("cpu" if device is None and backend == "gloo" else device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     if backend is not None and backend != ("nccl" if device.type == "cuda" else "gloo"):

@@ -270,7 +270,8 @@ def ring_flash_attention(
     attention: the same math and masks as flash_gat_attention. Global
     tensors in, global (N, K, D) out on every rank; ``mesh`` defaults to
     ``graph.mesh``, else every rank of the default process group."""
-    fg.check_args(slope, coef_dropout, generator, fts)
+    # bf16 features on the partitioned backends are not ported yet
+    fg.check_args(slope, coef_dropout, generator, fts, dtypes=(torch.float32,))
     mesh = mesh or graph.mesh or make_mesh(device=fts.device)
     if graph.n_shards != mesh.size:
         raise ValueError(f"the graph has {graph.n_shards} shards, the mesh "

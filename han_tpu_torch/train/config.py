@@ -25,7 +25,7 @@ class ModelConfig:
     ffd_drop: float = 0.6
     impl: str = "auto"  # dense | csr | flash (bcsr graphs) | ell | ell_fused (sampled) | auto
     vmap_towers: bool = False  # meta-path EP (not ported)
-    dtype: str = "float32"  # only float32 is ported
+    dtype: str = "float32"  # float32 | bfloat16 (feature compute type, nn/layers.GATConv)
 
 
 @dataclasses.dataclass

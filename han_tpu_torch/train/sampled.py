@@ -55,6 +55,7 @@ from han_tpu_torch.nn.losses import (l2_regularizer, masked_accuracy,
 from han_tpu_torch.ops.tree_ell import tree_parent_maps
 from han_tpu_torch.train.config import Config
 from han_tpu_torch.train.trainer import EarlyStopState, MetricLogger, build_model
+from han_tpu_torch.utils.device import resolve_device
 
 
 def _resident_gather(tab: torch.Tensor, nd: torch.Tensor) -> torch.Tensor:
@@ -179,8 +180,7 @@ class SampledTrainer:
         torch.backends.cudnn.allow_tf32 = False
         self.ds = ds
         self.cfg = cfg
-        self.device = torch.device(
-            device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         self.sampler = sampler
         self.batch_size = batch_size
         self.fanout = fanout

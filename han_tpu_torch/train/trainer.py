@@ -56,6 +56,7 @@ from han_tpu_torch.parallel.flash_shard import partition_bcsr
 from han_tpu_torch.parallel.mesh import Mesh, make_mesh
 from han_tpu_torch.parallel.ring_bcsr import ring_partition_bcsr
 from han_tpu_torch.train.config import Config
+from han_tpu_torch.utils.device import resolve_device
 
 PARTITIONED_FORMATS = ("partitioned_bcsr", "ring_bcsr")
 
@@ -111,14 +112,15 @@ def build_model(ds: HeteroDataset, cfg: Config,
     m = cfg.model
     if m.arch != "han":
         raise NotImplementedError(f"arch {m.arch!r} is not ported (han only)")
-    if m.dtype != "float32":
-        raise NotImplementedError(f"dtype {m.dtype!r} is not ported (float32 only)")
+    if m.dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"model.dtype {m.dtype!r} is not float32 or bfloat16")
     in_dim = ds.n_nodes if cfg.data.featype == "adj" else ds.features.shape[1]
     return HAN(in_dim, ds.n_classes, len(ds.metapath_adjs),
                hid_units=tuple(m.hid_units), n_heads=tuple(m.n_heads),
                semantic_dim=m.semantic_dim, residual=m.residual,
                attn_drop=m.attn_drop, ffd_drop=m.ffd_drop, impl=m.impl,
-               vmap_towers=m.vmap_towers, generator=generator)
+               dtype=getattr(torch, m.dtype), vmap_towers=m.vmap_towers,
+               generator=generator)
 
 
 @dataclasses.dataclass
@@ -163,8 +165,8 @@ class MetricLogger:
 
 
 class Trainer:
-    """Full-graph HAN training on one device (CUDA when available), or on
-    this rank's device of a graph-axis mesh."""
+    """Full-graph HAN training on one device (CUDA unless ``device="cpu"``),
+    or on this rank's device of a graph-axis mesh."""
 
     def __init__(self, ds: HeteroDataset, cfg: Config, *,
                  device: torch.device | str | None = None,
@@ -175,8 +177,7 @@ class Trainer:
         torch.backends.cudnn.allow_tf32 = False
         self.ds = ds
         self.cfg = cfg
-        self.device = torch.device(
-            device or ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         self.mesh = None
         if on_mesh(cfg):
             # raises unless graph_axis is the world size and the device
@@ -287,10 +288,11 @@ class Trainer:
 
 def run(cfg: Config, ds: HeteroDataset | None = None, *,
         device: torch.device | str | None = None) -> dict[str, Any]:
-    """One-call train+eval entry point (the ex_acm3025.py equivalent).
-    ``cfg.train.sampled`` selects mini-batch neighbor-sampled training over
-    ELL blocks, sampled on the host or (``train.sampler=device``) on the
-    device."""
+    """One-call train+eval entry point (the ex_acm3025.py equivalent), on
+    the card unless ``device="cpu"``. ``cfg.train.sampled`` selects
+    mini-batch neighbor-sampled training over ELL blocks, sampled on the
+    host or (``train.sampler=device``) on the device."""
+    device = resolve_device(device)
     if ds is None:
         ds = load_dataset(cfg.data.dataset)
     if cfg.train.sampled:

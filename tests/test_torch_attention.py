@@ -189,8 +189,8 @@ def test_flash_wrapper_rejects_and_never_falls_back():
         with pytest.raises(ValueError, match="CUDA"):
             bwd(graph, *bwd_args)
     fts_t, ld_t, ls_t = (torch.from_numpy(x) for x in (fts, ld, ls))
-    with pytest.raises(NotImplementedError, match="float32"):
-        tfg.flash_gat_attention(graph, fts_t.bfloat16(), ld_t, ls_t)
+    with pytest.raises(NotImplementedError, match="float32 or torch.bfloat16"):
+        tfg.flash_gat_attention(graph, fts_t.half(), ld_t, ls_t)
     with pytest.raises(ValueError, match="generator"):
         tfg.flash_gat_attention(graph, fts_t, ld_t, ls_t, coef_dropout=0.5)
     assert isinstance(graph, BCSRGraph)
@@ -198,6 +198,21 @@ def test_flash_wrapper_rejects_and_never_falls_back():
     np.testing.assert_array_equal(out.numpy(), tfg.flash_gat_attention(graph, fts_t, ld_t, ls_t).numpy())
     with pytest.raises(NotImplementedError):
         tatt.attention_aggregate(graph, fts_t, ld_t, ls_t, return_coefs=True)
+
+
+def test_flash_passes_contiguous_inputs_without_padding(monkeypatch):
+    """At N = n_pad (no padding rows) flash_gat_attention still hands the
+    kernels contiguous (K, N) logits and (N, K·D) features: the CUDA
+    wrappers refuse the transposed views F.pad returns when it pads
+    nothing (bench_torch.py at N = 8192 met this on the card)."""
+    a, fts, ld, ls, w = make_case(128, 2, 8, seed=4)
+    graph = t_bcsr(a, bm=64, bn=64)
+    assert graph.n_pad == 128
+    seen, orig = [], tfg.flash_fwd
+    monkeypatch.setattr(tfg, "flash_fwd", lambda g, *t: (
+        seen.append([x.is_contiguous() for x in t[:3]]), orig(g, *t))[1])
+    got = run_torch(lambda *x: tfg.flash_gat_attention(graph, *x), fts, ld, ls, w)
+    assert seen == [[True, True, True]] and np.isfinite(got[0]).all()
 
 
 # ---------------------------------------------------------------------------

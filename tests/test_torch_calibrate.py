@@ -1,0 +1,136 @@
+"""han_tpu_torch's calibration bodies (ops/calibrate.py, the plain versions
+of csrc/calibrate.cu's kernels) against the Pallas kernel bodies of
+scripts/cal_vpu.py, loaded with importlib and run through
+``pl.pallas_call(..., interpret=True)`` on the CPU at bm=8, sub=128, d=8,
+R=16; and the wrappers' refusals."""
+
+import functools
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+from jax.experimental import pallas as pl  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from han_tpu_torch.ops import calibrate as cal  # noqa: E402
+
+BM, SUB, D, R = 8, 128, 8, 16
+
+
+@functools.cache
+def cal_vpu():
+    path = pathlib.Path(__file__).resolve().parent.parent / "scripts" / "cal_vpu.py"
+    spec = importlib.util.spec_from_file_location("cal_vpu", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@functools.cache
+def inputs():
+    return {k: v[0] for k, v in cal.make_inputs(1, BM, SUB, D, seed=3).items()}
+
+
+def jax_strip(kernel, out_rows, *arrays, scratch=True, **kw):
+    """cal_vpu.py's strip kernel in interpret mode; its first d columns."""
+    call = pl.pallas_call(
+        functools.partial(kernel, reps=R, d=D, **kw),
+        out_shape=jax.ShapeDtypeStruct((out_rows, 8 * D), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((out_rows, 8 * D), jnp.float32)] if scratch else (),
+        interpret=True)
+    return np.asarray(call(*arrays))[:, :D]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", cal.OPS)
+def test_prim_plain_matches_cal_vpu(op, dtype):
+    """Every (op, dtype) pass chain: f32 rtol 1e-5 (the same f32 ops in the
+    same order); bf16 rtol 2e-2 (XLA may keep bf16 intermediates in f32
+    where the plain version rounds each op)."""
+    x = inputs()["x"]
+    call = pl.pallas_call(functools.partial(cal_vpu()._prim_kernel, op=op, reps=R, d=D),
+                          out_shape=jax.ShapeDtypeStruct(x.shape, jnp.dtype(dtype)),
+                          interpret=True)
+    want = np.asarray(call(jnp.asarray(x).astype(dtype)).astype(jnp.float32))
+    got = cal.prim_plain(torch.from_numpy(x).to(getattr(torch, dtype)), op, R)
+    rtol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=rtol, atol=1e-6)
+
+
+@pytest.mark.parametrize("mxu", [False, True])
+def test_fwd_strip_plain_matches_cal_vpu(mxu):
+    """The f32 forward body, head slot 0 (cal_vpu.py's output): rtol 1e-5
+    (summation order only)."""
+    i = inputs()
+    want = jax_strip(cal_vpu()._fwd_strip_kernel, BM,
+                     *(jnp.asarray(i[k]) for k in ("ld", "ls", "adj", "v")), mxu=mxu)
+    got = cal.fwd_strip_plain(*(torch.from_numpy(i[k]) for k in ("ld", "ls", "adj", "v")), R, mxu)
+    assert got.shape == (BM, 8 * D)
+    np.testing.assert_allclose(got[:, :D].numpy(), want, rtol=1e-5)
+
+
+def test_fwd_strip_bf16_plain_matches_cal_vpu():
+    """bf16 strip math: rtol 2e-2 (a p on the other side of a bf16 rounding
+    step moves its term by 2**-8)."""
+    i = inputs()
+    want = jax_strip(cal_vpu()._fwd_strip_kernel_bf16, BM,
+                     *(jnp.asarray(i[k]) for k in ("ld", "ls", "adj")),
+                     jnp.asarray(i["v"]).astype(jnp.bfloat16), scratch=False, mxu=True)
+    got = cal.fwd_strip_bf16_plain(*(torch.from_numpy(i[k]) for k in ("ld", "ls", "adj")),
+                                   torch.from_numpy(i["v"]).bfloat16(), R)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-2)
+
+
+def test_bwd_strip_plain_matches_cal_vpu():
+    """The fused backward body: rtol 1e-5, atol 1e-5 (summation order of
+    the row and column sums)."""
+    i = inputs()
+    want = jax_strip(cal_vpu()._bwd_strip_kernel, SUB,
+                     *(jnp.asarray(i[k]) for k in ("ld", "ls", "adj", "v", "g")))
+    got = cal.bwd_strip_plain(*(torch.from_numpy(i[k]) for k in ("ld", "ls", "adj", "v", "g")), R)
+    np.testing.assert_allclose(got[:, :D].numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_wrappers_refuse_what_they_cannot_launch():
+    """The calibration times the card only: each wrapper raises on CPU
+    tensors, on a pass count its kernel cannot unroll and on an unknown op,
+    and never runs the plain version; every strip row of make_inputs holds
+    an edge."""
+    i = {k: torch.from_numpy(v) for k, v in cal.make_inputs(2, seed=1).items()}
+    assert bool((i["adj"] != 0).any(dim=-1).all())
+    a = [i[k] for k in ("ld", "ls", "adj", "v")]
+    for call in (lambda: cal.prim_cuda(i["x"], "add", 4),
+                 lambda: cal.fwd_strip_cuda(*a, 8),
+                 lambda: cal.fwd_strip_bf16_cuda(*a[:3], a[3].bfloat16(), 8),
+                 lambda: cal.bwd_strip_cuda(*a, i["g"], 8)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cal.bwd_strip_cuda(*a, i["g"], 12)
+    with pytest.raises(ValueError, match="unknown op"):
+        cal.prim_cuda(i["x"], "tanh", 4)
+    assert cal.prim_launches + cal.fwd_strip_launches + cal.bwd_strip_launches == 0
+
+
+def test_fold_check_flags_rates_above_the_ceiling():
+    """check_ceilings names every rate above 105 % of its ceiling and every
+    R -> 2R time ratio outside [1.9, 2.1] (a hoisted chain takes about as
+    long for 2R passes as for R)."""
+    ceil = cal.ceilings(132, 1.98e9)
+    assert ceil["f32"] == pytest.approx(3.345e13, rel=1e-3)
+    assert ceil["exp"] == pytest.approx(4.18e12, rel=1e-3)
+    result = {"ceilings_eps": ceil,
+              "prim_rates_eps": {"add_f32": 1.04 * ceil["f32"], "exp_bf16": 1.1 * ceil["exp"]},
+              "card_elems_per_s": {"fwd_strip_s": 3 * ceil["f32"],
+                                   "bwd_strip_s_mxu": 2 * ceil["bwd_strip"]},
+              "prim_scaling": {"add_f32": 1.99, "mul_bf16": 2.2},
+              "scaling": {"fwd_strip_s": 1.02, "bwd_strip_s_mxu": 1.95}}
+    bad = cal.check_ceilings(result)
+    assert len(bad) == 4 and bad[0].startswith("exp_bf16") and "bwd_strip" in bad[1]
+    assert bad[2].startswith("mul_bf16: t(2R)/t(R)") and bad[3].startswith("fwd_strip_s: t(2R)")

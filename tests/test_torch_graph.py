@@ -110,9 +110,10 @@ def test_pick_tiles_rules():
 
 
 def test_port_imports_no_jax():
-    """The port (every module, the sampled path's and the multi-device
-    ones included), its entry scripts and the chip smoke test load neither
-    jax nor han_tpu."""
+    """The port (every module, the sampled path's, the multi-device and
+    the calibration ones included), its entry scripts, the benchmark, the
+    calibration script and the chip smoke test load neither jax nor
+    han_tpu."""
     code = (
         "import importlib, pathlib, pkgutil, runpy, sys\n"
         "import han_tpu_torch\n"
@@ -122,6 +123,10 @@ def test_port_imports_no_jax():
         "runpy.run_path('scripts/train_torch.py', run_name='not_main')\n"
         "runpy.run_path('scripts/bench_scale_torch.py', run_name='not_main')\n"
         "runpy.run_path('scripts/prof_mesh_torch.py', run_name='not_main')\n"
+        "runpy.run_path('scripts/cal_vpu_torch.py', run_name='not_main')\n"
+        "runpy.run_path('bench_torch.py', run_name='not_main')\n"
+        "import han_tpu_torch.ops.calibrate, han_tpu_torch.graph.reorder\n"
+        "import han_tpu_torch.utils.prof, han_tpu_torch.utils.device\n"
         "import han_tpu_torch.train.sampled, han_tpu_torch.native\n"
         "import han_tpu_torch.parallel.mesh, han_tpu_torch.parallel.launch\n"
         "import han_tpu_torch.parallel.flash_shard, han_tpu_torch.parallel.ring_bcsr\n"

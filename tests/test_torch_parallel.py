@@ -374,7 +374,7 @@ def test_deterministic_mode_takes_the_split_backward(monkeypatch):
 def test_mesh_and_trainer_refusals():
     """The mesh needs graph = world size and no heads/mp axis; a mesh run
     refuses the unported formats and sampled training."""
-    assert make_mesh(graph=1).size == 1 and make_mesh().rank == 0
+    assert make_mesh(graph=1, device="cpu").size == 1 and make_mesh(device="cpu").rank == 0
     with pytest.raises(ValueError, match="world size"):
         make_mesh(graph=2)
     with pytest.raises(NotImplementedError):

@@ -270,7 +270,7 @@ def test_run_routes_sampled_training_and_rejects_unported():
     """scripts/train_torch.py --set train.sampled=true reaches the sampled
     trainer through run(); unported options raise."""
     main = runpy.run_path("scripts/train_torch.py", run_name="not_main")["main"]
-    result = main(["--dataset", "acm_synthetic", "--set", "train.sampled=true",
+    result = main(["--device", "cpu", "--dataset", "acm_synthetic", "--set", "train.sampled=true",
                    "--set", "train.batch_size=64", "--set", "train.epochs=1",
                    "--set", "model.ffd_drop=0.0"])
     assert len(result["epoch_train_loss"]) == 1 and np.isfinite(result["test_loss"])

@@ -93,10 +93,33 @@ def test_fit_with_dropout_logs_and_restores_best(tiny_ds, tmp_path):
 def test_entry_script_runs(capsys):
     """scripts/train_torch.py's CLI: preset + overrides → run()."""
     main = runpy.run_path("scripts/train_torch.py", run_name="not_main")["main"]
-    result = main(["--dataset", "acm_synthetic", "--set", "data.graph_format=csr",
-                   "--set", "model.impl=csr", "--set", "train.epochs=2"])
+    result = main(["--device", "cpu", "--dataset", "acm_synthetic", "--set",
+                   "data.graph_format=csr", "--set", "model.impl=csr", "--set", "train.epochs=2"])
     assert len(result["epoch_train_loss"]) == 2
     assert 0.0 <= result["test_acc"] <= 1.0 + 1e-6  # mean-normalized mask
     assert "test_acc" in capsys.readouterr().out
     with pytest.raises(KeyError, match="dblp_synthetic"):
-        ttrainer.run(tpreset("dblp"))
+        ttrainer.run(tpreset("dblp"), device="cpu")
+
+
+def test_no_cpu_fallback_without_a_card(monkeypatch, tiny_ds):
+    """With CUDA unavailable, Trainer, SampledTrainer, run(), make_mesh and
+    scripts/train_torch.py given no device raise, naming device="cpu";
+    they never train on the CPU unasked. Asked for the CPU, they run."""
+    from han_tpu_torch.parallel.mesh import make_mesh
+    from han_tpu_torch.train.sampled import SampledTrainer
+
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    cfg = tpreset("acm_synthetic")
+    cfg.train.epochs = 1
+    main = runpy.run_path("scripts/train_torch.py", run_name="not_main")["main"]
+    for call in (lambda: ttrainer.Trainer(tiny_ds, cfg),
+                 lambda: SampledTrainer(tiny_ds, cfg, batch_size=8, fanout=3),
+                 lambda: ttrainer.run(cfg, tiny_ds),
+                 lambda: make_mesh(graph=1),
+                 lambda: main(["--dataset", "acm_synthetic"])):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    assert make_mesh(graph=1, device="cpu").device.type == "cpu"
+    result = main(["--device", "cpu", "--dataset", "acm_synthetic", "--set", "train.epochs=1"])
+    assert len(result["epoch_train_loss"]) == 1
