@@ -19,7 +19,12 @@ Prints ONE JSON line: {"metric": ..., "value": ..., "unit": ...,
   (han_tpu_torch/ops/calibrate.py), measured in this process on this card
   (two calls may land on two cards) and held to the fold checks of
   scripts/cal_vpu_torch.py; device memory is 3.35e12 B/s, the published
-  H100 SXM figure, stated at the card's power limit.
+  H100 SXM figure, stated at the card's power limit. The strips run the
+  scalar body the flash kernels had before their redesign (a branch a
+  adjacency byte, FMAs for the D-wide products); the redesigned kernels
+  sweep tiles faster than that body, so ``tile_sol_frac`` above 1 is
+  expected and is no bound: it reads as the speed-up over the scalar
+  body. ``edge_sol_frac`` is the share against a bound.
 - detail.device: the card's name and power limit; detail.device_count.
 
 Times are CUDA events around ``--iters`` back-to-back iterations after a

@@ -4,10 +4,13 @@ together, and the C++ sampler), then drives the ported paths:
 
 - full-graph: holds the flash kernels (forward, fused backward, and the
   split backward's row and column sweeps) against their plain PyTorch
-  versions at the DBLP shape, and on the strips of a 4-way partition of
-  DBLP's largest meta-path (every shard of partition_bcsr, and ring cells
-  with a non-zero column offset); checks a small HAN against the dense
-  path; trains the dblp preset for 10 epochs on the DBLP-shaped dataset;
+  versions at the DBLP shape (times at dropout 0 and 0.6; a control shows
+  that their products are more accurate than one TF32 product), at D = 4 and
+  D = 16 on a small graph with a single-edge tile and rows without edges,
+  and on the strips of a 4-way partition of DBLP's largest meta-path
+  (every shard of partition_bcsr, and ring cells with a non-zero column
+  offset); checks a small HAN against the dense path; trains the dblp
+  preset for 10 epochs on the DBLP-shaped dataset;
 - multi-device: in a world of torch.cuda.device_count() NCCL ranks (one
   process per card, spawned), trains the dblp preset 10 epochs with
   graph_format partitioned_bcsr, then ring_bcsr under
@@ -34,7 +37,10 @@ together, and the C++ sampler), then drives the ported paths:
   calibrated in the same process), each printing its JSON line.
 
 The launch counters, set to 0 before each path and read after it, show
-that every step went through the kernels. Each kernel's ``bound_ms`` is
+that every step went through the kernels. Kernel times are device times:
+launches queued back to back behind a spin kernel that is checked to
+outlast the queueing (``timed``); the plain versions wait on the card
+inside, so their times include the host's. Each kernel's ``bound_ms`` is
 the larger of the bytes it must move (inputs read once, outputs written
 once) over 3.35e12 B/s and its operations over the published peaks:
 67e12 f32 FLOP/s outside the tensor cores, 2 x that for bf16 elementwise
@@ -46,12 +52,15 @@ sweep 2D + 9 FLOPs and one exp, fused backward 4D + 10, column sweep
 counted).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --flash-only   # the flash kernels at the DBLP shape
 
 Exits non-zero, printing no result, when CUDA is unavailable or any phase
 fails. The last line is ``{"ok": true, "device": {...}}``; the line before
-it holds the per-kernel measurements as one JSON object.
+it holds the per-kernel measurements as one JSON object (the flash rows
+also carry ``ms_by_dropout``, their times at dropout 0 and 0.6).
 """
 
+import argparse
 import dataclasses
 import json
 import pathlib
@@ -67,20 +76,45 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def timed(fn, reps=20):
-    """Median CUDA-event time of fn() in ms, after 3 warm-up calls."""
+SPIN_CYCLES = 6_000_000  # about 3 ms of the card's clock
+
+
+def timed(fn, reps=20, host_waits=False):
+    """Device ms per call of fn(), after 3 warm-up calls: CUDA events
+    around reps calls queued back to back behind a spin kernel
+    (torch.cuda._sleep), the median of 3 such runs. The host's time between
+    launches does not count as long as the spin outlasts the queueing: the
+    event recorded after the spin must not have completed when the last
+    call has been queued. Where it has, the run is repeated with a spin
+    twice as long, up to 8 x SPIN_CYCLES, and then the check fails. (One
+    call between two events on an idle card would count the wrapper's host
+    time before the launch.) ``host_waits``: fn waits on the card inside
+    (the plain versions: boolean-mask indexing synchronizes), so no spin
+    covers its calls; it is timed without one, its host time included."""
     import torch
 
     for _ in range(3):
         fn()
-    times = []
-    for _ in range(reps):
+    torch.cuda.synchronize()
+    times, spin = [], SPIN_CYCLES
+    while len(times) < 3:
+        if not host_waits:
+            torch.cuda._sleep(spin)
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
+        drained = not host_waits and a.query()  # the spin ended before the last call
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        if not drained:
+            times.append(a.elapsed_time(b) / reps)
+        elif spin >= 8 * SPIN_CYCLES:
+            fail(f"timed: a spin of {spin} cycles ended before {reps} calls were queued")
+        else:
+            spin *= 2
+            print(f"  timed: the spin ended before {reps} calls were queued; again with "
+                  f"{spin} cycles", flush=True)
     return statistics.median(times)
 
 
@@ -127,7 +161,15 @@ def flash_bounds(graph, k, d, v_bytes=4) -> dict:
             "col": bound(tiles + bmap + 5 * vec + v + feat + dv, e * (4 * d + 9), e)}
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--flash-only", action="store_true",
+        help="build only csrc/flash_gat.cu, hold the flash kernels to their plain versions at "
+             "the DBLP shape, print their device times at dropout 0 and 0.6 as one JSON "
+             "line and stop; a copy of this file run so in another checkout times that "
+             "checkout's kernels the same way")
+    args = parser.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -152,19 +194,19 @@ def main() -> None:
 
     # -- phase 2: build (nvcc per kernel source and g++ for the sampler, all
     # at once) ----------------------------------------------------------------
-    names = ("flash_gat", "ell_fused", "calibrate")
+    names = ("flash_gat",) if args.flash_only else ("flash_gat", "ell_fused", "calibrate")
     cached = [n for n in names if _build.library_path(n).exists()]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
-        sampler_built = pool.submit(native.available)
+        sampler_built = pool.submit(lambda: args.flash_only or native.available())
         libs = _build.build_all(names)
         if not sampler_built.result():
             fail("the C++ sampler (han_tpu_torch/native/graphcore.cpp) did not build")
     for name in names:
         _build.load(name)
     root = pathlib.Path(__file__).resolve().parent
-    print(f"build: {', '.join(str(so.relative_to(root)) for so in libs)} and "
-          f"{native.library_path().relative_to(root)} "
+    print(f"build: {', '.join(str(so.relative_to(root)) for so in libs)}"
+          f"{'' if args.flash_only else f' and {native.library_path().relative_to(root)}'} "
           f"{f'(already built: {cached}) ' if cached else ''}"
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
 
@@ -191,55 +233,23 @@ def main() -> None:
     g = rnd(n, k * d)
     g[pad_rows] = 0.0
 
-    stats = {name: {"err": 0.0} for name in ("fwd", "bwd", "row", "col")}
+    stats = check_dblp(graph, ld, ls, v, g, k, d)
+    if args.flash_only:
+        print(json.dumps({"card": card, "flash": {
+            key: {"ms_by_dropout": st["ms_by_dropout"], "plain_ms": st["plain_ms"]}
+            for key, st in stats.items()}}), flush=True)
+        return
     for p in (0.0, 0.6):
-        meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=1234567)
-        print(f"dropout {p}:", flush=True)
-        out_k, lse_k = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
-        out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
-        torch.cuda.synchronize()
-        e = max(check("out", out_k, out_p, 1e-5, 1e-4),
-                check("lse", lse_k, lse_p, 1e-5, 1e-4))
-        delta = (g * out_k).view(n, k, d).sum(-1).T.contiguous()
-        bk = fg.flash_bwd_cuda(graph, ld, ls, v, g, lse_k, delta, meta)
-        bp = fg.flash_bwd_plain(graph, ld, ls, v, g, lse_k, delta, meta)
-        torch.cuda.synchronize()
-        # wider: dld is summed with atomicAdd in a varying order
-        eb = max(check(name, a, b, 1e-4, 1e-3)
-                 for name, a, b in zip(("dld", "dls", "dv"), bk, bp))
-        t = {"fwd_ms": timed(lambda: fg.flash_fwd_cuda(graph, ld, ls, v, meta)),
-             "fwd_plain_ms": timed(lambda: fg.flash_fwd_plain(graph, ld, ls, v, meta)),
-             "bwd_ms": timed(lambda: fg.flash_bwd_cuda(graph, ld, ls, v, g, lse_k, delta, meta)),
-             "bwd_plain_ms": timed(lambda: fg.flash_bwd_plain(graph, ld, ls, v, g, lse_k, delta, meta))}
-        print("  median ms: " + ", ".join(f"{a} {b:.4f}" for a, b in t.items()), flush=True)
-        # the split backward: each sweep against its plain version
-        args = (graph, ld, ls, v, g, lse_k, delta, meta)
-        er = check("dld (row sweep)", fg.flash_bwd_row_cuda(*args), fg.flash_bwd_row_plain(*args),
-                   1e-4, 1e-3)
-        ec = max(check(f"{name} (column sweep)", a, b, 1e-4, 1e-3) for name, a, b in zip(
-            ("dls", "dv"), fg.flash_bwd_col_cuda(*args), fg.flash_bwd_col_plain(*args)))
-        ts = {"row_ms": timed(lambda: fg.flash_bwd_row_cuda(*args)),
-              "row_plain_ms": timed(lambda: fg.flash_bwd_row_plain(*args)),
-              "col_ms": timed(lambda: fg.flash_bwd_col_cuda(*args)),
-              "col_plain_ms": timed(lambda: fg.flash_bwd_col_plain(*args)),
-              "split_ms": timed(lambda: (fg.flash_bwd_row_cuda(*args),
-                                         fg.flash_bwd_col_cuda(*args))),
-              "fused_ms": timed(lambda: fg.flash_bwd_cuda(*args))}
-        print("  split backward median ms: " + ", ".join(f"{a} {b:.4f}" for a, b in ts.items())
-              + f"; split / fused {ts['split_ms'] / ts['fused_ms']:.3f}", flush=True)
-        stats["fwd"] = {"err": max(stats["fwd"]["err"], e), "ms": t["fwd_ms"],
-                        "plain_ms": t["fwd_plain_ms"]}
-        stats["bwd"] = {"err": max(stats["bwd"]["err"], eb), "ms": t["bwd_ms"],
-                        "plain_ms": t["bwd_plain_ms"]}
-        stats["row"] = {"err": max(stats["row"]["err"], er), "ms": ts["row_ms"],
-                        "plain_ms": ts["row_plain_ms"]}
-        stats["col"] = {"err": max(stats["col"]["err"], ec), "ms": ts["col_ms"],
-                        "plain_ms": ts["col_plain_ms"]}
-    del out_p, lse_p, bp
+        tf32_control(f"DBLP, dropout {p}", graph, ld, ls, v, g,
+                     fg.FlashMeta(slope=0.2, dropout_p=p, seed=1234567))
     torch.cuda.empty_cache()
     library_fwd_ms = sdpa_yardstick(graph, ld, ls, v, k, d)
     bf16 = check_flash_bf16(graph, ld, ls, v, g, k, d)
     bounds = flash_bounds(graph, k, d)
+
+    # -- phase 3d: the other head dims on a small graph with edge cases -----
+    for name, err in check_head_dims(dev).items():
+        stats[name]["err"] = max(stats[name]["err"], err)
 
     # -- phase 3c: the kernels on the strips of a 4-way partition ------------
     for name, err in check_strips(dev, ds.metapath_adjs[big]).items():
@@ -314,7 +324,8 @@ def main() -> None:
          "replaces": f"{tpu}:{line}", "launches": launches[key],
          "max_abs_err": max(stats[key]["err"], bf16[key]["err"]), "ms": stats[key]["ms"],
          "plain_ms": stats[key]["plain_ms"], "bound_ms": bounds[key][0],
-         "bound_by": bounds[key][1], "library_ms": library_fwd_ms if key == "fwd" else None}
+         "bound_by": bounds[key][1], "library_ms": library_fwd_ms if key == "fwd" else None,
+         "ms_by_dropout": stats[key]["ms_by_dropout"]}
         for name, key, line in (("fwd", "fwd", "97,187"), ("bwd", "bwd", 395),
                                 ("bwd_row", "row", 354), ("bwd_col", "col", 395))] + [
         {"name": "ell_fused_fwd", "route": "cuda", "source": "han_tpu_torch/csrc/ell_fused.cu",
@@ -333,6 +344,103 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def check_dblp(graph, ld, ls, v, g, k, d) -> dict:
+    """Phase 3: the flash kernels at the DBLP shape, dropout 0 and 0.6: the
+    forward (atol 1e-5, rtol 1e-4), the fused backward and the split
+    backward's row and column sweeps (atol 1e-4, rtol 1e-3: dld is summed
+    with atomicAdd in a varying order) against their plain versions, and
+    the device time of each kernel and plain version. Returns, per kernel,
+    the largest error, ``ms`` and ``plain_ms`` at dropout 0.6 (the training
+    shape) and ``ms_by_dropout``, so that the hash's share shows."""
+    import torch
+
+    from han_tpu_torch.ops import flash_gat as fg
+
+    n = graph.n_pad
+    stats = {name: {"err": 0.0, "ms_by_dropout": {}} for name in ("fwd", "bwd", "row", "col")}
+    for p in (0.0, 0.6):
+        meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=1234567)
+        print(f"dropout {p}:", flush=True)
+        out_k, lse_k = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
+        out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
+        torch.cuda.synchronize()
+        e = max(check("out", out_k, out_p, 1e-5, 1e-4),
+                check("lse", lse_k, lse_p, 1e-5, 1e-4))
+        delta = (g * out_k).view(n, k, d).sum(-1).T.contiguous()
+        args = (graph, ld, ls, v, g, lse_k, delta, meta)
+        eb = max(check(name, a, b, 1e-4, 1e-3) for name, a, b in
+                 zip(("dld", "dls", "dv"), fg.flash_bwd_cuda(*args), fg.flash_bwd_plain(*args)))
+        t = {"fwd_ms": timed(lambda: fg.flash_fwd_cuda(graph, ld, ls, v, meta)),
+             "fwd_plain_ms": timed(lambda: fg.flash_fwd_plain(graph, ld, ls, v, meta),
+                                   host_waits=True),
+             "bwd_ms": timed(lambda: fg.flash_bwd_cuda(*args)),
+             "bwd_plain_ms": timed(lambda: fg.flash_bwd_plain(*args), host_waits=True)}
+        print("  device ms: " + ", ".join(f"{a} {b:.4f}" for a, b in t.items()), flush=True)
+        # the split backward: each sweep against its plain version
+        er = check("dld (row sweep)", fg.flash_bwd_row_cuda(*args), fg.flash_bwd_row_plain(*args),
+                   1e-4, 1e-3)
+        ec = max(check(f"{name} (column sweep)", a, b, 1e-4, 1e-3) for name, a, b in zip(
+            ("dls", "dv"), fg.flash_bwd_col_cuda(*args), fg.flash_bwd_col_plain(*args)))
+        ts = {"row_ms": timed(lambda: fg.flash_bwd_row_cuda(*args)),
+              "row_plain_ms": timed(lambda: fg.flash_bwd_row_plain(*args), host_waits=True),
+              "col_ms": timed(lambda: fg.flash_bwd_col_cuda(*args)),
+              "col_plain_ms": timed(lambda: fg.flash_bwd_col_plain(*args), host_waits=True),
+              "split_ms": timed(lambda: (fg.flash_bwd_row_cuda(*args),
+                                         fg.flash_bwd_col_cuda(*args))),
+              "fused_ms": timed(lambda: fg.flash_bwd_cuda(*args))}
+        print("  split backward device ms: " + ", ".join(f"{a} {b:.4f}" for a, b in ts.items())
+              + f"; split / fused {ts['split_ms'] / ts['fused_ms']:.3f}", flush=True)
+        for key, err, ms, plain_ms in (("fwd", e, t["fwd_ms"], t["fwd_plain_ms"]),
+                                       ("bwd", eb, t["bwd_ms"], t["bwd_plain_ms"]),
+                                       ("row", er, ts["row_ms"], ts["row_plain_ms"]),
+                                       ("col", ec, ts["col_ms"], ts["col_plain_ms"])):
+            st = stats[key]
+            st.update(err=max(st["err"], err), ms=ms, plain_ms=plain_ms)
+            st["ms_by_dropout"][str(p)] = ms
+        del out_p, lse_p
+        torch.cuda.empty_cache()
+    return stats
+
+
+TF32_MARGIN = 10  # the kernels' errors stay this far below a single TF32 product's
+
+
+def tf32_control(tag, graph, ld, ls, v, g, meta) -> None:
+    """Control of the 3xTF32 products: the forward's out and the fused
+    backward's dld, dls and dv, as the kernels give them and as the plain
+    versions give them with their products taken by fg.mm_3xtf32 (the
+    kernels' split) and by fg.mm_1xtf32 (one TF32 product), each against
+    the f32 plain version on the same inputs. The kernels' largest error
+    must be TF32_MARGIN times below the 1xTF32 one, so that a pass of the
+    tolerances stands for products at f32 accuracy."""
+    import torch
+
+    from han_tpu_torch.ops import flash_gat as fg
+
+    n, k = graph.n_pad, ld.shape[0]
+    out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
+    delta = (g * out_p).view(n, k, -1).sum(-1).T.contiguous()
+    args = (graph, ld, ls, v, g, lse_p, delta, meta)
+    want = (out_p, *fg.flash_bwd_plain(*args))
+    got = {"kernel": (fg.flash_fwd_cuda(graph, ld, ls, v, meta)[0], *fg.flash_bwd_cuda(*args))}
+    for name, mm in (("3xTF32", fg.mm_3xtf32), ("1xTF32", fg.mm_1xtf32)):
+        got[name] = (fg.flash_fwd_plain(graph, ld, ls, v, meta, mm=mm)[0],
+                     *fg.flash_bwd_plain(*args, mm=mm))
+    torch.cuda.synchronize()
+    err = {name: (float((o[0] - want[0]).abs().max()),
+                  max(float((a - b).abs().max()) for a, b in zip(o[1:], want[1:])))
+           for name, o in got.items()}
+    print(f"{tag}, products: max_abs_err forward / backward: kernel "
+          f"{err['kernel'][0]:.3e} / {err['kernel'][1]:.3e}, 3xTF32 mirror "
+          f"{err['3xTF32'][0]:.3e} / {err['3xTF32'][1]:.3e}, 1xTF32 "
+          f"{err['1xTF32'][0]:.3e} / {err['1xTF32'][1]:.3e}", flush=True)
+    for i, what in enumerate(("forward", "backward")):
+        for name in ("kernel", "3xTF32"):
+            if not err[name][i] * TF32_MARGIN <= err["1xTF32"][i]:
+                fail(f"{tag}: the {what} {name} error {err[name][i]:.3e} is not "
+                     f"{TF32_MARGIN}x below one TF32 product's ({err['1xTF32'][i]:.3e})")
 
 
 def check_strips(dev, adj) -> dict:
@@ -391,6 +499,82 @@ def check_strips(dev, adj) -> dict:
                 if not torch.equal(split[i], again[i]):
                     fail(f"{label}: the split backward's {name} differs between two runs")
         print(f"  {label}: split backward bitwise equal over two runs", flush=True)
+    return errs
+
+
+def head_dim_graph(n: int = 600, seed: int = 4):
+    """A small graph for the head-dim checks (128x128 tiles, n_pad 640):
+    a dense corner (density 0.3 over rows and columns 0-255), scattered
+    edges, rows 300-329 and the whole row block 3 (rows 384-511) without an
+    edge, column block 3 (columns 384-511) without a tile, the tile (row
+    block 4, column block 0) holding the single edge (520, 5), and the
+    padding rows 600-639. Returns (graph, bool mask of the rows that have
+    an edge)."""
+    import numpy as np
+
+    from han_tpu_torch.graph.bcsr import bcsr_from_coo
+
+    rng = np.random.default_rng(seed)
+    corner = np.argwhere(rng.random((256, 256)) < 0.3)
+    rows = np.concatenate([corner[:, 0], rng.integers(0, n, 3000)])
+    cols = np.concatenate([corner[:, 1], rng.integers(0, n, 3000)])
+    drop = (((rows >= 300) & (rows < 330)) | ((rows >= 384) & (rows < 512))
+            | ((cols >= 384) & (cols < 512)) | ((rows >= 512) & (cols < 128)))
+    rows = np.append(rows[~drop], 520)
+    cols = np.append(cols[~drop], 5)
+    pairs = np.unique(np.stack([rows, cols], 1), axis=0)
+    graph = bcsr_from_coo(pairs[:, 0], pairs[:, 1], n)
+    has_edge = np.zeros(graph.n_pad, bool)
+    has_edge[pairs[:, 0]] = True
+    return graph, has_edge
+
+
+def check_head_dims(dev) -> dict:
+    """Phase 3d: the forward, the fused backward and the column sweep at
+    D = 4 and D = 16 (K = 2, head offset 3) on head_dim_graph, v f32 and
+    bf16, dropout 0 and 0.6, against their plain versions with the DBLP
+    check's tolerances (forward atol 1e-5, rtol 1e-4; backward atol 1e-4,
+    rtol 1e-3); rows without an edge must give out = 0 and lse = -1e9
+    exactly, and the column sweep must repeat bitwise. Returns the largest
+    errors per kernel."""
+    import torch
+
+    from han_tpu_torch.ops import flash_gat as fg
+
+    graph, has_edge = head_dim_graph()
+    graph = graph.to(dev)
+    n, k = graph.n_pad, 2
+    edgeless = torch.from_numpy(~has_edge).to(dev)
+    print(f"head dims: {graph.n_edges} edges, {graph.n_tiles} tiles of "
+          f"{graph.nb_r * graph.nb_c}, {int(edgeless.sum())} rows without an edge", flush=True)
+    gen = torch.Generator(dev).manual_seed(5)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    errs = {"fwd": 0.0, "bwd": 0.0, "col": 0.0}
+    for d in (4, 16):
+        ld, ls, v32, g = rnd(k, n), rnd(k, n), rnd(n, k * d), rnd(n, k * d)
+        for v in (v32, v32.to(torch.bfloat16)):
+            for p in (0.0, 0.6):
+                meta = fg.FlashMeta(dropout_p=p, seed=99, head_offset=3)
+                tag = f"D={d} v {str(v.dtype).split('.')[-1]} p={p}"
+                out, lse = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
+                out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
+                torch.cuda.synchronize()
+                errs["fwd"] = max(errs["fwd"], check(f"{tag} out", out, out_p, 1e-5, 1e-4),
+                                  check(f"{tag} lse", lse, lse_p, 1e-5, 1e-4))
+                if not (bool((out[edgeless] == 0).all())
+                        and bool((lse[:, edgeless] == -1e9).all())):
+                    fail(f"{tag}: a row without an edge does not give out = 0, lse = -1e9")
+                delta = (g * out).view(n, k, d).sum(-1).T.contiguous()
+                args = (graph, ld, ls, v, g, lse, delta, meta)
+                errs["bwd"] = max(errs["bwd"], *(
+                    check(f"{tag} {name}", a, b, 1e-4, 1e-3) for name, a, b in
+                    zip(("dld", "dls", "dv"), fg.flash_bwd_cuda(*args), fg.flash_bwd_plain(*args))))
+                col, again = fg.flash_bwd_col_cuda(*args), fg.flash_bwd_col_cuda(*args)
+                errs["col"] = max(errs["col"], *(
+                    check(f"{tag} {name} (column sweep)", a, b, 1e-4, 1e-3) for name, a, b in
+                    zip(("dls", "dv"), col, fg.flash_bwd_col_plain(*args))))
+                if not all(torch.equal(a, b) for a, b in zip(col, again)):
+                    fail(f"{tag}: the column sweep differs between two runs")
     return errs
 
 
@@ -507,7 +691,7 @@ def check_ell_fused(dev) -> dict:
     mask for both, at the sampled block's shape (8,704 rows: 512 seed rows
     with up to 16 valid slots, the rest edgeless, as in a one-hop block;
     K = 8, D = 8) with dropout 0 and 0.6, and at a large odd fanout (F =
-    101, as in exact eval); median CUDA-event times at the block shape. The
+    101, as in exact eval); device times (``timed``) at the block shape. The
     plain-torch backward is held on the card against the same backward on
     the CPU (the card's index_add_ sums with atomics in a varying order)."""
     import torch
@@ -541,8 +725,9 @@ def check_ell_fused(dev) -> dict:
                 fail("ell_fused: an edgeless row is not exactly 0")
             if f == 16:
                 ms = timed(lambda: ef.ell_fused_fwd_cuda(nbr, ld, ls, fts, keep, 0.2, p))
-                plain_ms = timed(lambda: ef.ell_fused_fwd_plain(nbr, ld, ls, fts, keep, 0.2, p))
-                print(f"  median ms: kernel {ms:.4f}, plain {plain_ms:.4f}", flush=True)
+                plain_ms = timed(lambda: ef.ell_fused_fwd_plain(nbr, ld, ls, fts, keep, 0.2, p),
+                                 host_waits=True)
+                print(f"  device ms: kernel {ms:.4f}, plain {plain_ms:.4f}", flush=True)
                 out.update(ms=ms, plain_ms=plain_ms)  # the train shape (p = 0.6) last
                 valid = int((nbr < n).sum())  # the slots this block's softmax sums
                 out["bound"] = bound(
@@ -648,7 +833,7 @@ def sdpa_yardstick(graph, ld, ls, v, k, d) -> float:
     + ls_j) on edges, -1e9 off them, is softmax(z)·v: the flash forward at
     dropout 0 on the rows with edges, held so (atol 1e-4, rtol 1e-3:
     another kernel's exp and summation order). A yardstick only: the port
-    never calls it. Returns its median ms."""
+    never calls it. Returns its device ms (``timed``)."""
     import torch
     import torch.nn.functional as F
 
@@ -667,7 +852,7 @@ def sdpa_yardstick(graph, ld, ls, v, k, d) -> float:
     check("SDPA yardstick vs the forward kernel (rows with edges)",
           out.reshape(n, k * d)[real], want[real], 1e-4, 1e-3)
     ms = timed(lambda: F.scaled_dot_product_attention(q, q, vv, attn_mask=mask))
-    print(f"  SDPA yardstick median ms {ms:.4f}", flush=True)
+    print(f"  SDPA yardstick device ms {ms:.4f}", flush=True)
     del mask, adj
     torch.cuda.empty_cache()
     return ms
@@ -677,7 +862,7 @@ def check_flash_bf16(graph, ld, ls, v, g, k, d) -> dict:
     """The flash kernels with bf16 v at the DBLP shape, dropout 0 and 0.6,
     against their plain versions, which widen the same bf16 values: the
     f32 tolerances (forward atol 1e-5, rtol 1e-4; backward atol 1e-4, rtol
-    1e-3, dld summed with atomics). Median ms at dropout 0.6."""
+    1e-3, dld summed with atomics). Device ms at dropout 0.6."""
     import torch
 
     from han_tpu_torch.ops import flash_gat as fg
@@ -706,7 +891,7 @@ def check_flash_bf16(graph, ld, ls, v, g, k, d) -> dict:
          "bwd_ms": timed(lambda: fg.flash_bwd_cuda(*args)),
          "row_ms": timed(lambda: fg.flash_bwd_row_cuda(*args)),
          "col_ms": timed(lambda: fg.flash_bwd_col_cuda(*args))}
-    print("  bf16 v median ms (dropout 0.6): " + ", ".join(f"{a} {b:.4f}" for a, b in t.items()),
+    print("  bf16 v device ms (dropout 0.6): " + ", ".join(f"{a} {b:.4f}" for a, b in t.items()),
           flush=True)
     return out
 
@@ -766,7 +951,7 @@ def check_calibration(dev) -> dict:
     strip BF16_STRIP_TOL (kernel and plain round the same f32 raw to bf16,
     so only the f32 sums differ in order), and the same body computed in
     f32 must fall outside it on most elements. Per kernel: the largest
-    error, median ms of the kernel and of its plain version (summed over
+    error, device ms of the kernel and of its plain version (summed over
     the launches of the check), and the bound."""
     import torch
 
@@ -787,7 +972,7 @@ def check_calibration(dev) -> dict:
         st = out[key]
         st["err"] = max(st["err"], check(f"cal {name}", got.float(), want.float(), atol, rtol))
         st["ms"] += timed(kernel, reps=5)
-        st["plain_ms"] += timed(plain, reps=5)
+        st["plain_ms"] += timed(plain, reps=5, host_waits=True)
         st["bound"] = (st["bound"][0] + bnd[0], bnd[1])
 
     ops = {"add": 1, "mul": 1, "lrelu": 2, "select": 2, "exp": 1, "rowmax": 2, "rowsum": 3}
@@ -865,8 +1050,8 @@ def check_bench_shape(root, dev) -> dict:
     meta-paths in bfs order), K = D = 8, dropout 0, v in f32 and in bf16;
     forward, fused backward and both sweeps of each meta-path against their
     plain versions with the DBLP check's f32 tolerances (forward atol 1e-5,
-    rtol 1e-4; backward atol 1e-4, rtol 1e-3). Returns the largest errors
-    per kernel."""
+    rtol 1e-4; backward atol 1e-4, rtol 1e-3), and tf32_control with f32 v.
+    Returns the largest errors per kernel."""
     import runpy
 
     import torch
@@ -907,6 +1092,8 @@ def check_bench_shape(root, dev) -> dict:
                                              for t, a, b in zip(("dls", "dv"),
                                                                 fg.flash_bwd_col_cuda(*args),
                                                                 fg.flash_bwd_col_plain(*args))))
+            if v.dtype == torch.float32:
+                tf32_control(f"bench shape, {name}", graph, ld, ls, v, g, meta)
             torch.cuda.empty_cache()
     return errs
 

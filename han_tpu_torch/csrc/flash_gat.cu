@@ -37,52 +37,86 @@
 // dropped one (reference order); rows without edges give out = 0 and
 // lse = -1e9. v may be f32 or bf16 (the VT template argument, as
 // han_tpu/ops/pallas/flash_gat.py:749-758 streams bf16 features): it is
-// widened to f32 right after each load, and everything else, dv included,
-// is f32.
+// widened to f32 after each load, and everything else, dv included, is f32.
 //
-// What bounds it on the H100, and what the design does about it:
+// What bounds fwd_kernel and bwd_col_kernel on the H100, and what their
+// design does about it:
 // - The work is elementwise over the swept tile area (bm*bn*K per occupied
-//   tile: a compare, an exp, a hash when dropout is on, and D FMAs), with
-//   D = 8 far too narrow for tensor cores. The adjacency, the largest
-//   stream, is 1 byte per element and is reused by every row's D-wide
-//   dot, so the kernels are bound by issue rate and latency, not by HBM.
-//   Parallelism is the lever: TPR threads share each tile row (forward,
-//   row sweep) or column (backward, column sweep), each taking a slice and
-//   keeping its own partial sums, merged through shared memory at the end.
-//   That gives N*K*TPR threads (131K at the DBLP shape) instead of N*K.
-// - The TPU grid ran in order and carried m/l/acc and the resident dld
-//   window across steps. Here blocks run in parallel: a loop inside the
-//   block walks the row block's (or column block's) occupied tiles and the
-//   running sums live in registers. In the fused backward dld, a sum across
-//   column blocks, goes through atomicAdd into a zeroed buffer (summation
-//   order varies from run to run). The split backward needs no atomic: the
-//   row sweep gives each (row block, head) to one block, the column sweep
-//   each (column block, head), each thread sums its slice in tile order and
-//   the TPR slices merge in thread order, so both are bitwise reproducible
-//   (the path torch.use_deterministic_algorithms(True) takes). They pay for
-//   it by recomputing c and dz in both sweeps.
-// - One block per (tile row or column block, head): the TPU fused the K
-//   heads to read each adjacency tile once from HBM; here the K blocks of a
-//   tile re-read it from the 50 MB L2, which holds a DBLP meta-path's tiles.
-// - Each step stages the adjacency tile, the ls/ld slices and the v or g
-//   slice in shared memory. The row-major kernels pad each staged
-//   adjacency row by one word, so the 32 rows of a warp hit 32 banks.
+//   tile), not over the edges: at DBLP's density (0.40-0.56 inside an
+//   occupied tile) almost every warp meets an edge at almost every element,
+//   so a branch per adjacency byte buys nothing and serializes dependent
+//   chains. Both kernels are bound by instruction issue (their time grows
+//   linearly with the heads from 8 to 32, so more resident warps do not
+//   help): the sweep is branch-free, the adjacency selects (one predicate
+//   and one select an element), the compiler interleaves independent
+//   elements, and every per-element instruction that could move to a row,
+//   a column or a tile did.
+// - The D-wide products run on the tensor cores: each warp holds a 16-row
+//   (forward) or 2 x 16-column (backward) strip of the block in the register
+//   layout of mma.sync.m16n8k8 (TF32), computes the logits, exps and masks
+//   in the accumulator/operand fragments themselves, and permutes the
+//   summation index of each product (as FlashAttention-2 does) so that a
+//   thread's columns are contiguous (one 32-bit word of 4 adjacency bytes a
+//   row) and the accumulator of g.v serves as the A operand of dv with no
+//   trip through shared memory. 3xTF32 (hi.hi + hi.lo + lo.hi, hi rounded
+//   to TF32, lo the remainder as the tensor cores read it) keeps the
+//   products within about 2^-20 of f32 ones; a bf16 v has no lo part, so
+//   its term is dropped. D = 4 pads the n8 (or k8) side
+//   with zeros, D = 16 takes two.
+// - The forward sweeps each tile once: the row max of a 32-column chunk is
+//   taken over the fragment with two quad shuffles, the running (m, l, acc)
+//   are rescaled once per chunk, exps are exp2 on log2e-scaled logits.
+// - Staging is asynchronous and double-buffered: cp.async copies tile s+1's
+//   adjacency (rows padded by 16 bytes: the rows a warp reads hit distinct
+//   banks), logit slices and v or g slice while tile s computes, behind one
+//   barrier a tile. The adjacency goes in parts, one 16-byte chunk a thread
+//   per 32-column chunk (forward) or 8-row patch (backward) of tile s,
+//   between its shared-memory loads: issued all at once, the copies held
+//   up those loads. v's
+//   columns are swizzled (vslot) and g's rows padded (gpitch) so that the
+//   B-fragment loads hit distinct banks. The int8 tiles stay as BCSRGraph
+//   holds them.
 // - Dropout is a counter-based hash of (seed, global row, global column,
 //   global head), so the backward replays the forward's mask without
-//   storing it, the mask does not depend on the tile size, and the meta
-//   offsets (row block, head, column block) keep it global for sharded runs.
+//   storing it and the mask does not depend on the tile size. The hash's
+//   integer ops issue at half the FP32 rate and dominate the dropout cost,
+//   so its first xor-shift is split into a row half and a column half
+//   (drop_half), each computed once a row or column and staged with the
+//   tile, and only the tail (drop_tail) runs once an element: the same bits
+//   as drop_bits. A template argument (DROP) keeps the hash out of the
+//   dropout-free instantiation.
+// - The TPU grid ran in order and carried m/l/acc and the resident dld
+//   window across steps. Here blocks run in parallel, one per (row or
+//   column block, head): a loop walks the block's occupied tiles with the
+//   running sums in registers. In the fused backward dld, a sum across
+//   column blocks, is reduced over the warp's columns in registers and
+//   shuffles, then across warps in shared memory, and added with one global
+//   atomicAdd a row and tile into a zeroed buffer (the order varies from run
+//   to run). The column sweep (FUSE_DLD = false) has no atomic: dls and dv
+//   are per-thread partials summed in a fixed order, so with the row sweep
+//   the split backward is bitwise reproducible (the path
+//   torch.use_deterministic_algorithms(True) takes).
+// - bwd_row_kernel keeps the first port's scalar design: TPR threads share
+//   each tile row, each takes a slice of the columns with a branch per
+//   adjacency word, partial sums merged through shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
 
-constexpr int TPR = 4;  // threads per tile row (fwd) / tile column (bwd)
+constexpr int TPR = 4;             // bwd_row_kernel: threads per tile row
 constexpr float NEG_INIT = -1e9f;  // = MASK_VALUE
+constexpr float NEG2 = -1e30f;     // a masked logit in the log2 domain
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr uint32_t GOLDEN = 0x9E3779B9u;
+constexpr int APAD = 16;  // bytes that pad each staged adjacency row
 
 struct Drop {
   int on;
@@ -97,9 +131,14 @@ struct Offsets {
   int col_block;
 };
 
-// murmur3 finalizer; ops/flash_gat.py:_fmix32 is the same function on int64
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
+// murmur3 finalizer; ops/flash_gat.py:_fmix32 is the same function on
+// int64. Its first xor-shift distributes over xor, so drop_bits(row_key,
+// col) = drop_tail(drop_half(row_key) ^ drop_half(col * GOLDEN)): the
+// redesigned kernels hash each half once a row or column and only the tail
+// once an element, the same bits.
+__device__ __forceinline__ uint32_t drop_half(uint32_t h) { return h ^ (h >> 16); }
+
+__device__ __forceinline__ uint32_t drop_tail(uint32_t h) {
   h *= 0x85EBCA6Bu;
   h ^= h >> 13;
   h *= 0xC2B2AE35u;
@@ -107,8 +146,10 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) { return drop_tail(drop_half(h)); }
+
 __device__ __forceinline__ uint32_t drop_head_key(uint32_t seed, uint32_t head) {
-  return fmix32(seed ^ fmix32(head + 0x9E3779B9u));
+  return fmix32(seed ^ fmix32(head + GOLDEN));
 }
 
 __device__ __forceinline__ uint32_t drop_row_key(uint32_t head_key, uint32_t row) {
@@ -116,7 +157,7 @@ __device__ __forceinline__ uint32_t drop_row_key(uint32_t head_key, uint32_t row
 }
 
 __device__ __forceinline__ uint32_t drop_bits(uint32_t row_key, uint32_t col) {
-  return fmix32(row_key ^ (col * 0x9E3779B9u));
+  return fmix32(row_key ^ (col * GOLDEN));
 }
 
 // v is float or bf16 (VT); it is widened to f32 in registers right after the
@@ -124,155 +165,386 @@ __device__ __forceinline__ uint32_t drop_bits(uint32_t row_key, uint32_t col) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---------------------------------------------------------------------------
-// forward: block (row block rb, head h); thread (r, q) owns tile row r and
-// the q-th quarter of every tile's columns.
+// tensor-core products: mma.sync.m16n8k8 with TF32 operands, split 3 ways
+// (ops/flash_gat.py:split_tf32 is the plain mirror of the split)
 // ---------------------------------------------------------------------------
 
-template <int D, typename VT>
-__global__ void __launch_bounds__(1024) fwd_kernel(
+struct Tf32x2 {
+  uint32_t hi, lo;
+};
+
+// x = hi + lo: hi is x rounded to TF32 to nearest, ties away from zero (as
+// cvt.rna.tf32.f32, which sm_90 expands into about five instructions, less
+// its NaN and infinity handling: the operands here are finite); lo = x - hi
+// is exact, and the tensor cores read its leading TF32 bits, so x = hi + lo
+// to within 2^-21 |x|. Three instructions.
+__device__ __forceinline__ Tf32x2 split_tf32(float x) {
+  const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  return {hi, __float_as_uint(x - __uint_as_float(hi))};
+}
+
+// c (16x8, f32) += a (16x8, row) * b (8x8, col). Fragments, with g = lane/4
+// and t = lane%4: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4);
+// b0 (t, g), b1 (t+4, g); c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t),
+// c3 (g+8, 2t+1)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: hh += a.hi*b.hi, hl += a.hi*b.lo, lh += a.lo*b.hi; the caller
+// sums the three (or passes one accumulator three times). Separate
+// accumulators make three short dependency chains of one long one.
+// A_EXACT (B_EXACT): a's (b's) values are TF32 already (bf16 widened), its
+// lo part is 0 and its term is dropped.
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma_3xtf32(float (&hh)[4], float (&hl)[4],
+                                           float (&lh)[4], const Tf32x2 (&a)[4],
+                                           const Tf32x2 (&b)[2]) {
+  if constexpr (!A_EXACT)
+    mma_tf32(lh, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
+  if constexpr (!B_EXACT)
+    mma_tf32(hl, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
+  mma_tf32(hh, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
+}
+
+// ---------------------------------------------------------------------------
+// asynchronous staging: cp.async into a two-stage ring, one commit group a
+// tile
+// ---------------------------------------------------------------------------
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(s), "l"(src),
+                 "n"(BYTES)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// A thread's share of the 16-byte chunks of a bm x bn adjacency tile, the
+// chunks tid, tid + nthr, ..., as (row, chunk) pairs; the divisions are
+// done once per kernel. The tile is staged in parts of one chunk a thread
+// (AdjCursor::copy), issued between the computation's shared-memory loads
+// rather than queued ahead of them.
+struct AdjSweep {
+  int per_row, r0, q0, dr, dq;
+  __device__ AdjSweep(int bn, int tid, int nthr)
+      : per_row(bn / 16), r0(tid / per_row), q0(tid % per_row),
+        dr(nthr / per_row), dq(nthr % per_row) {}
+};
+
+struct AdjCursor {
+  unsigned char* dst;
+  const unsigned char* src;
+  int bn, r, q;
+  __device__ AdjCursor(unsigned char* dst_, const int8_t* tiles, int t, int bm, int bn_,
+                       const AdjSweep& sw)
+      : dst(dst_),
+        src(reinterpret_cast<const unsigned char*>(tiles) + (size_t)t * bm * bn_),
+        bn(bn_), r(sw.r0), q(sw.q0) {}
+  // the next of this thread's chunks, into rows of pitch bn + APAD
+  __device__ __forceinline__ void copy(const AdjSweep& sw) {
+    cp_async<16>(dst + r * (bn + APAD) + 16 * q, src + (size_t)r * bn + 16 * q);
+    q += sw.dq;
+    r += sw.dr;
+    if (q >= sw.per_row) {
+      q -= sw.per_row;
+      ++r;
+    }
+  }
+};
+
+// n floats (n % 4 == 0, 16-byte aligned) from global to shared
+__device__ __forceinline__ void stage_floats(float* dst, const float* src, int n,
+                                             int tid, int nthr) {
+  for (int i = tid; i < n / 4; i += nthr) cp_async<16>(dst + 4 * i, src + 4 * i);
+}
+
+// ---------------------------------------------------------------------------
+// forward: block (row block rb, head h), bm / 16 warps; warp w owns rows
+// 16 w .. 16 w + 15 of the block, thread (g, t) rows 16 w + g and
+// 16 w + g + 8 as the m16 side of P.V. In a 16-column window the k index t
+// (t + 4) of k step hh is column 4 t + 2 hh (+1), so a thread's four
+// columns are one adjacency word.
+// ---------------------------------------------------------------------------
+
+__host__ __device__ inline int fwd_stage_bytes(int bm, int bn, int d, int vbytes) {
+  return bm * (bn + APAD) + 2 * bn * 4 + bn * d * vbytes;  // adjacency, ls, column keys, v
+}
+
+// v's column c of a staged tile sits at slot c ^ ((c >> 2) & 3): the four
+// columns 4 t + j (t = 0..3) that a B fragment reads at one k step land in
+// four bank groups
+__device__ __forceinline__ int vslot(int c) { return c ^ ((c >> 2) & 3); }
+
+template <int D, typename VT, bool DROP>
+__global__ void __launch_bounds__(512) fwd_kernel(
     const int8_t* __restrict__ tiles, const int* __restrict__ fcount,
     const int* __restrict__ fcol, const int* __restrict__ ftile, int c_pitch,
     const float* __restrict__ ld, const float* __restrict__ ls,
     const VT* __restrict__ v, float* __restrict__ out,
     float* __restrict__ lse, int n_rows, int n_cols, int bm, int bn, int k,
     float slope, Drop drop, Offsets off) {
+  constexpr int ND = (D + 7) / 8;              // n8 tiles of the head dim
+  constexpr int VCOL = D * (int)sizeof(VT);    // bytes of one column of v
+  constexpr int VCH = VCOL < 16 ? VCOL : 16;   // cp.async size for v
+  constexpr bool V_EXACT = std::is_same<VT, __nv_bfloat16>::value;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int words = bn / 4;      // int32 words per tile row
-  const int wpitch = words + 1;  // +1: row r starts at bank r
-  uint32_t* adj_s = reinterpret_cast<uint32_t*>(smem);  // [bm][wpitch]
-  float* ls_s = reinterpret_cast<float*>(adj_s + bm * wpitch);  // [bn]
-  float* v_s = ls_s + bn;                                       // [bn][D]
-  float* red_s = v_s + bn * D;  // [TPR][bm] m, [TPR][bm] l, [TPR][bm][D] acc
+  const int apitch = bn + APAD;
+  const int stage_bytes = fwd_stage_bytes(bm, bn, D, sizeof(VT));
 
   const int rb = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, nthr = blockDim.x;
-  const int r = tid % bm, q = tid / bm;  // bm % 32 == 0: q is warp-uniform
-  const int row = rb * bm + r;
+  const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int r_lo = (tid >> 5) * 16 + gq;  // rows r_lo and r_lo + 8
   const int kd = k * D;
-  const int cw = words / TPR;  // words in this thread's column slice
-  const int j0 = q * cw * 4;   // first column of the slice
-  const float ld_r = ld[(size_t)h * n_rows + row];
-  const uint32_t row_key =
-      drop.on ? drop_row_key(drop_head_key(drop.seed, off.head + h),
-                             (uint32_t)((off.row_block + rb) * bm + r))
-              : 0u;
 
-  float m = NEG_INIT, l = 0.f, acc[D];
+  const uint32_t head_key = DROP ? drop_head_key(drop.seed, off.head + h) : 0u;
+  float ld2[2], m[2], l[2];
+  uint32_t row_key[2];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = r_lo + 8 * rr;
+    ld2[rr] = ld[(size_t)h * n_rows + (size_t)rb * bm + r] * LOG2E;
+    row_key[rr] = DROP ? drop_half(drop_row_key(head_key,
+                                                (uint32_t)((off.row_block + rb) * bm + r)))
+                       : 0u;
+    m[rr] = NEG2;
+    l[rr] = 0.f;
+  }
+  float acc[3][ND][4];  // the hi.hi, hi.lo and lo.hi terms of P.V
+#pragma unroll
+  for (int x = 0; x < 3; ++x)
+#pragma unroll
+    for (int nt = 0; nt < ND; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[x][nt][e] = 0.f;
 
   const int count = fcount[rb];
+  const int* step_col = fcol + (size_t)rb * c_pitch;
+  const int* step_tile = ftile + (size_t)rb * c_pitch;
+  const AdjSweep sweep(bn, tid, nthr);
+
+  // the ls and v slices of step s; its adjacency goes through an AdjCursor
+  auto stage_slices = [&](int s, int cb) {
+    unsigned char* buf = smem + (s & 1) * stage_bytes;
+    float* ls_s = reinterpret_cast<float*>(buf + bm * apitch);
+    stage_floats(ls_s, ls + (size_t)h * n_cols + (size_t)cb * bn, bn, tid, nthr);
+    if constexpr (DROP) {  // the column halves of the dropout hash
+      uint32_t* ck_s = reinterpret_cast<uint32_t*>(ls_s + bn);
+      for (int c = tid; c < bn; c += nthr)
+        ck_s[c] = drop_half((uint32_t)((off.col_block + cb) * bn + c) * GOLDEN);
+    }
+    unsigned char* v_s = reinterpret_cast<unsigned char*>(ls_s + 2 * bn);
+    constexpr int VQ = VCOL / VCH;
+    for (int i = tid; i < bn * VQ; i += nthr) {
+      const int c = i / VQ, q = i - c * VQ;
+      cp_async<VCH>(v_s + vslot(c) * VCOL + q * VCH,
+                    reinterpret_cast<const unsigned char*>(
+                        v + ((size_t)cb * bn + c) * kd + h * D) + q * VCH);
+    }
+  };
+
+  // the map entries of steps s (cur), s + 1 (next) and s + 2 (loaded a
+  // step ahead, so that no stage waits on a global load)
+  int cb_cur = count > 0 ? step_col[0] : 0;
+  int cb_next = count > 1 ? step_col[1] : 0, t_next = count > 1 ? step_tile[1] : 0;
+  if (count > 0) {
+    stage_slices(0, cb_cur);
+    AdjCursor first(smem, tiles, step_tile[0], bm, bn, sweep);
+    for (int j = 0; j < bn / 32; ++j) first.copy(sweep);
+    cp_async_commit();
+  }
   for (int s = 0; s < count; ++s) {
-    const int cb = fcol[rb * c_pitch + s];
-    const int t = ftile[rb * c_pitch + s];
-    __syncthreads();  // the previous tile is consumed
-    const uint32_t* tile_w =
-        reinterpret_cast<const uint32_t*>(tiles + (size_t)t * bm * bn);
-    for (int i = tid; i < bm * words; i += nthr) {
-      const int rr = i / words;
-      adj_s[rr * wpitch + (i - rr * words)] = tile_w[i];
-    }
-    for (int j = tid; j < bn; j += nthr)
-      ls_s[j] = ls[(size_t)h * n_cols + (size_t)cb * bn + j];
-    for (int i = tid; i < bn * D; i += nthr) {
-      const int j = i / D;
-      v_s[i] = to_f32(v[((size_t)cb * bn + j) * kd + h * D + (i - j * D)]);
-    }
-    __syncthreads();
+    const int cb_after = s + 2 < count ? step_col[s + 2] : 0;
+    const int t_after = s + 2 < count ? step_tile[s + 2] : 0;
+    cp_async_wait_all();
+    __syncthreads();  // tile s is visible; every warp is done with tile s - 1
+    // tile s + 1 lands while tile s computes: its slices now, its adjacency
+    // a part (bn / 32 of them, one chunk a thread) per 32-column chunk
+    const bool more = s + 1 < count;
+    if (more) stage_slices(s + 1, cb_next);
+    AdjCursor next(smem + ((s + 1) & 1) * stage_bytes, tiles, t_next, bm, bn, sweep);
+    const unsigned char* adj_s = smem + (s & 1) * stage_bytes;
+    const float* ls_s = reinterpret_cast<const float*>(adj_s + bm * apitch);
+    const uint32_t* ck_s = reinterpret_cast<const uint32_t*>(ls_s + bn);
+    const VT* v_s = reinterpret_cast<const VT*>(ls_s + 2 * bn);
+    cb_cur = cb_next;
+    cb_next = cb_after;
+    t_next = t_after;
+    // this thread's v columns of a 16-column window at k step hh, after the
+    // swizzle: vslot(base + r) = base + vslot(r) for base a multiple of 16
+    const int vo[2][2] = {{vslot(4 * tq) * D, vslot(4 * tq + 1) * D},
+                          {vslot(4 * tq + 2) * D, vslot(4 * tq + 3) * D}};
 
-    const uint32_t* my = adj_s + r * wpitch + q * cw;
-    float cmax = NEG_INIT;
-    for (int w = 0; w < cw; ++w) {
-      const uint32_t bits = my[w];
-      if (!bits) continue;
+#pragma unroll 2
+    for (int c0 = 0; c0 < bn; c0 += 32) {
+      // z (log2 domain) of this thread's 8 columns c0 + 16 w + 4 tq + b of
+      // the chunk, NEG2 off the edges: a select, no branch
+      float z[2][8];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        if ((bits >> (8 * b)) & 0xffu) {
-          const float raw = ld_r + ls_s[j0 + 4 * w + b];
-          cmax = fmaxf(cmax, fmaxf(raw, slope * raw));
+      for (int w = 0; w < 2; ++w) {
+        const int c = c0 + 16 * w + 4 * tq;
+        const float4 l4 = *reinterpret_cast<const float4*>(ls_s + c);
+        const float lsv[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const uint32_t bits =
+              *reinterpret_cast<const uint32_t*>(adj_s + (r_lo + 8 * rr) * apitch + c);
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const float raw = fmaf(lsv[b], LOG2E, ld2[rr]);
+            const float zz = fmaxf(raw, slope * raw);
+            z[rr][4 * w + b] = (bits & (0xffu << (8 * b))) ? zz : NEG2;
+          }
+        }
+      }
+      if (more) next.copy(sweep);
+      // the chunk's row max over the quad, one rescale, the exps; the
+      // dropout keys of the 8 columns serve both rows
+      uint32_t key[8];
+      if constexpr (DROP) {
+#pragma unroll
+        for (int w = 0; w < 2; ++w) {
+          const uint4 k4 = *reinterpret_cast<const uint4*>(ck_s + c0 + 16 * w + 4 * tq);
+          key[4 * w] = k4.x;
+          key[4 * w + 1] = k4.y;
+          key[4 * w + 2] = k4.z;
+          key[4 * w + 3] = k4.w;
+        }
+      }
+      float p[2][8];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        // pairwise trees, not chains, for the max and the sum
+        const float* zr = z[rr];
+        float cm = fmaxf(fmaxf(fmaxf(zr[0], zr[1]), fmaxf(zr[2], zr[3])),
+                         fmaxf(fmaxf(zr[4], zr[5]), fmaxf(zr[6], zr[7])));
+        cm = fmaxf(cm, __shfl_xor_sync(FULL_MASK, cm, 1));
+        cm = fmaxf(cm, __shfl_xor_sync(FULL_MASK, cm, 2));
+        const float m_new = fmaxf(m[rr], cm);
+        const float sc = ex2(m[rr] - m_new);
+        m[rr] = m_new;
+        float pu[8];  // the undropped p, for l
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          // 0 off the edges once the row has one; before that the row's
+          // sums are junk that the first edge's rescale (by 0) or the
+          // finalize (no edge) discards
+          pu[e] = ex2(zr[e] - m_new);
+          p[rr][e] = pu[e];
+          if constexpr (DROP)
+            p[rr][e] = drop_tail(row_key[rr] ^ key[e]) < drop.thresh ? pu[e] : 0.f;
+        }
+        const float ps = ((pu[0] + pu[1]) + (pu[2] + pu[3])) + ((pu[4] + pu[5]) + (pu[6] + pu[7]));
+        l[rr] = fmaf(l[rr], sc, ps);
+#pragma unroll
+        for (int x = 0; x < 3; ++x)
+#pragma unroll
+          for (int nt = 0; nt < ND; ++nt) {
+            acc[x][nt][2 * rr] *= sc;
+            acc[x][nt][2 * rr + 1] *= sc;
+          }
+      }
+      // acc += P.V: k step (w, hh) sums columns c0 + 16 w + 4 t + 2 hh + {0, 1}
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int e = 4 * w + 2 * hh;
+          const Tf32x2 a[4] = {split_tf32(p[0][e]), split_tf32(p[1][e]),
+                               split_tf32(p[0][e + 1]), split_tf32(p[1][e + 1])};
+          const VT* va = v_s + (c0 + 16 * w) * D + vo[hh][0];
+          const VT* vb = v_s + (c0 + 16 * w) * D + vo[hh][1];
+#pragma unroll
+          for (int nt = 0; nt < ND; ++nt) {
+            const int d = 8 * nt + gq;
+            Tf32x2 b[2] = {{0u, 0u}, {0u, 0u}};
+            if (D >= 8 || d < D) {
+              b[0] = split_tf32(to_f32(va[d]));
+              b[1] = split_tf32(to_f32(vb[d]));
+            }
+            mma_3xtf32<false, V_EXACT>(acc[0][nt], acc[1][nt], acc[2][nt], a, b);
+          }
         }
       }
     }
-    if (cmax == NEG_INIT) continue;  // no edge in this slice of the tile
+    cp_async_commit();
+  }
 
-    const float m_new = fmaxf(m, cmax);
-    const float scale = expf(m - m_new);
-    l *= scale;
+  // finalize: l over the quad; acc is complete (the products summed the
+  // quad's columns)
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= scale;
-    const uint32_t col0 = (uint32_t)((off.col_block + cb) * bn + j0);
-    for (int w = 0; w < cw; ++w) {
-      const uint32_t bits = my[w];
-      if (!bits) continue;
+  for (int rr = 0; rr < 2; ++rr) {
+    float lt = l[rr] + __shfl_xor_sync(FULL_MASK, l[rr], 1);
+    lt += __shfl_xor_sync(FULL_MASK, lt, 2);
+    const bool has_edge = m[rr] > 0.5f * NEG2;
+    const float lsum = fmaxf(lt, 1e-30f);
+    const float inv = has_edge ? (DROP ? drop.scale : 1.f) / lsum : 0.f;
+    const size_t row = (size_t)rb * bm + r_lo + 8 * rr;
+    float* o = out + row * kd + h * D;
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        if ((bits >> (8 * b)) & 0xffu) {
-          const int j = j0 + 4 * w + b;
-          const float raw = ld_r + ls_s[j];
-          float p = expf(fmaxf(raw, slope * raw) - m_new);
-          l += p;
-          if (drop.on)
-            p = drop_bits(row_key, col0 + 4 * w + b) < drop.thresh
-                    ? p * drop.scale : 0.f;
-          const float* vj = v_s + j * D;
-#pragma unroll
-          for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vj[d], acc[d]);
-        }
-      }
+    for (int nt = 0; nt < ND; ++nt) {
+      const int d = 8 * nt + 2 * tq;
+      const int e = 2 * rr;
+      if (D >= 8 || d < D)
+        *reinterpret_cast<float2*>(o + d) = make_float2(
+            (acc[1][nt][e] + acc[2][nt][e] + acc[0][nt][e]) * inv,
+            (acc[1][nt][e + 1] + acc[2][nt][e + 1] + acc[0][nt][e + 1]) * inv);
     }
-    m = m_new;
+    if (tq == 0)
+      lse[(size_t)h * n_rows + row] = has_edge ? (m[rr] + log2f(lsum)) * LN2 : NEG_INIT;
   }
-
-  // merge the TPR slices of row r
-  float* m_s = red_s;
-  float* l_s = red_s + TPR * bm;
-  float* a_s = red_s + 2 * TPR * bm;
-  __syncthreads();
-  m_s[q * bm + r] = m;
-  l_s[q * bm + r] = l;
-#pragma unroll
-  for (int d = 0; d < D; ++d) a_s[(q * bm + r) * D + d] = acc[d];
-  __syncthreads();
-  if (q != 0) return;
-  float mx = NEG_INIT;
-#pragma unroll
-  for (int qq = 0; qq < TPR; ++qq) mx = fmaxf(mx, m_s[qq * bm + r]);
-  float sum = 0.f, o[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) o[d] = 0.f;
-#pragma unroll
-  for (int qq = 0; qq < TPR; ++qq) {
-    const float f = expf(m_s[qq * bm + r] - mx);
-    sum += l_s[qq * bm + r] * f;
-#pragma unroll
-    for (int d = 0; d < D; ++d) o[d] += a_s[(qq * bm + r) * D + d] * f;
-  }
-  const bool has_edge = mx > 0.5f * NEG_INIT;
-  const float lsum = fmaxf(sum, 1e-30f);
-  const float inv = has_edge ? 1.f / lsum : 0.f;
-#pragma unroll
-  for (int d = 0; d < D; ++d) out[(size_t)row * kd + h * D + d] = o[d] * inv;
-  lse[(size_t)h * n_rows + row] = has_edge ? mx + logf(lsum) : NEG_INIT;
 }
 
 // ---------------------------------------------------------------------------
-// backward column sweep: block (column block cb, head h); thread (j, q) owns
-// tile column j and the q-th quarter of every tile's rows. Writes dls and dv
-// once per column. FUSE_DLD (the fused backward) also sums dld: per tile
-// into shared memory, then across column blocks with atomicAdd into the
-// zeroed global buffer. Without it (the split backward's column sweep) the
-// kernel has no atomic at all.
+// backward column sweep: block (column block cb, head h), 2 bn / 32 warps.
+// Warp (cq, rh) owns columns 32 cq .. 32 cq + 31 and the rh-th half of each
+// tile's rows; thread (g, t) columns j0 = 32 cq + 4 g .. j0 + 3, which are
+// the m side (m16 tiles 0 and 1: rows g and g + 8 are columns j0 + 2 tile
+// and j0 + 2 tile + 1) of gv = V.G^T and of dv += C'.G. In a patch of 8
+// rows, C's n index 2 t (2 t + 1) is row i0 + 2 t (+1), and dv's k index
+// t (t + 4) the same row, so the g.v accumulator is the A operand of dv.
+// Writes dls and dv once per column. FUSE_DLD (the fused backward) also
+// sums dld: over the warp's columns by shuffles, over the column warps in
+// shared memory, then one atomicAdd a row and tile into the zeroed global
+// buffer. Without it (the split backward's column sweep) the kernel has no
+// atomic at all.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL_MASK, x, o);
-  return x;
+__host__ __device__ constexpr int gpitch(int d) { return (d < 8 ? 8 : d) + 4; }
+
+__host__ __device__ inline int bwd_stage_bytes(int bm, int bn, int d) {
+  // adjacency; ld, lse, delta, row keys; g (rows padded to gpitch floats:
+  // the B-fragment loads hit distinct banks)
+  return bm * (bn + APAD) + 4 * bm * 4 + bm * gpitch(d) * 4;
 }
 
-template <int D, bool FUSE_DLD, typename VT>
-__global__ void __launch_bounds__(1024) bwd_col_kernel(
+template <int D, bool FUSE_DLD, typename VT, bool DROP>
+__global__ void __launch_bounds__(512) bwd_col_kernel(
     const int8_t* __restrict__ tiles, const int* __restrict__ bcount,
     const int* __restrict__ brow, const int* __restrict__ btile, int r_pitch,
     const float* __restrict__ ld, const float* __restrict__ ls,
@@ -281,129 +553,266 @@ __global__ void __launch_bounds__(1024) bwd_col_kernel(
     float* __restrict__ dld, float* __restrict__ dls, float* __restrict__ dv,
     int n_rows, int n_cols, int bm, int bn, int k, float slope, Drop drop,
     Offsets off) {
+  constexpr int KD = (D + 7) / 8;  // k8 steps (g.v) and n8 tiles (dv) of D
+  constexpr int GP = gpitch(D);
+  constexpr bool V_EXACT = std::is_same<VT, __nv_bfloat16>::value;
   extern __shared__ __align__(16) unsigned char smem[];
-  uint8_t* adj_s = smem;                                     // [bm][bn]
-  float* ld_s = reinterpret_cast<float*>(smem + bm * bn);    // [bm]
-  float* lse_s = ld_s + bm;                                  // [bm]
-  float* delta_s = lse_s + bm;                               // [bm]
-  float* g_s = delta_s + bm;                                 // [bm][D]
-  float* red_s = g_s + bm * D;  // [TPR][bn] dls, [TPR][bn][D] dv
-  float* dld_s = red_s + TPR * bn * (D + 1);  // [bm], FUSE_DLD only
+  const int apitch = bn + APAD;
+  const int stage_bytes = bwd_stage_bytes(bm, bn, D);
+  const int n_cw = bn / 32;  // column warps
+  // [2][n_cw][bm] dld partials (FUSE_DLD), after the stages or the merge
+  const int merge_bytes = bn * (D + 1) * 4;
+  float* dld_s = reinterpret_cast<float*>(
+      smem + (2 * stage_bytes > merge_bytes ? 2 * stage_bytes : merge_bytes));
 
   const int cb = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, nthr = blockDim.x;
-  const int j = tid % bn, q = tid / bn;  // bn % 32 == 0: q is warp-uniform
-  const int lane = tid & 31;
-  const int col = cb * bn + j;
+  const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int cq = (tid >> 5) % n_cw, rh = (tid >> 5) / n_cw;
+  const int half = bm / 2;
+  const int j0 = 32 * cq + 4 * gq;
   const int kd = k * D;
-  const int rc = bm / TPR;  // rows in this thread's slice
-  const float ls_j = ls[(size_t)h * n_cols + col];
-  float v_j[D], dv_j[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    v_j[d] = to_f32(v[(size_t)col * kd + h * D + d]);
-    dv_j[d] = 0.f;
-  }
-  float dls_j = 0.f;
-  const uint32_t head_key = drop.on ? drop_head_key(drop.seed, off.head + h) : 0u;
-  const uint32_t gcol = (uint32_t)((off.col_block + cb) * bn + j);
 
-  if constexpr (FUSE_DLD)
-    for (int i = tid; i < bm; i += nthr) dld_s[i] = 0.f;
+  // per column: ls, the dropout column key, and v as the A operand of g.v
+  // (a0 (column j0 + 2 tile, d = t), a1 (j0 + 2 tile + 1, t), a2 (j0 +
+  // 2 tile, t + 4), a3 (j0 + 2 tile + 1, t + 4), d + 8 kk at k step kk)
+  float ls_j[4];
+  uint32_t col_key[4];
+#pragma unroll
+  for (int j4 = 0; j4 < 4; ++j4) {
+    ls_j[j4] = ls[(size_t)h * n_cols + (size_t)cb * bn + j0 + j4];
+    col_key[j4] = DROP ? drop_half((uint32_t)((off.col_block + cb) * bn + j0 + j4) * GOLDEN) : 0u;
+  }
+  Tf32x2 va[2][KD][4];
+#pragma unroll
+  for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int idx = 0; idx < 4; ++idx) {
+        const int col = j0 + 2 * tile + (idx & 1);
+        const int d = 8 * kk + tq + 4 * (idx >> 1);
+        va[tile][kk][idx] = split_tf32(
+            d < D ? to_f32(v[((size_t)cb * bn + col) * kd + h * D + d]) : 0.f);
+      }
+  float dls_j[4] = {0.f, 0.f, 0.f, 0.f};
+  float dv_acc[2][KD][4];
+#pragma unroll
+  for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+    for (int nt = 0; nt < KD; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv_acc[tile][nt][e] = 0.f;
+
+  const uint32_t head_key = DROP ? drop_head_key(drop.seed, off.head + h) : 0u;
   const int count = bcount[cb];
-  int prev_rb = 0;
+  const int* step_row = brow + (size_t)cb * r_pitch;
+  const int* step_tile = btile + (size_t)cb * r_pitch;
+  const AdjSweep sweep(bn, tid, nthr);
+
+  // the ld, lse, delta and g slices and the row keys of step s; its
+  // adjacency goes through an AdjCursor
+  auto stage_slices = [&](int s, int rb) {
+    unsigned char* buf = smem + (s & 1) * stage_bytes;
+    float* vec_s = reinterpret_cast<float*>(buf + bm * apitch);
+    const size_t hr = (size_t)h * n_rows + (size_t)rb * bm;
+    stage_floats(vec_s, ld + hr, bm, tid, nthr);
+    stage_floats(vec_s + bm, lse + hr, bm, tid, nthr);
+    stage_floats(vec_s + 2 * bm, delta + hr, bm, tid, nthr);
+    if constexpr (DROP) {  // the row keys, hashed once a row and block
+      uint32_t* rk_s = reinterpret_cast<uint32_t*>(vec_s + 3 * bm);
+      for (int i = tid; i < bm; i += nthr)
+        rk_s[i] = drop_half(drop_row_key(head_key, (uint32_t)((off.row_block + rb) * bm + i)));
+    }
+    float* g_s = vec_s + 4 * bm;
+    constexpr int GQ = D / 4;  // 16-byte chunks of a row of g
+    for (int i = tid; i < bm * GQ; i += nthr) {
+      const int r = i / GQ, q = i - r * GQ;
+      cp_async<16>(g_s + r * GP + 4 * q, g + ((size_t)rb * bm + r) * kd + h * D + 4 * q);
+    }
+  };
+
+  // dld of a finished tile: the column warps' partials summed in shared
+  // memory, one global atomicAdd a row
+  auto flush_dld = [&](const float* part, int rb) {
+    for (int i = tid; i < bm; i += nthr) {
+      float x = 0.f;
+      for (int q = 0; q < n_cw; ++q) x += part[q * bm + i];
+      atomicAdd(&dld[(size_t)h * n_rows + (size_t)rb * bm + i], x);
+    }
+  };
+
+  // the map entries of steps s - 1 (prev), s + 1 (next) and s + 2 (loaded
+  // a step ahead, so that no stage waits on a global load)
+  int rb_prev = 0, rb_cur = count > 0 ? step_row[0] : 0;
+  int rb_next = count > 1 ? step_row[1] : 0, t_next = count > 1 ? step_tile[1] : 0;
+  if (count > 0) {
+    stage_slices(0, rb_cur);
+    AdjCursor first(smem, tiles, step_tile[0], bm, bn, sweep);
+    for (int j = 0; j < bm / 32; ++j) first.copy(sweep);
+    cp_async_commit();
+  }
   for (int s = 0; s < count; ++s) {
-    const int rb = brow[cb * r_pitch + s];
-    const int t = btile[cb * r_pitch + s];
-    __syncthreads();  // the previous tile (and its dld partials) is complete
-    if constexpr (FUSE_DLD) {
-      if (s > 0) {
-        for (int i = tid; i < bm; i += nthr) {
-          atomicAdd(&dld[(size_t)h * n_rows + (size_t)prev_rb * bm + i], dld_s[i]);
-          dld_s[i] = 0.f;
+    const int rb_after = s + 2 < count ? step_row[s + 2] : 0;
+    const int t_after = s + 2 < count ? step_tile[s + 2] : 0;
+    cp_async_wait_all();
+    __syncthreads();  // tile s is visible; every warp is done with tile s - 1
+    // tile s + 1 lands while tile s computes: its slices now, its adjacency
+    // a part (bm / 32 of them, one chunk a thread) per patch of the first
+    // bm / 32 patches
+    const bool more = s + 1 < count;
+    if (more) stage_slices(s + 1, rb_next);
+    AdjCursor next(smem + ((s + 1) & 1) * stage_bytes, tiles, t_next, bm, bn, sweep);
+    if constexpr (FUSE_DLD)
+      if (s > 0) flush_dld(dld_s + ((s - 1) & 1) * n_cw * bm, rb_prev);
+    rb_prev = rb_cur;
+    rb_cur = rb_next;
+    rb_next = rb_after;
+    t_next = t_after;
+    const unsigned char* adj_s = smem + (s & 1) * stage_bytes;
+    const float* ld_s = reinterpret_cast<const float*>(adj_s + bm * apitch);
+    const float* lse_s = ld_s + bm;
+    const float* delta_s = ld_s + 2 * bm;
+    const uint32_t* rk_s = reinterpret_cast<const uint32_t*>(ld_s + 3 * bm);
+    const float* g_s = ld_s + 4 * bm;
+    float* dld_part = dld_s + (s & 1) * n_cw * bm + cq * bm;
+
+#pragma unroll 2
+    for (int i0 = rh * half; i0 < rh * half + half; i0 += 8) {
+      // gv = V.G^T on rows i0 .. i0 + 7: b0 (d = t, row i0 + g), b1 (t + 4)
+      Tf32x2 gb[KD][2];
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const float* g_row = g_s + (i0 + gq) * GP + 8 * kk + tq;
+        gb[kk][0] = split_tf32(g_row[0]);
+        gb[kk][1] = split_tf32(D >= 8 ? g_row[4] : 0.f);
+      }
+      float gv[2][4];
+#pragma unroll
+      for (int tile = 0; tile < 2; ++tile) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gv[tile][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk)
+          mma_3xtf32<V_EXACT, false>(gv[tile], gv[tile], gv[tile], va[tile][kk], gb[kk]);
+      }
+      // the elements: gv[tile][e] is column j0 + 2 tile + e / 2, row
+      // ia + e % 2
+      const int ia = i0 + 2 * tq;
+      const float2 ld2 = *reinterpret_cast<const float2*>(ld_s + ia);
+      const float2 lse_n = *reinterpret_cast<const float2*>(lse_s + ia);
+      const float lse2[2] = {lse_n.x * LOG2E, lse_n.y * LOG2E};
+      const float2 dl2 = *reinterpret_cast<const float2*>(delta_s + ia);
+      const uint2 rk2 = DROP ? *reinterpret_cast<const uint2*>(rk_s + ia) : make_uint2(0u, 0u);
+      const uint32_t adj[2] = {
+          *reinterpret_cast<const uint32_t*>(adj_s + ia * apitch + j0),
+          *reinterpret_cast<const uint32_t*>(adj_s + (ia + 1) * apitch + j0)};
+      if (more && i0 - rh * half < bm / 4) next.copy(sweep);
+      float cd[2][4], row_sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int tile = 0; tile < 2; ++tile) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j4 = 2 * tile + (e >> 1), rr = e & 1;
+          const float raw = (rr ? ld2.y : ld2.x) + ls_j[j4];
+          const float zz = fmaxf(raw, slope * raw);
+          const float ce = ex2(fmaf(zz, LOG2E, -lse2[rr]));
+          // a select, not a multiply: off-edge ce may be +inf
+          const float c = (adj[rr] & (0xffu << (8 * j4))) ? ce : 0.f;
+          float c_agg = c;
+          if constexpr (DROP)
+            c_agg = drop_tail((rr ? rk2.y : rk2.x) ^ col_key[j4]) < drop.thresh
+                        ? c * drop.scale : 0.f;
+          const float dz = fmaf(c_agg, gv[tile][e], -c * (rr ? dl2.y : dl2.x));
+          const float dzs = raw >= 0.f ? dz : slope * dz;
+          dls_j[j4] += dzs;
+          row_sum[rr] += dzs;
+          cd[tile][e] = c_agg;
         }
       }
-    }
-    const uint4* tile_v = reinterpret_cast<const uint4*>(tiles + (size_t)t * bm * bn);
-    uint4* adj_v = reinterpret_cast<uint4*>(adj_s);
-    for (int i = tid; i < bm * bn / 16; i += nthr) adj_v[i] = tile_v[i];
-    for (int i = tid; i < bm; i += nthr) {
-      const size_t hr = (size_t)h * n_rows + (size_t)rb * bm + i;
-      ld_s[i] = ld[hr];
-      lse_s[i] = lse[hr];
-      delta_s[i] = delta[hr];
-    }
-    for (int i = tid; i < bm * D; i += nthr) {
-      const int ii = i / D;
-      g_s[i] = g[((size_t)rb * bm + ii) * kd + h * D + (i - ii * D)];
-    }
-    __syncthreads();
-
-    const uint32_t row0 = (uint32_t)((off.row_block + rb) * bm);
-    for (int ii = 0; ii < rc; ++ii) {
-      const int i = q * rc + ii;
-      const bool on_edge = adj_s[i * bn + j] != 0;
-      float dzs = 0.f;
-      if (on_edge) {
-        const float raw = ld_s[i] + ls_j;
-        const float c = expf(fmaxf(raw, slope * raw) - lse_s[i]);
-        float c_agg = c;
-        if (drop.on)
-          c_agg = drop_bits(drop_row_key(head_key, row0 + i), gcol) < drop.thresh
-                      ? c * drop.scale : 0.f;
-        const float* g_i = g_s + i * D;
-        float gv = 0.f;
+      // dv += C'.G: a = (cd0, cd2, cd1, cd3), b0 (row ia, d = 8 nt + g),
+      // b1 (row ia + 1)
+      Tf32x2 gr[KD][2];
 #pragma unroll
-        for (int d = 0; d < D; ++d) gv = fmaf(g_i[d], v_j[d], gv);
-        const float dz = c_agg * gv - c * delta_s[i];
-        dzs = raw >= 0.f ? dz : slope * dz;
-        dls_j += dzs;
+      for (int nt = 0; nt < KD; ++nt) {
+        const int d = 8 * nt + gq;
+        const bool in = D >= 8 || d < D;
+        gr[nt][0] = split_tf32(in ? g_s[ia * GP + d] : 0.f);
+        gr[nt][1] = split_tf32(in ? g_s[(ia + 1) * GP + d] : 0.f);
+      }
 #pragma unroll
-        for (int d = 0; d < D; ++d) dv_j[d] = fmaf(c_agg, g_i[d], dv_j[d]);
+      for (int tile = 0; tile < 2; ++tile) {
+        const Tf32x2 a[4] = {split_tf32(cd[tile][0]), split_tf32(cd[tile][2]),
+                             split_tf32(cd[tile][1]), split_tf32(cd[tile][3])};
+#pragma unroll
+        for (int nt = 0; nt < KD; ++nt)
+          mma_3xtf32<false, false>(dv_acc[tile][nt], dv_acc[tile][nt], dv_acc[tile][nt], a,
+                                   gr[nt]);
       }
       if constexpr (FUSE_DLD) {
-        if (__any_sync(FULL_MASK, on_edge)) {  // warp-uniform: the row i
-          const float rs = warp_sum(dzs);      // is the same on all lanes
-          if (lane == 0) atomicAdd(&dld_s[i], rs);
+        // rows ia, ia + 1 over the warp's 32 columns (the 8 lanes of t)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float x = row_sum[rr];
+          x += __shfl_xor_sync(FULL_MASK, x, 4);
+          x += __shfl_xor_sync(FULL_MASK, x, 8);
+          x += __shfl_xor_sync(FULL_MASK, x, 16);
+          if (gq == 0) dld_part[ia + rr] = x;
         }
       }
     }
-    prev_rb = rb;
+    cp_async_commit();
   }
-  if constexpr (FUSE_DLD) {
-    __syncthreads();
-    if (count > 0) {
-      for (int i = tid; i < bm; i += nthr)
-        atomicAdd(&dld[(size_t)h * n_rows + (size_t)prev_rb * bm + i], dld_s[i]);
-    }
-  }
+  __syncthreads();  // every warp is done with the last tile
+  if constexpr (FUSE_DLD)
+    if (count > 0) flush_dld(dld_s + ((count - 1) & 1) * n_cw * bm, rb_prev);
 
-  // merge the TPR slices of column j in thread order; written once
-  float* s_s = red_s;
-  float* a_s = red_s + TPR * bn;
-  s_s[q * bn + j] = dls_j;
+  // dls over the quad (the thread's rows), then the two row halves in a
+  // fixed order (half 1 through shared memory); written once per column
 #pragma unroll
-  for (int d = 0; d < D; ++d) a_s[(q * bn + j) * D + d] = dv_j[d];
-  __syncthreads();
-  if (q != 0) return;
-  float sum = 0.f, o[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) o[d] = 0.f;
-#pragma unroll
-  for (int qq = 0; qq < TPR; ++qq) {
-    sum += s_s[qq * bn + j];
-#pragma unroll
-    for (int d = 0; d < D; ++d) o[d] += a_s[(qq * bn + j) * D + d];
+  for (int j4 = 0; j4 < 4; ++j4) {
+    dls_j[j4] += __shfl_xor_sync(FULL_MASK, dls_j[j4], 1);
+    dls_j[j4] += __shfl_xor_sync(FULL_MASK, dls_j[j4], 2);
   }
-  dls[(size_t)h * n_cols + col] = sum;
+  float* red_s = reinterpret_cast<float*>(smem);  // dls [bn], dv [bn][D]
+  float* dvr_s = red_s + bn;
+  if (rh == 1) {
+    if (tq == 0)
 #pragma unroll
-  for (int d = 0; d < D; ++d) dv[(size_t)col * kd + h * D + d] = o[d];
+      for (int j4 = 0; j4 < 4; ++j4) red_s[j0 + j4] = dls_j[j4];
+#pragma unroll
+    for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+      for (int nt = 0; nt < KD; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j0 + 2 * tile + (e >> 1), d = 8 * nt + 2 * tq + (e & 1);
+          if (D >= 8 || d < D) dvr_s[col * D + d] = dv_acc[tile][nt][e];
+        }
+  }
+  __syncthreads();
+  if (rh != 0) return;
+  if (tq == 0)
+#pragma unroll
+    for (int j4 = 0; j4 < 4; ++j4)
+      dls[(size_t)h * n_cols + (size_t)cb * bn + j0 + j4] = dls_j[j4] + red_s[j0 + j4];
+#pragma unroll
+  for (int tile = 0; tile < 2; ++tile)
+#pragma unroll
+    for (int nt = 0; nt < KD; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j0 + 2 * tile + (e >> 1), d = 8 * nt + 2 * tq + (e & 1);
+        if (D >= 8 || d < D)
+          dv[((size_t)cb * bn + col) * kd + h * D + d] =
+              dv_acc[tile][nt][e] + dvr_s[col * D + d];
+      }
 }
 
 // ---------------------------------------------------------------------------
 // split backward, row sweep: block (row block rb, head h) over the forward
 // map; thread (r, q) owns tile row r and the q-th quarter of every tile's
-// columns, as in fwd_kernel. Writes dld only, once per row: no atomics.
+// columns. Writes dld only, once per row: no atomics.
 // ---------------------------------------------------------------------------
 
 template <int D, typename VT>
@@ -496,19 +905,23 @@ __global__ void __launch_bounds__(1024) bwd_row_kernel(
   dld[hr] = sum;
 }
 
+// The geometry every kernel takes: bm and bn multiples of 32 up to 256, so
+// that fwd_kernel's 16-row warps, bwd_col_kernel's 32-column warps and
+// 8-row patches and bwd_row_kernel's TPR threads a row tile the blocks
+// (graph/bcsr.py:tile_error says the same in Python).
 bool bad_geometry(int n_rows, int n_cols, int bm, int bn, int k) {
-  return bm <= 0 || bn <= 0 || bm % 32 || bn % 32 || bm * TPR > 1024 ||
-         bn * TPR > 1024 || n_rows % bm || n_cols % bn || k <= 0;
+  return bm <= 0 || bn <= 0 || bm % 32 || bn % 32 || bm > 256 || bn > 256 ||
+         n_rows % bm || n_cols % bn || k <= 0;
 }
 
-size_t fwd_smem(int bm, int bn, int d) {
-  return (size_t)bm * (bn / 4 + 1) * 4 + (size_t)bn * 4 + (size_t)bn * d * 4 +
-         (size_t)TPR * bm * (d + 2) * 4;
+size_t fwd_smem(int bm, int bn, int d, int vbytes) {
+  return 2 * (size_t)fwd_stage_bytes(bm, bn, d, vbytes);
 }
 
 size_t bwd_smem(int bm, int bn, int d, bool fuse_dld) {
-  return (size_t)bm * bn + (size_t)bm * (3 + fuse_dld + d) * 4 +
-         (size_t)TPR * bn * (d + 1) * 4;
+  const size_t body = std::max(2 * (size_t)bwd_stage_bytes(bm, bn, d),
+                               (size_t)bn * (d + 1) * 4);  // stages, or the merge
+  return body + (fuse_dld ? 2 * (size_t)(bn / 32) * bm * 4 : 0);
 }
 
 size_t row_smem(int bm, int bn, int d) {
@@ -516,23 +929,27 @@ size_t row_smem(int bm, int bn, int d) {
          (size_t)TPR * bm * 4;
 }
 
+// The dynamic shared memory a block needs, and the largest shared-memory
+// carveout of the SM's L1, so that as many blocks fit as registers allow.
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess || bytes <= 48 * 1024) return err;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }
 
-template <int D, typename VT>
+template <int D, typename VT, bool DROP>
 int launch_fwd(const void* tiles, const void* fcount, const void* fcol,
                const void* ftile, int c_pitch, const void* ld, const void* ls,
                const void* v, void* out, void* lse, int n_rows, int n_cols,
                int bm, int bn, int k, float slope, Drop drop, Offsets off,
                cudaStream_t stream) {
-  const size_t smem = fwd_smem(bm, bn, D);
-  cudaError_t err = set_smem(fwd_kernel<D, VT>, smem);
+  const size_t smem = fwd_smem(bm, bn, D, sizeof(VT));
+  cudaError_t err = set_smem(fwd_kernel<D, VT, DROP>, smem);
   if (err != cudaSuccess) return (int)err;
-  fwd_kernel<D, VT><<<dim3(n_rows / bm, k), bm * TPR, smem, stream>>>(
+  fwd_kernel<D, VT, DROP><<<dim3(n_rows / bm, k), 2 * bm, smem, stream>>>(
       (const int8_t*)tiles, (const int*)fcount, (const int*)fcol,
       (const int*)ftile, c_pitch, (const float*)ld, (const float*)ls,
       (const VT*)v, (float*)out, (float*)lse, n_rows, n_cols, bm, bn, k,
@@ -540,7 +957,7 @@ int launch_fwd(const void* tiles, const void* fcount, const void* fcol,
   return (int)cudaGetLastError();
 }
 
-template <int D, bool FUSE_DLD, typename VT>
+template <int D, bool FUSE_DLD, typename VT, bool DROP>
 int launch_bwd(const void* tiles, const void* bcount, const void* brow,
                const void* btile, int r_pitch, const void* ld, const void* ls,
                const void* v, const void* g, const void* lse,
@@ -548,9 +965,9 @@ int launch_bwd(const void* tiles, const void* bcount, const void* brow,
                int n_cols, int bm, int bn, int k, float slope, Drop drop,
                Offsets off, cudaStream_t stream) {
   const size_t smem = bwd_smem(bm, bn, D, FUSE_DLD);
-  cudaError_t err = set_smem(bwd_col_kernel<D, FUSE_DLD, VT>, smem);
+  cudaError_t err = set_smem(bwd_col_kernel<D, FUSE_DLD, VT, DROP>, smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_col_kernel<D, FUSE_DLD, VT><<<dim3(n_cols / bn, k), bn * TPR, smem, stream>>>(
+  bwd_col_kernel<D, FUSE_DLD, VT, DROP><<<dim3(n_cols / bn, k), 2 * bn, smem, stream>>>(
       (const int8_t*)tiles, (const int*)bcount, (const int*)brow,
       (const int*)btile, r_pitch, (const float*)ld, (const float*)ls,
       (const VT*)v, (const float*)g, (const float*)lse,
@@ -583,13 +1000,16 @@ struct Tag {
   using type = T;
 };
 
-// Calls f(dim, tag) with the head dim d (4, 8 or 16) as an
-// std::integral_constant and v's element type (float, or bf16 when v_bf16)
-// as a Tag.
+// Calls f(dim, tag, drop) with the head dim d (4, 8 or 16) as an
+// std::integral_constant, v's element type (float, or bf16 when v_bf16) as
+// a Tag and whether dropout is on as an std::bool_constant.
 template <typename F>
-int dispatch(int d, int v_bf16, F&& f) {
+int dispatch(int d, int v_bf16, int drop_on, F&& f) {
+  auto by_drop = [&](auto dim, auto tag) {
+    return drop_on ? f(dim, tag, std::true_type{}) : f(dim, tag, std::false_type{});
+  };
   auto by_type = [&](auto dim) {
-    return v_bf16 ? f(dim, Tag<__nv_bfloat16>{}) : f(dim, Tag<float>{});
+    return v_bf16 ? by_drop(dim, Tag<__nv_bfloat16>{}) : by_drop(dim, Tag<float>{});
   };
   switch (d) {
     case 4: return by_type(std::integral_constant<int, 4>{});
@@ -612,8 +1032,9 @@ int bwd_entry(const void* tiles, const void* bcount, const void* brow,
   if (bad_geometry(n_rows, n_cols, bm, bn, k)) return (int)cudaErrorInvalidValue;
   const Drop drop{drop_on, seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
-  return dispatch(d, v_bf16, [&](auto dim, auto tag) {
-    return launch_bwd<decltype(dim)::value, FUSE_DLD, typename decltype(tag)::type>(
+  return dispatch(d, v_bf16, drop_on, [&](auto dim, auto tag, auto dropping) {
+    return launch_bwd<decltype(dim)::value, FUSE_DLD, typename decltype(tag)::type,
+                      decltype(dropping)::value>(
         tiles, bcount, brow, btile, r_pitch, ld, ls, v, g, lse, delta, dld, dls,
         dv, n_rows, n_cols, bm, bn, k, slope, drop, off, (cudaStream_t)stream);
   });
@@ -626,7 +1047,7 @@ extern "C" {
 // Forward. tiles int8 [T, bm, bn]; fcount int32 [nb_r]; fcol, ftile int32
 // [nb_r, c_pitch]; ld f32 [k, n_rows]; ls f32 [k, n_cols]; v f32, or bf16
 // when v_bf16, [n_cols, k*d] -> out f32 [n_rows, k*d], lse f32 [k, n_rows].
-// Returns a cudaError_t code (0 = launched).
+// Every array 16-byte aligned. Returns a cudaError_t code (0 = launched).
 int han_flash_fwd(const void* tiles, const void* fcount, const void* fcol,
                   const void* ftile, int c_pitch, const void* ld,
                   const void* ls, const void* v, void* out, void* lse,
@@ -637,8 +1058,9 @@ int han_flash_fwd(const void* tiles, const void* fcount, const void* fcol,
   if (bad_geometry(n_rows, n_cols, bm, bn, k)) return (int)cudaErrorInvalidValue;
   const Drop drop{drop_on, seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
-  return dispatch(d, v_bf16, [&](auto dim, auto tag) {
-    return launch_fwd<decltype(dim)::value, typename decltype(tag)::type>(
+  return dispatch(d, v_bf16, drop_on, [&](auto dim, auto tag, auto dropping) {
+    return launch_fwd<decltype(dim)::value, typename decltype(tag)::type,
+                      decltype(dropping)::value>(
         tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, out, lse, n_rows,
         n_cols, bm, bn, k, slope, drop, off, (cudaStream_t)stream);
   });
@@ -675,7 +1097,7 @@ int han_flash_bwd_row(const void* tiles, const void* fcount, const void* fcol,
   if (bad_geometry(n_rows, n_cols, bm, bn, k)) return (int)cudaErrorInvalidValue;
   const Drop drop{drop_on, seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
-  return dispatch(d, v_bf16, [&](auto dim, auto tag) {
+  return dispatch(d, v_bf16, 0, [&](auto dim, auto tag, auto) {
     return launch_bwd_row<decltype(dim)::value, typename decltype(tag)::type>(
         tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, g, lse, delta, dld,
         n_rows, n_cols, bm, bn, k, slope, drop, off, (cudaStream_t)stream);

@@ -14,10 +14,10 @@ precomputed once on the host:
 Map padding convention (as in han_tpu): steps past a block's count repeat
 the last active entry (index 0 for empty blocks).
 
-Tile geometry is the port's own. The kernels (csrc/flash_gat.cu) give
-``TPR`` threads to each tile row (forward) or tile column (backward), and a
-warp must hold 32 rows or 32 columns of one step, so bm and bn are
-multiples of 32 and at most 1024 / TPR. The TPU rules (bn a multiple of
+Tile geometry is the port's own. The kernels (csrc/flash_gat.cu) give a
+warp 16 rows (forward) or 32 columns (backward column sweep) of a tile and
+the row sweep 4 threads a row, so bm and bn are multiples of 32 and at
+most 256 (:func:`tile_error`). The TPU rules (bn a multiple of
 128 and a whole number of 512-wide VMEM strips) do not apply here.
 """
 
@@ -32,12 +32,11 @@ import torch
 
 from han_tpu_torch.graph.containers import _to
 
-TPR = 4  # threads per tile row / column in csrc/flash_gat.cu
-_MAX_TILE = 1024 // TPR
+_MAX_TILE = 256  # the largest bm and bn the flash kernels take
 
-# 128 x 128: a forward block of 4·128 = 512 threads per (row block, head);
-# at the DBLP shape (N = 4057, K = 8) that is 32 x 8 = 256 blocks, two per
-# SM resident on 132 SMs. A starting point: no sweep on the H100 yet.
+# 128 x 128: a forward block of 8 warps per (row block, head); at the DBLP
+# shape (N = 4057, K = 8) that is 32 x 8 = 256 blocks, two per SM resident
+# on 132 SMs. A starting point: no sweep on the H100 yet.
 DEF_BM = 128
 DEF_BN = 128
 
@@ -46,13 +45,21 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def tile_error(bm: int, bn: int) -> str | None:
+    """Why the flash kernels cannot take (bm, bn) tiles, or None (the module
+    docstring; csrc/flash_gat.cu:bad_geometry is the same rule on the card)."""
+    for name, b in (("bm", bm), ("bn", bn)):
+        if b % 32 or not 32 <= b <= _MAX_TILE:
+            return f"{name} = {b}: the flash kernels need a multiple of 32 in [32, {_MAX_TILE}]"
+    return None
+
+
 def pick_tiles(n: int, bm: int = DEF_BM, bn: int = DEF_BN) -> tuple[int, int, int]:
     """Clamp requested tile sizes to the node count (rounded up to a warp)
     and return (bm, bn, n_pad) with n_pad divisible by both."""
-    for name, b in (("bm", bm), ("bn", bn)):
-        if b % 32 or not 32 <= b <= _MAX_TILE:
-            raise ValueError(
-                f"{name} must be a multiple of 32 in [32, {_MAX_TILE}], got {b}")
+    err = tile_error(bm, bn)
+    if err:
+        raise ValueError(err)
     cap = _round_up(max(n, 1), 32)
     bm, bn = min(bm, cap), min(bn, cap)
     return bm, bn, _round_up(n, math.lcm(bm, bn))

@@ -24,6 +24,20 @@ H100 and what their design does about it) replace
   the split backward, which has no atomics;
 - the ``drop_bits`` device function ← ``_tile_drop_keep``.
 
+The forward and the column sweep (fused or not) sweep each tile without a
+branch on the adjacency, in the register layout of the tensor cores'
+``mma.sync.m16n8k8``: each warp takes a 16-row (forward) or 32-column
+(backward) strip, the masks are selects, the forward's online softmax
+takes each 32-column chunk's row max by quad shuffles in one pass, and the
+D-wide products (P·V; g·v and C'·g) run as 3xTF32 products, which
+:func:`split_tf32` and :func:`mm_3xtf32` mirror in plain torch (the plain
+versions take their products through ``mm``, so ``chip_smoke.py`` can show
+that the tolerances reject a single TF32 product, :func:`mm_1xtf32`).
+Tiles stage through shared memory by ``cp.async``, double-buffered. The
+row sweep keeps the scalar body of the first port. :func:`check_layout`
+raises on a tile geometry the kernels do not take
+(graph/bcsr.py:tile_error) and on arrays that are not 16-byte aligned.
+
 The row domain (``ld.shape[1]``) and the column domain (``ls.shape[1]``)
 come from the tensors and may differ: a graph-axis shard passes its strip
 of local rows against the global columns, a ring step one cell
@@ -65,7 +79,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from han_tpu_torch.graph.bcsr import BCSRGraph
+from han_tpu_torch.graph.bcsr import BCSRGraph, tile_error
 from han_tpu_torch.graph.containers import MASK_VALUE
 
 flash_fwd_launches = 0
@@ -139,6 +153,50 @@ def _keep_scale(meta: FlashMeta, graph: BCSRGraph, n_rows: int, n_cols: int,
 
 
 # ---------------------------------------------------------------------------
+# 3xTF32 products (plain-torch copy of csrc/flash_gat.cu:split_tf32)
+# ---------------------------------------------------------------------------
+
+_TF32_MASK = -0x2000  # int32 0xffffe000: sign, exponent and 10 mantissa bits
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """float32 truncated to TF32 (its low 13 bits cleared): what the tensor
+    cores read of a float32 operand."""
+    return (x.to(torch.float32).view(torch.int32) & _TF32_MASK).view(torch.float32)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """finite float32 rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32``: the low 13 bits are 0."""
+    bits = x.to(torch.float32).view(torch.int32)
+    return ((bits + 0x1000) & _TF32_MASK).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) as the kernels' 3xTF32 products see them: hi is x rounded to
+    TF32, lo is x − hi (exact) as the tensor cores read it, truncated to
+    TF32. x = hi + lo to within 2^-21 |x|, and hi·hi + hi·lo + lo·hi is
+    within about 2^-20 |a·b| of a product a·b (a bf16 operand is TF32
+    already and has lo = 0)."""
+    hi = tf32_round(x)
+    return hi, tf32_trunc(x.to(torch.float32) - hi)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels take their products: hi·hi + (hi·lo + lo·hi)
+    of :func:`split_tf32`, each partial product exact in float32."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def mm_1xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with both operands rounded to TF32 (one TF32 product, as the
+    tensor cores take it without a split): the control that shows the
+    card's tolerances tell :func:`mm_3xtf32` from a plain TF32 product."""
+    return tf32_round(a) @ tf32_round(b)
+
+
+# ---------------------------------------------------------------------------
 # plain PyTorch versions (CPU path, and the reference the card checks against)
 # ---------------------------------------------------------------------------
 
@@ -165,10 +223,12 @@ def _lrelu(raw: torch.Tensor, slope: float) -> torch.Tensor:
 
 
 def flash_fwd_plain(graph: BCSRGraph, ld: torch.Tensor, ls: torch.Tensor,
-                    v: torch.Tensor, meta: FlashMeta):
+                    v: torch.Tensor, meta: FlashMeta, mm=torch.matmul):
     """ld (K, n_rows), ls (K, n_cols), v (n_cols, K·D) → out (n_rows, K·D),
     lse (K, n_rows). Differentiable by autograd; one head at a time so the
-    dense (n_rows, n_cols) temporaries stay one head wide."""
+    dense (n_rows, n_cols) temporaries stay one head wide. ``mm`` takes the
+    product P·V (:func:`mm_3xtf32`, :func:`mm_1xtf32`: how the kernels'
+    products compare)."""
     k, n_rows = ld.shape
     n_cols = ls.shape[1]
     d = v.shape[1] // k
@@ -184,16 +244,16 @@ def flash_fwd_plain(graph: BCSRGraph, ld: torch.Tensor, ls: torch.Tensor,
         l = p.sum(dim=1).clamp_min(1e-30)
         if meta.dropout_p > 0.0:  # l keeps the undropped p (reference order)
             p = p * _keep_scale(meta, graph, n_rows, n_cols, h, ld.device)
-        acc = p @ v[:, h * d:(h + 1) * d]
+        acc = mm(p, v[:, h * d:(h + 1) * d])
         outs.append(torch.where(has_edge[:, None], acc / l[:, None], 0.0))
         lses.append(torch.where(has_edge, m + torch.log(l), MASK_VALUE))
     return torch.cat(outs, dim=1), torch.stack(lses)
 
 
-def _bwd_terms(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+def _bwd_terms(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta, mm):
     """Per head h, the dense (n_rows, n_cols) terms of han_tpu's ``_head_dz``:
     with c = on_edge·exp(z − lse) and c' = c·keep, yields (h, dzs, c', g_h)
-    where dzs = (c'·(g·v) − c·delta)·lrelu′."""
+    where dzs = (c'·(g·v) − c·delta)·lrelu′, g·v taken by ``mm``."""
     k, n_rows = ld.shape
     n_cols = ls.shape[1]
     d = v.shape[1] // k
@@ -208,32 +268,34 @@ def _bwd_terms(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
         if meta.dropout_p > 0.0:
             c_agg = c * _keep_scale(meta, graph, n_rows, n_cols, h, ld.device)
         g_h = g[:, h * d:(h + 1) * d]
-        dz = c_agg * (g_h @ v[:, h * d:(h + 1) * d].T) - c * delta[h][:, None]
+        dz = c_agg * mm(g_h, v[:, h * d:(h + 1) * d].T) - c * delta[h][:, None]
         yield h, torch.where(raw >= 0, dz, meta.slope * dz), c_agg, g_h
 
 
-def flash_bwd_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+def flash_bwd_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta,
+                    mm=torch.matmul):
     """The fused backward on dense tensors: dld = Σ_j dz, dls = Σ_i dz,
-    dv = c'ᵀ g (see :func:`_bwd_terms`). Returns dld (K, n_rows), dls
-    (K, n_cols), dv (n_cols, K·D)."""
+    dv = c'ᵀ g (see :func:`_bwd_terms`; ``mm`` takes g·v and c'ᵀ g, as in
+    :func:`flash_fwd_plain`). Returns dld (K, n_rows), dls (K, n_cols), dv
+    (n_cols, K·D)."""
     dld, dls, dv = [], [], []
-    for _, dzs, c_agg, g_h in _bwd_terms(graph, ld, ls, v, g, lse, delta, meta):
+    for _, dzs, c_agg, g_h in _bwd_terms(graph, ld, ls, v, g, lse, delta, meta, mm):
         dld.append(dzs.sum(dim=1))
         dls.append(dzs.sum(dim=0))
-        dv.append(c_agg.T @ g_h)
+        dv.append(mm(c_agg.T, g_h))
     return torch.stack(dld), torch.stack(dls), torch.cat(dv, dim=1)
 
 
 def flash_bwd_row_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
     """The row sweep: dld (K, n_rows) only."""
     return torch.stack([dzs.sum(dim=1) for _, dzs, _, _ in
-                        _bwd_terms(graph, ld, ls, v, g, lse, delta, meta)])
+                        _bwd_terms(graph, ld, ls, v, g, lse, delta, meta, torch.matmul)])
 
 
 def flash_bwd_col_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
     """The column sweep: dls (K, n_cols) and dv (n_cols, K·D) only."""
     dls, dv = [], []
-    for _, dzs, c_agg, g_h in _bwd_terms(graph, ld, ls, v, g, lse, delta, meta):
+    for _, dzs, c_agg, g_h in _bwd_terms(graph, ld, ls, v, g, lse, delta, meta, torch.matmul):
         dls.append(dzs.sum(dim=0))
         dv.append(c_agg.T @ g_h)
     return torch.stack(dls), torch.cat(dv, dim=1)
@@ -303,9 +365,24 @@ def _check(graph: BCSRGraph, maps: str, floats: dict) -> tuple[int, int, int, in
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"graph.{name}: need a contiguous {dt} tensor on "
                              f"{dev} (BCSRGraph.to(device))")
-    if tuple(graph.tiles.shape[1:]) != (graph.bm, graph.bn) or graph.tiles.data_ptr() % 16:
-        raise ValueError("graph.tiles must be (T, bm, bn) and 16-byte aligned")
+    check_layout(graph, {n: t for n, (t, _) in floats.items()})
     return k, d, n_rows, n_cols
+
+
+def check_layout(graph: BCSRGraph, tensors: dict) -> None:
+    """Raise ValueError on a tile geometry the kernels do not take
+    (graph/bcsr.py:tile_error) or on data that is not 16-byte aligned (the
+    kernels stage tiles and slices with 16-byte cp.async copies): the
+    device-independent part of ``_check``."""
+    if tuple(graph.tiles.shape[1:]) != (graph.bm, graph.bn):
+        raise ValueError("graph.tiles must be (T, bm, bn)")
+    err = tile_error(graph.bm, graph.bn)
+    if err:
+        raise ValueError(err)
+    bad = [name for name, t in {"graph.tiles": graph.tiles, **tensors}.items()
+           if t.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"{', '.join(bad)}: the flash kernels need 16-byte aligned data")
 
 
 def _scalars(graph: BCSRGraph, v, n_rows, n_cols, k, d, meta: FlashMeta):

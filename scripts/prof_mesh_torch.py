@@ -10,8 +10,9 @@ For each format: the median of ``--steps`` train steps on the host clock
 ``torch.profiler`` window of 5 steps, read per step: device time (the self
 time of every CUDA event: kernels, copies, fills), kernel launches
 (``cudaLaunchKernel`` calls), the collectives (c10d ops) with their host
-self time and that of ``record_param_comms`` around them, and the ops with
-the most host self time. The device share is device time / median step.
+self time and that of ``record_param_comms`` around them, the ops with the
+most host self time, and the device events (kernels, copies, fills) with
+the most device time. The device share is device time / median step.
 The last ``bcsr`` run shows how far the host clock drifts within one
 process.
 
@@ -68,8 +69,8 @@ def measure(fmt: str, deterministic: bool, steps: int) -> dict:
     events = prof.key_averages()
     per_step = lambda us: us / PROFILED / 1e3  # profiler µs over the window → ms a step
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
-    device_ms = per_step(sum(e.self_device_time_total for e in events
-                             if e.device_type == DeviceType.CUDA))
+    cuda = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = per_step(sum(e.self_device_time_total for e in cuda))
     c10d = [e for e in cpu if e.key.startswith("c10d::")]
     comms = [e for e in cpu if e.key == "record_param_comms"]
     launches = sum(e.count for e in cpu if e.key == "cudaLaunchKernel")
@@ -85,6 +86,8 @@ def measure(fmt: str, deterministic: bool, steps: int) -> dict:
         "fills": sum(e.count for e in cpu if e.key == "aten::fill_") / PROFILED,
         "top_host_ops": [(e.key[:48], per_step(e.self_cpu_time_total), e.count / PROFILED)
                          for e in sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:12]],
+        "top_device_ops": [(e.key[:64], per_step(e.self_device_time_total), e.count / PROFILED)
+                           for e in sorted(cuda, key=lambda e: -e.self_device_time_total)[:12]],
     }
 
 

@@ -1,7 +1,7 @@
 """The benchmark path's host code against han_tpu's: the node orderings of
 graph/reorder.py, bench_torch.py's workload and roofline against bench.py's
 (l.126-135, 229-259), the profiling utilities, and the two benchmark
-scripts refusing to run without a card."""
+scripts and chip_smoke.py refusing to run without a card."""
 
 import json
 import runpy
@@ -96,6 +96,19 @@ def test_benchmarks_refuse_to_run_without_a_card(monkeypatch, script, tmp_path):
         main(["--out", str(out)] if "cal_vpu" in script else ["--n", "256"])
     assert exc.value.code not in (0, None) and "CUDA is not available" in str(exc.value.code)
     assert not out.exists()
+
+
+@pytest.mark.parametrize("argv", [[], ["--flash-only"]])
+def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch, capsys, argv):
+    """No card: chip_smoke.py exits non-zero, saying why, and prints no
+    result, with and without --flash-only."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main = runpy.run_path("chip_smoke.py", run_name="not_main")["main"]
+    with pytest.raises(SystemExit) as exc:
+        main(argv)
+    out = capsys.readouterr()
+    assert exc.value.code not in (0, None) and out.out == ""
+    assert "torch.cuda.is_available() is false" in out.err
 
 
 def test_prof_utilities(tmp_path):
