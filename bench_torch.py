@@ -26,6 +26,11 @@ Prints ONE JSON line: {"metric": ..., "value": ..., "unit": ...,
   expected and is no bound: it reads as the speed-up over the scalar
   body. ``edge_sol_frac`` is the share against a bound.
 - detail.device: the card's name and power limit; detail.device_count.
+- detail.t_main_device_ms and detail.device_share: the card's own time
+  per iteration of the timed backend (the self device time of every CUDA
+  event, kernels, copies and fills, in a torch.profiler window of
+  PROFILED iterations; null where the profiler records none), and its
+  share of t_main_ms. A share well below 1 means the host bounds t_main.
 
 Times are CUDA events around ``--iters`` back-to-back iterations after a
 warm-up, the best of 5 runs, divided by ``--iters``.
@@ -48,6 +53,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 
 HBM_BW = 3.35e12  # bytes/s: the H100 SXM's published device-memory rate (700 W)
 CAL_STRIP_REPS = 256  # in-process calibration: passes R of the R -> 2R timing
+PROFILED = 5  # iterations in the profiler window of t_main_device_ms
 
 
 def build_workload(n: int, n_metapaths: int, avg_degree: float, reorder: str):
@@ -127,6 +133,22 @@ def time_per_iter(fn, iters: int, outer: int = 5) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end) * 1e-3 / iters)
     return best
+
+
+def device_ms_per_iter(fn, iters: int = PROFILED) -> float | None:
+    """Device ms per call of fn: the self device time of every CUDA event in
+    a torch.profiler window of ``iters`` calls; None where it records none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / iters / 1e3 if us else None
 
 
 def main(argv=None) -> dict:
@@ -210,7 +232,9 @@ def main(argv=None) -> dict:
 
     phase = "fwd" if args.fwd_only else "fwd+bwd"
     print(f"# timing impl={args.impl} ({phase})", file=sys.stderr, flush=True)
-    t_main = time_per_iter(make(args.impl, args.fwd_only), args.iters)
+    main_fn = make(args.impl, args.fwd_only)
+    t_main = time_per_iter(main_fn, args.iters)
+    t_main_device_ms = device_ms_per_iter(main_fn)
     t_base = None if args.no_dense else time_per_iter(make("dense", args.fwd_only), args.iters)
     if "dense" in built:
         del built["dense"]
@@ -219,6 +243,8 @@ def main(argv=None) -> dict:
 
     detail = {
         "t_main_ms": t_main * 1e3,
+        "t_main_device_ms": t_main_device_ms,
+        "device_share": t_main_device_ms / (t_main * 1e3) if t_main_device_ms else None,
         "t_dense_ms": t_base * 1e3 if t_base else None,
         "t_fwd_ms": t_fwd * 1e3,
         "total_edges": int(total_edges),

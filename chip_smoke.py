@@ -5,19 +5,23 @@ together, and the C++ sampler), then drives the ported paths:
 - full-graph: holds the flash kernels (forward, fused backward, and the
   split backward's row and column sweeps) against their plain PyTorch
   versions at the DBLP shape (times at dropout 0 and 0.6; a control shows
-  that their products are more accurate than one TF32 product), at D = 4 and
-  D = 16 on a small graph with a single-edge tile and rows without edges,
-  and on the strips of a 4-way partition of DBLP's largest meta-path
-  (every shard of partition_bcsr, and ring cells with a non-zero column
-  offset); checks a small HAN against the dense path; trains the dblp
-  preset for 10 epochs on the DBLP-shaped dataset;
+  that their products, the row sweep's included, are more accurate than one
+  TF32 product), at D = 32 there (times), at D = 3, 4, 16 and 32 on a small
+  graph with a single-edge tile and rows without edges (D = 3 zero-padded
+  to 4 by the wrappers), and on the strips of a 4-way partition of DBLP's
+  largest meta-path (every shard of partition_bcsr, and ring cells with a
+  non-zero column offset); checks a small HAN against the dense path;
+  trains the dblp preset for 10 epochs on the DBLP-shaped dataset, and the
+  acm preset for 2 epochs on the dataset run() loads by the name "acm"
+  (acm_synthetic where ACM3025.mat is absent);
 - multi-device: in a world of torch.cuda.device_count() NCCL ranks (one
   process per card, spawned), trains the dblp preset 10 epochs with
   graph_format partitioned_bcsr, then ring_bcsr under
   torch.use_deterministic_algorithms(True) (the split backward), and holds
   both loss trajectories against the one-device run;
 - sampled: holds the ell_fused kernel against its plain version at the
-  sampled block's shape (and at a large odd fanout), trains the 100M-edge
+  sampled block's shape (and at a large odd fanout, at D = 3 and at K·D =
+  256), trains the 100M-edge
   sampled configuration (500,000 nodes, 2 meta-paths of degree 100, acm
   preset widths, batch 512, fanout 16, the host sampler, impl ell_fused)
   for 2 epochs through run(), and runs 10 steps of the device sampler.
@@ -42,8 +46,9 @@ launches queued back to back behind a spin kernel that is checked to
 outlast the queueing (``timed``); the plain versions wait on the card
 inside, so their times include the host's. Each kernel's ``bound_ms`` is
 the larger of the bytes it must move (inputs read once, outputs written
-once) over 3.35e12 B/s and its operations over the published peaks:
-67e12 f32 FLOP/s outside the tensor cores, 2 x that for bf16 elementwise
+once; of ell_fused's inputs only the rows its valid slots reach) over
+3.35e12 B/s and its operations over the published peaks: 67e12 f32
+FLOP/s outside the tensor cores, 2 x that for bf16 elementwise
 work (packed bf16x2 on the same lanes), and 132 SMs x 16 SFU results a
 clock x 1.98 GHz = 4.18e12 exp/s; the work is counted on the edges (or
 valid ELL slots) of this run's inputs, per edge and head: forward and row
@@ -52,7 +57,8 @@ sweep 2D + 9 FLOPs and one exp, fused backward 4D + 10, column sweep
 counted).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --flash-only   # the flash kernels at the DBLP shape
+    python3 chip_smoke.py --only flash_gat   # the flash kernels at the DBLP shape
+    python3 chip_smoke.py --only ell_fused   # the ell_fused kernel at the block shape
 
 Exits non-zero, printing no result, when CUDA is unavailable or any phase
 fails. The last line is ``{"ok": true, "device": {...}}``; the line before
@@ -164,11 +170,11 @@ def flash_bounds(graph, k, d, v_bytes=4) -> dict:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--flash-only", action="store_true",
-        help="build only csrc/flash_gat.cu, hold the flash kernels to their plain versions at "
-             "the DBLP shape, print their device times at dropout 0 and 0.6 as one JSON "
-             "line and stop; a copy of this file run so in another checkout times that "
-             "checkout's kernels the same way")
+        "--only", choices=("flash_gat", "ell_fused"),
+        help="build only csrc/ONLY.cu, hold its kernels to their plain versions (the flash "
+             "kernels at the DBLP shape, ell_fused at the sampled block's), print their "
+             "device times at dropout 0 and 0.6 as one JSON line and stop; a copy of this "
+             "file run so in another checkout times that checkout's kernels the same way")
     args = parser.parse_args(argv)
     import torch
 
@@ -194,11 +200,11 @@ def main(argv=None) -> None:
 
     # -- phase 2: build (nvcc per kernel source and g++ for the sampler, all
     # at once) ----------------------------------------------------------------
-    names = ("flash_gat",) if args.flash_only else ("flash_gat", "ell_fused", "calibrate")
+    names = (args.only,) if args.only else ("flash_gat", "ell_fused", "calibrate")
     cached = [n for n in names if _build.library_path(n).exists()]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
-        sampler_built = pool.submit(lambda: args.flash_only or native.available())
+        sampler_built = pool.submit(lambda: bool(args.only) or native.available())
         libs = _build.build_all(names)
         if not sampler_built.result():
             fail("the C++ sampler (han_tpu_torch/native/graphcore.cpp) did not build")
@@ -206,9 +212,16 @@ def main(argv=None) -> None:
         _build.load(name)
     root = pathlib.Path(__file__).resolve().parent
     print(f"build: {', '.join(str(so.relative_to(root)) for so in libs)}"
-          f"{'' if args.flash_only else f' and {native.library_path().relative_to(root)}'} "
+          f"{'' if args.only else f' and {native.library_path().relative_to(root)}'} "
           f"{f'(already built: {cached}) ' if cached else ''}"
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    if args.only == "ell_fused":
+        ell = check_ell_fused(dev, ELL_SHAPES[:1])
+        print(json.dumps({"card": card, "ell_fused": {
+            "ms_by_dropout": ell["ms_by_dropout"], "plain_ms": ell["plain_ms"],
+            "bound_ms": ell["bound"][0]}}), flush=True)
+        return
 
     # -- phase 3: kernels vs plain at the DBLP shape -------------------------
     t0 = time.perf_counter()
@@ -223,18 +236,10 @@ def main(argv=None) -> None:
           f"{graph.nb_r * graph.nb_c}, n_pad {graph.n_pad}", flush=True)
     k, d, n = 8, 8, graph.n_pad
     gen = torch.Generator(dev).manual_seed(0)
-    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    pad_rows = torch.arange(n, device=dev) >= ds.n_nodes
-    ld, ls = rnd(k, n), rnd(k, n)
-    ld[:, pad_rows] = 0.0
-    ls[:, pad_rows] = 0.0
-    v = rnd(n, k * d)
-    v[pad_rows] = 0.0
-    g = rnd(n, k * d)
-    g[pad_rows] = 0.0
+    ld, ls, v, g = dblp_inputs(gen, n, ds.n_nodes, k, d)
 
-    stats = check_dblp(graph, ld, ls, v, g, k, d)
-    if args.flash_only:
+    stats = check_dblp(graph, ld, ls, v, g)
+    if args.only == "flash_gat":
         print(json.dumps({"card": card, "flash": {
             key: {"ms_by_dropout": st["ms_by_dropout"], "plain_ms": st["plain_ms"]}
             for key, st in stats.items()}}), flush=True)
@@ -246,6 +251,9 @@ def main(argv=None) -> None:
     library_fwd_ms = sdpa_yardstick(graph, ld, ls, v, k, d)
     bf16 = check_flash_bf16(graph, ld, ls, v, g, k, d)
     bounds = flash_bounds(graph, k, d)
+    # D = 32: the dblp preset with model.hid_units=32
+    for name, st in check_dblp(graph, *dblp_inputs(gen, n, ds.n_nodes, k, 32), ps=(0.6,)).items():
+        stats[name]["err"] = max(stats[name]["err"], st["err"])
 
     # -- phase 3d: the other head dims on a small graph with edge cases -----
     for name, err in check_head_dims(dev).items():
@@ -294,6 +302,7 @@ def main(argv=None) -> None:
     bf16_train = train_bf16(ds, dev, n_mp)
     del ds, graph
     torch.cuda.empty_cache()
+    train_acm(dev)
 
     # -- phase 4b: multi-device training through the partitioned backends ----
     mesh = train_multi_device(losses, cfg.train.epochs, n_mp)
@@ -346,23 +355,39 @@ def main(argv=None) -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def check_dblp(graph, ld, ls, v, g, k, d) -> dict:
-    """Phase 3: the flash kernels at the DBLP shape, dropout 0 and 0.6: the
-    forward (atol 1e-5, rtol 1e-4), the fused backward and the split
-    backward's row and column sweeps (atol 1e-4, rtol 1e-3: dld is summed
-    with atomicAdd in a varying order) against their plain versions, and
-    the device time of each kernel and plain version. Returns, per kernel,
-    the largest error, ``ms`` and ``plain_ms`` at dropout 0.6 (the training
-    shape) and ``ms_by_dropout``, so that the hash's share shows."""
+def dblp_inputs(gen, n: int, n_nodes: int, k: int, d: int):
+    """ld, ls (K, n) and v, g (n, K·d) drawn from gen, zero on the padding
+    rows (n_nodes and on)."""
+    import torch
+
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=gen.device)
+    ld, ls, v, g = rnd(k, n), rnd(k, n), rnd(n, k * d), rnd(n, k * d)
+    for t in (ld, ls):
+        t[:, n_nodes:] = 0.0
+    for t in (v, g):
+        t[n_nodes:] = 0.0
+    return ld, ls, v, g
+
+
+def check_dblp(graph, ld, ls, v, g, ps=(0.0, 0.6)) -> dict:
+    """Phase 3: the flash kernels at the DBLP shape (K from ld, D from v),
+    at each dropout of ``ps``: the forward (atol 1e-5, rtol 1e-4), the
+    fused backward and the split backward's row and column sweeps (atol
+    1e-4, rtol 1e-3: dld is summed with atomicAdd in a varying order)
+    against their plain versions, and the device time of each kernel and
+    plain version. Returns, per kernel, the largest error, ``ms`` and
+    ``plain_ms`` at the last dropout (0.6, the training shape) and
+    ``ms_by_dropout``, so that the hash's share shows."""
     import torch
 
     from han_tpu_torch.ops import flash_gat as fg
 
-    n = graph.n_pad
+    n, k = graph.n_pad, ld.shape[0]
+    d = v.shape[1] // k
     stats = {name: {"err": 0.0, "ms_by_dropout": {}} for name in ("fwd", "bwd", "row", "col")}
-    for p in (0.0, 0.6):
+    for p in ps:
         meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=1234567)
-        print(f"dropout {p}:", flush=True)
+        print(f"D = {d}, dropout {p}:", flush=True)
         out_k, lse_k = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
         out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
         torch.cuda.synchronize()
@@ -408,13 +433,13 @@ TF32_MARGIN = 10  # the kernels' errors stay this far below a single TF32 produc
 
 
 def tf32_control(tag, graph, ld, ls, v, g, meta) -> None:
-    """Control of the 3xTF32 products: the forward's out and the fused
-    backward's dld, dls and dv, as the kernels give them and as the plain
-    versions give them with their products taken by fg.mm_3xtf32 (the
-    kernels' split) and by fg.mm_1xtf32 (one TF32 product), each against
-    the f32 plain version on the same inputs. The kernels' largest error
-    must be TF32_MARGIN times below the 1xTF32 one, so that a pass of the
-    tolerances stands for products at f32 accuracy."""
+    """Control of the 3xTF32 products: the forward's out, the fused
+    backward's dld, dls and dv, and the row sweep's dld, as the kernels give
+    them and as the plain versions give them with their products taken by
+    fg.mm_3xtf32 (the kernels' split) and by fg.mm_1xtf32 (one TF32
+    product), each against the f32 plain version on the same inputs. The
+    kernels' largest error must be TF32_MARGIN times below the 1xTF32 one,
+    so that a pass of the tolerances stands for products at f32 accuracy."""
     import torch
 
     from han_tpu_torch.ops import flash_gat as fg
@@ -423,20 +448,22 @@ def tf32_control(tag, graph, ld, ls, v, g, meta) -> None:
     out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
     delta = (g * out_p).view(n, k, -1).sum(-1).T.contiguous()
     args = (graph, ld, ls, v, g, lse_p, delta, meta)
-    want = (out_p, *fg.flash_bwd_plain(*args))
-    got = {"kernel": (fg.flash_fwd_cuda(graph, ld, ls, v, meta)[0], *fg.flash_bwd_cuda(*args))}
+    want = (out_p, fg.flash_bwd_plain(*args), fg.flash_bwd_row_plain(*args))
+    got = {"kernel": (fg.flash_fwd_cuda(graph, ld, ls, v, meta)[0], fg.flash_bwd_cuda(*args),
+                      fg.flash_bwd_row_cuda(*args))}
     for name, mm in (("3xTF32", fg.mm_3xtf32), ("1xTF32", fg.mm_1xtf32)):
         got[name] = (fg.flash_fwd_plain(graph, ld, ls, v, meta, mm=mm)[0],
-                     *fg.flash_bwd_plain(*args, mm=mm))
+                     fg.flash_bwd_plain(*args, mm=mm), fg.flash_bwd_row_plain(*args, mm=mm))
     torch.cuda.synchronize()
     err = {name: (float((o[0] - want[0]).abs().max()),
-                  max(float((a - b).abs().max()) for a, b in zip(o[1:], want[1:])))
+                  max(float((a - b).abs().max()) for a, b in zip(o[1], want[1])),
+                  float((o[2] - want[2]).abs().max()))
            for name, o in got.items()}
-    print(f"{tag}, products: max_abs_err forward / backward: kernel "
-          f"{err['kernel'][0]:.3e} / {err['kernel'][1]:.3e}, 3xTF32 mirror "
-          f"{err['3xTF32'][0]:.3e} / {err['3xTF32'][1]:.3e}, 1xTF32 "
-          f"{err['1xTF32'][0]:.3e} / {err['1xTF32'][1]:.3e}", flush=True)
-    for i, what in enumerate(("forward", "backward")):
+    print(f"{tag}, products: max_abs_err forward / backward / row sweep: kernel "
+          + " / ".join(f"{x:.3e}" for x in err["kernel"]) + ", 3xTF32 mirror "
+          + " / ".join(f"{x:.3e}" for x in err["3xTF32"]) + ", 1xTF32 "
+          + " / ".join(f"{x:.3e}" for x in err["1xTF32"]), flush=True)
+    for i, what in enumerate(("forward", "backward", "row sweep")):
         for name in ("kernel", "3xTF32"):
             if not err[name][i] * TF32_MARGIN <= err["1xTF32"][i]:
                 fail(f"{tag}: the {what} {name} error {err[name][i]:.3e} is not "
@@ -530,13 +557,14 @@ def head_dim_graph(n: int = 600, seed: int = 4):
 
 
 def check_head_dims(dev) -> dict:
-    """Phase 3d: the forward, the fused backward and the column sweep at
-    D = 4 and D = 16 (K = 2, head offset 3) on head_dim_graph, v f32 and
-    bf16, dropout 0 and 0.6, against their plain versions with the DBLP
-    check's tolerances (forward atol 1e-5, rtol 1e-4; backward atol 1e-4,
-    rtol 1e-3); rows without an edge must give out = 0 and lse = -1e9
-    exactly, and the column sweep must repeat bitwise. Returns the largest
-    errors per kernel."""
+    """Phase 3d: the forward, the fused backward and the row and column
+    sweeps at D = 3, 4, 16 and 32 (K = 2, head offset 3; D = 3 goes through
+    the wrappers' zero padding to 4) on head_dim_graph, v f32 and bf16,
+    dropout 0 and 0.6, against their plain versions with the DBLP check's
+    tolerances (forward atol 1e-5, rtol 1e-4; backward atol 1e-4, rtol
+    1e-3); rows without an edge must give out = 0 and lse = -1e9 exactly,
+    and the split backward (row and column sweeps) must repeat bitwise.
+    Returns the largest errors per kernel."""
     import torch
 
     from han_tpu_torch.ops import flash_gat as fg
@@ -549,8 +577,8 @@ def check_head_dims(dev) -> dict:
           f"{graph.nb_r * graph.nb_c}, {int(edgeless.sum())} rows without an edge", flush=True)
     gen = torch.Generator(dev).manual_seed(5)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    errs = {"fwd": 0.0, "bwd": 0.0, "col": 0.0}
-    for d in (4, 16):
+    errs = {"fwd": 0.0, "bwd": 0.0, "row": 0.0, "col": 0.0}
+    for d in (3, 4, 16, 32):
         ld, ls, v32, g = rnd(k, n), rnd(k, n), rnd(n, k * d), rnd(n, k * d)
         for v in (v32, v32.to(torch.bfloat16)):
             for p in (0.0, 0.6):
@@ -569,12 +597,15 @@ def check_head_dims(dev) -> dict:
                 errs["bwd"] = max(errs["bwd"], *(
                     check(f"{tag} {name}", a, b, 1e-4, 1e-3) for name, a, b in
                     zip(("dld", "dls", "dv"), fg.flash_bwd_cuda(*args), fg.flash_bwd_plain(*args))))
-                col, again = fg.flash_bwd_col_cuda(*args), fg.flash_bwd_col_cuda(*args)
+                split = (fg.flash_bwd_row_cuda(*args), *fg.flash_bwd_col_cuda(*args))
+                again = (fg.flash_bwd_row_cuda(*args), *fg.flash_bwd_col_cuda(*args))
+                errs["row"] = max(errs["row"], check(f"{tag} dld (row sweep)", split[0],
+                                                     fg.flash_bwd_row_plain(*args), 1e-4, 1e-3))
                 errs["col"] = max(errs["col"], *(
                     check(f"{tag} {name} (column sweep)", a, b, 1e-4, 1e-3) for name, a, b in
-                    zip(("dls", "dv"), col, fg.flash_bwd_col_plain(*args))))
-                if not all(torch.equal(a, b) for a, b in zip(col, again)):
-                    fail(f"{tag}: the column sweep differs between two runs")
+                    zip(("dls", "dv"), split[1:], fg.flash_bwd_col_plain(*args))))
+                if not all(torch.equal(a, b) for a, b in zip(split, again)):
+                    fail(f"{tag}: the split backward differs between two runs")
     return errs
 
 
@@ -686,22 +717,30 @@ def check_small_han(dev) -> None:
         fail(f"small HAN flash vs dense: {err}")
 
 
-def check_ell_fused(dev) -> dict:
-    """Phases 5-6: the ell_fused kernel against its plain version, one keep
-    mask for both, at the sampled block's shape (8,704 rows: 512 seed rows
-    with up to 16 valid slots, the rest edgeless, as in a one-hop block;
-    K = 8, D = 8) with dropout 0 and 0.6, and at a large odd fanout (F =
-    101, as in exact eval); device times (``timed``) at the block shape. The
-    plain-torch backward is held on the card against the same backward on
-    the CPU (the card's index_add_ sums with atomics in a varying order)."""
+# (rows, fanout F, seed rows with slots, heads K, head dim D) of the ell_fused
+# checks: the sampled block, a large odd fanout, D = 3, and K·D = 256
+ELL_SHAPES = ((8704, 16, 512, 8, 8), (16384, 101, 2048, 8, 8), (4096, 16, 512, 8, 3),
+              (4096, 16, 512, 8, 32))
+
+
+def check_ell_fused(dev, shapes=ELL_SHAPES) -> dict:
+    """Phases 5-6: the ell_fused kernel against its plain version (atol
+    1e-5, rtol 1e-4), one keep mask for both, with dropout 0 and 0.6, at
+    ``shapes``: the sampled block's shape (8,704 rows: 512 seed rows with up
+    to 16 valid slots, the rest edgeless, as in a one-hop block; K = 8, D =
+    8), a large odd fanout (F = 101, as in exact eval), D = 3 and K·D = 256;
+    rows without a valid slot must give exactly 0. First, a fanout whose
+    per-warp buffers outgrow a block must raise NotImplementedError. Device
+    times (``timed``) at the block shape. There the plain-torch backward is
+    held on the card against the same backward on the CPU (the card's
+    index_add_ sums with atomics in a varying order)."""
     import torch
 
     from han_tpu_torch.ops import ell_fused as ef
 
     gen = torch.Generator(dev).manual_seed(1)
-    k, d = 8, 8
 
-    def block(n, f, n_seed):
+    def block(n, f, n_seed, k, d):
         nbr = torch.full((n, f), n, dtype=torch.int32, device=dev)
         real = torch.randint(0, n, (n_seed, f), generator=gen, device=dev,
                              dtype=torch.int32)
@@ -711,28 +750,45 @@ def check_ell_fused(dev) -> dict:
         rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
         return nbr, rnd(n, k), rnd(n, k), rnd(n, k * d)
 
-    out = {"err": 0.0}
-    for n, f, n_seed in ((8704, 16, 512), (16384, 101, 2048)):
-        nbr, ld, ls, fts = block(n, f, n_seed)
+    # fanout x heads past a block's shared memory: NotImplementedError, and no
+    # error left behind for the launches below
+    z = torch.zeros((4, 8), device=dev)
+    try:
+        ef.ell_fused_fwd_cuda(torch.zeros((4, 2000), dtype=torch.int32, device=dev), z, z,
+                              z, None, 0.2, 0.0)
+        fail("ell_fused took fanout 2000 x 8 heads, past a block's shared memory")
+    except NotImplementedError as e:
+        print(f"ell_fused, fanout 2000 x 8 heads: {e}", flush=True)
+    out = {"err": 0.0, "ms_by_dropout": {}}
+    for i, (n, f, n_seed, k, d) in enumerate(shapes):
+        nbr, ld, ls, fts = block(n, f, n_seed, k, d)
         for p in (0.0, 0.6):
             keep = ef.draw_keep(n, f, k, p, gen, dev) if p else None
-            print(f"ell_fused {n} x F={f}, {n_seed} rows with slots, dropout {p}:", flush=True)
+            print(f"ell_fused {n} x F={f}, K={k}, D={d}, {n_seed} rows with slots, "
+                  f"dropout {p}:", flush=True)
             got = ef.ell_fused_fwd_cuda(nbr, ld, ls, fts, keep, 0.2, p)
             want = ef.ell_fused_fwd_plain(nbr, ld, ls, fts, keep, 0.2, p)
             torch.cuda.synchronize()
             out["err"] = max(out["err"], check("out", got, want, 1e-5, 1e-4))
             if not bool((got[n_seed:] == 0).all() and (got[3] == 0).all()):
                 fail("ell_fused: an edgeless row is not exactly 0")
-            if f == 16:
+            if i == 0:
                 ms = timed(lambda: ef.ell_fused_fwd_cuda(nbr, ld, ls, fts, keep, 0.2, p))
                 plain_ms = timed(lambda: ef.ell_fused_fwd_plain(nbr, ld, ls, fts, keep, 0.2, p),
                                  host_waits=True)
                 print(f"  device ms: kernel {ms:.4f}, plain {plain_ms:.4f}", flush=True)
                 out.update(ms=ms, plain_ms=plain_ms)  # the train shape (p = 0.6) last
-                valid = int((nbr < n).sum())  # the slots this block's softmax sums
+                out["ms_by_dropout"][str(p)] = ms
+                # what the function must move: nbr read and out written in
+                # full; ld of the rows with a valid slot, keep of the valid
+                # slots, ls and fts of the distinct rows those slots gather
+                slot = nbr < n
+                valid = int(slot.sum())
+                active = int(slot.any(1).sum())
+                gathered = int(torch.unique(nbr[slot]).numel())
                 out["bound"] = bound(
-                    nbr.numel() * 4 + 2 * ld.numel() * 4 + 2 * fts.numel() * 4
-                    + (keep.numel() if keep is not None else 0),
+                    4 * nbr.numel() + 4 * n * k * d + 4 * active * k
+                    + 4 * gathered * k * (d + 1) + (valid * k if keep is not None else 0),
                     valid * k * (2 * d + 9), valid * k)
                 g = torch.randn(n, k * d, generator=gen, device=dev)
                 bwd = ef.ell_fused_bwd(nbr, ld, ls, fts, keep, g, 0.2, p)
@@ -929,6 +985,27 @@ def train_bf16(ds, dev, n_mp: int) -> dict:
     return n
 
 
+def train_acm(dev) -> None:
+    """Phase 4c: run(preset("acm")) for 2 epochs with no dataset given, so
+    run() loads it by the name "acm": ACM3025.mat where present, else the
+    ACM3025-shaped acm_synthetic (the dense path: no kernel of this
+    script). Losses finite, the right count."""
+    import numpy as np
+
+    from han_tpu_torch.train.config import preset
+    from han_tpu_torch.train.trainer import run
+
+    cfg = preset("acm")
+    cfg.train.epochs = 2
+    t0 = time.perf_counter()
+    result = run(cfg, device=dev)
+    losses = result["epoch_train_loss"]
+    if len(losses) != 2 or not all(np.isfinite(losses)) or not np.isfinite(result["test_loss"]):
+        fail(f"acm preset: losses {losses}, test loss {result['test_loss']}")
+    print(f"acm preset (run() loads \"acm\"): losses {losses[0]:.5f}, {losses[1]:.5f}, "
+          f"test_acc {result['test_acc']:.4f}, {time.perf_counter() - t0:.2f} s", flush=True)
+
+
 CAL_COUNTERS = {"prim": "prim_launches", "fwd_strip": "fwd_strip_launches",
                 "fwd_strip_bf16": "fwd_strip_bf16_launches", "bwd_strip": "bwd_strip_launches"}
 # (atol, rtol) of the bf16 forward strip against its plain version at R =
@@ -1100,9 +1177,9 @@ def check_bench_shape(root, dev) -> dict:
 
 def run_bench(root) -> dict:
     """Phase 9: bench_torch.py's f32 and bf16 arms (defaults: N = 8192, P =
-    2, K = D = 8, degree 128, bfs order, 20 iterations; fwd+bwd, the dense
-    baseline, then fwd alone), each printing its JSON line; the flash and
-    in-process calibration launches are exact."""
+    2, K = D = 8, degree 128, bfs order, 20 iterations; fwd+bwd and its
+    profiled window, the dense baseline, then fwd alone), each printing its
+    JSON line; the flash and in-process calibration launches are exact."""
     import runpy
 
     import torch
@@ -1110,8 +1187,10 @@ def run_bench(root) -> dict:
     from han_tpu_torch.ops import calibrate as cal
     from han_tpu_torch.ops import flash_gat as fg
 
-    main = runpy.run_path(str(root / "bench_torch.py"), run_name="not_main")["main"]
+    bench = runpy.run_path(str(root / "bench_torch.py"), run_name="not_main")
+    main = bench["main"]
     calls, n_mp = 2 + 5 * 20, 2  # warm-up + best of 5 x 20 iterations
+    main_calls = calls + bench["PROFILED"]  # fwd+bwd: and the profiled window
     total = {"fwd": 0, "bwd": 0}
     for arm, argv in (("f32", []), ("bf16", ["--dtype", "bfloat16"])):
         fg.flash_fwd_launches = fg.flash_bwd_launches = 0
@@ -1122,7 +1201,7 @@ def run_bench(root) -> dict:
         torch.cuda.synchronize()
         n = {"fwd": fg.flash_fwd_launches, "bwd": fg.flash_bwd_launches,
              **{key: getattr(cal, attr) for key, attr in CAL_COUNTERS.items()}}
-        want = {"fwd": 2 * n_mp * calls, "bwd": n_mp * calls, "prim": 0,
+        want = {"fwd": n_mp * (main_calls + calls), "bwd": n_mp * main_calls, "prim": 0,
                 "fwd_strip": 24, "fwd_strip_bf16": 12, "bwd_strip": 12}
         if n != want:
             fail(f"bench {arm}: launches {n}, want {want}")

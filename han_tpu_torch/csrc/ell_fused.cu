@@ -18,22 +18,31 @@
 //
 // What bounds it on the H100, and what the design does about it:
 // - At the sampled block of the 100M-edge configuration (8,704 rows, F =
-//   16, K*D = 64 float32 channels) the gathers total about 40 MB, but they
-//   hit a 2.2 MB feature table that the 50 MB L2 holds. The kernel is bound
-//   by gather latency and issue rate, not by HBM bandwidth. Most rows of a
-//   one-hop block have no valid slot at all and exit after the index load.
-// - One warp per row: lane l owns the channels l + 32 t (t < MAXC), so the
-//   K*D-wide feature row of a neighbor (256 bytes at K*D = 64) is one
-//   coalesced load per t, and the 32 lanes share the row's index loads.
-//   The F neighbor ids are loaded 32 at a time, one per lane, and broadcast
-//   with __shfl_sync, so F (16 on the trained blocks, ~100 in exact eval)
-//   is a runtime argument with no shared memory.
-// - Two passes over F: the first takes the per-head max of z, the second
-//   sums exp(z - max) and the dropped-and-weighted features. That keeps
-//   the arithmetic of the plain version (max first, no rescaling) at the
-//   price of gathering ls twice, which L2 serves.
-// - D is a template argument (4, 8 or 16, as in flash_gat.cu), so the head
-//   of a channel is a shift; K is a runtime argument with K*D <= 32*MAXC.
+//   16, K*D = 64 float32 channels) the data is small (the feature rows it
+//   gathers sit in the 50 MB L2) and only the 512 seed rows of a one-hop
+//   block have valid slots. The kernel is bound by the latency of its
+//   dependent gathers (neighbor ids, then logits, then features) and by
+//   how many of them are in flight, not by HBM bandwidth or arithmetic.
+// - Rows are spread over the card: row r goes to block r % G and warp
+//   r / G of it (G blocks of WARPS warps), so the seed rows, which come
+//   first in a block, land in the first 512 blocks (one warp each) and the
+//   block scheduler deals them to every SM. (With rows in order, 8 rows a
+//   block, all the work sat in 64 blocks, on fewer than half the SMs.)
+// - The slots are walked once, with every gather of a pass in flight
+//   together. Logits: lanes own (slot, head) pairs (head h = lane % Kp for
+//   Kp, the heads of a group of at most 32 rounded up to a power of two,
+//   slots lane / Kp + s * 32 / Kp): each pair's logit is gathered and its
+//   exp taken once, by one lane; the per-head max and sum are a lane-local
+//   loop over the lane's slots and then log2(32 / Kp) xor shuffles. The
+//   dropped numerators e * keep go to a per-warp shared buffer [F][K], the
+//   neighbor ids to [F], the per-head scale (1 / (1-p)) / l to [K].
+// - Aggregation: lanes own V-wide channel groups (V = 4, 2 or 1 floats, as
+//   D and K*D allow, one 16-, 8- or 4-byte load a slot), with a runtime
+//   loop over the groups, so any D and K*D are taken. The numerators are
+//   read from shared memory (broadcast within a head), and the feature
+//   loads of UNROLL slots are issued before their FMAs; a slot whose
+//   numerator is 0 (empty or dropped) loads nothing.
+// - exps are exp2 on log2e-scaled logits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,99 +50,157 @@
 
 namespace {
 
-constexpr int WARPS = 8;   // rows (warps) per block
-constexpr int MAXC = 4;    // channels per lane: K*D <= 32 * MAXC
+constexpr int WARPS = 4;    // rows (warps) per block
+constexpr int UNROLL = 8;   // slots whose feature loads are in flight together
 constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(float (&x)[V], const float* p) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    x[0] = t.x, x[1] = t.y;
+  } else {
+    x[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&x)[V], float s) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(x[0] * s, x[1] * s, x[2] * s, x[3] * s);
+  else if constexpr (V == 2)
+    *reinterpret_cast<float2*>(p) = make_float2(x[0] * s, x[1] * s);
+  else
+    *p = x[0] * s;
+}
+
+// floats of one warp's shared buffers: numerators [f][k], neighbor ids
+// [f], per-head scales [k]
+__host__ __device__ inline int warp_floats(int f, int k) { return f * k + f + k; }
+
+template <int V>
 __global__ void __launch_bounds__(WARPS * 32) ell_fused_fwd_kernel(
     const int* __restrict__ nbr, const float* __restrict__ ld,
     const float* __restrict__ ls, const float* __restrict__ fts,
     const uint8_t* __restrict__ keep, float* __restrict__ out, int n, int f,
-    int k, float slope, float drop_scale) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+    int k, int d, float slope, float drop_scale) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = warp * gridDim.x + blockIdx.x;
   if (row >= n) return;  // warp-uniform
-  const int kd = k * D;
+  const int kd = k * d;
+  float* e_s = smem + (size_t)warp * warp_floats(f, k);
+  int* j_s = reinterpret_cast<int*>(e_s + f * k);
+  float* inv_s = reinterpret_cast<float*>(j_s + f);
   const int* nbr_r = nbr + (size_t)row * f;
-  const uint8_t* keep_r = keep ? keep + (size_t)row * f * k : nullptr;
-
-  int head[MAXC];
-  float ld_c[MAXC], m[MAXC], l[MAXC], acc[MAXC];
-#pragma unroll
-  for (int t = 0; t < MAXC; ++t) {
-    const int c = lane + 32 * t;
-    head[t] = c < kd ? c / D : 0;
-    ld_c[t] = c < kd ? ld[(size_t)row * k + head[t]] : 0.f;
-    m[t] = -INFINITY;
-    l[t] = 0.f;
-    acc[t] = 0.f;
-  }
-
-  // pass 1: the per-head max of z over the valid slots
-  bool any = false;
-  for (int f0 = 0; f0 < f; f0 += 32) {
-    const int j_lane = f0 + lane < f ? nbr_r[f0 + lane] : n;
-    const int cnt = min(32, f - f0);
-    for (int s = 0; s < cnt; ++s) {
-      const int j = __shfl_sync(FULL_MASK, j_lane, s);
-      if (j < 0 || j >= n) continue;  // warp-uniform
-      any = true;
-      const float* ls_j = ls + (size_t)j * k;
-#pragma unroll
-      for (int t = 0; t < MAXC; ++t) {
-        if (lane + 32 * t < kd) {
-          const float raw = ld_c[t] + ls_j[head[t]];
-          m[t] = fmaxf(m[t], fmaxf(raw, slope * raw));
-        }
-      }
-    }
-  }
   float* out_r = out + (size_t)row * kd;
-  if (!any) {  // no valid slot: the softmax is empty, the output exactly 0
-#pragma unroll
-    for (int t = 0; t < MAXC; ++t)
-      if (lane + 32 * t < kd) out_r[lane + 32 * t] = 0.f;
-    return;
-  }
 
-  // pass 2: softmax numerators (undropped) and the dropped weighted sum
-  for (int f0 = 0; f0 < f; f0 += 32) {
-    const int j_lane = f0 + lane < f ? nbr_r[f0 + lane] : n;
-    const int cnt = min(32, f - f0);
-    for (int s = 0; s < cnt; ++s) {
-      const int j = __shfl_sync(FULL_MASK, j_lane, s);
-      if (j < 0 || j >= n) continue;  // warp-uniform
-      const float* ls_j = ls + (size_t)j * k;
-      const float* fts_j = fts + (size_t)j * kd;
-      const uint8_t* keep_f = keep_r ? keep_r + (size_t)(f0 + s) * k : nullptr;
-#pragma unroll
-      for (int t = 0; t < MAXC; ++t) {
-        const int c = lane + 32 * t;
-        if (c < kd) {
-          const float raw = ld_c[t] + ls_j[head[t]];
-          const float e = expf(fmaxf(raw, slope * raw) - m[t]);
-          l[t] += e;
-          if (!keep_f || keep_f[head[t]]) acc[t] = fmaf(e, fts_j[c], acc[t]);
-        }
+  // logits and softmax, one group of up to 32 heads at a time
+  for (int h0 = 0; h0 < k; h0 += 32) {
+    const int kg = min(32, k - h0);
+    const int kp = kg == 1 ? 1 : 1 << (32 - __clz(kg - 1));  // power of two >= kg
+    const int sp = 32 / kp;  // slots a pass
+    const int hl = lane & (kp - 1), sub = lane / kp;
+    const bool hv = hl < kg;
+    const int h = h0 + hl;
+    const float ldh = hv ? ld[(size_t)row * k + h] : 0.f;
+    float m = -INFINITY;
+    bool any = false;
+#pragma unroll 4
+    for (int s = sub; s < f; s += sp) {
+      const int j = nbr_r[s];
+      const bool valid = j >= 0 && j < n;
+      float z = -INFINITY;
+      if (hv && valid) {
+        const float raw = ldh + ls[(size_t)j * k + h];
+        z = fmaxf(raw, slope * raw) * LOG2E;
+      }
+      if (hv) e_s[s * k + h] = z;
+      if (h0 == 0 && hl == 0) j_s[s] = valid ? j : -1;
+      m = fmaxf(m, z);
+      any |= valid;
+    }
+    if (h0 == 0 && !__any_sync(FULL_MASK, any)) {
+      // no valid slot: the softmax is empty, the output exactly 0
+      for (int c = lane; c < kd; c += 32) out_r[c] = 0.f;
+      return;
+    }
+    for (int o = kp; o < 32; o <<= 1) m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, o));
+    // the exps, once a pair (-inf on empty slots gives 0): the undropped
+    // sum l, the dropped numerators into the buffer
+    float l = 0.f;
+    if (hv) {
+#pragma unroll 4
+      for (int s = sub; s < f; s += sp) {
+        const float e = ex2(e_s[s * k + h] - m);
+        l += e;
+        const bool kept = keep == nullptr || keep[((size_t)row * f + s) * k + h];
+        e_s[s * k + h] = kept ? e : 0.f;
       }
     }
+    for (int o = kp; o < 32; o <<= 1) l += __shfl_xor_sync(FULL_MASK, l, o);
+    if (hv && sub == 0) inv_s[h] = drop_scale / fmaxf(l, 1e-30f);
   }
+  __syncwarp();
+
+  // the weighted sum: lane groups of V channels, UNROLL slots' loads in
+  // flight before their FMAs
+  for (int q = lane; q < kd / V; q += 32) {
+    const int c0 = q * V;
+    const float* e_h = e_s + c0 / d;
+    float acc[V];
 #pragma unroll
-  for (int t = 0; t < MAXC; ++t) {
-    const int c = lane + 32 * t;
-    if (c < kd) out_r[c] = acc[t] * (drop_scale / fmaxf(l[t], 1e-30f));
+    for (int v = 0; v < V; ++v) acc[v] = 0.f;
+    for (int s0 = 0; s0 < f; s0 += UNROLL) {
+      float w[UNROLL], x[UNROLL][V];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int s = s0 + u;
+        const int j = s < f ? j_s[s] : -1;
+        w[u] = j >= 0 ? e_h[s * k] : 0.f;
+        if (w[u] != 0.f) {
+          load_vec<V>(x[u], fts + (size_t)j * kd + c0);
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v) x[u][v] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] = fmaf(w[u], x[u][v], acc[v]);
+    }
+    store_vec<V>(out_r + c0, acc, inv_s[c0 / d]);
   }
 }
 
-template <int D>
+template <int V>
 int launch(const void* nbr, const void* ld, const void* ls, const void* fts,
-           const void* keep, void* out, int n, int f, int k, float slope,
+           const void* keep, void* out, int n, int f, int k, int d, float slope,
            float drop_scale, cudaStream_t stream) {
+  const size_t smem = (size_t)WARPS * warp_floats(f, k) * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ell_fused_fwd_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch's check reports it
+      return (int)err;
+    }
+  }
   const int blocks = (n + WARPS - 1) / WARPS;
-  ell_fused_fwd_kernel<D><<<blocks, WARPS * 32, 0, stream>>>(
+  ell_fused_fwd_kernel<V><<<blocks, WARPS * 32, smem, stream>>>(
       (const int*)nbr, (const float*)ld, (const float*)ls, (const float*)fts,
-      (const uint8_t*)keep, (float*)out, n, f, k, slope, drop_scale);
+      (const uint8_t*)keep, (float*)out, n, f, k, d, slope, drop_scale);
   return (int)cudaGetLastError();
 }
 
@@ -144,21 +211,23 @@ extern "C" {
 // Forward. nbr int32 [n, f] (sentinel n; any id outside [0, n) is an empty
 // slot); ld, ls f32 [n, k]; fts f32 [n, k*d]; keep uint8 [n, f, k], or null
 // when dropout is off; drop_scale = 1 / (1 - p) (1 when off) -> out f32
-// [n, k*d]. Returns a cudaError_t code (0 = launched).
+// [n, k*d] (16-byte aligned). Any f, k, d >= 1 whose per-warp buffers
+// (warp_floats) fit a block's shared memory; past that the launch returns
+// cudaErrorInvalidValue. Returns a cudaError_t code (0 = launched).
 int han_ell_fused_fwd(const void* nbr, const void* ld, const void* ls,
                       const void* fts, const void* keep, void* out, int n,
                       int f, int k, int d, float slope, float drop_scale,
                       void* stream) {
-  if (n < 0 || f <= 0 || k <= 0 || k * d > 32 * MAXC)
-    return (int)cudaErrorInvalidValue;
+  if (n < 0 || f <= 0 || k <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 4: return launch<4>(nbr, ld, ls, fts, keep, out, n, f, k, slope, drop_scale, st);
-    case 8: return launch<8>(nbr, ld, ls, fts, keep, out, n, f, k, slope, drop_scale, st);
-    case 16: return launch<16>(nbr, ld, ls, fts, keep, out, n, f, k, slope, drop_scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const uintptr_t at = (uintptr_t)fts;
+  const int kd = k * d;
+  if (d % 4 == 0 && kd >= 128 && at % 16 == 0)
+    return launch<4>(nbr, ld, ls, fts, keep, out, n, f, k, d, slope, drop_scale, st);
+  if (d % 2 == 0 && kd >= 64 && at % 8 == 0)
+    return launch<2>(nbr, ld, ls, fts, keep, out, n, f, k, d, slope, drop_scale, st);
+  return launch<1>(nbr, ld, ls, fts, keep, out, n, f, k, d, slope, drop_scale, st);
 }
 
 const char* han_error_string(int code) {

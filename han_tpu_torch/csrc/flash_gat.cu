@@ -18,7 +18,8 @@
 //                      argument): <true> is the fused backward
 //                      (han_flash_bwd), <false> the split backward's column
 //                      sweep, dls and dv only, no atomics (han_flash_bwd_col)
-//   bwd_row_kernel  <- _bwd_row_kernel (l.354): dld only
+//   bwd_row_kernel  <- _bwd_row_kernel (l.354): dld only, the forward's
+//                      sweep with g.v^T in place of P.V
 //   drop_bits       <- _tile_drop_keep (l.71)
 //
 // The row and column domains are separate (n_rows x n_cols): a graph-axis
@@ -39,30 +40,30 @@
 // han_tpu/ops/pallas/flash_gat.py:749-758 streams bf16 features): it is
 // widened to f32 after each load, and everything else, dv included, is f32.
 //
-// What bounds fwd_kernel and bwd_col_kernel on the H100, and what their
-// design does about it:
+// What bounds the kernels on the H100, and what their design does about it:
 // - The work is elementwise over the swept tile area (bm*bn*K per occupied
 //   tile), not over the edges: at DBLP's density (0.40-0.56 inside an
 //   occupied tile) almost every warp meets an edge at almost every element,
 //   so a branch per adjacency byte buys nothing and serializes dependent
-//   chains. Both kernels are bound by instruction issue (their time grows
+//   chains. The kernels are bound by instruction issue (their time grows
 //   linearly with the heads from 8 to 32, so more resident warps do not
 //   help): the sweep is branch-free, the adjacency selects (one predicate
 //   and one select an element), the compiler interleaves independent
 //   elements, and every per-element instruction that could move to a row,
 //   a column or a tile did.
 // - The D-wide products run on the tensor cores: each warp holds a 16-row
-//   (forward) or 2 x 16-column (backward) strip of the block in the register
-//   layout of mma.sync.m16n8k8 (TF32), computes the logits, exps and masks
-//   in the accumulator/operand fragments themselves, and permutes the
-//   summation index of each product (as FlashAttention-2 does) so that a
-//   thread's columns are contiguous (one 32-bit word of 4 adjacency bytes a
-//   row) and the accumulator of g.v serves as the A operand of dv with no
-//   trip through shared memory. 3xTF32 (hi.hi + hi.lo + lo.hi, hi rounded
+//   (forward, row sweep) or 2 x 16-column (column sweep) strip of the block
+//   in the register layout of mma.sync.m16n8k8 (TF32), computes the logits,
+//   exps and masks in the accumulator/operand fragments themselves, and
+//   permutes the summation index of each product (as FlashAttention-2 does)
+//   so that a thread's columns are contiguous (one 32-bit word of 4
+//   adjacency bytes a row) and the accumulator of g.v serves as the A
+//   operand of dv with no trip through shared memory; the row sweep permutes
+//   the n index of g.v^T instead, so that its product lands on the
+//   forward's logit positions. 3xTF32 (hi.hi + hi.lo + lo.hi, hi rounded
 //   to TF32, lo the remainder as the tensor cores read it) keeps the
 //   products within about 2^-20 of f32 ones; a bf16 v has no lo part, so
-//   its term is dropped. D = 4 pads the n8 (or k8) side
-//   with zeros, D = 16 takes two.
+//   its term is dropped.
 // - The forward sweeps each tile once: the row max of a 32-column chunk is
 //   taken over the fragment with two quad shuffles, the running (m, l, acc)
 //   are rescaled once per chunk, exps are exp2 on log2e-scaled logits.
@@ -73,8 +74,9 @@
 //   per 32-column chunk (forward) or 8-row patch (backward) of tile s,
 //   between its shared-memory loads: issued all at once, the copies held
 //   up those loads. v's
-//   columns are swizzled (vslot) and g's rows padded (gpitch) so that the
-//   B-fragment loads hit distinct banks. The int8 tiles stay as BCSRGraph
+//   columns are swizzled (vslot; row_vswz for the row sweep's other read
+//   pattern) and g's rows padded (gpitch) so that the B-fragment loads hit
+//   distinct banks. The int8 tiles stay as BCSRGraph
 //   holds them.
 // - Dropout is a counter-based hash of (seed, global row, global column,
 //   global head), so the backward replays the forward's mask without
@@ -96,9 +98,14 @@
 //   are per-thread partials summed in a fixed order, so with the row sweep
 //   the split backward is bitwise reproducible (the path
 //   torch.use_deterministic_algorithms(True) takes).
-// - bwd_row_kernel keeps the first port's scalar design: TPR threads share
-//   each tile row, each takes a slice of the columns with a branch per
-//   adjacency word, partial sums merged through shared memory.
+// - The row sweep owns whole rows, so dld needs no merge across warps:
+//   each thread sums its columns of its two rows over the walk, in walk
+//   order, then two quad shuffles finish each row and one store writes it.
+//   With the column sweep (no atomics either) the split backward is
+//   bitwise reproducible.
+// - D is a template argument (4, 8, 16 or 32; ops/flash_gat.py pads any
+//   smaller D with zero columns). D = 4 pads the products' n8 or k8 side
+//   with zeros, D = 16 and 32 take two and four.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,7 +116,6 @@
 
 namespace {
 
-constexpr int TPR = 4;             // bwd_row_kernel: threads per tile row
 constexpr float NEG_INIT = -1e9f;  // = MASK_VALUE
 constexpr float NEG2 = -1e30f;     // a masked logit in the log2 domain
 constexpr float LOG2E = 1.4426950408889634f;
@@ -811,12 +817,43 @@ __global__ void __launch_bounds__(512) bwd_col_kernel(
 
 // ---------------------------------------------------------------------------
 // split backward, row sweep: block (row block rb, head h) over the forward
-// map; thread (r, q) owns tile row r and the q-th quarter of every tile's
-// columns. Writes dld only, once per row: no atomics.
+// map, bm / 16 warps, laid out as fwd_kernel: warp w owns rows 16 w ..
+// 16 w + 15 of the block, thread (g, t) rows r_lo = 16 w + g and r_lo + 8
+// and, in each 32-column chunk, the columns c0 + 16 u + 4 t + b (window u,
+// b < 4): one adjacency word a row and window. g.v^T of a 16-column window
+// is two m16n8k8 products (n8 tiles hh = 0, 1), g's 16 x D rows the A
+// operand (split once a block: the block's rows never change) and the
+// staged v columns the B operand; n index 2 t + e of tile hh is column
+// 4 t + 2 hh + e, so each product lands in the fragment positions where the
+// forward holds its logits. Writes dld only, once a row: no atomics.
 // ---------------------------------------------------------------------------
 
+// The xor that places element (c, d) of a staged v tile for the row sweep:
+// v_s[(c D + d) ^ row_vswz<D, VT>(c)]. It is a function of c's low 4 bits
+// that flips only lower bits of the offset (d's bits, or c's bit 1 at D =
+// 4), in whole cp.async chunks, so it permutes within a 16-column window.
+// Lane (g, t) of a B fragment reads column 4 (g >> 1) + 2 hh + (g & 1) of a
+// window at d = 8 kk + t (+ 4): the lanes vary c's bits 0, 2 and 3 and d's
+// bits 0 and 1, and the xor moves the c bits that fall outside the bank
+// bits onto bank bits that are the same across the lanes, so the 32 reads
+// hit 32 banks (bf16: 16 words, two lanes a word, in 16 banks).
 template <int D, typename VT>
-__global__ void __launch_bounds__(1024) bwd_row_kernel(
+__device__ __forceinline__ int row_vswz(int c) {
+  if constexpr (sizeof(VT) == 4) {
+    if constexpr (D == 4) return c & 8;
+    else if constexpr (D == 8) return ((c & 4) << 2) | ((c & 8) >> 1);
+    else if constexpr (D == 16) return c & 12;
+    else return ((c & 1) << 2) | ((c & 12) << 1);
+  } else {
+    if constexpr (D == 4) return 0;
+    else if constexpr (D == 8) return (c & 8) << 1;
+    else if constexpr (D == 16) return ((c & 4) << 1) | ((c & 8) << 2);
+    else return (c & 12) << 1;
+  }
+}
+
+template <int D, typename VT, bool DROP>
+__global__ void __launch_bounds__(512) bwd_row_kernel(
     const int8_t* __restrict__ tiles, const int* __restrict__ fcount,
     const int* __restrict__ fcol, const int* __restrict__ ftile, int c_pitch,
     const float* __restrict__ ld, const float* __restrict__ ls,
@@ -824,90 +861,189 @@ __global__ void __launch_bounds__(1024) bwd_row_kernel(
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dld, int n_rows, int n_cols, int bm, int bn, int k,
     float slope, Drop drop, Offsets off) {
+  constexpr int KD = (D + 7) / 8;              // k8 steps of g.v
+  constexpr int VCOL = D * (int)sizeof(VT);    // bytes of one column of v
+  constexpr int VCH = VCOL < 16 ? VCOL : 16;   // cp.async size for v
+  constexpr int VCHE = VCH / (int)sizeof(VT);  // elements of a copy
+  constexpr bool V_EXACT = std::is_same<VT, __nv_bfloat16>::value;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int words = bn / 4;      // int32 words per tile row
-  const int wpitch = words + 1;  // +1: row r starts at bank r
-  uint32_t* adj_s = reinterpret_cast<uint32_t*>(smem);  // [bm][wpitch]
-  float* ls_s = reinterpret_cast<float*>(adj_s + bm * wpitch);  // [bn]
-  float* v_s = ls_s + bn;                                       // [bn][D]
-  float* red_s = v_s + bn * D;                                  // [TPR][bm]
+  const int apitch = bn + APAD;
+  const int stage_bytes = fwd_stage_bytes(bm, bn, D, sizeof(VT));
 
   const int rb = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, nthr = blockDim.x;
-  const int r = tid % bm, q = tid / bm;  // bm % 32 == 0: q is warp-uniform
-  const int row = rb * bm + r;
+  const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
+  const int r_lo = (tid >> 5) * 16 + gq;  // rows r_lo and r_lo + 8
   const int kd = k * D;
-  const int cw = words / TPR;  // words in this thread's column slice
-  const int j0 = q * cw * 4;   // first column of the slice
-  const size_t hr = (size_t)h * n_rows + row;
-  const float ld_r = ld[hr], lse_r = lse[hr], delta_r = delta[hr];
-  float g_r[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) g_r[d] = g[(size_t)row * kd + h * D + d];
-  const uint32_t row_key =
-      drop.on ? drop_row_key(drop_head_key(drop.seed, off.head + h),
-                             (uint32_t)((off.row_block + rb) * bm + r))
-              : 0u;
 
-  float acc = 0.f;
+  // per row: ld, lse (log2 domain), delta, the dropout row key
+  const uint32_t head_key = DROP ? drop_head_key(drop.seed, off.head + h) : 0u;
+  float ld_r[2], lse2[2], delta_r[2], acc[2];
+  uint32_t row_key[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = r_lo + 8 * rr;
+    const size_t hr = (size_t)h * n_rows + (size_t)rb * bm + r;
+    ld_r[rr] = ld[hr];
+    lse2[rr] = lse[hr] * LOG2E;
+    delta_r[rr] = delta[hr];
+    row_key[rr] = DROP ? drop_half(drop_row_key(head_key,
+                                                (uint32_t)((off.row_block + rb) * bm + r)))
+                       : 0u;
+    acc[rr] = 0.f;
+  }
+  // g as the A operand of g.v^T: a0 (row r_lo, d = t), a1 (r_lo + 8, t),
+  // a2 (r_lo, t + 4), a3 (r_lo + 8, t + 4), d + 8 kk at k step kk
+  Tf32x2 ga[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+    for (int idx = 0; idx < 4; ++idx) {
+      const int r = r_lo + 8 * (idx & 1), d = 8 * kk + tq + 4 * (idx >> 1);
+      ga[kk][idx] = split_tf32(
+          d < D ? g[((size_t)rb * bm + r) * kd + h * D + d] : 0.f);
+    }
+  // this thread's B-fragment offsets in a staged window: column
+  // 4 (g >> 1) + 2 hh + (g & 1), d = 8 kk + t + 4 j, after the swizzle
+  int vo[2][KD][2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int cw = 4 * (gq >> 1) + 2 * hh + (gq & 1);
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        vo[hh][kk][j] = (cw * D + 8 * kk + tq + 4 * j) ^ row_vswz<D, VT>(cw);
+  }
+
   const int count = fcount[rb];
-  for (int s = 0; s < count; ++s) {
-    const int cb = fcol[rb * c_pitch + s];
-    const int t = ftile[rb * c_pitch + s];
-    __syncthreads();  // the previous tile is consumed
-    const uint32_t* tile_w =
-        reinterpret_cast<const uint32_t*>(tiles + (size_t)t * bm * bn);
-    for (int i = tid; i < bm * words; i += nthr) {
-      const int rr = i / words;
-      adj_s[rr * wpitch + (i - rr * words)] = tile_w[i];
-    }
-    for (int j = tid; j < bn; j += nthr)
-      ls_s[j] = ls[(size_t)h * n_cols + (size_t)cb * bn + j];
-    for (int i = tid; i < bn * D; i += nthr) {
-      const int j = i / D;
-      v_s[i] = to_f32(v[((size_t)cb * bn + j) * kd + h * D + (i - j * D)]);
-    }
-    __syncthreads();
+  const int* step_col = fcol + (size_t)rb * c_pitch;
+  const int* step_tile = ftile + (size_t)rb * c_pitch;
+  const AdjSweep sweep(bn, tid, nthr);
 
-    const uint32_t* my = adj_s + r * wpitch + q * cw;
-    const uint32_t col0 = (uint32_t)((off.col_block + cb) * bn + j0);
-    for (int w = 0; w < cw; ++w) {
-      const uint32_t bits = my[w];
-      if (!bits) continue;
+  // the ls and v slices of step s (and the column halves of the dropout
+  // hash); its adjacency goes through an AdjCursor
+  auto stage_slices = [&](int s, int cb) {
+    unsigned char* buf = smem + (s & 1) * stage_bytes;
+    float* ls_s = reinterpret_cast<float*>(buf + bm * apitch);
+    stage_floats(ls_s, ls + (size_t)h * n_cols + (size_t)cb * bn, bn, tid, nthr);
+    if constexpr (DROP) {
+      uint32_t* ck_s = reinterpret_cast<uint32_t*>(ls_s + bn);
+      for (int c = tid; c < bn; c += nthr)
+        ck_s[c] = drop_half((uint32_t)((off.col_block + cb) * bn + c) * GOLDEN);
+    }
+    VT* v_s = reinterpret_cast<VT*>(ls_s + 2 * bn);
+    constexpr int VQ = VCOL / VCH;
+    for (int i = tid; i < bn * VQ; i += nthr) {
+      const int c = i / VQ, q = i - c * VQ;
+      cp_async<VCH>(v_s + ((c * D + q * VCHE) ^ row_vswz<D, VT>(c)),
+                    v + ((size_t)cb * bn + c) * kd + h * D + q * VCHE);
+    }
+  };
+
+  // the map entries of steps s + 1 (next) and s + 2 (loaded a step ahead)
+  int cb_next = count > 1 ? step_col[1] : 0, t_next = count > 1 ? step_tile[1] : 0;
+  if (count > 0) {
+    stage_slices(0, step_col[0]);
+    AdjCursor first(smem, tiles, step_tile[0], bm, bn, sweep);
+    for (int j = 0; j < bn / 32; ++j) first.copy(sweep);
+    cp_async_commit();
+  }
+  for (int s = 0; s < count; ++s) {
+    const int cb_after = s + 2 < count ? step_col[s + 2] : 0;
+    const int t_after = s + 2 < count ? step_tile[s + 2] : 0;
+    cp_async_wait_all();
+    __syncthreads();  // tile s is visible; every warp is done with tile s - 1
+    // tile s + 1 lands while tile s computes: its slices now, its adjacency
+    // a part (one chunk a thread) per 32-column chunk
+    const bool more = s + 1 < count;
+    if (more) stage_slices(s + 1, cb_next);
+    AdjCursor next(smem + ((s + 1) & 1) * stage_bytes, tiles, t_next, bm, bn, sweep);
+    const unsigned char* adj_s = smem + (s & 1) * stage_bytes;
+    const float* ls_s = reinterpret_cast<const float*>(adj_s + bm * apitch);
+    const uint32_t* ck_s = reinterpret_cast<const uint32_t*>(ls_s + bn);
+    const VT* v_s = reinterpret_cast<const VT*>(ls_s + 2 * bn);
+    cb_next = cb_after;
+    t_next = t_after;
+
+#pragma unroll 2
+    for (int c0 = 0; c0 < bn; c0 += 32) {
+      // gv = g.v^T: gv[u][hh][e] is row r_lo + 8 (e >> 1), column
+      // c0 + 16 u + 4 t + 2 hh + (e & 1)
+      float gv[2][2][4];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        if ((bits >> (8 * b)) & 0xffu) {
-          const int j = j0 + 4 * w + b;
-          const float raw = ld_r + ls_s[j];
-          const float c = expf(fmaxf(raw, slope * raw) - lse_r);
-          float c_agg = c;
-          if (drop.on)
-            c_agg = drop_bits(row_key, col0 + 4 * w + b) < drop.thresh
-                        ? c * drop.scale : 0.f;
-          const float* vj = v_s + j * D;
-          float gv = 0.f;
+      for (int u = 0; u < 2; ++u) {
+        const VT* vw = v_s + (c0 + 16 * u) * D;
 #pragma unroll
-          for (int d = 0; d < D; ++d) gv = fmaf(g_r[d], vj[d], gv);
-          const float dz = c_agg * gv - c * delta_r;
-          acc += raw >= 0.f ? dz : slope * dz;
+        for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) gv[u][hh][e] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < KD; ++kk) {
+            const Tf32x2 b[2] = {split_tf32(to_f32(vw[vo[hh][kk][0]])),
+                                 D >= 8 ? split_tf32(to_f32(vw[vo[hh][kk][1]]))
+                                        : Tf32x2{0u, 0u}};
+            mma_3xtf32<false, V_EXACT>(gv[u][hh], gv[u][hh], gv[u][hh], ga[kk], b);
+          }
+        }
+      }
+      if (more) next.copy(sweep);
+      // the elements, branch-free: c = exp(z - lse) on edges (a select, not
+      // a multiply: off-edge exp may be +inf), dz = c (keep' g.v - delta)
+      // folded with lrelu', summed per row
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int c = c0 + 16 * u + 4 * tq;
+        const float4 l4 = *reinterpret_cast<const float4*>(ls_s + c);
+        const float lsv[4] = {l4.x, l4.y, l4.z, l4.w};
+        uint32_t key[4] = {0u, 0u, 0u, 0u};
+        if constexpr (DROP) {
+          const uint4 k4 = *reinterpret_cast<const uint4*>(ck_s + c);
+          key[0] = k4.x;
+          key[1] = k4.y;
+          key[2] = k4.z;
+          key[3] = k4.w;
+        }
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const uint32_t bits =
+              *reinterpret_cast<const uint32_t*>(adj_s + (r_lo + 8 * rr) * apitch + c);
+          float dzs[4];
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const float raw = ld_r[rr] + lsv[b];
+            const float zz = fmaxf(raw, slope * raw);
+            const float ce = ex2(fmaf(zz, LOG2E, -lse2[rr]));
+            const float cc = (bits & (0xffu << (8 * b))) ? ce : 0.f;
+            const float gvv = gv[u][b >> 1][2 * rr + (b & 1)];
+            float t = gvv - delta_r[rr];
+            if constexpr (DROP) {
+              const float ks =
+                  drop_tail(row_key[rr] ^ key[b]) < drop.thresh ? drop.scale : 0.f;
+              t = fmaf(ks, gvv, -delta_r[rr]);
+            }
+            const float dz = cc * t;
+            dzs[b] = raw >= 0.f ? dz : slope * dz;
+          }
+          acc[rr] += (dzs[0] + dzs[1]) + (dzs[2] + dzs[3]);
         }
       }
     }
+    cp_async_commit();
   }
 
-  // merge the TPR slices of row r in thread order
-  red_s[q * bm + r] = acc;
-  __syncthreads();
-  if (q != 0) return;
-  float sum = 0.f;
+  // dld: the quad's partial sums in a fixed order, one store a row
 #pragma unroll
-  for (int qq = 0; qq < TPR; ++qq) sum += red_s[qq * bm + r];
-  dld[hr] = sum;
+  for (int rr = 0; rr < 2; ++rr) {
+    float x = acc[rr] + __shfl_xor_sync(FULL_MASK, acc[rr], 1);
+    x += __shfl_xor_sync(FULL_MASK, x, 2);
+    if (tq == 0) dld[(size_t)h * n_rows + (size_t)rb * bm + r_lo + 8 * rr] = x;
+  }
 }
 
 // The geometry every kernel takes: bm and bn multiples of 32 up to 256, so
-// that fwd_kernel's 16-row warps, bwd_col_kernel's 32-column warps and
-// 8-row patches and bwd_row_kernel's TPR threads a row tile the blocks
+// that the 16-row warps of fwd_kernel and bwd_row_kernel and
+// bwd_col_kernel's 32-column warps and 8-row patches tile the blocks
 // (graph/bcsr.py:tile_error says the same in Python).
 bool bad_geometry(int n_rows, int n_cols, int bm, int bn, int k) {
   return bm <= 0 || bn <= 0 || bm % 32 || bn % 32 || bm > 256 || bn > 256 ||
@@ -924,20 +1060,16 @@ size_t bwd_smem(int bm, int bn, int d, bool fuse_dld) {
   return body + (fuse_dld ? 2 * (size_t)(bn / 32) * bm * 4 : 0);
 }
 
-size_t row_smem(int bm, int bn, int d) {
-  return (size_t)bm * (bn / 4 + 1) * 4 + (size_t)bn * 4 + (size_t)bn * d * 4 +
-         (size_t)TPR * bm * 4;
-}
-
 // The dynamic shared memory a block needs, and the largest shared-memory
 // carveout of the SM's L1, so that as many blocks fit as registers allow.
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess || bytes <= 48 * 1024) return err;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  if (err == cudaSuccess && bytes > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) cudaGetLastError();  // clear it, or the next launch's check reports it
+  return err;
 }
 
 template <int D, typename VT, bool DROP>
@@ -976,17 +1108,17 @@ int launch_bwd(const void* tiles, const void* bcount, const void* brow,
   return (int)cudaGetLastError();
 }
 
-template <int D, typename VT>
+template <int D, typename VT, bool DROP>
 int launch_bwd_row(const void* tiles, const void* fcount, const void* fcol,
                    const void* ftile, int c_pitch, const void* ld,
                    const void* ls, const void* v, const void* g,
                    const void* lse, const void* delta, void* dld, int n_rows,
                    int n_cols, int bm, int bn, int k, float slope, Drop drop,
                    Offsets off, cudaStream_t stream) {
-  const size_t smem = row_smem(bm, bn, D);
-  cudaError_t err = set_smem(bwd_row_kernel<D, VT>, smem);
+  const size_t smem = fwd_smem(bm, bn, D, sizeof(VT));
+  cudaError_t err = set_smem(bwd_row_kernel<D, VT, DROP>, smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_row_kernel<D, VT><<<dim3(n_rows / bm, k), bm * TPR, smem, stream>>>(
+  bwd_row_kernel<D, VT, DROP><<<dim3(n_rows / bm, k), 2 * bm, smem, stream>>>(
       (const int8_t*)tiles, (const int*)fcount, (const int*)fcol,
       (const int*)ftile, c_pitch, (const float*)ld, (const float*)ls,
       (const VT*)v, (const float*)g, (const float*)lse,
@@ -1000,7 +1132,7 @@ struct Tag {
   using type = T;
 };
 
-// Calls f(dim, tag, drop) with the head dim d (4, 8 or 16) as an
+// Calls f(dim, tag, drop) with the head dim d (4, 8, 16 or 32) as an
 // std::integral_constant, v's element type (float, or bf16 when v_bf16) as
 // a Tag and whether dropout is on as an std::bool_constant.
 template <typename F>
@@ -1015,6 +1147,7 @@ int dispatch(int d, int v_bf16, int drop_on, F&& f) {
     case 4: return by_type(std::integral_constant<int, 4>{});
     case 8: return by_type(std::integral_constant<int, 8>{});
     case 16: return by_type(std::integral_constant<int, 16>{});
+    case 32: return by_type(std::integral_constant<int, 32>{});
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1097,8 +1230,9 @@ int han_flash_bwd_row(const void* tiles, const void* fcount, const void* fcol,
   if (bad_geometry(n_rows, n_cols, bm, bn, k)) return (int)cudaErrorInvalidValue;
   const Drop drop{drop_on, seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
-  return dispatch(d, v_bf16, 0, [&](auto dim, auto tag, auto) {
-    return launch_bwd_row<decltype(dim)::value, typename decltype(tag)::type>(
+  return dispatch(d, v_bf16, drop_on, [&](auto dim, auto tag, auto dropping) {
+    return launch_bwd_row<decltype(dim)::value, typename decltype(tag)::type,
+                          decltype(dropping)::value>(
         tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, g, lse, delta, dld,
         n_rows, n_cols, bm, bn, k, slope, drop, off, (cudaStream_t)stream);
   });

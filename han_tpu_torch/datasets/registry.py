@@ -1,24 +1,32 @@
-"""Dataset registry: name → loader.
+"""Dataset registry: name → loader (port of han_tpu/datasets/registry.py).
 
-Only the in-repo generators are ported. The raw-file loaders (ACM3025
-``.mat``, DBLP, IMDB) need files that are not in the repository, and the
-DBLP one needs sklearn; they wait for a later port.
+Answers ``acm``/``acm3025`` (the ``.mat`` file when present, else the
+ACM3025-shaped fixture, as han_tpu does), ``acm_synthetic``,
+``dblp_synthetic`` (the port's DBLP-shaped fixture) and ``powerlaw``. The
+other names that han_tpu answers, and that ``train/config.py:preset``
+accepts, need loaders that are not ported yet and raise
+NotImplementedError naming them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from han_tpu_torch.graph.synthetic import HeteroDataset, planted_hetero
+from han_tpu_torch.datasets.acm import acm_synthetic, load_acm3025
+from han_tpu_torch.graph.synthetic import HeteroDataset, planted_hetero, powerlaw_hetero
 
+__all__ = ["acm_synthetic", "dblp_synthetic", "load_dataset"]
 
-def acm_synthetic(seed: int = 0) -> HeteroDataset:
-    """ACM3025-shaped planted fixture (as han_tpu.datasets.acm.acm_synthetic)."""
-    ds = planted_hetero(
-        n_nodes=3025, n_feats=1870, n_classes=3, n_metapaths=2,
-        avg_degree=29.0, train_per_class=200, n_val=300, seed=seed,
-        name="acm_synthetic")
-    return dataclasses.replace(ds, metapath_names=("PAP", "PSP"))
+# name → the han_tpu loader it needs
+_NOT_PORTED = {
+    "dblp": "han_tpu/datasets/dblp.py:load_dblp",
+    "imdb": "han_tpu/datasets/imdb.py:load_imdb",
+    "imdb_strict": "han_tpu/datasets/imdb.py:load_imdb",
+    "ppi": "han_tpu/datasets/ppi.py:load_ppi and ppi_synthetic",
+    "cora": "han_tpu/datasets/planetoid.py:load_planetoid",
+    "citeseer": "han_tpu/datasets/planetoid.py:load_planetoid",
+    "pubmed": "han_tpu/datasets/planetoid.py:load_planetoid",
+}
 
 
 def dblp_synthetic(seed: int = 0) -> HeteroDataset:
@@ -34,9 +42,18 @@ def dblp_synthetic(seed: int = 0) -> HeteroDataset:
 
 
 def load_dataset(name: str, **kwargs) -> HeteroDataset:
+    if name in ("acm", "acm3025"):
+        return load_acm3025(**kwargs)
     if name == "acm_synthetic":
         return acm_synthetic(**kwargs)
     if name == "dblp_synthetic":
         return dblp_synthetic(**kwargs)
-    raise KeyError(f"unknown dataset {name!r}; the port knows acm_synthetic "
-                   "and dblp_synthetic (raw-file loaders are not ported)")
+    if name == "powerlaw":
+        return powerlaw_hetero(**kwargs)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"dataset {name!r} needs {_NOT_PORTED[name]}, which is not ported yet "
+            "(ROADMAP.md queue 1); the port loads acm, acm3025, acm_synthetic, "
+            "dblp_synthetic and powerlaw")
+    raise KeyError(f"unknown dataset {name!r}; known: acm, acm3025, acm_synthetic, "
+                   f"dblp_synthetic, powerlaw, and not ported yet: {sorted(_NOT_PORTED)}")

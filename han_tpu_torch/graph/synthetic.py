@@ -1,9 +1,10 @@
-"""Seeded synthetic heterogeneous graphs: the planted generator (numpy copy
-of han_tpu/graph/synthetic.py:27-152) and the scale configuration's graph
-and data (``big_csr`` and ``scale_dataset``, copies of
-scripts/bench_scale.py:30-46,77-91); bit-identical output for equal
-arguments, held so by tests/test_torch_graph.py and
-tests/test_torch_sampled.py."""
+"""Seeded synthetic heterogeneous graphs: the planted generator and the
+power-law scale graphs (numpy copies of han_tpu/graph/synthetic.py:27-221)
+and the scale configuration's graph and data (``big_csr`` and
+``scale_dataset``, copies of scripts/bench_scale.py:30-46,77-91);
+bit-identical output for equal arguments, held so by
+tests/test_torch_graph.py, tests/test_torch_sampled.py and
+tests/test_torch_datasets.py."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import dataclasses
 
 import numpy as np
 import scipy.sparse as sp
+
+from han_tpu_torch.graph.build import symmetric_metapath
 
 
 @dataclasses.dataclass
@@ -131,6 +134,75 @@ def planted_hetero(
         test_mask=test_mask,
         name=name,
         metapath_names=tuple(f"MP{p}" for p in range(n_metapaths)),
+    )
+
+
+def powerlaw_bipartite(
+    n_left: int,
+    n_right: int,
+    n_edges: int,
+    *,
+    alpha: float = 1.5,
+    seed: int = 0,
+) -> sp.csr_matrix:
+    """Power-law bipartite incidence (e.g. paper→author) for scale tests.
+
+    Right-node popularity follows a Zipf-like distribution with exponent
+    ``alpha`` — models the degree skew called out in SURVEY.md §7 (conference
+    nodes with ~14k papers in DBLP APCPA).
+    """
+    rng = np.random.default_rng(seed)
+    popularity = 1.0 / np.arange(1, n_right + 1, dtype=np.float64) ** alpha
+    popularity /= popularity.sum()
+    src = rng.integers(0, n_left, size=n_edges)
+    dst = rng.choice(n_right, size=n_edges, p=popularity)
+    m = sp.coo_matrix(
+        (np.ones(n_edges, dtype=np.float32), (src, dst)), shape=(n_left, n_right)
+    ).tocsr()
+    m.sum_duplicates()
+    m.data = np.ones_like(m.data)
+    return m
+
+
+def powerlaw_hetero(
+    *,
+    n_nodes: int = 100_000,
+    n_feats: int = 128,
+    n_classes: int = 8,
+    edges_per_metapath: int = 2_000_000,
+    n_metapaths: int = 2,
+    seed: int = 0,
+) -> HeteroDataset:
+    """Large synthetic heterogeneous graph via meta-path composition over
+    power-law bipartite incidences (the BASELINE.json 100M-edge config scaled
+    by arguments)."""
+    rng = np.random.default_rng(seed)
+    adjs = []
+    for p in range(n_metapaths):
+        n_mid = max(64, n_nodes // (8 * (p + 1)))
+        inc = powerlaw_bipartite(
+            n_nodes, n_mid, edges_per_metapath // 4, alpha=1.2 + 0.2 * p, seed=seed + 13 * p
+        )
+        a = symmetric_metapath(inc)
+        a.setdiag(0)
+        a.eliminate_zeros()
+        adjs.append(a)
+    y = rng.integers(0, n_classes, size=n_nodes)
+    feats = rng.standard_normal((n_nodes, n_feats)).astype(np.float32)
+    labels = np.zeros((n_nodes, n_classes), dtype=np.float32)
+    labels[np.arange(n_nodes), y] = 1.0
+    train_mask = rng.random(n_nodes) < 0.1
+    val_mask = (~train_mask) & (rng.random(n_nodes) < 0.1)
+    test_mask = ~(train_mask | val_mask)
+    return HeteroDataset(
+        metapath_adjs=adjs,
+        features=feats,
+        labels=labels,
+        train_mask=train_mask,
+        val_mask=val_mask,
+        test_mask=test_mask,
+        name="powerlaw",
+        metapath_names=tuple(f"PL{p}" for p in range(n_metapaths)),
     )
 
 

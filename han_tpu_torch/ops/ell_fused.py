@@ -41,8 +41,13 @@ from han_tpu_torch.graph.containers import MASK_VALUE, EllGraph
 
 ell_fused_launches = 0
 
-KERNEL_HEAD_DIMS = (4, 8, 16)  # the D instantiated in csrc/ell_fused.cu
-MAX_CHANNELS = 128  # K·D limit of the kernel (32 lanes × 4 channels)
+
+def kernel_takes(dtype: torch.dtype) -> bool:
+    """Whether the kernel takes features of ``dtype``: float32, at any
+    heads K and head dim D (bf16 features are not ported to it; ROADMAP.md
+    queue 1). The sampled trainer's ``impl="auto"`` asks this, so its
+    choice depends on the model, never on the device."""
+    return dtype == torch.float32
 
 
 def _ell_coefs(nbr: torch.Tensor, ld: torch.Tensor, ls: torch.Tensor,
@@ -144,10 +149,8 @@ def ell_fused_fwd_cuda(nbr, ld, ls, fts, keep, slope: float, p: float):
     n, k = ld.shape
     f = nbr.shape[1]
     d = fts.shape[1] // k
-    if d not in KERNEL_HEAD_DIMS or k * d > MAX_CHANNELS:
-        raise NotImplementedError(
-            f"head dim {d} x {k} heads has no kernel instantiation "
-            f"(D in {KERNEL_HEAD_DIMS}, K·D <= {MAX_CHANNELS})")
+    if not kernel_takes(fts.dtype):
+        raise NotImplementedError(f"the ell_fused kernel takes float32 features, got {fts.dtype}")
     want = {"nbr": (nbr, torch.int32, (n, f)), "ld": (ld, torch.float32, (n, k)),
             "ls": (ls, torch.float32, (n, k)), "fts": (fts, torch.float32, (n, k * d))}
     if keep is not None:
@@ -164,6 +167,10 @@ def ell_fused_fwd_cuda(nbr, ld, ls, fts, keep, slope: float, p: float):
         keep.data_ptr() if keep is not None else None, out.data_ptr(),
         n, f, k, d, float(slope), 1.0 / (1.0 - p) if keep is not None else 1.0,
         torch.cuda.current_stream(dev).cuda_stream)
+    if rc == 1:  # cudaErrorInvalidValue: the per-warp buffers of F x K outgrow a block
+        raise NotImplementedError(
+            f"the ell_fused kernel does not take fanout {f} x {k} heads: its per-warp "
+            f"buffers exceed a block's shared memory ({lib.han_error_string(rc).decode()})")
     if rc != 0:
         raise RuntimeError(f"han_ell_fused_fwd launch failed: CUDA error {rc} "
                            f"({lib.han_error_string(rc).decode()})")
@@ -222,7 +229,7 @@ def ell_fused_attention(
     if not 0.0 <= slope <= 1.0:
         # the kernel computes leaky_relu as max(x, slope*x)
         raise ValueError(f"slope must be in [0, 1], got {slope}")
-    if fts.dtype != torch.float32:
+    if not kernel_takes(fts.dtype):
         raise NotImplementedError(
             f"ell_fused takes float32 features, got {fts.dtype} (bf16 is not ported yet)")
     n, k, d = fts.shape

@@ -33,10 +33,18 @@ D-wide products (P·V; g·v and C'·g) run as 3xTF32 products, which
 :func:`split_tf32` and :func:`mm_3xtf32` mirror in plain torch (the plain
 versions take their products through ``mm``, so ``chip_smoke.py`` can show
 that the tolerances reject a single TF32 product, :func:`mm_1xtf32`).
-Tiles stage through shared memory by ``cp.async``, double-buffered. The
-row sweep keeps the scalar body of the first port. :func:`check_layout`
-raises on a tile geometry the kernels do not take
-(graph/bcsr.py:tile_error) and on arrays that are not 16-byte aligned.
+The row sweep is the forward's sweep with g·vᵀ, a 3xTF32 product, in place
+of P·V, and sums dld per row in registers. Tiles stage through shared
+memory by ``cp.async``, double-buffered. :func:`check_layout` raises on a
+tile geometry the kernels do not take (graph/bcsr.py:tile_error) and on
+arrays that are not 16-byte aligned.
+
+The kernels are instantiated at D ∈ ``KERNEL_HEAD_DIMS``; the CUDA
+wrappers take any D up to the largest: :func:`fwd_head_padded` and
+:func:`bwd_head_padded` zero-pad v's and g's head dim to the next
+instantiated one and slice out and dv back. Zero columns of v change
+neither the logits nor the softmax, and zero columns of g add nothing to
+g·v or to delta, so the padded call computes the same function.
 
 The row domain (``ld.shape[1]``) and the column domain (``ls.shape[1]``)
 come from the tensors and may differ: a graph-axis shard passes its strip
@@ -87,7 +95,7 @@ flash_bwd_launches = 0
 flash_bwd_row_launches = 0
 flash_bwd_col_launches = 0
 
-KERNEL_HEAD_DIMS = (4, 8, 16)  # the D instantiated in csrc/flash_gat.cu
+KERNEL_HEAD_DIMS = (4, 8, 16, 32)  # the D instantiated in csrc/flash_gat.cu
 V_DTYPES = (torch.float32, torch.bfloat16)  # v's types; all else is float32
 
 _M32 = 0xFFFFFFFF
@@ -286,10 +294,12 @@ def flash_bwd_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta,
     return torch.stack(dld), torch.stack(dls), torch.cat(dv, dim=1)
 
 
-def flash_bwd_row_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
-    """The row sweep: dld (K, n_rows) only."""
+def flash_bwd_row_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta,
+                        mm=torch.matmul):
+    """The row sweep: dld (K, n_rows) only (``mm`` takes g·v, as in
+    :func:`flash_bwd_plain`)."""
     return torch.stack([dzs.sum(dim=1) for _, dzs, _, _ in
-                        _bwd_terms(graph, ld, ls, v, g, lse, delta, meta, torch.matmul)])
+                        _bwd_terms(graph, ld, ls, v, g, lse, delta, meta, mm)])
 
 
 def flash_bwd_col_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
@@ -299,6 +309,65 @@ def flash_bwd_col_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashM
         dls.append(dzs.sum(dim=0))
         dv.append(c_agg.T @ g_h)
     return torch.stack(dls), torch.cat(dv, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# head dims: any D up to the largest instantiation, by zero padding
+# ---------------------------------------------------------------------------
+
+
+def padded_head_dim(d: int) -> int:
+    """The smallest instantiated head dim (``KERNEL_HEAD_DIMS``) that holds
+    D; NotImplementedError above the largest."""
+    for dp in KERNEL_HEAD_DIMS:
+        if d <= dp:
+            return dp
+    raise NotImplementedError(
+        f"head dim {d}: the flash kernels take D <= {KERNEL_HEAD_DIMS[-1]} "
+        f"(instantiated at {KERNEL_HEAD_DIMS}, smaller D zero-padded)")
+
+
+def pad_heads(x: torch.Tensor, k: int, dp: int) -> torch.Tensor:
+    """(rows, K·D) → (rows, K·dp), each head's D columns zero-padded to dp;
+    contiguous (F.pad that pads nothing returns a view)."""
+    rows = x.shape[0]
+    d = x.shape[1] // k
+    return F.pad(x.view(rows, k, d), (0, dp - d)).reshape(rows, k * dp).contiguous()
+
+
+def unpad_heads(x: torch.Tensor, k: int, d: int) -> torch.Tensor:
+    """(rows, K·dp) → (rows, K·D): the first D columns of each head."""
+    rows = x.shape[0]
+    return x.view(rows, k, -1)[:, :, :d].reshape(rows, k * d).contiguous()
+
+
+def fwd_head_padded(fwd, graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
+    """fwd (the forward kernel's wrapper, or its plain version) with v's
+    head dim padded to :func:`padded_head_dim`; out sliced back. lse does
+    not depend on v."""
+    k = ld.shape[0]
+    d = v.shape[1] // k
+    dp = padded_head_dim(d)
+    if dp == d:
+        return fwd(graph, ld, ls, v, meta)
+    out, lse = fwd(graph, ld, ls, pad_heads(v, k, dp), meta)
+    return unpad_heads(out, k, d), lse
+
+
+def bwd_head_padded(bwd, graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """bwd (a backward kernel's wrapper or plain version: dld alone, or a
+    tuple ending in dv) with v's and g's head dims padded; dv sliced back.
+    delta is formed from the unpadded g and out, which the zero columns do
+    not change."""
+    k = ld.shape[0]
+    d = v.shape[1] // k
+    dp = padded_head_dim(d)
+    if dp == d:
+        return bwd(graph, ld, ls, v, g, lse, delta, meta)
+    res = bwd(graph, ld, ls, pad_heads(v, k, dp), pad_heads(g, k, dp), lse, delta, meta)
+    if isinstance(res, tuple):
+        return (*res[:-1], unpad_heads(res[-1], k, d))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -401,8 +470,7 @@ def _raise_on(rc: int, lib, name: str) -> None:
                            f"({lib.han_error_string(rc).decode()})")
 
 
-def flash_fwd_cuda(graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
-    """The forward kernel; same contract as :func:`flash_fwd_plain`."""
+def _fwd_launch(graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
     global flash_fwd_launches
     k, d, n_rows, n_cols = _check(graph, "fwd", {
         "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF")})
@@ -443,16 +511,14 @@ def _bwd_col_sweep(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta,
     return dld, dls, dv
 
 
-def flash_bwd_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
-    """The fused backward kernel; same contract as :func:`flash_bwd_plain`."""
+def _bwd_launch(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
     global flash_bwd_launches
     out = _bwd_col_sweep(graph, ld, ls, v, g, lse, delta, meta, fuse_dld=True)
     flash_bwd_launches += 1
     return out
 
 
-def flash_bwd_row_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
-    """The row-sweep kernel; same contract as :func:`flash_bwd_row_plain`."""
+def _bwd_row_launch(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
     global flash_bwd_row_launches
     k, d, n_rows, n_cols = _check(graph, "fwd", {
         "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF"), "g": (g, "RF"),
@@ -470,12 +536,32 @@ def flash_bwd_row_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMe
     return dld
 
 
-def flash_bwd_col_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
-    """The column-sweep kernel; same contract as :func:`flash_bwd_col_plain`."""
+def _bwd_col_launch(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
     global flash_bwd_col_launches
     _, dls, dv = _bwd_col_sweep(graph, ld, ls, v, g, lse, delta, meta, fuse_dld=False)
     flash_bwd_col_launches += 1
     return dls, dv
+
+
+def flash_fwd_cuda(graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
+    """The forward kernel; same contract as :func:`flash_fwd_plain`, any D
+    up to the largest instantiation."""
+    return fwd_head_padded(_fwd_launch, graph, ld, ls, v, meta)
+
+
+def flash_bwd_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """The fused backward kernel; same contract as :func:`flash_bwd_plain`."""
+    return bwd_head_padded(_bwd_launch, graph, ld, ls, v, g, lse, delta, meta)
+
+
+def flash_bwd_row_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """The row-sweep kernel; same contract as :func:`flash_bwd_row_plain`."""
+    return bwd_head_padded(_bwd_row_launch, graph, ld, ls, v, g, lse, delta, meta)
+
+
+def flash_bwd_col_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """The column-sweep kernel; same contract as :func:`flash_bwd_col_plain`."""
+    return bwd_head_padded(_bwd_col_launch, graph, ld, ls, v, g, lse, delta, meta)
 
 
 def flash_fwd(graph, ld, ls, v, meta: FlashMeta):

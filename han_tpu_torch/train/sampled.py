@@ -21,9 +21,13 @@ configuration):
 
 Differences from han_tpu:
 
-- ``impl="auto"`` trains on ``ell_fused`` (the CUDA forward kernel), not
-  ``ell``: han_tpu chose ``ell`` only because Mosaic could not compile the
-  fused kernel's gathers on the TPU;
+- ``impl="auto"`` trains on ``ell_fused`` (the CUDA forward kernel) where
+  the kernel takes the model's feature dtype
+  (``ops/ell_fused.kernel_takes``: float32, any heads and head dim), and
+  on ``ell`` otherwise, as han_tpu always does: han_tpu chose ``ell`` only
+  because Mosaic could not compile the fused kernel's gathers on the TPU.
+  The choice depends on the model only, so the CPU and the card pick the
+  same backend;
 - the device sampler clamps its sampled offset to ``deg - 1``
   (:func:`sample_offsets`); han_tpu relies on float32 rounding to keep
   ``floor(u·deg)`` below ``deg`` and drops the slot if it does not;
@@ -52,6 +56,7 @@ from han_tpu_torch.graph.synthetic import HeteroDataset
 from han_tpu_torch.nn.layers import DropoutGenerators
 from han_tpu_torch.nn.losses import (l2_regularizer, masked_accuracy,
                                      masked_softmax_cross_entropy)
+from han_tpu_torch.ops.ell_fused import kernel_takes
 from han_tpu_torch.ops.tree_ell import tree_parent_maps
 from han_tpu_torch.train.config import Config
 from han_tpu_torch.train.trainer import EarlyStopState, MetricLogger, build_model
@@ -174,7 +179,8 @@ class SampledTrainer:
             raise ValueError(
                 "sampled training runs on the ell or ell_fused backends")
         if cfg.model.impl == "auto":
-            cfg.model.impl = "ell_fused"
+            fused = kernel_takes(getattr(torch, cfg.model.dtype))
+            cfg.model.impl = "ell_fused" if fused else "ell"
         # float32 stays full float32 on the card
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

@@ -98,10 +98,10 @@ def test_benchmarks_refuse_to_run_without_a_card(monkeypatch, script, tmp_path):
     assert not out.exists()
 
 
-@pytest.mark.parametrize("argv", [[], ["--flash-only"]])
+@pytest.mark.parametrize("argv", [[], ["--only", "flash_gat"], ["--only", "ell_fused"]])
 def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch, capsys, argv):
     """No card: chip_smoke.py exits non-zero, saying why, and prints no
-    result, with and without --flash-only."""
+    result, with and without --only."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     main = runpy.run_path("chip_smoke.py", run_name="not_main")["main"]
     with pytest.raises(SystemExit) as exc:

@@ -161,3 +161,28 @@ def test_plain_products_3xtf32_against_1xtf32(p):
     for e3, e1, w in zip(err["3x"], err["1x"], want):
         assert e3 <= 1e-6 * max(1.0, float(w.abs().max()))
         assert 10 * e3 <= e1
+
+
+@pytest.mark.parametrize("p", [0.0, 0.6])
+def test_plain_row_sweep_3xtf32_against_float64(p):
+    """The row sweep's plain version with its g·v product taken by mm_3xtf32
+    (the redesigned kernel's product), on float64 inputs, stays within f32
+    rounding of the float64 row sweep and at least chip_smoke.TF32_MARGIN =
+    10 times closer than with mm_1xtf32; the row sweep equals the fused
+    backward's dld."""
+    rng = np.random.default_rng(13)
+    n, k, d = 256, 2, 16
+    graph = bcsr_from_dense((rng.random((n, n)) < 0.4).astype(np.float32), bm=128, bn=128)
+    gen = torch.Generator().manual_seed(14)
+    rnd = lambda *s: torch.randn(*s, generator=gen, dtype=torch.float64)
+    ld, ls, v, g = rnd(k, n), rnd(k, n), rnd(n, k * d), rnd(n, k * d)
+    meta = fg.FlashMeta(dropout_p=p, seed=6)
+    out, lse = fg.flash_fwd_plain(graph, ld, ls, v, meta)
+    delta = (g * out).view(n, k, d).sum(-1).T.contiguous()
+    args = (graph, ld, ls, v, g, lse, delta, meta)
+    want = fg.flash_bwd_row_plain(*args)
+    np.testing.assert_allclose(want.numpy(), fg.flash_bwd_plain(*args)[0].numpy(), atol=1e-12)
+    e3 = float((fg.flash_bwd_row_plain(*args, mm=fg.mm_3xtf32) - want).abs().max())
+    e1 = float((fg.flash_bwd_row_plain(*args, mm=fg.mm_1xtf32) - want).abs().max())
+    assert e3 <= 1e-6 * max(1.0, float(want.abs().max()))
+    assert 10 * e3 <= e1

@@ -211,6 +211,32 @@ def test_split_backward_matches_jax(part, monkeypatch):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
 
 
+@pytest.mark.parametrize("part", ["shard", "ring_cell"])
+def test_row_sweep_3xtf32_matches_jax_split_backward(part, monkeypatch):
+    """The row sweep's plain version with mm_3xtf32 (the redesigned
+    kernel's g·v product) on a strip against _flash_bwd's split branch
+    (_FUSED_DLD_BYTES set to 0): dld at atol 1e-5, and within f32 rounding
+    of the row sweep on the same inputs in float64."""
+    monkeypatch.setattr(jfg, "_FUSED_DLD_BYTES", 0)
+    graph, jm, jtiles, off, n_rows, n_cols = strip_setup(part)
+    ld, ls, v, g = strip_inputs(n_rows, n_cols, seed=3)
+    k = ld.shape[0]
+    meta = tfg.FlashMeta(seed=1234, head_offset=3, **off)
+    tt = [torch.from_numpy(x) for x in (ld, ls, v, g)]
+    out, lse = tfg.flash_fwd_plain(graph, *tt[:3], meta)
+    delta = (tt[3] * out).view(n_rows, k, -1).sum(-1).T.contiguous()
+    dld = tfg.flash_bwd_row_plain(graph, *tt, lse, delta, meta, mm=tfg.mm_3xtf32)
+    jd = jfg._flash_bwd(*map(jnp.asarray, jm), jax_meta(off), jnp.asarray(jtiles),
+                        pad_heads(ld), pad_heads(ls), jnp.asarray(v).reshape(n_cols, k, -1),
+                        jnp.asarray(g), pad_heads(lse.numpy(), value=-1e9),
+                        pad_heads(delta.numpy()), slope=0.2, bm=128, bn=128, interpret=True)
+    assert (dld != 0).any()
+    np.testing.assert_allclose(dld.numpy(), np.asarray(jd[0])[:k], atol=1e-5)
+    f64 = [t.double() for t in (*tt, lse, delta)]
+    want = tfg.flash_bwd_row_plain(graph, *f64, meta)
+    np.testing.assert_allclose(dld.double().numpy(), want.numpy(), atol=2e-6)
+
+
 @pytest.mark.parametrize("s_n", [2, 4])
 def test_strips_and_cells_tile_the_graph(s_n):
     """tile_adjacency of the shards' strips (through perm) and of every ring

@@ -266,6 +266,24 @@ def test_device_sampler_fit_learns_and_flushes_edge_counts(small_ds):
     assert result["edges_heads_per_s"] > 0
 
 
+@pytest.mark.parametrize("dtype,impl", [("float32", "ell_fused"), ("bfloat16", "ell")])
+def test_auto_takes_ell_fused_only_where_the_kernel_takes_the_dtype(small_ds, dtype, impl):
+    """impl="auto" asks ops/ell_fused.kernel_takes (the feature dtype,
+    never the device): float32 trains on ell_fused, bf16 features on ell,
+    as han_tpu's auto always does; either fit() runs."""
+    from han_tpu_torch.ops.ell_fused import kernel_takes
+
+    cfg = small_cfg(tpreset, "auto", epochs=2)
+    cfg.model.dtype = dtype
+    t = tsampled.SampledTrainer(small_ds, cfg, batch_size=24, fanout=6, device="cpu",
+                                logger=MetricLogger(echo=False))
+    assert cfg.model.impl == impl
+    assert kernel_takes(getattr(torch, dtype)) == (impl == "ell_fused")
+    result = t.fit()
+    assert len(result["epoch_train_loss"]) == 2 and np.isfinite(result["epoch_train_loss"]).all()
+    assert np.isfinite(result["test_loss"])
+
+
 def test_run_routes_sampled_training_and_rejects_unported():
     """scripts/train_torch.py --set train.sampled=true reaches the sampled
     trainer through run(); unported options raise."""

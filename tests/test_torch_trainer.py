@@ -98,7 +98,8 @@ def test_entry_script_runs(capsys):
     assert len(result["epoch_train_loss"]) == 2
     assert 0.0 <= result["test_acc"] <= 1.0 + 1e-6  # mean-normalized mask
     assert "test_acc" in capsys.readouterr().out
-    with pytest.raises(KeyError, match="dblp_synthetic"):
+    # the raw DBLP loader is not ported: the message names the fixture
+    with pytest.raises(NotImplementedError, match="dblp_synthetic"):
         ttrainer.run(tpreset("dblp"), device="cpu")
 
 
