@@ -14,6 +14,16 @@ together, and the C++ sampler), then drives the ported paths:
   trains the dblp preset for 10 epochs on the DBLP-shaped dataset, and the
   acm preset for 2 epochs on the dataset run() loads by the name "acm"
   (acm_synthetic where ACM3025.mat is absent);
+- GAT family: writes a Pubmed-shaped Planetoid fixture
+  (datasets/planetoid.write_planetoid: 19,717 nodes, 500
+  features, 44,324 edges; about 23,000 occupied 128x128 tiles) to a
+  temporary directory and loads it by the name "pubmed"; holds the
+  preset's GAT through flash against csr, and the flash kernels against
+  their plain versions at its two layer shapes (K = D = 8; K = 1, D = 3)
+  at dropout 0 and 0.6, times both kernels there, trains the pubmed preset 10 epochs
+  through flash and again through csr; then trains the ppi preset (the
+  inductive trainer, dense attention) 3 epochs at full width on 24
+  synthetic graphs of PPI's size;
 - multi-device: in a world of torch.cuda.device_count() NCCL ranks (one
   process per card, spawned), trains the dblp preset 10 epochs with
   graph_format partitioned_bcsr, then ring_bcsr under
@@ -304,6 +314,14 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
     train_acm(dev)
 
+    # -- phase 4d: the pubmed preset's GAT through the flash kernels ---------
+    pubmed = train_pubmed(dev)
+    torch.cuda.empty_cache()
+
+    # -- phase 4e: the ppi preset at full width (dense attention) -----------
+    train_ppi(dev)
+    torch.cuda.empty_cache()
+
     # -- phase 4b: multi-device training through the partitioned backends ----
     mesh = train_multi_device(losses, cfg.train.epochs, n_mp)
 
@@ -318,13 +336,17 @@ def main(argv=None) -> None:
     # -- phase 9: the benchmark's kernels vs plain, then its f32 and bf16 arms
     for name, err in check_bench_shape(root, dev).items():
         stats[name]["err"] = max(stats[name]["err"], err)
+    for key, err in pubmed["err"].items():
+        stats[key]["err"] = max(stats[key]["err"], err)
     bench = run_bench(root)
 
-    # launches: the dblp runs (phases 4, 4a), the multi-device runs (phase
-    # 4b) and the benchmark (phase 9)
+    # launches: the dblp runs (phases 4, 4a), the pubmed run (phase 4d), the
+    # multi-device runs (phase 4b) and the benchmark (phase 9)
     part, ring = mesh["partitioned_bcsr"]["launches"], mesh["ring_bcsr"]["launches"]
-    launches = {"fwd": fwd_n + bf16_train["fwd"] + part["fwd"] + ring["fwd"] + bench["fwd"],
-                "bwd": bwd_n + bf16_train["bwd"] + part["bwd"] + bench["bwd"],
+    launches = {"fwd": (fwd_n + bf16_train["fwd"] + pubmed["launches"]["fwd"] + part["fwd"]
+                        + ring["fwd"] + bench["fwd"]),
+                "bwd": (bwd_n + bf16_train["bwd"] + pubmed["launches"]["bwd"] + part["bwd"]
+                        + bench["bwd"]),
                 "row": ring["row"], "col": ring["col"]}
     src = "han_tpu_torch/csrc/flash_gat.cu"
     tpu = "han_tpu/ops/pallas/flash_gat.py"
@@ -334,7 +356,8 @@ def main(argv=None) -> None:
          "max_abs_err": max(stats[key]["err"], bf16[key]["err"]), "ms": stats[key]["ms"],
          "plain_ms": stats[key]["plain_ms"], "bound_ms": bounds[key][0],
          "bound_by": bounds[key][1], "library_ms": library_fwd_ms if key == "fwd" else None,
-         "ms_by_dropout": stats[key]["ms_by_dropout"]}
+         "ms_by_dropout": stats[key]["ms_by_dropout"],
+         **({"pubmed": pubmed["kernels"][key]} if key in pubmed["kernels"] else {})}
         for name, key, line in (("fwd", "fwd", "97,187"), ("bwd", "bwd", 395),
                                 ("bwd_row", "row", 354), ("bwd_col", "col", 395))] + [
         {"name": "ell_fused_fwd", "route": "cuda", "source": "han_tpu_torch/csrc/ell_fused.cu",
@@ -1004,6 +1027,190 @@ def train_acm(dev) -> None:
         fail(f"acm preset: losses {losses}, test loss {result['test_loss']}")
     print(f"acm preset (run() loads \"acm\"): losses {losses[0]:.5f}, {losses[1]:.5f}, "
           f"test_acc {result['test_acc']:.4f}, {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def train_pubmed(dev, epochs: int = 10) -> dict:
+    """Phase 4d: the pubmed preset (GAT, hid 8, heads (8, 1), dropouts 0.6,
+    BCSR graphs, flash) on a Pubmed-shaped Planetoid fixture written to a
+    temporary directory and loaded by name. First the preset's GAT at
+    random weights through flash and through csr, one deterministic forward
+    and the loss gradients (csr is the oracle: atol 1e-5, rtol 1e-3). Then
+    the forward and fused backward against their plain versions at both
+    layer shapes, K = D = 8 and K = 1, D = 3 (zero-padded to 4 by the
+    wrappers), dropout 0 and 0.6, with the DBLP check's tolerances, and
+    both kernels timed at each shape at dropout 0.6 beside flash_bounds
+    (each shape's error beside its time). Then run() for ``epochs`` epochs:
+    losses finite and falling, launches exact (2 layers: forward 2·(2·epochs
+    + 1), backward 2·epochs); and the same epochs with model.impl=csr,
+    data.graph_format=csr for the step time beside flash's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from han_tpu_torch.datasets.planetoid import write_planetoid
+    from han_tpu_torch.datasets.registry import load_dataset
+    from han_tpu_torch.graph.build import metapath_to_bcsr, metapath_to_csr
+    from han_tpu_torch.nn.losses import masked_softmax_cross_entropy
+    from han_tpu_torch.ops import flash_gat as fg
+    from han_tpu_torch.train.config import preset
+    from han_tpu_torch.train.trainer import build_model, run
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_planetoid(tmp)
+        ds = load_dataset("pubmed", root=tmp)
+    adj = ds.metapath_adjs[0]
+    graph = metapath_to_bcsr(adj).to(dev)
+    n = graph.n_pad
+    print(f"pubmed fixture: {ds.n_nodes} nodes, {ds.features.shape[1]} features, "
+          f"{adj.nnz // 2} undirected edges, split {int(ds.train_mask.sum())}/"
+          f"{int(ds.val_mask.sum())}/{int(ds.test_mask.sum())}; {graph.n_edges} edges with "
+          f"self-loops in {graph.n_tiles} occupied {graph.bm}x{graph.bn} tiles of "
+          f"{graph.nb_r * graph.nb_c} (in-tile density "
+          f"{graph.n_edges / (graph.n_tiles * graph.bm * graph.bn):.5f}), n_pad {n}; written "
+          f"and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    cfg = preset("pubmed")
+    err = {"fwd": 0.0, "bwd": 0.0}
+
+    model = build_model(ds, cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    x = torch.from_numpy(ds.features).to(dev)
+    labels = torch.from_numpy(ds.labels).to(dev)
+    mask = torch.from_numpy(ds.train_mask).to(dev)
+    outs = {}
+    for impl, g in (("flash", graph), ("csr", metapath_to_csr(adj).to(dev))):
+        for layer in model.layers:
+            layer.impl = impl
+        logits = model(g, x)
+        loss = masked_softmax_cross_entropy(logits, labels, mask)
+        outs[impl] = [logits.detach(), *torch.autograd.grad(loss, list(model.parameters()))]
+    names = ["logits", *(name for name, _ in model.named_parameters())]
+    gat_err = max(check(f"pubmed GAT flash vs csr: {name}", a, b, 1e-5, 1e-3)
+                  for name, a, b in zip(names, outs["flash"], outs["csr"]))
+    del model, outs
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(dev).manual_seed(8)
+    kernels = {"fwd": {"tiles": graph.n_tiles}, "bwd": {"tiles": graph.n_tiles}}
+    for k, d in ((8, 8), (1, 3)):
+        ld, ls, v, g = dblp_inputs(gen, n, ds.n_nodes, k, d)
+        shape_err = {"fwd": 0.0, "bwd": 0.0}
+        for p in (0.0, 0.6):
+            meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=424242)
+            print(f"pubmed flash vs plain at K = {k}, D = {d}"
+                  f"{' (padded to 4)' if d == 3 else ''}, dropout {p}:", flush=True)
+            out_k, lse_k = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
+            torch.cuda.synchronize()
+            t_fwd = time.perf_counter() - t1
+            shape_err["fwd"] = max(shape_err["fwd"], check("out", out_k, out_p, 1e-5, 1e-4),
+                                   check("lse", lse_k, lse_p, 1e-5, 1e-4))
+            delta = (g * out_k).view(n, k, d).sum(-1).T.contiguous()
+            args = (graph, ld, ls, v, g, lse_k, delta, meta)
+            got = fg.flash_bwd_cuda(*args)
+            t1 = time.perf_counter()
+            want = fg.flash_bwd_plain(*args)
+            torch.cuda.synchronize()
+            t_bwd = time.perf_counter() - t1
+            shape_err["bwd"] = max(shape_err["bwd"], *(
+                check(name, a, b, 1e-4, 1e-3) for name, a, b in zip(("dld", "dls", "dv"), got, want)))
+            print(f"  plain versions, one call each: forward {t_fwd:.3f} s, fused backward "
+                  f"{t_bwd:.3f} s", flush=True)
+            del out_p, lse_p, got, want
+            torch.cuda.empty_cache()
+        # timed at dropout 0.6, the training shape: meta and args are the last p's
+        ms = {"fwd": timed(lambda: fg.flash_fwd_cuda(graph, ld, ls, v, meta)),
+              "bwd": timed(lambda: fg.flash_bwd_cuda(*args))}
+        bnd = flash_bounds(graph, k, d)
+        for key in ("fwd", "bwd"):
+            err[key] = max(err[key], shape_err[key])
+            kernels[key][f"K{k}_D{d}"] = {"ms": ms[key], "bound_ms": bnd[key][0],
+                                          "bound_by": bnd[key][1],
+                                          "max_abs_err": shape_err[key]}
+        print(f"pubmed flash at K = {k}, D = {d}, dropout 0.6: forward {ms['fwd']:.4f} ms "
+              f"(bound {bnd['fwd'][0]:.4f}, {bnd['fwd'][1]}), fused backward {ms['bwd']:.4f} ms "
+              f"(bound {bnd['bwd'][0]:.4f}, {bnd['bwd'][1]}); max_abs_err vs plain (dropout 0 "
+              f"and 0.6) forward {shape_err['fwd']:.3e}, fused backward {shape_err['bwd']:.3e}",
+              flush=True)
+        del ld, ls, v, g, out_k, lse_k, delta, args
+        torch.cuda.empty_cache()
+
+    cfg.train.epochs = epochs
+    torch.cuda.reset_peak_memory_stats(dev)
+    fg.flash_fwd_launches = 0
+    fg.flash_bwd_launches = 0
+    result = run(cfg, ds, device=dev)
+    torch.cuda.synchronize()
+    launches = {"fwd": fg.flash_fwd_launches, "bwd": fg.flash_bwd_launches}
+    losses = result["epoch_train_loss"]
+    if len(losses) != epochs or not all(np.isfinite(losses)) or not np.isfinite(result["test_loss"]):
+        fail(f"pubmed: losses {losses}, test loss {result['test_loss']}")
+    if not losses[-1] < losses[0]:
+        fail(f"pubmed: train loss did not fall: {losses[0]} -> {losses[-1]}")
+    want = {"fwd": 2 * (2 * epochs + 1), "bwd": 2 * epochs}
+    if launches != want:
+        fail(f"pubmed: launches {launches}, want {want}")
+    flash_ms = statistics.median(result["epoch_step_time_s"][1:]) * 1e3
+
+    csr = preset("pubmed")
+    csr.model.impl, csr.data.graph_format, csr.train.epochs = "csr", "csr", epochs
+    torch.cuda.reset_peak_memory_stats(dev)
+    fg.flash_fwd_launches = 0
+    res_csr = run(csr, ds, device=dev)
+    torch.cuda.synchronize()
+    if fg.flash_fwd_launches or not np.isfinite(res_csr["epoch_train_loss"]).all():
+        fail(f"pubmed csr: {fg.flash_fwd_launches} flash launches, losses "
+             f"{res_csr['epoch_train_loss']}")
+    csr_ms = statistics.median(res_csr["epoch_step_time_s"][1:]) * 1e3
+    print(f"pubmed preset: losses {losses[0]:.5f} -> {losses[-1]:.5f}, test_acc "
+          f"{result['test_acc']:.4f}; launches {launches}; median step epochs 2-{epochs}: "
+          f"flash {flash_ms:.3f} ms, csr {csr_ms:.3f} ms (csr / flash "
+          f"{csr_ms / flash_ms:.3f}); max_memory_allocated {result['max_memory_allocated']} B "
+          f"(csr {res_csr['max_memory_allocated']} B); GAT flash vs csr max_abs_err "
+          f"{gat_err:.3e}", flush=True)
+    return {"launches": launches, "err": err, "kernels": kernels}
+
+
+def train_ppi(dev, epochs: int = 3) -> None:
+    """Phase 4e: the ppi preset (GAT, hid (256, 256), heads (4, 4, 6),
+    residual, no dropout; batches of 2 graphs, dense attention) through
+    run() at full width on ppi_synthetic with PPI's shape: 24 graphs of
+    1,600-3,200 nodes (about 2,400 a graph), 50 features, 121 labels.
+    Losses finite, the train loss falling, micro-F1 in [0, 1]."""
+    import numpy as np
+    import torch
+
+    from han_tpu_torch.datasets.ppi import ppi_synthetic
+    from han_tpu_torch.train.config import preset
+    from han_tpu_torch.train.trainer import run
+
+    t0 = time.perf_counter()
+    ds = ppi_synthetic(n_graphs=24, nodes_per_graph=3200, n_feats=50, n_labels=121,
+                       avg_degree=28, seed=0)
+    sizes = ds.node_mask.sum(1)
+    print(f"ppi_synthetic: {ds.n_graphs} graphs of {sizes.min()}-{sizes.max()} nodes "
+          f"(mean {sizes.mean():.0f}), {int(ds.adj.sum())} edges, split "
+          f"{np.bincount(ds.graph_split).tolist()}, built in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    cfg = preset("ppi")
+    cfg.train.epochs = epochs
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    result = run(cfg, ds, device=dev)
+    losses = result["epoch_train_loss"]
+    if len(losses) != epochs or not all(np.isfinite(losses)) or not np.isfinite(result["test_loss"]):
+        fail(f"ppi: losses {losses}, test loss {result['test_loss']}")
+    if not losses[-1] < losses[0]:
+        fail(f"ppi: train loss did not fall: {losses}")
+    if not 0.0 <= result["test_micro_f1"] <= 1.0:
+        fail(f"ppi: test micro-F1 {result['test_micro_f1']}")
+    print(f"ppi preset ({epochs} epochs, batches of 2 graphs): losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}, test micro-F1 "
+          f"{result['test_micro_f1']:.4f}; median step {result['median_step_time_s'] * 1e3:.3f} "
+          f"ms, max_memory_allocated {result['max_memory_allocated']} B; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 CAL_COUNTERS = {"prim": "prim_launches", "fwd_strip": "fwd_strip_launches",

@@ -1,32 +1,26 @@
 """Dataset registry: name → loader (port of han_tpu/datasets/registry.py).
 
-Answers ``acm``/``acm3025`` (the ``.mat`` file when present, else the
-ACM3025-shaped fixture, as han_tpu does), ``acm_synthetic``,
-``dblp_synthetic`` (the port's DBLP-shaped fixture) and ``powerlaw``. The
-other names that han_tpu answers, and that ``train/config.py:preset``
-accepts, need loaders that are not ported yet and raise
-NotImplementedError naming them.
+Answers every name han_tpu answers, with the same fallbacks and defaults:
+``acm``/``acm3025`` (the ``.mat`` file when present, else the
+ACM3025-shaped fixture), ``acm_synthetic``, ``dblp`` (the raw files; no
+fallback), ``imdb`` (``subset="all"``) and ``imdb_strict``, ``powerlaw``,
+``ppi`` (GraphSAGE files under ``root``, default ``data_cache/ppi``, else
+``ppi_synthetic``; a MultiGraphDataset, which ``train/trainer.run`` routes
+to the inductive trainer) and ``cora``/``citeseer``/``pubmed`` (Planetoid
+shards, default root ``data_cache/planetoid``). The port adds
+``dblp_synthetic``, its DBLP-shaped fixture.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pathlib
 
 from han_tpu_torch.datasets.acm import acm_synthetic, load_acm3025
+from han_tpu_torch.datasets.ppi import MultiGraphDataset
 from han_tpu_torch.graph.synthetic import HeteroDataset, planted_hetero, powerlaw_hetero
 
 __all__ = ["acm_synthetic", "dblp_synthetic", "load_dataset"]
-
-# name → the han_tpu loader it needs
-_NOT_PORTED = {
-    "dblp": "han_tpu/datasets/dblp.py:load_dblp",
-    "imdb": "han_tpu/datasets/imdb.py:load_imdb",
-    "imdb_strict": "han_tpu/datasets/imdb.py:load_imdb",
-    "ppi": "han_tpu/datasets/ppi.py:load_ppi and ppi_synthetic",
-    "cora": "han_tpu/datasets/planetoid.py:load_planetoid",
-    "citeseer": "han_tpu/datasets/planetoid.py:load_planetoid",
-    "pubmed": "han_tpu/datasets/planetoid.py:load_planetoid",
-}
 
 
 def dblp_synthetic(seed: int = 0) -> HeteroDataset:
@@ -41,19 +35,35 @@ def dblp_synthetic(seed: int = 0) -> HeteroDataset:
     return dataclasses.replace(ds, metapath_names=("APA", "APCPA", "APTPA"))
 
 
-def load_dataset(name: str, **kwargs) -> HeteroDataset:
+def load_dataset(name: str, **kwargs) -> HeteroDataset | MultiGraphDataset:
     if name in ("acm", "acm3025"):
         return load_acm3025(**kwargs)
     if name == "acm_synthetic":
         return acm_synthetic(**kwargs)
     if name == "dblp_synthetic":
         return dblp_synthetic(**kwargs)
+    if name == "dblp":
+        from han_tpu_torch.datasets.dblp import load_dblp
+        return load_dblp(**kwargs)
+    if name == "imdb":
+        from han_tpu_torch.datasets.imdb import load_imdb
+        kwargs.setdefault("subset", "all")
+        return load_imdb(**kwargs)
+    if name == "imdb_strict":
+        from han_tpu_torch.datasets.imdb import load_imdb
+        return load_imdb(subset="strict", **kwargs)
     if name == "powerlaw":
         return powerlaw_hetero(**kwargs)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"dataset {name!r} needs {_NOT_PORTED[name]}, which is not ported yet "
-            "(ROADMAP.md queue 1); the port loads acm, acm3025, acm_synthetic, "
-            "dblp_synthetic and powerlaw")
+    if name == "ppi":
+        from han_tpu_torch.datasets.ppi import load_ppi, ppi_synthetic
+        root = pathlib.Path(kwargs.pop("root", "data_cache/ppi"))
+        if (root / "ppi-G.json").exists():
+            return load_ppi(root, **kwargs)
+        return ppi_synthetic(**kwargs)
+    if name in ("cora", "citeseer", "pubmed"):
+        from han_tpu_torch.datasets.planetoid import load_planetoid
+        kwargs.setdefault("root", "data_cache/planetoid")
+        return load_planetoid(name=name, **kwargs)
     raise KeyError(f"unknown dataset {name!r}; known: acm, acm3025, acm_synthetic, "
-                   f"dblp_synthetic, powerlaw, and not ported yet: {sorted(_NOT_PORTED)}")
+                   "dblp, dblp_synthetic, imdb, imdb_strict, ppi, powerlaw, cora, "
+                   "citeseer, pubmed")

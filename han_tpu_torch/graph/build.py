@@ -88,3 +88,29 @@ def metapath_to_bcsr(adj: sp.spmatrix, *, add_self_loops: bool = True,
     input; stores only occupied tiles, never a dense N² array."""
     a = with_self_loops(adj) if add_self_loops else adj.tocsr()
     return bcsr_from_scipy(a, bm=bm or DEF_BM, bn=bn or DEF_BN)
+
+
+def normalize_adj(adj: sp.spmatrix) -> sp.csr_matrix:
+    """Symmetric normalization D^{-1/2} A D^{-1/2} (reference
+    ``normalize_adj``, utils/process.py:144-151); zero-degree rows stay
+    zero. For GCN-style propagation add self-loops first
+    (``preprocess_adj``, utils/process.py:154-157 = normalize_adj(A + I))."""
+    a = adj.tocsr().astype(np.float64)
+    deg = np.asarray(a.sum(axis=1)).ravel()
+    inv_sqrt = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1e-12)), 0.0)
+    d = sp.diags(inv_sqrt)
+    return (d @ a @ d).tocsr().astype(np.float32)
+
+
+def preprocess_adj(adj: sp.spmatrix) -> sp.csr_matrix:
+    """normalize_adj(A + I) — reference utils/process.py:154-157."""
+    return normalize_adj(with_self_loops(adj))
+
+
+def row_normalize_features(x: np.ndarray) -> np.ndarray:
+    """Row-normalize a feature matrix (reference preprocess_features,
+    utils/process.py:134-141); zero rows stay zero."""
+    x = np.asarray(x, dtype=np.float32)
+    s = x.sum(axis=1, keepdims=True)
+    inv = np.where(s > 0, 1.0 / np.maximum(s, 1e-12), 0.0)
+    return x * inv

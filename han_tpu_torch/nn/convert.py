@@ -1,5 +1,5 @@
 """Parameter conversion between han_tpu's flax trees and this package's
-``state_dict``s, for HAN and GATConv.
+``state_dict``s, for HAN, GAT and GATConv.
 
 The torch modules keep the flax parameter names and shapes; only the
 submodule paths differ:
@@ -7,6 +7,7 @@ submodule paths differ:
     tower_{p}/GATConv_{i}/…   ↔  towers.{p}.layers.{i}.…
     SemanticAttention_0/…     ↔  semantic.…
     classifier_{i}/…          ↔  classifiers.{i}.…
+    GATConv_{i}/… (GAT)       ↔  layers.{i}.…
 
 A bare GATConv tree maps name for name.
 """
@@ -21,10 +22,12 @@ import torch
 
 _TO_TORCH = [(r"^tower_(\d+)\.GATConv_(\d+)\.", r"towers.\1.layers.\2."),
              (r"^SemanticAttention_0\.", "semantic."),
-             (r"^classifier_(\d+)\.", r"classifiers.\1.")]
+             (r"^classifier_(\d+)\.", r"classifiers.\1."),
+             (r"^GATConv_(\d+)\.", r"layers.\1.")]
 _TO_FLAX = [(r"^towers\.(\d+)\.layers\.(\d+)\.", r"tower_\1.GATConv_\2."),
             (r"^semantic\.", "SemanticAttention_0."),
-            (r"^classifiers\.(\d+)\.", r"classifier_\1.")]
+            (r"^classifiers\.(\d+)\.", r"classifier_\1."),
+            (r"^layers\.(\d+)\.", r"GATConv_\1.")]
 
 
 def _rename(name: str, rules) -> str:

@@ -1,7 +1,12 @@
-"""HAN: heterogeneous graph attention network (port of han_tpu/nn/models.py
-:62-183; reference CG-Labs/HAN ``HeteGAT_multi.inference``, gat.py:34-77):
-independent GAT towers per meta-path, semantic attention fusion, and a
-classifier that averages n_heads[-1] Dense layers."""
+"""The model family (port of han_tpu/nn/models.py:31-183):
+
+- :class:`GAT` ↔ reference ``GAT.inference`` (gat.py:8-32): multi-head
+  concat layers, then an output layer whose heads project to n_classes and
+  are averaged.
+- :class:`HAN` ↔ reference ``HeteGAT_multi.inference`` (gat.py:34-77):
+  independent GAT towers per meta-path, semantic attention fusion, and a
+  classifier that averages n_heads[-1] Dense layers.
+"""
 
 from __future__ import annotations
 
@@ -31,8 +36,9 @@ class Dense(nn.Module):
 
 
 class _MetapathTower(nn.Module):
-    """One per-meta-path GAT stack: n_heads[0] concat heads at hid_units[0],
-    then optional deeper layers (reference gat.py:42-57)."""
+    """One per-meta-path GAT stack: n_heads[0] concat heads at hid_units[0]
+    without a residual, then the deeper layers with ``residual`` (reference
+    gat.py:14-23,42-57)."""
 
     def __init__(self, in_dim: int, hid_units: Sequence[int],
                  n_heads: Sequence[int], *, activation: Callable,
@@ -54,6 +60,29 @@ class _MetapathTower(nn.Module):
         for layer in self.layers:
             h = layer(graph, h, deterministic=deterministic, rngs=rngs)
         return h
+
+
+class GAT(_MetapathTower):
+    """Homogeneous multi-layer GAT: ``forward(graph, x)`` → logits (N, C).
+    A tower's layers, then an output layer of n_heads[-1] heads at
+    n_classes with an identity activation and the head mean (reference
+    gat.py:24-30). ``dtype`` is the layers' compute type (see
+    ``GATConv``)."""
+
+    def __init__(self, in_dim: int, n_classes: int, *,
+                 hid_units: Sequence[int] = (8,), n_heads: Sequence[int] = (8, 1),
+                 activation: Callable = F.elu, residual: bool = False,
+                 attn_drop: float = 0.0, ffd_drop: float = 0.0,
+                 impl: Impl = "auto", dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        common = dict(attn_drop=attn_drop, ffd_drop=ffd_drop, impl=impl, dtype=dtype,
+                      generator=generator)
+        super().__init__(in_dim, hid_units, n_heads, activation=activation,
+                         residual=residual, **common)
+        last = len(hid_units) - 1
+        self.layers.append(GATConv(hid_units[last] * n_heads[last], n_classes, n_heads[-1],
+                                   activation=lambda v: v, residual=False,
+                                   concat_heads=False, **common))
 
 
 class HAN(nn.Module):

@@ -16,7 +16,7 @@ from typing import Sequence
 
 @dataclasses.dataclass
 class ModelConfig:
-    arch: str = "han"  # han | han_shared | gat (only han is ported)
+    arch: str = "han"  # han | han_shared | gat (han_shared is not ported)
     hid_units: Sequence[int] = (8,)
     n_heads: Sequence[int] = (8, 1)
     semantic_dim: int = 128  # mp_att_size (gat.py:37)

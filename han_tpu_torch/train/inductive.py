@@ -1,0 +1,167 @@
+"""Inductive multi-graph trainer, PPI-style (port of
+han_tpu/train/inductive.py:29-281 on one device): GAT over padded graph
+batches with the multi-label sigmoid loss and micro-F1 (reference
+base_gattn.py:50-59,71-94; batching semantics from utils/process_ppi.py).
+
+The B graphs of a batch run as a loop over ``DenseGraph``s (han_tpu vmaps
+them); the logits are stacked and the per-graph losses averaged. Not
+ported yet: checkpoint/resume, the preemption guard and data-parallel
+batches over a mesh.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+import warnings
+from typing import Any
+
+import numpy as np
+import torch
+
+from han_tpu_torch.datasets.ppi import MultiGraphDataset
+from han_tpu_torch.graph.containers import DenseGraph
+from han_tpu_torch.nn.layers import DropoutGenerators
+from han_tpu_torch.nn.losses import l2_regularizer, masked_sigmoid_cross_entropy, micro_f1
+from han_tpu_torch.nn.models import GAT
+from han_tpu_torch.utils.device import resolve_device
+
+
+class InductiveTrainer:
+    """GAT training on whole graphs of a MultiGraphDataset: Adam over
+    batches of ``batch_size`` train graphs, early stopping on validation
+    micro-F1 and loss, restore-best-then-test."""
+
+    def __init__(self, ds: MultiGraphDataset, *, hid_units=(256, 256),
+                 n_heads=(4, 4, 6), lr=0.005, l2_coef=0.0, residual=True,
+                 attn_drop: float = 0.0, ffd_drop: float = 0.0,
+                 patience: int | None = None, impl: str = "auto",
+                 batch_size: int = 2, seed: int = 0,
+                 device: torch.device | str | None = None, logger=None):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.ds = ds
+        self.device = resolve_device(device)
+        self.batch_size = batch_size
+        self.l2_coef = l2_coef
+        self.patience = patience
+        self.logger = logger
+        self.seed = seed
+        if impl not in ("auto", "dense"):
+            # the padded multi-graph batch (G, N_max, N_max) holds one dense
+            # adjacency per component (reference process_ppi.py pads dense
+            # adjs)
+            warnings.warn(f"InductiveTrainer ignores impl={impl!r}: padded "
+                          "multi-graph batching is dense by design")
+        self.use_dropout = attn_drop > 0.0 or ffd_drop > 0.0
+        self.rngs = DropoutGenerators(
+            device=torch.Generator(self.device).manual_seed(seed + 1),
+            host=torch.Generator().manual_seed(seed + 1))
+        self.model = GAT(ds.features.shape[-1], ds.labels.shape[-1], hid_units=hid_units,
+                         n_heads=n_heads, residual=residual, impl="dense",
+                         attn_drop=attn_drop, ffd_drop=ffd_drop,
+                         generator=torch.Generator().manual_seed(seed)).to(self.device)
+        self.opt = torch.optim.Adam(self.model.parameters(), lr=lr)
+        self._splits: dict[str, tuple[torch.Tensor, ...]] = {}
+
+    def _split(self, which: str) -> tuple[torch.Tensor, ...]:
+        """(adj, features, labels, node_mask) of a split, on the device."""
+        if which not in self._splits:
+            self._splits[which] = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                                        for a in self.ds.split(which))
+        return self._splits[which]
+
+    def _batches(self, which: str, rng: np.random.Generator | None = None):
+        """Batches of batch_size graphs, shuffled by rng when given; the
+        last batch is padded with zero-node graphs, which the node masks
+        leave out of the loss."""
+        arrays = self._split(which)
+        idx = np.arange(arrays[0].shape[0])
+        if rng is not None:
+            rng.shuffle(idx)
+        b = self.batch_size
+        for s in range(0, len(idx), b):
+            sel = torch.from_numpy(idx[s:s + b]).to(self.device)
+            pad = b - sel.numel()
+            yield tuple(torch.cat([a[sel], a.new_zeros((pad,) + a.shape[1:])]) if pad else a[sel]
+                        for a in arrays)
+
+    def _apply(self, adj_b, x_b, *, train: bool) -> torch.Tensor:
+        """(B, N_max, C) logits, one DenseGraph a graph."""
+        n_max = adj_b.shape[1]
+        drop = train and self.use_dropout
+        return torch.stack([
+            self.model(DenseGraph(adj=adj, n_nodes=n_max), x, deterministic=not drop,
+                       rngs=self.rngs if drop else None)
+            for adj, x in zip(adj_b, x_b)])
+
+    def _loss(self, logits, y_b, m_b) -> torch.Tensor:
+        per_graph = torch.stack([masked_sigmoid_cross_entropy(lg, y, m)
+                                 for lg, y, m in zip(logits, y_b, m_b)])
+        return per_graph.mean()
+
+    def train_step(self, adj_b, x_b, y_b, m_b) -> torch.Tensor:
+        """One Adam step on a batch; returns the loss (device tensor)."""
+        self.opt.zero_grad(set_to_none=True)
+        loss = (self._loss(self._apply(adj_b, x_b, train=True), y_b, m_b)
+                + l2_regularizer(self.model.parameters(), self.l2_coef))
+        loss.backward()
+        self.opt.step()
+        return loss.detach()
+
+    @torch.no_grad()
+    def evaluate(self, which: str) -> dict[str, float]:
+        """Mean over the split's batches of the loss and the micro-F1."""
+        losses, f1s = [], []
+        for adj_b, x_b, y_b, m_b in self._batches(which):
+            logits = self._apply(adj_b, x_b, train=False)
+            losses.append(float(self._loss(logits, y_b, m_b)))
+            c = logits.shape[-1]
+            f1s.append(float(micro_f1(logits.reshape(-1, c), y_b.reshape(-1, c),
+                                      m_b.reshape(-1))))
+        return {"loss": float(np.mean(losses)), "micro_f1": float(np.mean(f1s))}
+
+    def fit(self, epochs: int = 20, *, log=None) -> dict[str, Any]:
+        emit = log if log is not None else (
+            self.logger.log if self.logger is not None else print)
+        history, step_times = [], []
+        best = {"f1": -1.0, "loss": np.inf, "state": None, "epoch": -1}
+        bad_epochs = 0
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
+        for epoch in range(epochs):
+            t0 = time.perf_counter()
+            losses = []
+            rng = np.random.default_rng(self.seed * 1_000_003 + epoch)
+            for batch in self._batches("train", rng):
+                t1 = time.perf_counter()
+                losses.append(float(self.train_step(*batch)))  # waits for the step
+                step_times.append(time.perf_counter() - t1)
+            val = self.evaluate("val")
+            history.append({"epoch": epoch, "train_loss": float(np.mean(losses)),
+                            **{f"val_{k}": v for k, v in val.items()},
+                            "time_s": round(time.perf_counter() - t0, 3)})
+            emit(history[-1])
+            # reference-style early stop (ex_acm3025.py:225-240 adapted to
+            # micro-F1): keep the parameters on strict best; patience on
+            # either metric matching its best
+            is_best = val["micro_f1"] >= best["f1"] and val["loss"] <= best["loss"]
+            improved_any = val["micro_f1"] >= best["f1"] or val["loss"] <= best["loss"]
+            if is_best:
+                best.update(f1=val["micro_f1"], loss=val["loss"], epoch=epoch,
+                            state={k: v.detach().clone()
+                                   for k, v in self.model.state_dict().items()})
+            bad_epochs = 0 if improved_any else bad_epochs + 1
+            if self.patience is not None and bad_epochs > self.patience:
+                break
+        if best["state"] is not None:
+            # restore-best-then-test (reference ex_acm3025.py:247)
+            self.model.load_state_dict(best["state"])
+        test = self.evaluate("test")
+        result = {"history": history, "best_epoch": best["epoch"],
+                  **{f"test_{k}": v for k, v in test.items()},
+                  "epoch_train_loss": [h["train_loss"] for h in history],
+                  "median_step_time_s": statistics.median(step_times) if step_times else None}
+        if self.device.type == "cuda":
+            result["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.device)
+        return result

@@ -14,7 +14,10 @@ reference early-stopping policy (ex_acm3025.py:225-240):
   parameters and evaluate on the test nodes.
 
 ``run()`` routes ``cfg.train.sampled`` to the sampled mini-batch trainer
-(train/sampled.py).
+(train/sampled.py) and a MultiGraphDataset (``ppi``) to the inductive
+trainer (train/inductive.py). ``model.arch`` is ``han`` or ``gat`` (one
+graph, the first meta-path's). After the test evaluation a HAN run scores
+the test nodes' embedding with KNN and KMeans (train/eval_embed.py).
 
 Graph-axis multi-device training (``cfg.mesh.graph_axis`` = S = the world
 size of the process group, one process per device): the graphs are
@@ -23,11 +26,11 @@ partitioned (``partitioned_bcsr`` or ``bcsr`` → parallel/flash_shard.py,
 rank builds the same model from ``cfg.train.seed``, draws the same dropout
 streams and runs the model outside attention replicated, so the
 collectives inside attention leave every rank with the same gradients and
-parameters. Only rank 0 logs. Both partitioned formats are also accepted
-at S = 1 (a 1-shard partition, with or without a process group). Not
-ported yet: checkpoint/resume, KNN/KMeans embedding evaluation, the
-inductive trainer, the heads and mp mesh axes, the csr/ring (segment-op)
-partitions and data-parallel sampled training.
+parameters. Only rank 0 logs and scores the embedding. Both partitioned
+formats are also accepted at S = 1 (a 1-shard partition, with or without a
+process group). Not ported yet: checkpoint/resume, the heads and mp mesh
+axes, the csr/ring (segment-op) partitions, data-parallel sampled and
+inductive training, and ``arch="han_shared"``.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from han_tpu_torch.datasets.ppi import MultiGraphDataset
 from han_tpu_torch.datasets.registry import load_dataset
 from han_tpu_torch.graph.bcsr import DEF_BM, DEF_BN
 from han_tpu_torch.graph.build import (metapath_to_bcsr, metapath_to_csr,
@@ -51,11 +55,12 @@ from han_tpu_torch.graph.synthetic import HeteroDataset
 from han_tpu_torch.nn.layers import DropoutGenerators
 from han_tpu_torch.nn.losses import (l2_regularizer, masked_accuracy,
                                      masked_softmax_cross_entropy)
-from han_tpu_torch.nn.models import HAN
+from han_tpu_torch.nn.models import GAT, HAN
 from han_tpu_torch.parallel.flash_shard import partition_bcsr
 from han_tpu_torch.parallel.mesh import Mesh, make_mesh
 from han_tpu_torch.parallel.ring_bcsr import ring_partition_bcsr
 from han_tpu_torch.train.config import Config
+from han_tpu_torch.train.eval_embed import kmeans_eval, knn_eval
 from han_tpu_torch.utils.device import resolve_device
 
 PARTITIONED_FORMATS = ("partitioned_bcsr", "ring_bcsr")
@@ -110,17 +115,20 @@ def build_graphs(ds: HeteroDataset, cfg: Config, device: torch.device | str = "c
 def build_model(ds: HeteroDataset, cfg: Config,
                 generator: torch.Generator | None = None) -> nn.Module:
     m = cfg.model
-    if m.arch != "han":
-        raise NotImplementedError(f"arch {m.arch!r} is not ported (han only)")
     if m.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"model.dtype {m.dtype!r} is not float32 or bfloat16")
     in_dim = ds.n_nodes if cfg.data.featype == "adj" else ds.features.shape[1]
-    return HAN(in_dim, ds.n_classes, len(ds.metapath_adjs),
-               hid_units=tuple(m.hid_units), n_heads=tuple(m.n_heads),
-               semantic_dim=m.semantic_dim, residual=m.residual,
-               attn_drop=m.attn_drop, ffd_drop=m.ffd_drop, impl=m.impl,
-               dtype=getattr(torch, m.dtype), vmap_towers=m.vmap_towers,
-               generator=generator)
+    common = dict(hid_units=tuple(m.hid_units), n_heads=tuple(m.n_heads),
+                  residual=m.residual, attn_drop=m.attn_drop, ffd_drop=m.ffd_drop,
+                  impl=m.impl, dtype=getattr(torch, m.dtype), generator=generator)
+    if m.arch == "han":
+        return HAN(in_dim, ds.n_classes, len(ds.metapath_adjs),
+                   semantic_dim=m.semantic_dim, vmap_towers=m.vmap_towers, **common)
+    if m.arch == "gat":
+        return GAT(in_dim, ds.n_classes, **common)
+    if m.arch == "han_shared":
+        raise NotImplementedError("arch 'han_shared' (HANShared) is not ported yet")
+    raise ValueError(f"unknown arch {m.arch!r}")
 
 
 @dataclasses.dataclass
@@ -165,8 +173,10 @@ class MetricLogger:
 
 
 class Trainer:
-    """Full-graph HAN training on one device (CUDA unless ``device="cpu"``),
-    or on this rank's device of a graph-axis mesh."""
+    """Full-graph HAN or GAT training on one device (CUDA unless
+    ``device="cpu"``), or on this rank's device of a graph-axis mesh. A GAT
+    runs on graph 0 and features 0, as han_tpu's ``_apply`` does: its
+    logits are its embedding, and it logs zero semantic alphas."""
 
     def __init__(self, ds: HeteroDataset, cfg: Config, *,
                  device: torch.device | str | None = None,
@@ -184,9 +194,9 @@ class Trainer:
             # matches the backend
             self.mesh = make_mesh(graph=cfg.mesh.graph_axis, device=self.device)
             self.device = self.mesh.device
-        coordinator = self.mesh is None or self.mesh.rank == 0
+        self.coordinator = self.mesh is None or self.mesh.rank == 0
         self.logger = logger or MetricLogger(
-            cfg.train.log_file if coordinator else "", echo=coordinator)
+            cfg.train.log_file if self.coordinator else "", echo=self.coordinator)
         self.graphs = build_graphs(ds, cfg, self.device, mesh=self.mesh)
         self.model = build_model(
             ds, cfg, generator=torch.Generator().manual_seed(cfg.train.seed)
@@ -204,29 +214,39 @@ class Trainer:
                       (("train", ds.train_mask), ("val", ds.val_mask),
                        ("test", ds.test_mask))}
         self._total_edges = int(sum(a.nnz for a in ds.metapath_adjs))
+        self._is_han = cfg.model.arch.startswith("han")
         self.opt = torch.optim.Adam(self.model.parameters(), lr=cfg.train.lr)
         self.rngs = DropoutGenerators(
             device=torch.Generator(self.device).manual_seed(cfg.train.seed + 1),
             host=torch.Generator().manual_seed(cfg.train.seed + 1))
 
+    def _apply(self, *, deterministic: bool, rngs: DropoutGenerators | None = None):
+        """(logits, embedding, alphas (N, P) or None)."""
+        if self._is_han:
+            return self.model(self.graphs, self.xs, deterministic=deterministic, rngs=rngs)
+        logits = self.model(self.graphs[0], self.xs[0], deterministic=deterministic, rngs=rngs)
+        return logits, logits, None
+
     def train_step(self):
         """One Adam step on the train nodes; returns (loss, acc, mean
-        semantic alphas) as device tensors, from the pre-update forward."""
+        semantic alphas, zeros for a GAT) as device tensors, from the
+        pre-update forward."""
         self.opt.zero_grad(set_to_none=True)
-        logits, _, alphas = self.model(self.graphs, self.xs,
-                                       deterministic=False, rngs=self.rngs)
+        logits, _, alphas = self._apply(deterministic=False, rngs=self.rngs)
         loss = (masked_softmax_cross_entropy(logits, self.labels, self.masks["train"])
                 + l2_regularizer(self.model.parameters(), self.cfg.train.l2_coef))
         loss.backward()
         self.opt.step()
         with torch.no_grad():
             acc = masked_accuracy(logits, self.labels, self.masks["train"])
-            return loss.detach(), acc, alphas.mean(dim=0)
+            mean_alphas = (alphas.mean(dim=0) if alphas is not None
+                           else logits.new_zeros(len(self.graphs)))
+            return loss.detach(), acc, mean_alphas
 
     @torch.no_grad()
     def eval_step(self, mask: torch.Tensor):
         """(loss, acc, logits, embedding) at the current parameters."""
-        logits, embed, _ = self.model(self.graphs, self.xs, deterministic=True)
+        logits, embed, _ = self._apply(deterministic=True)
         loss = masked_softmax_cross_entropy(logits, self.labels, mask)
         return loss, masked_accuracy(logits, self.labels, mask), logits, embed
 
@@ -268,7 +288,7 @@ class Trainer:
 
         # restore best & final evaluation (ex_acm3025.py:247-291)
         self.model.load_state_dict(best["state"])
-        ts_loss, ts_acc, _, _ = self.eval_step(self.masks["test"])
+        ts_loss, ts_acc, _, embed = self.eval_step(self.masks["test"])
         result = {
             "test_loss": float(ts_loss), "test_acc": float(ts_acc),
             "best_epoch": best["epoch"],
@@ -277,6 +297,10 @@ class Trainer:
         }
         if self.device.type == "cuda":
             result["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.device)
+        if self._is_han and self.coordinator:  # every rank holds the same embedding
+            test = self.masks["test"]
+            result.update(knn_eval(embed[test], self.labels[test], seed=cfg.seed))
+            result.update(kmeans_eval(embed[test], self.labels[test], seed=cfg.seed))
         self.logger.log(result)
         result["epoch_train_loss"] = train_losses
         result["epoch_step_time_s"] = step_times
@@ -286,15 +310,31 @@ class Trainer:
         return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
 
 
-def run(cfg: Config, ds: HeteroDataset | None = None, *,
+def run(cfg: Config, ds: HeteroDataset | MultiGraphDataset | None = None, *,
         device: torch.device | str | None = None) -> dict[str, Any]:
     """One-call train+eval entry point (the ex_acm3025.py equivalent), on
-    the card unless ``device="cpu"``. ``cfg.train.sampled`` selects
-    mini-batch neighbor-sampled training over ELL blocks, sampled on the
-    host or (``train.sampler=device``) on the device."""
+    the card unless ``device="cpu"``. A MultiGraphDataset (the ``ppi``
+    name) trains inductively (train/inductive.py); ``cfg.train.sampled``
+    selects mini-batch neighbor-sampled training over ELL blocks, sampled
+    on the host or (``train.sampler=device``) on the device."""
     device = resolve_device(device)
     if ds is None:
         ds = load_dataset(cfg.data.dataset)
+    if isinstance(ds, MultiGraphDataset):
+        if cfg.mesh.graph_axis > 1:
+            raise NotImplementedError(
+                "data-parallel inductive training (mesh.graph_axis > 1) is not ported yet")
+        from han_tpu_torch.train.inductive import InductiveTrainer
+
+        trainer = InductiveTrainer(
+            ds, hid_units=tuple(cfg.model.hid_units), n_heads=tuple(cfg.model.n_heads),
+            lr=cfg.train.lr, l2_coef=cfg.train.l2_coef, residual=cfg.model.residual,
+            attn_drop=cfg.model.attn_drop, ffd_drop=cfg.model.ffd_drop,
+            patience=cfg.train.patience, impl=cfg.model.impl,
+            batch_size=max(2, cfg.mesh.graph_axis), seed=cfg.train.seed, device=device,
+            logger=MetricLogger(cfg.train.log_file))
+        result = trainer.fit(epochs=cfg.train.epochs)
+        return {k: v for k, v in result.items() if k != "history"}
     if cfg.train.sampled:
         from han_tpu_torch.train.sampled import SampledTrainer
 

@@ -9,14 +9,23 @@ han_tpu/utils/prof.py):
 - ``checked(fn)`` — raises when an output is not finite;
 - ``device_memory_stats`` — per-card memory snapshot;
 - ``StepTimer`` — host-clock step timer that ends each step in
-  ``torch.cuda.synchronize()``.
+  ``torch.cuda.synchronize()``;
+- ``profile_steps(step, steps)`` — the profile reader of the
+  ``scripts/prof_*_torch.py`` scripts: host-clock step times, then a
+  profiler window read per step;
+- ``card()`` and ``write_runs`` — the card's name and power limit, and the
+  scripts' report.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import json
 import os
+import pathlib
+import statistics
+import subprocess
 import time
 from typing import Callable
 
@@ -110,3 +119,70 @@ class StepTimer:
     def median(self) -> float:
         s = sorted(self.times)
         return s[len(s) // 2] if s else float("nan")
+
+
+def profile_steps(step: Callable, steps: int, warmup: int = 3, window: int = 5) -> dict:
+    """Where the time of ``step()`` goes on the card. ``step()`` runs one
+    train step and returns its loss as a device tensor; each call ends in
+    ``float(loss)``. After ``warmup`` untimed steps: the median of ``steps``
+    steps on the host clock, then a ``torch.profiler`` window of ``window``
+    steps, read per step: device time (the self time of every CUDA event:
+    kernels, copies, fills), kernel launches (``cudaLaunchKernel`` calls),
+    the collectives (c10d ops) with their host self time and that of
+    ``record_param_comms`` around them, the ops with the most host self
+    time and the device events with the most device time. The device
+    share is device time / median step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        float(step())
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        float(step())
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(window):
+            float(step())
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    per_step = lambda us: us / window / 1e3  # profiler µs over the window → ms a step
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    cuda = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_ms = per_step(sum(e.self_device_time_total for e in cuda))
+    c10d = [e for e in cpu if e.key.startswith("c10d::")]
+    comms = [e for e in cpu if e.key == "record_param_comms"]
+    median_ms = statistics.median(times) * 1e3
+    return {
+        "steps": steps, "median_step_ms": median_ms, "min_step_ms": min(times) * 1e3,
+        "device_ms": device_ms, "device_share": device_ms / median_ms,
+        "kernel_launches": sum(e.count for e in cpu if e.key == "cudaLaunchKernel") / window,
+        "collectives": {e.key: e.count / window for e in c10d},
+        "collective_host_ms": per_step(sum(e.self_cpu_time_total for e in c10d)),
+        "record_param_comms_host_ms": per_step(sum(e.self_cpu_time_total for e in comms)),
+        "fills": sum(e.count for e in cpu if e.key == "aten::fill_") / window,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "top_host_ops": [(e.key[:48], per_step(e.self_cpu_time_total), e.count / window)
+                         for e in sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:12]],
+        "top_device_ops": [(e.key[:64], per_step(e.self_device_time_total), e.count / window)
+                           for e in sorted(cuda, key=lambda e: -e.self_device_time_total)[:12]],
+    }
+
+
+def card() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def write_runs(out: str, card_line: str, runs: list[dict]) -> None:
+    """Print one JSON line per run and write them all, with the card, to
+    ``out`` (its directory made as needed)."""
+    for r in runs:
+        print(json.dumps(r), flush=True)
+    path = pathlib.Path(out)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps({"card": card_line, "runs": runs}, indent=1))

@@ -1,12 +1,15 @@
-"""Train HAN with han_tpu_torch on one device (the card unless ``--device
-cpu``), or on a graph-axis mesh of one process per device — the PyTorch
-counterpart of scripts/train.py.
+"""Train HAN or GAT with han_tpu_torch on one device (the card unless
+``--device cpu``), or on a graph-axis mesh of one process per device — the
+PyTorch counterpart of scripts/train.py. ``--dataset`` takes every preset
+name (ppi trains inductively; cora, citeseer and pubmed train a GAT).
 
     python3 scripts/train_torch.py --dataset dblp_synthetic
     python3 scripts/train_torch.py --dataset dblp_synthetic --set train.epochs=10
     python3 scripts/train_torch.py --dataset dblp_synthetic --set model.dtype=bfloat16
     python3 scripts/train_torch.py --dataset acm_synthetic --set data.graph_format=csr --set model.impl=csr
     python3 scripts/train_torch.py --device cpu --dataset acm_synthetic --set train.epochs=2
+    python3 scripts/train_torch.py --dataset ppi --set train.epochs=3
+    python3 scripts/train_torch.py --dataset pubmed   # Planetoid shards in data_cache/planetoid
     torchrun --nproc-per-node 4 scripts/train_torch.py --dataset dblp_synthetic \
         --set mesh.graph_axis=4 --set data.graph_format=ring_bcsr
 

@@ -112,8 +112,8 @@ def test_pick_tiles_rules():
 def test_port_imports_no_jax():
     """The port (every module, the sampled path's, the multi-device and
     the calibration ones included), its entry scripts, the benchmark, the
-    calibration script and the chip smoke test load neither jax nor
-    han_tpu."""
+    calibration script and the chip smoke test load neither jax, han_tpu
+    nor scikit-learn."""
     code = (
         "import importlib, pathlib, pkgutil, runpy, sys\n"
         "import han_tpu_torch\n"
@@ -123,6 +123,7 @@ def test_port_imports_no_jax():
         "runpy.run_path('scripts/train_torch.py', run_name='not_main')\n"
         "runpy.run_path('scripts/bench_scale_torch.py', run_name='not_main')\n"
         "runpy.run_path('scripts/prof_mesh_torch.py', run_name='not_main')\n"
+        "runpy.run_path('scripts/prof_gat_torch.py', run_name='not_main')\n"
         "runpy.run_path('scripts/cal_vpu_torch.py', run_name='not_main')\n"
         "runpy.run_path('bench_torch.py', run_name='not_main')\n"
         "import han_tpu_torch.ops.calibrate, han_tpu_torch.graph.reorder\n"
@@ -131,8 +132,24 @@ def test_port_imports_no_jax():
         "import han_tpu_torch.parallel.mesh, han_tpu_torch.parallel.launch\n"
         "import han_tpu_torch.parallel.flash_shard, han_tpu_torch.parallel.ring_bcsr\n"
         "import han_tpu_torch.parallel.dryrun\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'han_tpu.'))"
-        " or m == 'han_tpu']\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'han_tpu', 'sklearn')"
+        " or m.startswith(('jax.', 'han_tpu.', 'sklearn.'))]\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=str(
         __import__("pathlib").Path(__file__).resolve().parent.parent))
+
+
+def test_port_sources_import_no_jax_han_tpu_or_sklearn():
+    """No line of the port's modules, chip_smoke.py or the *_torch.py
+    scripts imports jax, han_tpu or scikit-learn, inside a function
+    included (the import check above sees only what importing loads)."""
+    import pathlib
+    import re
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    files = [*(root / "han_tpu_torch").rglob("*.py"), root / "chip_smoke.py",
+             root / "bench_torch.py", *(root / "scripts").glob("*_torch.py")]
+    pattern = re.compile(r"^\s*(from|import)\s+(jax|han_tpu|sklearn)(\.|\s|$)")
+    bad = [f"{f.relative_to(root)}:{i}" for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1) if pattern.match(line)]
+    assert len(files) > 30 and not bad, bad

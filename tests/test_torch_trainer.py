@@ -90,7 +90,7 @@ def test_fit_with_dropout_logs_and_restores_best(tiny_ds, tmp_path):
     np.testing.assert_allclose(float(vl), epochs[best]["val_loss"], rtol=1e-5)
 
 
-def test_entry_script_runs(capsys):
+def test_entry_script_runs(capsys, tmp_path, monkeypatch):
     """scripts/train_torch.py's CLI: preset + overrides → run()."""
     main = runpy.run_path("scripts/train_torch.py", run_name="not_main")["main"]
     result = main(["--device", "cpu", "--dataset", "acm_synthetic", "--set",
@@ -98,8 +98,12 @@ def test_entry_script_runs(capsys):
     assert len(result["epoch_train_loss"]) == 2
     assert 0.0 <= result["test_acc"] <= 1.0 + 1e-6  # mean-normalized mask
     assert "test_acc" in capsys.readouterr().out
-    # the raw DBLP loader is not ported: the message names the fixture
-    with pytest.raises(NotImplementedError, match="dblp_synthetic"):
+    # the raw DBLP files are not in the repository: no fallback
+    from han_tpu_torch.datasets import base
+
+    monkeypatch.setattr(base, "CACHE_DIR", tmp_path)
+    monkeypatch.setattr(base, "REFERENCE_DATA", tmp_path)
+    with pytest.raises(FileNotFoundError, match="author_label"):
         ttrainer.run(tpreset("dblp"), device="cpu")
 
 
