@@ -137,17 +137,18 @@ def time_per_iter(fn, iters: int, outer: int = 5) -> float:
 
 def device_ms_per_iter(fn, iters: int = PROFILED) -> float | None:
     """Device ms per call of fn: the self device time of every CUDA event in
-    a torch.profiler window of ``iters`` calls; None where it records none."""
+    a torch.profiler window of ``iters`` calls (utils/prof.device_events:
+    no annotation range); None where it records none."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from han_tpu_torch.utils.prof import device_events
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
+    us = sum(e.self_device_time_total for e in device_events(prof.key_averages()))
     return us / iters / 1e3 if us else None
 
 

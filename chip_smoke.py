@@ -11,9 +11,13 @@ together, and the C++ sampler), then drives the ported paths:
   to 4 by the wrappers), and on the strips of a 4-way partition of DBLP's
   largest meta-path (every shard of partition_bcsr, and ring cells with a
   non-zero column offset); checks a small HAN against the dense path;
-  trains the dblp preset for 10 epochs on the DBLP-shaped dataset, and the
-  acm preset for 2 epochs on the dataset run() loads by the name "acm"
-  (acm_synthetic where ACM3025.mat is absent);
+  trains the dblp preset for 10 epochs on the DBLP-shaped dataset with its
+  train and eval steps captured as CUDA graphs (train/graphed.py: epoch 0
+  eager, then replays), checks that the flash kernels' seed buffers hold a
+  new seed at every replay, profiles the step captured and eager, and
+  holds 10 captured epochs at dropout 0 to 10 eager ones (CAPTURE_TOL);
+  then the acm preset for 2 epochs on the dataset run() loads by the name
+  "acm" (acm_synthetic where ACM3025.mat is absent);
 - GAT family: writes a Pubmed-shaped Planetoid fixture
   (datasets/planetoid.write_planetoid: 19,717 nodes, 500
   features, 44,324 edges; about 23,000 occupied 128x128 tiles) to a
@@ -21,24 +25,32 @@ together, and the C++ sampler), then drives the ported paths:
   preset's GAT through flash against csr, and the flash kernels against
   their plain versions at its two layer shapes (K = D = 8; K = 1, D = 3)
   at dropout 0 and 0.6, times both kernels there, trains the pubmed preset 10 epochs
-  through flash and again through csr; then trains the ppi preset (the
-  inductive trainer, dense attention) 3 epochs at full width on 24
-  synthetic graphs of PPI's size;
+  through flash and again through csr, captured, and profiles both steps
+  captured and eager; then trains the ppi preset (the inductive trainer,
+  eager; dense attention) 3 epochs at full width on 24 synthetic graphs of
+  PPI's size;
 - multi-device: in a world of torch.cuda.device_count() NCCL ranks (one
   process per card, spawned), trains the dblp preset 10 epochs with
   graph_format partitioned_bcsr, then ring_bcsr under
   torch.use_deterministic_algorithms(True) (the split backward), and holds
-  both loss trajectories against the one-device run;
+  both loss trajectories against the one-device run (the mesh runs
+  eagerly); then, on one card under deterministic mode at dropout 0, the
+  captured split-backward step twice (is it bitwise repeatable?) and
+  eagerly;
 - sampled: holds the ell_fused kernel against its plain version at the
   sampled block's shape (and at a large odd fanout, at D = 3 and at K·D =
   256), trains the 100M-edge
   sampled configuration (500,000 nodes, 2 meta-paths of degree 100, acm
   preset widths, batch 512, fanout 16, the host sampler, impl ell_fused)
-  for 2 epochs through run(), and runs 10 steps of the device sampler.
+  for 2 epochs through run(), runs 10 steps of the device sampler
+  (captured), and holds the device sampler with steps_per_call 4 (one
+  graph of 4 steps) against 1 at dropout 0 over 2 epochs of 16 steps
+  (SAMPLED_CHUNK_TOL), with both median steps.
 
 - bf16 features: the flash kernels with bf16 v against their plain
   versions at the DBLP shape (dropout 0 and 0.6), and 3 epochs of the dblp
-  preset with model.dtype=bfloat16;
+  preset with model.dtype=bfloat16, captured, and its step profiled
+  captured and eager;
 - calibration: builds csrc/calibrate.cu with the other sources, holds each
   of its four kernels against its plain version (all 14 primitive (op,
   dtype) pairs and the three strip bodies, R = 64; the bf16 strip's
@@ -51,7 +63,9 @@ together, and the C++ sampler), then drives the ported paths:
   calibrated in the same process), each printing its JSON line.
 
 The launch counters, set to 0 before each path and read after it, show
-that every step went through the kernels. Kernel times are device times:
+that every step went through the kernels; a replayed graph adds the
+launches its capture recorded. Every step time is printed beside the
+card's name and power limit. Kernel times are device times:
 launches queued back to back behind a spin kernel that is checked to
 outlast the queueing (``timed``); the plain versions wait on the card
 inside, so their times include the host's. Each kernel's ``bound_ms`` is
@@ -256,7 +270,7 @@ def main(argv=None) -> None:
         return
     for p in (0.0, 0.6):
         tf32_control(f"DBLP, dropout {p}", graph, ld, ls, v, g,
-                     fg.FlashMeta(slope=0.2, dropout_p=p, seed=1234567))
+                     fg.FlashMeta(slope=0.2, dropout_p=p, seed=fg.seed_tensor(1234567, dev)))
     torch.cuda.empty_cache()
     library_fwd_ms = sdpa_yardstick(graph, ld, ls, v, k, d)
     bf16 = check_flash_bf16(graph, ld, ls, v, g, k, d)
@@ -288,6 +302,8 @@ def main(argv=None) -> None:
     result = run(cfg, ds, device=dev)
     torch.cuda.synchronize()
     fwd_n, bwd_n = fg.flash_fwd_launches, fg.flash_bwd_launches
+    if not result["captured"]:
+        fail("the dblp preset's steps were not captured as CUDA graphs")
     losses = result["epoch_train_loss"]
     if len(losses) != cfg.train.epochs or not all(np.isfinite(losses)):
         fail(f"train losses not finite or short: {losses}")
@@ -302,20 +318,23 @@ def main(argv=None) -> None:
     if fwd_n != want_fwd or bwd_n != n_mp * cfg.train.epochs:
         fail(f"launch counts fwd {fwd_n} (want {want_fwd}), bwd {bwd_n} "
              f"(want {n_mp * cfg.train.epochs})")
-    print(f"train: losses {losses[0]:.5f} -> {losses[-1]:.5f}, test_acc "
+    print(f"train (captured): losses {losses[0]:.5f} -> {losses[-1]:.5f}, test_acc "
           f"{result['test_acc']:.4f}; launches fwd {fwd_n} bwd {bwd_n} = "
           f"{n_mp} fwd + {n_mp} bwd per train step", flush=True)
-    print(f"train: median step time epochs 2-10 "
-          f"{statistics.median(result['epoch_step_time_s'][1:]) * 1e3:.3f} ms, "
-          f"max_memory_allocated {result['max_memory_allocated']} B", flush=True)
+    print(f"train (captured): median step time epochs 2-10 "
+          f"{statistics.median(result['epoch_step_time_s'][1:]) * 1e3:.4f} ms, "
+          f"max_memory_allocated {result['max_memory_allocated']} B; {card}", flush=True)
 
-    bf16_train = train_bf16(ds, dev, n_mp)
+    # -- phase 4f: the captured step against the eager one ------------------
+    check_dblp_capture(ds, dev, card)
+
+    bf16_train = train_bf16(ds, dev, n_mp, card)
     del ds, graph
     torch.cuda.empty_cache()
     train_acm(dev)
 
     # -- phase 4d: the pubmed preset's GAT through the flash kernels ---------
-    pubmed = train_pubmed(dev)
+    pubmed = train_pubmed(dev, card)
     torch.cuda.empty_cache()
 
     # -- phase 4e: the ppi preset at full width (dense attention) -----------
@@ -327,7 +346,7 @@ def main(argv=None) -> None:
 
     # -- phases 5-7: the sampled path ------------------------------------------
     ell = check_ell_fused(dev)
-    ell_n = train_sampled(dev, native)
+    ell_n = train_sampled(dev, native, card)
 
     # -- phase 8: the calibration kernels, then the calibration run ---------
     cal_stats = check_calibration(dev)
@@ -409,7 +428,7 @@ def check_dblp(graph, ld, ls, v, g, ps=(0.0, 0.6)) -> dict:
     d = v.shape[1] // k
     stats = {name: {"err": 0.0, "ms_by_dropout": {}} for name in ("fwd", "bwd", "row", "col")}
     for p in ps:
-        meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=1234567)
+        meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=fg.seed_tensor(1234567, ld.device))
         print(f"D = {d}, dropout {p}:", flush=True)
         out_k, lse_k = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
         out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
@@ -529,7 +548,7 @@ def check_strips(dev, adj) -> dict:
         print(f"{label}: {n_rows} x {n_cols}, {int(graph.fwd_count.sum())} tiles, "
               f"offsets {off}", flush=True)
         for p in (0.0, 0.6):
-            meta = fg.FlashMeta(dropout_p=p, seed=7654321, **off)
+            meta = fg.FlashMeta(dropout_p=p, seed=fg.seed_tensor(7654321, dev), **off)
             out, lse = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
             out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
             errs["fwd"] = max(errs["fwd"], check(f"p={p} out", out, out_p, 1e-5, 1e-4),
@@ -605,7 +624,7 @@ def check_head_dims(dev) -> dict:
         ld, ls, v32, g = rnd(k, n), rnd(k, n), rnd(n, k * d), rnd(n, k * d)
         for v in (v32, v32.to(torch.bfloat16)):
             for p in (0.0, 0.6):
-                meta = fg.FlashMeta(dropout_p=p, seed=99, head_offset=3)
+                meta = fg.FlashMeta(dropout_p=p, seed=fg.seed_tensor(99, dev), head_offset=3)
                 tag = f"D={d} v {str(v.dtype).split('.')[-1]} p={p}"
                 out, lse = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
                 out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
@@ -632,10 +651,129 @@ def check_head_dims(dev) -> dict:
     return errs
 
 
+# eager against captured at dropout 0: the fused backward sums dld with
+# atomics in a varying order, and the captured step's Adam forms its bias
+# correction on the card in float32 (capturable) where the eager one takes it
+# on the host in float64, so the trajectories differ in the last bits and
+# drift apart as Adam amplifies them (3.7e-6 relative after 10 epochs, NVIDIA
+# H100 80GB HBM3, 700.00 W)
+CAPTURE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def profile_trainer(label: str, make, card: str) -> dict:
+    """utils/prof.profile_steps of the trainer ``make()`` builds (3 warm-up
+    steps: a captured trainer runs the first eagerly and captures on the
+    second, so the 9 timed steps and the profiled 5 are replays): median
+    step, device time and share, launches a step (kernel launches plus
+    graph launches), peak memory since the trainer was built; one line
+    with the card."""
+    import torch
+
+    from han_tpu_torch.utils.prof import profile_steps
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = make()
+    st = profile_steps(lambda: t.train_step()[0], steps=9)
+    st["captured"] = t.capture
+    print(f"{label}, {'captured' if t.capture else 'eager'}: median step "
+          f"{st['median_step_ms']:.4f} ms, device {st['device_ms']:.4f} ms (share "
+          f"{st['device_share']:.3f}), launches a step {st['launches']:g} "
+          f"({st['kernel_launches']:g} kernels, {st['graph_launches']:g} graphs), "
+          f"max_memory_allocated {st['max_memory_allocated']} B; {card}", flush=True)
+    del t
+    return st
+
+
+def check_dblp_capture(ds, dev, card: str) -> None:
+    """Phase 4f: the dblp preset's captured step against its eager one.
+    The flash kernels' seed buffers (the tensors draw_seed returned during
+    the capture, read after each replay) hold new seeds at every replay;
+    each step profiled captured and eager at the preset's dropouts 0.6;
+    then, at dropout 0, 10 epochs of fit() eager, captured, and captured
+    with Adam(fused=True), whose loss trajectories agree within
+    CAPTURE_TOL, their medians of epochs 2-10 and device time a step."""
+    import numpy as np
+    import torch
+
+    from han_tpu_torch.ops import flash_gat as fg
+    from han_tpu_torch.train.config import preset
+    from han_tpu_torch.train.trainer import MetricLogger, Trainer
+    from han_tpu_torch.utils.prof import profile_steps
+
+    def trainer(capture, dropout=None, epochs=10):
+        cfg = preset("dblp")
+        cfg.train.epochs, cfg.train.log_file = epochs, ""
+        if dropout is not None:
+            cfg.model.attn_drop = cfg.model.ffd_drop = dropout
+        return Trainer(ds, cfg, device=dev, logger=MetricLogger(echo=False), capture=capture)
+
+    drawn = []
+    draw = fg.draw_seed
+
+    def recording(p, gen):
+        seed = draw(p, gen)
+        if isinstance(seed, torch.Tensor):
+            drawn.append(seed)
+        return seed
+
+    t = trainer(None)
+    fg.draw_seed = recording
+    try:
+        reads = []
+        for call in range(4):  # eager, capture + replay, replay, replay
+            float(t.train_step()[0])
+            if call:
+                reads.append([int(x) for x in drawn[3:6]])
+    finally:
+        fg.draw_seed = draw
+    if len(drawn) != 6 or t._train.replays != 3:
+        fail(f"flash seeds: {len(drawn)} drawn, {t._train.replays} replays (want 6, 3)")
+    for a, b in zip(reads, reads[1:]):
+        if any(x == y for x, y in zip(a, b)):
+            fail(f"a flash seed buffer holds the same seed over two replays: {reads}")
+    print(f"dblp captured: the flash seed buffers after replays 1-3: {reads} (each new)",
+          flush=True)
+    del t
+    for capture in (None, False):
+        profile_trainer("dblp step (dropout 0.6)", lambda: trainer(capture), card)
+
+    # eager, captured, and captured with Adam's fused kernel (a lever the
+    # trainer does not take: timed here, its numerics held to the others)
+    fits = {}
+    for name, capture in (("eager", False), ("captured", None), ("captured, fused Adam", None)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = trainer(capture, dropout=0.0)
+        if name.endswith("fused Adam"):
+            t.opt = torch.optim.Adam(t.model.parameters(), lr=t.cfg.train.lr, capturable=True,
+                                     fused=True)
+        fits[name] = t.fit()
+        fits[name]["device_ms"] = profile_steps(lambda: t.train_step()[0], steps=3)["device_ms"]
+        del t
+    eager = fits["eager"]["epoch_train_loss"]
+    for name in ("captured", "captured, fused Adam"):
+        got = fits[name]["epoch_train_loss"]
+        if not fits[name]["captured"] or not np.allclose(got, eager, **CAPTURE_TOL):
+            fail(f"dblp at dropout 0: {name} losses {got} against eager {eager}")
+        print(f"dblp at dropout 0, 10 epochs, {name}: losses within {CAPTURE_TOL} of eager "
+              f"(largest relative difference "
+              f"{max(abs(a - b) / abs(a) for a, b in zip(eager, got)):.3e})", flush=True)
+    for name, r in fits.items():
+        print(f"dblp at dropout 0, {name}: median step epochs 2-10 "
+              f"{statistics.median(r['epoch_step_time_s'][1:]) * 1e3:.4f} ms, device "
+              f"{r['device_ms']:.4f} ms a step (profiled after the fit), max_memory_allocated "
+              f"{r['max_memory_allocated']} B; {card}", flush=True)
+
+
 def mesh_train_rank(epochs: int) -> dict:
     """One rank of phase 4b: the dblp preset through run() with
     graph_format partitioned_bcsr, then ring_bcsr under deterministic mode;
-    each run's losses, step time, memory and launch counts."""
+    each run's losses, step time, memory and launch counts. Then, on this
+    rank's card alone (bcsr), deterministic mode at dropout 0: the split
+    backward captured twice and run eagerly once, for whether the captured
+    step repeats bitwise."""
     import torch
     import torch.distributed as dist
 
@@ -666,6 +804,24 @@ def mesh_train_rank(epochs: int) -> dict:
                     "median_step_ms": statistics.median(result["epoch_step_time_s"][1:]) * 1e3,
                     "max_memory_allocated": result["max_memory_allocated"],
                     "launches": {k: getattr(fg, v) for k, v in counters.items()}}
+    from han_tpu_torch.train.trainer import MetricLogger, Trainer
+
+    for name, capture in (("captured", None), ("captured again", None), ("eager", False)):
+        cfg = preset("dblp")
+        cfg.train.epochs, cfg.train.log_file = epochs, ""
+        cfg.model.attn_drop = cfg.model.ffd_drop = 0.0
+        for attr in counters.values():
+            setattr(fg, attr, 0)
+        torch.use_deterministic_algorithms(True)
+        try:
+            result = Trainer(ds, cfg, logger=MetricLogger(echo=False), capture=capture).fit()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out[f"deterministic {name}"] = {
+            "losses": result["epoch_train_loss"], "captured": result["captured"],
+            "median_step_ms": statistics.median(result["epoch_step_time_s"][1:]) * 1e3,
+            "launches": {k: getattr(fg, v) for k, v in counters.items()}}
     return out
 
 
@@ -693,6 +849,8 @@ def train_multi_device(want_losses, epochs: int, n_mp: int) -> dict:
     want = {"partitioned_bcsr": {"fwd": passes, "bwd": n_mp * epochs, "row": 0, "col": 0},
             "ring_bcsr": {"fwd": world * passes, "bwd": 0, "row": world * n_mp * epochs,
                           "col": world * n_mp * epochs}}
+    det = {name: res.pop(f"deterministic {name}")
+           for name in ("captured", "captured again", "eager")}
     for fmt, run in res.items():
         got = run["losses"]
         if not np.allclose(got, want_losses, rtol=2e-4, atol=2e-5):
@@ -705,6 +863,20 @@ def train_multi_device(want_losses, epochs: int, n_mp: int) -> dict:
               f"one-device run {dev:.3e}; launches {run['launches']}; median step "
               f"{run['median_step_ms']:.3f} ms, max_memory_allocated "
               f"{run['max_memory_allocated']} B", flush=True)
+    split = {"fwd": passes, "bwd": 0, "row": n_mp * epochs, "col": n_mp * epochs}
+    for name, run in det.items():
+        if run["captured"] != (name != "eager") or run["launches"] != split:
+            fail(f"deterministic {name}: captured {run['captured']}, launches "
+                 f"{run['launches']} (want {split})")
+    cap, again, eager = (det[k]["losses"] for k in ("captured", "captured again", "eager"))
+    if not np.allclose(cap, eager, **CAPTURE_TOL):
+        fail(f"deterministic dblp at dropout 0: captured {cap}, eager {eager}")
+    print(f"deterministic dblp at dropout 0 (split backward, one card): two captured runs "
+          f"{'bitwise equal' if cap == again else 'NOT bitwise equal'} (largest difference "
+          f"{max(abs(a - b) for a, b in zip(cap, again)):.3e}); captured against eager: "
+          f"largest relative difference {max(abs(a - b) / abs(b) for a, b in zip(cap, eager)):.3e} "
+          f"(capturable Adam); median step captured {det['captured']['median_step_ms']:.4f} ms, "
+          f"eager {det['eager']['median_step_ms']:.4f} ms; launches {split}", flush=True)
     return res
 
 
@@ -822,11 +994,15 @@ def check_ell_fused(dev, shapes=ELL_SHAPES) -> dict:
     return out
 
 
-def train_sampled(dev, native) -> int:
+def train_sampled(dev, native, card: str) -> int:
     """Phase 7: the 100M-edge sampled configuration through run() for 2
     epochs with the host sampler and impl ell_fused; then the host/device
-    split of its step; then 10 steps of the device sampler. Returns the
-    ell_fused launches of the 2-epoch run."""
+    split of its step; then 10 steps of the device sampler through run()
+    (captured). Phase 7b: the device sampler with steps_per_call 4
+    against 1 at dropout 0, 2 epochs of 16 steps each (cut from the
+    configuration's 30), whose per-step losses agree within
+    SAMPLED_CHUNK_TOL; both median steps, their device split and launches.
+    Returns the ell_fused launches of the 2-epoch run."""
     import numpy as np
     import torch
 
@@ -835,7 +1011,7 @@ def train_sampled(dev, native) -> int:
     from han_tpu_torch.ops import tree_ell
     from han_tpu_torch.train.config import preset
     from han_tpu_torch.train.sampled import SampledTrainer, step_breakdown
-    from han_tpu_torch.train.trainer import run
+    from han_tpu_torch.train.trainer import MetricLogger, run
 
     if not native.available():
         fail("the C++ sampler is not in use (han_tpu_torch.native.available() is false)")
@@ -896,14 +1072,68 @@ def train_sampled(dev, native) -> int:
     want_calls = n_mp * (10 + 1 + 2_048 // 512)
     if not np.isfinite(res["epoch_train_loss"]).all() or not np.isfinite(res["test_loss"]):
         fail(f"device-sampler losses not finite: {res['epoch_train_loss']}")
-    if tree_ell.tree_ell_calls != want_calls or ef.ell_fused_launches:
+    if tree_ell.tree_ell_calls != want_calls or ef.ell_fused_launches or not res["captured"]:
         fail(f"device sampler: {tree_ell.tree_ell_calls} tree attention calls (want "
-             f"{want_calls}), {ef.ell_fused_launches} ell_fused launches (want 0)")
-    print(f"device sampler: train loss {res['epoch_train_loss'][0]:.5f}, test_acc "
+             f"{want_calls}), {ef.ell_fused_launches} ell_fused launches (want 0), "
+             f"captured {res['captured']}")
+    print(f"device sampler (captured): train loss {res['epoch_train_loss'][0]:.5f}, test_acc "
           f"{res['test_acc']:.4f}, median step {res['median_step_time_s'] * 1e3:.3f} ms, "
           f"sampled edges·heads/s {res['edges_heads_per_s']:.1f}; every block through "
           f"tree attention ({tree_ell.tree_ell_calls} calls)", flush=True)
+
+    # -- phase 7b: steps_per_call 4 against 1 -------------------------------
+    steps, epochs = 16, 2
+    ds16 = dataclasses.replace(ds, train_mask=np.arange(ds.n_nodes) < steps * 512)
+    del ds, ds10
+    runs = {}
+    for spc in (1, 4):
+        cfg = cfg_for("device", epochs)
+        cfg.model.attn_drop = cfg.model.ffd_drop = 0.0
+        torch.cuda.reset_peak_memory_stats(dev)
+        tree_ell.tree_ell_calls = 0
+        t0 = time.perf_counter()
+        t = SampledTrainer(ds16, cfg, batch_size=512, fanout=16, sampler="device",
+                           steps_per_call=spc, device=dev, logger=MetricLogger(echo=False))
+        t_build = time.perf_counter() - t0
+        r = t.fit()
+        torch.cuda.synchronize()
+        r["tree_calls"] = tree_ell.tree_ell_calls
+        r["replays"] = {c: step.replays for c, step in t._train_steps.items()}
+        r["split"] = step_breakdown(t, np.where(ds16.train_mask)[0])
+        r["build_s"] = t_build
+        runs[spc] = r
+        del t
+        torch.cuda.empty_cache()
+    want_calls = n_mp * (epochs * steps + epochs * 1 + 2_048 // 512)
+    one, four = runs[1]["step_train_loss"], runs[4]["step_train_loss"]
+    for spc, r in runs.items():
+        if (r["tree_calls"] != want_calls or not r["captured"] or len(r["step_train_loss"])
+                != epochs * steps or not np.isfinite(r["step_train_loss"]).all()):
+            fail(f"steps_per_call {spc}: {r['tree_calls']} tree attention calls (want "
+                 f"{want_calls}), captured {r['captured']}, losses {r['step_train_loss']}")
+    if sorted(runs[4]["replays"]) != [4] or not runs[4]["replays"][4]:
+        fail(f"steps_per_call 4: dispatch replays {runs[4]['replays']} (want only 4-step graphs)")
+    if not np.allclose(four, one, **SAMPLED_CHUNK_TOL):
+        fail(f"steps_per_call 4 against 1: per-step losses {four} against {one}")
+    print(f"device sampler, steps_per_call 4 against 1 (dropout 0, {epochs} epochs of {steps} "
+          f"steps): per-step losses within {SAMPLED_CHUNK_TOL} (largest difference "
+          f"{max(abs(a - b) for a, b in zip(one, four)):.3e}); {runs[4]['replays']} replays of "
+          f"the 4-step graph; trainer built in {runs[1]['build_s']:.2f} / "
+          f"{runs[4]['build_s']:.2f} s", flush=True)
+    for spc, r in runs.items():
+        sp = r["split"]
+        print(f"device sampler, steps_per_call {spc}: median step "
+              f"{r['median_step_time_s'] * 1e3:.4f} ms, device {sp['device_ms']:.4f} ms a step "
+              f"(share {sp['device_ms'] / (r['median_step_time_s'] * 1e3):.3f}), launches a step "
+              f"{sp['kernel_launches']:g} kernels + {sp['graph_launches']:g} graphs, "
+              f"max_memory_allocated {r['max_memory_allocated']} B; {card}", flush=True)
     return launches
+
+
+# steps_per_call 4 against 1: the same steps, kernels and order (the tree
+# attention's backward gathers, no atomics), one graph of 4 steps against
+# 4 of one
+SAMPLED_CHUNK_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
 def sdpa_yardstick(graph, ld, ls, v, k, d) -> float:
@@ -950,7 +1180,7 @@ def check_flash_bf16(graph, ld, ls, v, g, k, d) -> dict:
     v16 = v.to(torch.bfloat16)
     out = {key: {"err": 0.0} for key in ("fwd", "bwd", "row", "col")}
     for p in (0.0, 0.6):
-        meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=1234567)
+        meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=fg.seed_tensor(1234567, ld.device))
         print(f"bf16 v, dropout {p}:", flush=True)
         out_k, lse_k = fg.flash_fwd_cuda(graph, ld, ls, v16, meta)
         out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v16, meta)
@@ -975,15 +1205,16 @@ def check_flash_bf16(graph, ld, ls, v, g, k, d) -> dict:
     return out
 
 
-def train_bf16(ds, dev, n_mp: int) -> dict:
+def train_bf16(ds, dev, n_mp: int, card: str) -> dict:
     """Phase 4a: the dblp preset with model.dtype=bfloat16 for 3 epochs
-    through run(): losses finite and falling, launch counts exact."""
+    through run(), captured from epoch 1: losses finite and falling, launch
+    counts exact; then its step profiled captured and eager."""
     import numpy as np
     import torch
 
     from han_tpu_torch.ops import flash_gat as fg
     from han_tpu_torch.train.config import preset
-    from han_tpu_torch.train.trainer import run
+    from han_tpu_torch.train.trainer import MetricLogger, Trainer, run
 
     cfg = preset("dblp")
     cfg.model.dtype = "bfloat16"
@@ -999,12 +1230,15 @@ def train_bf16(ds, dev, n_mp: int) -> dict:
     if not losses[-1] < losses[0]:
         fail(f"bf16 train loss did not fall: {losses}")
     want = {"fwd": n_mp * (2 * 3 + 1), "bwd": n_mp * 3}
-    if n != want:
-        fail(f"bf16 train launches {n}, want {want}")
-    print(f"bf16 train (model.dtype=bfloat16, 3 epochs): losses "
+    if n != want or not result["captured"]:
+        fail(f"bf16 train launches {n}, want {want}; captured {result['captured']}")
+    print(f"bf16 train (model.dtype=bfloat16, 3 epochs, captured): losses "
           f"{', '.join(f'{x:.5f}' for x in losses)}, test_acc {result['test_acc']:.4f}; "
           f"launches {n}; median step {result['median_step_time_s'] * 1e3:.3f} ms, "
           f"max_memory_allocated {result['max_memory_allocated']} B", flush=True)
+    for capture in (None, False):
+        profile_trainer("dblp bf16 step (dropout 0.6)", lambda: Trainer(
+            ds, cfg, device=dev, logger=MetricLogger(echo=False), capture=capture), card)
     return n
 
 
@@ -1029,7 +1263,7 @@ def train_acm(dev) -> None:
           f"test_acc {result['test_acc']:.4f}, {time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def train_pubmed(dev, epochs: int = 10) -> dict:
+def train_pubmed(dev, card: str, epochs: int = 10) -> dict:
     """Phase 4d: the pubmed preset (GAT, hid 8, heads (8, 1), dropouts 0.6,
     BCSR graphs, flash) on a Pubmed-shaped Planetoid fixture written to a
     temporary directory and loaded by name. First the preset's GAT at
@@ -1039,10 +1273,11 @@ def train_pubmed(dev, epochs: int = 10) -> dict:
     layer shapes, K = D = 8 and K = 1, D = 3 (zero-padded to 4 by the
     wrappers), dropout 0 and 0.6, with the DBLP check's tolerances, and
     both kernels timed at each shape at dropout 0.6 beside flash_bounds
-    (each shape's error beside its time). Then run() for ``epochs`` epochs:
-    losses finite and falling, launches exact (2 layers: forward 2·(2·epochs
-    + 1), backward 2·epochs); and the same epochs with model.impl=csr,
-    data.graph_format=csr for the step time beside flash's."""
+    (each shape's error beside its time). Then run() for ``epochs`` epochs,
+    captured: losses finite and falling, launches exact (2 layers: forward
+    2·(2·epochs + 1), backward 2·epochs); and the same epochs with
+    model.impl=csr, data.graph_format=csr for the step time beside flash's.
+    Last, each of the two steps profiled captured and eager."""
     import tempfile
 
     import numpy as np
@@ -1054,7 +1289,7 @@ def train_pubmed(dev, epochs: int = 10) -> dict:
     from han_tpu_torch.nn.losses import masked_softmax_cross_entropy
     from han_tpu_torch.ops import flash_gat as fg
     from han_tpu_torch.train.config import preset
-    from han_tpu_torch.train.trainer import build_model, run
+    from han_tpu_torch.train.trainer import MetricLogger, Trainer, build_model, run
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1096,7 +1331,7 @@ def train_pubmed(dev, epochs: int = 10) -> dict:
         ld, ls, v, g = dblp_inputs(gen, n, ds.n_nodes, k, d)
         shape_err = {"fwd": 0.0, "bwd": 0.0}
         for p in (0.0, 0.6):
-            meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=424242)
+            meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=fg.seed_tensor(424242, dev))
             print(f"pubmed flash vs plain at K = {k}, D = {d}"
                   f"{' (padded to 4)' if d == 3 else ''}, dropout {p}:", flush=True)
             out_k, lse_k = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
@@ -1150,8 +1385,8 @@ def train_pubmed(dev, epochs: int = 10) -> dict:
     if not losses[-1] < losses[0]:
         fail(f"pubmed: train loss did not fall: {losses[0]} -> {losses[-1]}")
     want = {"fwd": 2 * (2 * epochs + 1), "bwd": 2 * epochs}
-    if launches != want:
-        fail(f"pubmed: launches {launches}, want {want}")
+    if launches != want or not result["captured"]:
+        fail(f"pubmed: launches {launches}, want {want}; captured {result['captured']}")
     flash_ms = statistics.median(result["epoch_step_time_s"][1:]) * 1e3
 
     csr = preset("pubmed")
@@ -1169,7 +1404,12 @@ def train_pubmed(dev, epochs: int = 10) -> dict:
           f"flash {flash_ms:.3f} ms, csr {csr_ms:.3f} ms (csr / flash "
           f"{csr_ms / flash_ms:.3f}); max_memory_allocated {result['max_memory_allocated']} B "
           f"(csr {res_csr['max_memory_allocated']} B); GAT flash vs csr max_abs_err "
-          f"{gat_err:.3e}", flush=True)
+          f"{gat_err:.3e}; {card}", flush=True)
+    for label, preset_cfg in (("pubmed flash step", cfg), ("pubmed csr step", csr)):
+        for capture in (None, False):
+            profile_trainer(label, lambda: Trainer(
+                ds, preset_cfg, device=dev, logger=MetricLogger(echo=False), capture=capture),
+                card)
     return {"launches": launches, "err": err, "kernels": kernels}
 
 

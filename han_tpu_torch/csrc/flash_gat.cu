@@ -86,7 +86,9 @@
 //   (drop_half), each computed once a row or column and staged with the
 //   tile, and only the tail (drop_tail) runs once an element: the same bits
 //   as drop_bits. A template argument (DROP) keeps the hash out of the
-//   dropout-free instantiation.
+//   dropout-free instantiation. The seed is one 32-bit word in device
+//   memory, drawn there by the run's generator and read once a block, so
+//   a step replayed as a CUDA graph draws a new mask every replay.
 // - The TPU grid ran in order and carried m/l/acc and the resident dld
 //   window across steps. Here blocks run in parallel, one per (row or
 //   column block, head): a loop walks the block's occupied tiles with the
@@ -126,7 +128,7 @@ constexpr int APAD = 16;  // bytes that pad each staged adjacency row
 
 struct Drop {
   int on;
-  uint32_t seed;
+  const uint32_t* seed;  // one word in device memory, read once a block
   uint32_t thresh;  // keep iff bits < thresh = floor((1 - p) * 2^32)
   float scale;      // 1 / (1 - p)
 };
@@ -137,7 +139,7 @@ struct Offsets {
   int col_block;
 };
 
-// murmur3 finalizer; ops/flash_gat.py:_fmix32 is the same function on
+// murmur3 finalizer; ops/flash_gat.py:fmix32 is the same function on
 // int64. Its first xor-shift distributes over xor, so drop_bits(row_key,
 // col) = drop_tail(drop_half(row_key) ^ drop_half(col * GOLDEN)): the
 // redesigned kernels hash each half once a row or column and only the tail
@@ -328,7 +330,7 @@ __global__ void __launch_bounds__(512) fwd_kernel(
   const int r_lo = (tid >> 5) * 16 + gq;  // rows r_lo and r_lo + 8
   const int kd = k * D;
 
-  const uint32_t head_key = DROP ? drop_head_key(drop.seed, off.head + h) : 0u;
+  const uint32_t head_key = DROP ? drop_head_key(*drop.seed, off.head + h) : 0u;
   float ld2[2], m[2], l[2];
   uint32_t row_key[2];
 #pragma unroll
@@ -610,7 +612,7 @@ __global__ void __launch_bounds__(512) bwd_col_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) dv_acc[tile][nt][e] = 0.f;
 
-  const uint32_t head_key = DROP ? drop_head_key(drop.seed, off.head + h) : 0u;
+  const uint32_t head_key = DROP ? drop_head_key(*drop.seed, off.head + h) : 0u;
   const int count = bcount[cb];
   const int* step_row = brow + (size_t)cb * r_pitch;
   const int* step_tile = btile + (size_t)cb * r_pitch;
@@ -877,7 +879,7 @@ __global__ void __launch_bounds__(512) bwd_row_kernel(
   const int kd = k * D;
 
   // per row: ld, lse (log2 domain), delta, the dropout row key
-  const uint32_t head_key = DROP ? drop_head_key(drop.seed, off.head + h) : 0u;
+  const uint32_t head_key = DROP ? drop_head_key(*drop.seed, off.head + h) : 0u;
   float ld_r[2], lse2[2], delta_r[2], acc[2];
   uint32_t row_key[2];
 #pragma unroll
@@ -1159,11 +1161,11 @@ int bwd_entry(const void* tiles, const void* bcount, const void* brow,
               const void* v, const void* g, const void* lse,
               const void* delta, void* dld, void* dls, void* dv, int n_rows,
               int n_cols, int bm, int bn, int k, int d, int v_bf16,
-              float slope, int drop_on, unsigned seed, unsigned thresh,
+              float slope, int drop_on, const void* seed, unsigned thresh,
               float drop_scale, int row_block_off, int head_off,
               int col_block_off, void* stream) {
   if (bad_geometry(n_rows, n_cols, bm, bn, k)) return (int)cudaErrorInvalidValue;
-  const Drop drop{drop_on, seed, thresh, drop_scale};
+  const Drop drop{drop_on, (const uint32_t*)seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
   return dispatch(d, v_bf16, drop_on, [&](auto dim, auto tag, auto dropping) {
     return launch_bwd<decltype(dim)::value, FUSE_DLD, typename decltype(tag)::type,
@@ -1180,16 +1182,18 @@ extern "C" {
 // Forward. tiles int8 [T, bm, bn]; fcount int32 [nb_r]; fcol, ftile int32
 // [nb_r, c_pitch]; ld f32 [k, n_rows]; ls f32 [k, n_cols]; v f32, or bf16
 // when v_bf16, [n_cols, k*d] -> out f32 [n_rows, k*d], lse f32 [k, n_rows].
-// Every array 16-byte aligned. Returns a cudaError_t code (0 = launched).
+// seed: one uint32 in device memory, read when drop_on (may be null when
+// not). Every array 16-byte aligned. Returns a cudaError_t code (0 =
+// launched).
 int han_flash_fwd(const void* tiles, const void* fcount, const void* fcol,
                   const void* ftile, int c_pitch, const void* ld,
                   const void* ls, const void* v, void* out, void* lse,
                   int n_rows, int n_cols, int bm, int bn, int k, int d,
-                  int v_bf16, float slope, int drop_on, unsigned seed,
+                  int v_bf16, float slope, int drop_on, const void* seed,
                   unsigned thresh, float drop_scale, int row_block_off,
                   int head_off, int col_block_off, void* stream) {
   if (bad_geometry(n_rows, n_cols, bm, bn, k)) return (int)cudaErrorInvalidValue;
-  const Drop drop{drop_on, seed, thresh, drop_scale};
+  const Drop drop{drop_on, (const uint32_t*)seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
   return dispatch(d, v_bf16, drop_on, [&](auto dim, auto tag, auto dropping) {
     return launch_fwd<decltype(dim)::value, typename decltype(tag)::type,
@@ -1208,7 +1212,7 @@ int han_flash_bwd(const void* tiles, const void* bcount, const void* brow,
                   const void* ls, const void* v, const void* g,
                   const void* lse, const void* delta, void* dld, void* dls,
                   void* dv, int n_rows, int n_cols, int bm, int bn, int k,
-                  int d, int v_bf16, float slope, int drop_on, unsigned seed,
+                  int d, int v_bf16, float slope, int drop_on, const void* seed,
                   unsigned thresh, float drop_scale, int row_block_off,
                   int head_off, int col_block_off, void* stream) {
   return bwd_entry<true>(tiles, bcount, brow, btile, r_pitch, ld, ls, v, g,
@@ -1224,11 +1228,11 @@ int han_flash_bwd_row(const void* tiles, const void* fcount, const void* fcol,
                       const void* ls, const void* v, const void* g,
                       const void* lse, const void* delta, void* dld,
                       int n_rows, int n_cols, int bm, int bn, int k, int d,
-                      int v_bf16, float slope, int drop_on, unsigned seed,
+                      int v_bf16, float slope, int drop_on, const void* seed,
                       unsigned thresh, float drop_scale, int row_block_off,
                       int head_off, int col_block_off, void* stream) {
   if (bad_geometry(n_rows, n_cols, bm, bn, k)) return (int)cudaErrorInvalidValue;
-  const Drop drop{drop_on, seed, thresh, drop_scale};
+  const Drop drop{drop_on, (const uint32_t*)seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
   return dispatch(d, v_bf16, drop_on, [&](auto dim, auto tag, auto dropping) {
     return launch_bwd_row<decltype(dim)::value, typename decltype(tag)::type,
@@ -1245,7 +1249,7 @@ int han_flash_bwd_col(const void* tiles, const void* bcount, const void* brow,
                       const void* ls, const void* v, const void* g,
                       const void* lse, const void* delta, void* dls, void* dv,
                       int n_rows, int n_cols, int bm, int bn, int k, int d,
-                      int v_bf16, float slope, int drop_on, unsigned seed,
+                      int v_bf16, float slope, int drop_on, const void* seed,
                       unsigned thresh, float drop_scale, int row_block_off,
                       int head_off, int col_block_off, void* stream) {
   return bwd_entry<false>(tiles, bcount, brow, btile, r_pitch, ld, ls, v, g,

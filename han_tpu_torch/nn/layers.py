@@ -34,13 +34,13 @@ from han_tpu_torch.ops.attention import Impl, attention_aggregate
 
 @dataclasses.dataclass
 class DropoutGenerators:
-    """The random streams of one training run. ``device`` draws the input,
-    feature and (dense/csr) coefficient dropout masks where the tensors
-    live; ``host`` is a CPU generator that draws the flash kernels' dropout
-    seeds, so drawing one needs no device-to-host sync."""
+    """The random streams of one training run. ``device`` draws, where the
+    tensors live, the input, feature and coefficient dropout masks and the
+    flash kernels' dropout seeds (device tensors), so no draw needs a
+    device-to-host sync and a step captured as a CUDA graph with this
+    generator registered draws anew at every replay."""
 
     device: torch.Generator
-    host: torch.Generator
 
 
 def glorot_uniform_(t: torch.Tensor, generator: torch.Generator | None = None):
@@ -126,7 +126,6 @@ class GATConv(nn.Module):
             graph, fts_agg, logit_dst, logit_src, slope=self.slope,
             coef_dropout=drop_coef,
             generator=rngs.device if rngs is not None else None,
-            seed_generator=rngs.host if rngs is not None else None,
             impl=self.impl, return_coefs=return_coefs)
         if return_coefs:
             agg, coefs = agg

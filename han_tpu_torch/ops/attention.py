@@ -196,15 +196,15 @@ def attention_aggregate(
     slope: float = 0.2,
     coef_dropout: float = 0.0,
     generator: torch.Generator | None = None,
-    seed_generator: torch.Generator | None = None,
     impl: Impl = "auto",
     return_coefs: bool = False,
 ):
     """Dispatch on graph container type / requested implementation.
 
-    ``generator`` draws the dense, csr, ell, ell_fused and tree dropout
-    masks on the features' device; ``seed_generator`` (CPU) draws the flash
-    kernels' dropout seed. ``auto`` sends a BCSRGraph to flash (no
+    ``generator`` draws, on the features' device, the dense, csr, ell,
+    ell_fused and tree dropout masks and the flash kernels' dropout seed
+    (a device tensor: no host round trip, so a captured step draws anew at
+    every replay). ``auto`` sends a BCSRGraph to flash (no
     flash-vs-csr crossover has been measured on the H100 yet) and an
     EllGraph to ell, as han_tpu does.
     """
@@ -223,13 +223,13 @@ def attention_aggregate(
             raise NotImplementedError("return_coefs unsupported on PartitionedBCSR")
         return sharded_flash_attention(
             graph, fts, logit_dst, logit_src, slope=slope,
-            coef_dropout=coef_dropout, generator=seed_generator)
+            coef_dropout=coef_dropout, generator=generator)
     if isinstance(graph, RingBCSR):
         if return_coefs:
             raise NotImplementedError("return_coefs unsupported on RingBCSR")
         return ring_flash_attention(
             graph, fts, logit_dst, logit_src, slope=slope,
-            coef_dropout=coef_dropout, generator=seed_generator)
+            coef_dropout=coef_dropout, generator=generator)
     if impl == "auto":
         if isinstance(graph, DenseGraph):
             impl = "dense"
@@ -266,5 +266,5 @@ def attention_aggregate(
     if impl == "flash":
         return flash_gat_attention(
             graph, fts, logit_dst, logit_src, slope=slope,
-            coef_dropout=coef_dropout, generator=seed_generator)
+            coef_dropout=coef_dropout, generator=generator)
     raise ValueError(f"unknown impl {impl!r}")

@@ -65,7 +65,11 @@ in the kernels and in :func:`dropout_keep` (plain torch on int64). So a
 kernel and its plain version apply bit-identical masks, the backward
 replays the forward's mask, and the mask does not depend on tile size.
 It cannot reproduce the TPU's masks (drawn from the pltpu PRNG per
-(row block, 512-wide strip, head)).
+(row block, 512-wide strip, head)). The seed is a one-element int32 tensor
+(:func:`draw_seed` draws it on the features' device with the run's
+generator; :func:`seed_tensor` makes one from an int) that the kernels
+read from device memory, so a step captured as a CUDA graph draws a new
+seed, and so a new mask, at every replay (train/graphed.py).
 
 ``v`` may be bfloat16 (bf16 features, ``V_DTYPES``): the kernels widen it
 to f32 after each load and compute everything else in f32, and the
@@ -107,11 +111,13 @@ class FlashMeta:
     """Scalar arguments of both kernels: the slope, the dropout rate, and
     han_tpu's int32 meta[4] (seed, row-block, head and column-block
     offsets). The offsets globalize the dropout keys for sharded runs and
-    are 0 on one device."""
+    are 0 on one device. ``seed`` is a one-element int32 tensor (its
+    uint32 bits are the key), which the kernels read from device memory;
+    the plain versions also take an int."""
 
     slope: float = 0.2
     dropout_p: float = 0.0
-    seed: int = 0
+    seed: torch.Tensor | int = 0
     row_block_offset: int = 0
     head_offset: int = 0
     col_block_offset: int = 0
@@ -122,16 +128,18 @@ class FlashMeta:
 # ---------------------------------------------------------------------------
 
 
-def _mul32(x, c: int):
+def mul32(x, c: int):
     """(x * c) mod 2**32 for 0 <= x < 2**32, with no int64 overflow."""
     return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
 
 
-def _fmix32(h):
+def fmix32(h):
+    """The murmur3 finalizer on uint32 values held in int64 (tensors or
+    ints)."""
     h = h ^ (h >> 16)
-    h = _mul32(h, 0x85EBCA6B)
+    h = mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
-    h = _mul32(h, 0xC2B2AE35)
+    h = mul32(h, 0xC2B2AE35)
     return h ^ (h >> 16)
 
 
@@ -140,13 +148,29 @@ def keep_threshold(p: float) -> int:
     return min(int((1.0 - p) * 2 ** 32), _M32)
 
 
-def dropout_keep(seed: int, rows: torch.Tensor, cols: torch.Tensor,
+def seed_tensor(seed: int, device) -> torch.Tensor:
+    """A one-element int32 tensor on ``device`` whose uint32 bits are
+    ``seed mod 2**32``: the kernels' dropout seed as an int gives it."""
+    u = seed & _M32
+    return torch.tensor([u - (1 << 32) if u >> 31 else u], dtype=torch.int32, device=device)
+
+
+def _seed_bits(seed: torch.Tensor | int):
+    """The seed's uint32 value in int64: a 0-d tensor on the seed's device
+    (no sync), or an int."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(()).to(torch.int64) & _M32
+    return seed & _M32
+
+
+def dropout_keep(seed: torch.Tensor | int, rows: torch.Tensor, cols: torch.Tensor,
                  head: int, p: float) -> torch.Tensor:
     """bool[len(rows), len(cols)]: the kept coefficients of global head
-    ``head`` at global rows × columns, bit-identical to the kernels'."""
-    head_key = _fmix32((seed & _M32) ^ _fmix32((head + _GOLDEN) & _M32))
-    row_key = _fmix32(head_key ^ rows.to(torch.int64))
-    bits = _fmix32(row_key[:, None] ^ _mul32(cols.to(torch.int64), _GOLDEN)[None, :])
+    ``head`` at global rows × columns, bit-identical to the kernels'.
+    ``seed`` is an int or a one-element int32 tensor on the rows' device."""
+    head_key = fmix32(_seed_bits(seed) ^ fmix32((head + _GOLDEN) & _M32))
+    row_key = fmix32(head_key ^ rows.to(torch.int64))
+    bits = fmix32(row_key[:, None] ^ mul32(cols.to(torch.int64), _GOLDEN)[None, :])
     return bits < keep_threshold(p)
 
 
@@ -375,7 +399,7 @@ def bwd_head_padded(bwd, graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: Flash
 # ---------------------------------------------------------------------------
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-_SCALARS = [_I, _I, _I, _I, _I, _I, _I, _F, _I, _U, _U, _F, _I, _I, _I, _P]
+_SCALARS = [_I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _U, _F, _I, _I, _I, _P]
 _ARGTYPES = {
     "han_flash_fwd": [_P, _P, _P, _P, _I] + [_P] * 5 + _SCALARS,
     "han_flash_bwd": [_P, _P, _P, _P, _I] + [_P] * 9 + _SCALARS,
@@ -454,11 +478,26 @@ def check_layout(graph: BCSRGraph, tensors: dict) -> None:
         raise ValueError(f"{', '.join(bad)}: the flash kernels need 16-byte aligned data")
 
 
+def _seed_ptr(meta: FlashMeta, device) -> int | None:
+    """The device address of the dropout seed; None (a null pointer) when
+    dropout is off. Raises unless the seed is a one-element int32 tensor
+    on ``device``."""
+    if meta.dropout_p <= 0.0:
+        return None
+    seed = meta.seed
+    if (not isinstance(seed, torch.Tensor) or seed.device != device
+            or seed.dtype != torch.int32 or seed.numel() != 1):
+        raise ValueError(f"meta.seed: the kernels read the dropout seed from device "
+                         f"memory: need a one-element int32 tensor on {device} "
+                         f"(draw_seed, seed_tensor), got {seed!r}")
+    return seed.data_ptr()
+
+
 def _scalars(graph: BCSRGraph, v, n_rows, n_cols, k, d, meta: FlashMeta):
     drop = meta.dropout_p > 0.0
     return (n_rows, n_cols, graph.bm, graph.bn, k, d, int(v.dtype == torch.bfloat16),
             meta.slope, int(drop),
-            meta.seed & _M32, keep_threshold(meta.dropout_p) if drop else 0,
+            _seed_ptr(meta, v.device), keep_threshold(meta.dropout_p) if drop else 0,
             1.0 / (1.0 - meta.dropout_p), meta.row_block_offset,
             meta.head_offset, meta.col_block_offset,
             torch.cuda.current_stream(v.device).cuda_stream)
@@ -597,7 +636,9 @@ def flash_bwd(graph, ld, ls, v, g, lse, delta, meta: FlashMeta):
 
 class _FlashGAT(torch.autograd.Function):
     """(ld, ls, v) → out; the backward is :func:`flash_bwd` (fused, or split
-    under deterministic mode; kernels or plain versions)."""
+    under deterministic mode; kernels or plain versions). ``ctx.meta``
+    keeps the forward's seed tensor: the backward replays its mask and
+    draws nothing."""
 
     @staticmethod
     def forward(ctx, ld, ls, v, graph, meta):
@@ -637,16 +678,16 @@ def check_args(slope: float, coef_dropout: float,
             f"features, got {fts.dtype}")
 
 
-def draw_seed(coef_dropout: float, generator: torch.Generator | None) -> int:
-    """The kernels' dropout seed, drawn from a CPU generator (no device sync
-    per call); 0 when dropout is off. Every shard of a partitioned run
-    draws the same seed from the same generator state."""
+def draw_seed(coef_dropout: float, generator: torch.Generator | None) -> torch.Tensor | int:
+    """The kernels' dropout seed: a one-element int32 tensor drawn on the
+    generator's device (no host round trip; inside a captured CUDA graph a
+    registered generator draws a new one at every replay); 0 when dropout
+    is off. Every shard of a partitioned run draws the same seed from the
+    same generator state."""
     if coef_dropout <= 0.0:
         return 0
-    if generator.device.type != "cpu":
-        raise ValueError("the dropout seed generator must be a CPU "
-                         "torch.Generator (no device sync per call)")
-    return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator))
+    return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+                         device=generator.device, dtype=torch.int32)
 
 
 def flash_gat_attention(
@@ -663,12 +704,13 @@ def flash_gat_attention(
 ) -> torch.Tensor:
     """Drop-in implementation for ops.attention.attention_aggregate.
 
-    Coefficient dropout is fused: its seed is drawn from ``generator``, a
-    CPU ``torch.Generator`` (so no device-to-host sync per call), and the
-    backward replays the forward's mask; no mask is materialized on the
-    kernel path. bf16 features stream to the kernels as bf16 and are
-    widened in registers; logits, softmax and accumulators are f32, and the
-    result is cast to ``fts.dtype`` (han_tpu/ops/pallas/flash_gat.py:749-784).
+    Coefficient dropout is fused: its seed is drawn from ``generator`` on
+    the generator's device, which must be the features' (no device-to-host
+    sync per call, and graph-safe), and the backward replays the forward's
+    mask; no mask is materialized on the kernel path. bf16 features stream
+    to the kernels as bf16 and are widened in registers; logits, softmax
+    and accumulators are f32, and the result is cast to ``fts.dtype``
+    (han_tpu/ops/pallas/flash_gat.py:749-784).
     Returns (N, K, D) in ``fts.dtype``.
     """
     check_args(slope, coef_dropout, generator, fts)

@@ -62,8 +62,7 @@ def dryrun_step() -> dict:
             logits, _, _ = model(graphs, [x] * len(graphs))
             det_losses[name] = float(masked_softmax_cross_entropy(logits, labels, mask))
         opt = torch.optim.Adam(model.parameters(), lr=5e-3)
-        rngs = DropoutGenerators(device=torch.Generator(dev).manual_seed(1),
-                                 host=torch.Generator().manual_seed(1))
+        rngs = DropoutGenerators(device=torch.Generator(dev).manual_seed(1))
         logits, _, _ = model(graphs, [x] * len(graphs), deterministic=False, rngs=rngs)
         loss = (masked_softmax_cross_entropy(logits, labels, mask)
                 + l2_regularizer(model.parameters(), 1e-3))

@@ -176,8 +176,10 @@ def sharded_flash_attention(
     """Distributed sibling of flash_gat_attention: the same math and
     kernels, one row strip per rank; global tensors in, global (N, K, D)
     out on every rank. ``mesh`` defaults to ``graph.mesh``, else every rank
-    of the default process group; ``generator`` (CPU) draws the dropout
-    seed, the same on every rank."""
+    of the default process group; ``generator`` (on this rank's device)
+    draws the dropout seed as a device tensor, the same on every rank (the
+    same generator seed and draw order). Runs eagerly: a captured step
+    with NCCL collectives inside is not ported."""
     # bf16 features on the partitioned backends are not ported yet
     fg.check_args(slope, coef_dropout, generator, fts, dtypes=(torch.float32,))
     mesh = mesh or graph.mesh or make_mesh(device=fts.device)

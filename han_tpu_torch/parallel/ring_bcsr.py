@@ -269,7 +269,10 @@ def ring_flash_attention(
     """Distributed flash attention with O(N/S) feature blocks per rank in
     attention: the same math and masks as flash_gat_attention. Global
     tensors in, global (N, K, D) out on every rank; ``mesh`` defaults to
-    ``graph.mesh``, else every rank of the default process group."""
+    ``graph.mesh``, else every rank of the default process group.
+    ``generator`` (on this rank's device) draws the dropout seed as a
+    device tensor, the same on every rank. Runs eagerly: a captured step
+    with NCCL collectives inside is not ported."""
     # bf16 features on the partitioned backends are not ported yet
     fg.check_args(slope, coef_dropout, generator, fts, dtypes=(torch.float32,))
     mesh = mesh or graph.mesh or make_mesh(device=fts.device)

@@ -1,0 +1,129 @@
+"""A training or evaluation step captured as a CUDA graph and replayed: the
+port's counterpart of han_tpu's jitted steps (han_tpu/train/trainer.py
+:236-294, one program a full-graph step or evaluation;
+han_tpu/train/sampled.py:401-416, ``lax.scan`` over C seed descriptors in
+one dispatch).
+
+:class:`GraphedStep` runs ``body(*inputs)`` eagerly for its first
+``warmup`` calls (the first call of a trainer builds the kernels, creates
+Adam's state and sets the kernels' shared-memory attributes, and is a real
+step, so the trajectory stays the eager one), then captures it once as a
+``torch.cuda.CUDAGraph`` and replays the graph on every later call:
+
+- the capture runs on a side stream (``torch.cuda.graph``), in
+  ``thread_local`` error mode, so that a trainer's prefetch thread may go
+  on pinning host memory while the step is captured;
+- the run's device generators are registered with the graph
+  (``CUDAGraph.register_generator_state``), so every replay draws new
+  dropout masks and new flash seeds (ops/flash_gat.draw_seed) from them and
+  advances them as the eager step would;
+- inputs are copied into static buffers made at the capture, and the
+  outputs are the capture's tensors, rewritten by every replay: read or
+  clone them before the next call;
+- the kernel wrappers count launches on the host (``COUNTERS``), and a
+  replay runs no Python. The capture runs the wrappers once and launches
+  nothing: it records what each counter gained, puts the counters back,
+  and every replay adds the recorded gains, so the counts stay those of
+  the launches that ran.
+
+There is no fallback: a capture or replay that fails raises. With
+``capture=False`` (the CPU, or a caller that asks for eager steps) every
+call runs the body eagerly.
+
+Not captured: the graph-axis mesh (NCCL collectives inside the step), the
+host sampler's step, and the inductive trainer; ``want_capture`` raises
+when such a run asks for capture.
+"""
+
+from __future__ import annotations
+
+import weakref
+from typing import Any, Callable, Sequence
+
+import torch
+
+from han_tpu_torch.ops import ell_fused, flash_gat, tree_ell
+
+# the launch counters of the kernels (and of the plain tree attention) a
+# step may run: (module, attribute)
+COUNTERS = tuple((mod, name) for mod, names in (
+    (flash_gat, ("flash_fwd_launches", "flash_bwd_launches", "flash_bwd_row_launches",
+                 "flash_bwd_col_launches")),
+    (ell_fused, ("ell_fused_launches",)),
+    (tree_ell, ("tree_ell_calls",))) for name in names)
+
+
+def want_capture(capture: bool | None, device: torch.device,
+                 not_ported: str | None = None) -> bool:
+    """Whether a trainer captures its steps. None: on for a CUDA device
+    unless ``not_ported`` names why this run cannot be captured, off on the
+    CPU. True where ``not_ported`` is given raises NotImplementedError with
+    that reason, True on the CPU ValueError."""
+    if capture is None:
+        return device.type == "cuda" and not_ported is None
+    if capture and not_ported is not None:
+        raise NotImplementedError(f"capture=True: {not_ported}")
+    if capture and device.type != "cuda":
+        raise ValueError(f"capture=True needs a CUDA device, got {device} (steps on the "
+                         "CPU run eagerly: pass capture=None or False)")
+    return bool(capture)
+
+
+class GraphedStep:
+    """``body(*inputs)`` as a CUDA graph on ``device`` after ``warmup``
+    eager calls (see the module docstring). ``generators`` are the CUDA
+    generators the body draws from. ``replays`` counts graph launches. A
+    bound method ``body`` is held weakly: a trainer that holds its own
+    steps would otherwise be a reference cycle, and its graph's memory pool
+    would outlive it until the garbage collector ran."""
+
+    def __init__(self, body: Callable[..., Any], *, capture: bool, device: torch.device,
+                 generators: Sequence[torch.Generator] = (), warmup: int = 1):
+        self._body = (weakref.WeakMethod(body) if hasattr(body, "__self__")
+                      else lambda: body)
+        self.capture = capture
+        self.device = device
+        self.generators = tuple(generators)
+        self.warmup = warmup
+        self.calls = 0
+        self.replays = 0
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.inputs: list[torch.Tensor] = []
+        self.outputs: Any = None
+        self.gained: list[int] = []
+
+    def __call__(self, *inputs: torch.Tensor):
+        self.calls += 1
+        if not self.capture or self.calls <= self.warmup:
+            return self._body()(*inputs)
+        if self.graph is None:
+            with torch.cuda.device(self.device):
+                self._capture(inputs)
+        else:
+            for buf, x in zip(self.inputs, inputs, strict=True):
+                if buf.shape != x.shape or buf.dtype != x.dtype:
+                    raise ValueError(f"a replay takes the captured input {buf.dtype} "
+                                     f"{tuple(buf.shape)}, got {x.dtype} {tuple(x.shape)}")
+                buf.copy_(x, non_blocking=True)
+        self.graph.replay()
+        self.replays += 1
+        for (mod, name), n in zip(COUNTERS, self.gained):
+            if n:
+                setattr(mod, name, getattr(mod, name) + n)
+        return self.outputs
+
+    def _capture(self, inputs) -> None:
+        self.inputs = [x.detach().to(self.device, copy=True) for x in inputs]
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        before = [getattr(mod, name) for mod, name in COUNTERS]
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.outputs = self._body()(*self.inputs)
+        finally:
+            after = [getattr(mod, name) for mod, name in COUNTERS]
+            for (mod, name), n in zip(COUNTERS, before):
+                setattr(mod, name, n)
+        self.gained = [a - b for a, b in zip(after, before)]
+        self.graph = graph

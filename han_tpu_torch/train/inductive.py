@@ -4,9 +4,10 @@ batches with the multi-label sigmoid loss and micro-F1 (reference
 base_gattn.py:50-59,71-94; batching semantics from utils/process_ppi.py).
 
 The B graphs of a batch run as a loop over ``DenseGraph``s (han_tpu vmaps
-them); the logits are stacked and the per-graph losses averaged. Not
-ported yet: checkpoint/resume, the preemption guard and data-parallel
-batches over a mesh.
+them); the logits are stacked and the per-graph losses averaged. Its
+steps run eagerly on the card: capturing them as a CUDA graph (han_tpu
+jits them) is not ported, nor are checkpoint/resume, the preemption guard
+and data-parallel batches over a mesh.
 """
 
 from __future__ import annotations
@@ -55,8 +56,7 @@ class InductiveTrainer:
                           "multi-graph batching is dense by design")
         self.use_dropout = attn_drop > 0.0 or ffd_drop > 0.0
         self.rngs = DropoutGenerators(
-            device=torch.Generator(self.device).manual_seed(seed + 1),
-            host=torch.Generator().manual_seed(seed + 1))
+            device=torch.Generator(self.device).manual_seed(seed + 1))
         self.model = GAT(ds.features.shape[-1], ds.labels.shape[-1], hid_units=hid_units,
                          n_heads=n_heads, residual=residual, impl="dense",
                          attn_drop=attn_drop, ffd_drop=ffd_drop,

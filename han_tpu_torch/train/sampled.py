@@ -31,11 +31,29 @@ Differences from han_tpu:
 - the device sampler clamps its sampled offset to ``deg - 1``
   (:func:`sample_offsets`); han_tpu relies on float32 rounding to keep
   ``floor(u·deg)`` below ``deg`` and drops the slot if it does not;
+- the device sampler draws its offsets from a counter hash of (sample
+  seed, meta-path, level, row, slot) in plain tensor ops
+  (:func:`sample_uniform`), keyed by the sample seed that the descriptor
+  carries (its last element, as han_tpu's ``packed[-1]``), where han_tpu
+  folds the seed into a ``jax.random`` key: a sample seed gives the same
+  block whatever the call order, and a captured step samples anew at every
+  replay;
 - ``fit()`` folds the device sampler's edge counts in every epoch instead
   of letting the pending list grow;
 - the best parameters are kept in memory; checkpoint/resume, the
-  preemption cursor, ``steps_per_call > 1`` and the data-parallel trainer
-  are not ported and raise ``NotImplementedError``.
+  preemption cursor and the data-parallel trainer are not ported and
+  raise ``NotImplementedError``.
+
+With the device sampler on a CUDA device, every train dispatch and every
+sampled evaluation batch is a CUDA graph (train/graphed.py), han_tpu's
+jitted ``dev_train_step``, ``dev_train_chunk`` and ``dev_eval_step``: the
+trainer's first train dispatch runs eagerly (it creates Adam's state, which
+is ``capturable``), and each shape of dispatch is captured at its next use.
+``steps_per_call`` = C > 1 groups C descriptors into one dispatch
+(:meth:`SampledTrainer._chunked`), one graph of C steps over a (C, 2B+1)
+descriptor buffer; the tail of an epoch runs as single steps. The host
+sampler's step, the exact evaluation (host-sampled) and the CPU run
+eagerly.
 """
 
 from __future__ import annotations
@@ -57,10 +75,15 @@ from han_tpu_torch.nn.layers import DropoutGenerators
 from han_tpu_torch.nn.losses import (l2_regularizer, masked_accuracy,
                                      masked_softmax_cross_entropy)
 from han_tpu_torch.ops.ell_fused import kernel_takes
+from han_tpu_torch.ops.flash_gat import fmix32, mul32
 from han_tpu_torch.ops.tree_ell import tree_parent_maps
 from han_tpu_torch.train.config import Config
+from han_tpu_torch.train.graphed import GraphedStep, want_capture
 from han_tpu_torch.train.trainer import EarlyStopState, MetricLogger, build_model
 from han_tpu_torch.utils.device import resolve_device
+
+_M32 = 0xFFFFFFFF
+_GOLDEN = 0x9E3779B9
 
 
 def _resident_gather(tab: torch.Tensor, nd: torch.Tensor) -> torch.Tensor:
@@ -79,7 +102,28 @@ def sample_offsets(u: torch.Tensor, deg: torch.Tensor) -> torch.Tensor:
     return torch.minimum(torch.floor(u * deg).long(), deg - 1)
 
 
-def _device_sample_block(row_ptr, col_idx, seeds, valid, generator, *,
+def sample_key(sample_seed, p: int):
+    """The device sampler's key of meta-path ``p`` for a sample seed (an
+    int, or an integer tensor holding one value: the descriptor's last
+    element), as a uint32 in int64."""
+    if isinstance(sample_seed, torch.Tensor):
+        sample_seed = sample_seed.reshape(()).to(torch.int64)
+    return fmix32((sample_seed & _M32) ^ fmix32((p + _GOLDEN) & _M32))
+
+
+def sample_uniform(key, level: int, rows: int, slots: int, device) -> torch.Tensor:
+    """float32 (rows, slots) in [0, 1): a counter hash (the flash dropout
+    hash, ops/flash_gat.fmix32) of (key, level, row, slot), its top 24 bits
+    over 2**24. Plain tensor ops, so a captured step draws from the key in
+    its descriptor buffer."""
+    level_key = fmix32(key ^ fmix32((level + _GOLDEN) & _M32))
+    row_key = fmix32(level_key ^ torch.arange(rows, device=device))
+    bits = fmix32(row_key[:, None]
+                  ^ mul32(torch.arange(slots, device=device), _GOLDEN)[None, :])
+    return (bits >> 8).to(torch.float32) * 2.0 ** -24
+
+
+def _device_sample_block(row_ptr, col_idx, seeds, valid, key, *,
                          fanout: int, hops: int, block_size: int):
     """L-hop neighbor sampling on the device, from the CSR resident there.
 
@@ -90,7 +134,8 @@ def _device_sample_block(row_ptr, col_idx, seeds, valid, generator, *,
     take their full neighbor list (exact when F >= max degree, like the
     host sampler); larger degrees sample F uniformly with replacement
     (GraphSAGE-style; the host sampler samples without replacement).
-    ``generator`` (on the device) draws the offsets.
+    ``key`` (:func:`sample_key`) keys the offsets (:func:`sample_uniform`),
+    so a key gives one block whatever was sampled before.
 
     Returns (nbr (B, F) int32 sentinel=B, deg (B,) int32, nodes (B,) int32
     global ids pad=-1, n_real_edges 0-d int64 tensor).
@@ -103,13 +148,13 @@ def _device_sample_block(row_ptr, col_idx, seeds, valid, generator, *,
     n_edges = torch.zeros((), dtype=torch.int64, device=dev)
     idx_seq = torch.arange(f, device=dev)[None, :]
     base_next = s
-    for _ in range(hops):
+    for hop in range(hops):
         lsz = level.shape[0]
         base_next += lsz * f
         sv = level.clamp_min(0)
         start = row_ptr[sv]
         deg = (row_ptr[sv + 1] - start)[:, None]               # (L, 1)
-        u = torch.rand((lsz, f), generator=generator, device=dev)
+        u = sample_uniform(key, hop, lsz, f, dev)
         off = torch.where(deg <= f, idx_seq, sample_offsets(u, deg))
         child_valid = (level >= 0)[:, None] & (off < deg)
         addr = (start[:, None] + off).clamp_max(e_max)
@@ -148,15 +193,21 @@ class _HostBatch:
 
 @dataclasses.dataclass
 class _Descriptor:
-    """A device-sampler batch: seed ids | valid mask (one int32 tensor), and
-    the sampling seed, which seeds the device generator from the host."""
+    """A device-sampler batch: seed ids | valid mask | sample seed, one
+    int32 (2B+1,) tensor (han_tpu's packed descriptor), or C of them
+    stacked (C, 2B+1) for one dispatch of C steps."""
 
     packed: torch.Tensor
-    sample_seed: int
 
 
 class SampledTrainer:
-    """HAN training over seed-node batches of a huge heterogeneous graph."""
+    """HAN training over seed-node batches of a huge heterogeneous graph.
+
+    ``steps_per_call`` > 1 needs ``sampler="device"`` (ValueError
+    otherwise, as in han_tpu). ``capture``: None captures the device
+    sampler's dispatches as CUDA graphs on a CUDA device and runs every
+    other step eagerly; True on the CPU raises ValueError, with the host
+    sampler NotImplementedError; False runs eagerly on the card."""
 
     def __init__(self, ds: HeteroDataset, cfg: Config, *,
                  batch_size: int = 512, fanout: int = 16,
@@ -165,13 +216,14 @@ class SampledTrainer:
                  logger: MetricLogger | None = None,
                  guard=None, resident_features: bool | None = None,
                  sampler: str = "host", steps_per_call: int = 1,
+                 capture: bool | None = None,
                  device: torch.device | str | None = None):
         if sampler not in ("host", "device"):
             raise ValueError("sampler must be 'host' or 'device'")
-        if steps_per_call != 1:
-            raise NotImplementedError(
-                "steps_per_call > 1 is not ported yet (its GPU counterpart is "
-                "a CUDA graph of several steps)")
+        if steps_per_call < 1:
+            raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+        if steps_per_call > 1 and sampler != "device":
+            raise ValueError("steps_per_call > 1 needs sampler='device'")
         if guard is not None:
             raise NotImplementedError(
                 "preemption (guard and batch cursor) is not ported yet")
@@ -187,7 +239,13 @@ class SampledTrainer:
         self.ds = ds
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.capture = want_capture(
+            capture, self.device,
+            "the host sampler's step runs eagerly (its blocks arrive as new "
+            "tensors every step; static block buffers are not ported)"
+            if sampler == "host" else None)
         self.sampler = sampler
+        self.steps_per_call = int(steps_per_call)
         self.batch_size = batch_size
         self.fanout = fanout
         self.hops = hops if hops is not None else len(cfg.model.hid_units)
@@ -200,10 +258,15 @@ class SampledTrainer:
         self.model = build_model(
             ds, cfg, generator=torch.Generator().manual_seed(cfg.train.seed)
         ).to(self.device)
-        self.opt = torch.optim.Adam(self.model.parameters(), lr=cfg.train.lr)
+        self.opt = torch.optim.Adam(self.model.parameters(), lr=cfg.train.lr,
+                                    capturable=self.capture)
         self.rngs = DropoutGenerators(
-            device=torch.Generator(self.device).manual_seed(cfg.train.seed + 1),
-            host=torch.Generator().manual_seed(cfg.train.seed + 1))
+            device=torch.Generator(self.device).manual_seed(cfg.train.seed + 1))
+        # the device sampler's dispatches: one step per number of
+        # descriptors C (graphs once captured), and the evaluation batch
+        self._train_steps: dict[int, GraphedStep] = {}
+        self._dev_eval = GraphedStep(self._dev_eval_body, capture=self.capture,
+                                     device=self.device)
         # self-loops match the full-graph path; one host CSR view per
         # meta-path, index dtypes converted once
         self.csrs = [_ScipyCSRView(with_self_loops(a)) for a in ds.metapath_adjs]
@@ -236,7 +299,6 @@ class SampledTrainer:
             pr, ps = tree_parent_maps(batch_size, fanout, self.hops, self.block_size)
             self._parent_row = torch.from_numpy(pr).to(self.device)
             self._parent_slot = torch.from_numpy(ps).to(self.device)
-            self._sample_gen = torch.Generator(self.device)
 
     # -- batch assembly ----------------------------------------------------
     def _pinned(self, a: np.ndarray) -> torch.Tensor:
@@ -251,10 +313,11 @@ class SampledTrainer:
         if (self.sampler == "device" and fanout is None
                 and block_size is None):
             b = seeds.shape[0]
-            packed = np.empty(2 * b, np.int32)
+            packed = np.empty(2 * b + 1, np.int32)
             packed[:b] = seeds
-            packed[b:] = valid
-            return _Descriptor(self._pinned(packed), int(sample_seed))
+            packed[b:2 * b] = valid
+            packed[-1:] = np.array([int(sample_seed) & _M32], np.uint32).view(np.int32)
+            return _Descriptor(self._pinned(packed))
         return self._sample_host(seeds, valid, sample_seed, fanout=fanout,
                                  block_size=block_size)
 
@@ -316,42 +379,48 @@ class SampledTrainer:
         return self._upload(self._prepare(seeds, valid, sample_seed,
                                           fanout=fanout, block_size=block_size))
 
-    def _device_blocks(self, desc: _Descriptor):
-        """Tree blocks sampled on the device around a descriptor's seeds."""
-        b = desc.packed.shape[0] // 2
-        seeds, valid = desc.packed[:b], desc.packed[b:] != 0
-        graphs, xs = [], []
+    def _device_blocks(self, packed: torch.Tensor):
+        """Tree blocks sampled on the device around a (2B+1,) descriptor's
+        seeds, keyed by its sample seed; returns (graphs, global node ids,
+        mask, real sampled edges as a 0-d device tensor)."""
+        b = (packed.shape[0] - 1) // 2
+        seeds, valid = packed[:b], packed[b:2 * b] != 0
+        graphs, xs, n_edges = [], [], 0
         for p, (rp, ci) in enumerate(self._csr_dev):
-            self._sample_gen.manual_seed(desc.sample_seed * 7919 + p)
             nbr, deg, nodes, ne = _device_sample_block(
-                rp, ci, seeds, valid, self._sample_gen, fanout=self.fanout,
+                rp, ci, seeds, valid, sample_key(packed[-1], p), fanout=self.fanout,
                 hops=self.hops, block_size=self.block_size)
             graphs.append(TreeEllGraph(
                 nbr=nbr, deg=deg, n_nodes=self.block_size,
                 n_edges=self.block_size * self.fanout,
                 parent_row=self._parent_row, parent_slot=self._parent_slot))
             xs.append(nodes)
-            self._pending_edge_counts.append(ne)
+            n_edges = n_edges + ne
         mask = torch.zeros(self.block_size, device=self.device)
         mask[:b] = valid.float()
-        return graphs, xs, mask
+        return graphs, xs, mask, n_edges
 
     def _materialize(self, graphs, xs, labels, mask):
-        """Device batch → (graphs, feature rows, labels, mask): descriptors
-        get their blocks sampled; resident mode gathers the block's rows
-        from the device tables (xs carries global node ids, pad = -1)."""
+        """Device batch → (graphs, feature rows, labels, mask, real sampled
+        edges): a single descriptor gets its blocks sampled (the edge count
+        a 0-d device tensor; None for host blocks, counted at upload);
+        resident mode gathers the block's rows from the device tables (xs
+        carries global node ids, pad = -1)."""
+        n_edges = None
         if isinstance(graphs, _Descriptor):
-            graphs, xs, mask = self._device_blocks(graphs)
+            graphs, xs, mask, n_edges = self._device_blocks(graphs.packed)
         if self.resident:
             labels = _resident_gather(self._lbl_dev, xs[0])
             xs = [_resident_gather(self._fts_dev, nd) for nd in xs]
-        return graphs, xs, labels, mask
+        return graphs, xs, labels, mask, n_edges
 
     # -- steps -------------------------------------------------------------
     def _train_step(self, graphs, xs, labels, mask):
-        """One Adam step; returns (loss, acc) as device tensors, from the
-        pre-update forward."""
-        graphs, xs, labels, mask = self._materialize(graphs, xs, labels, mask)
+        """One Adam step on one uploaded batch (host-sampled blocks or a
+        single descriptor); returns (loss, acc) as device tensors, from the
+        pre-update forward, and the real sampled edges (a 0-d device tensor
+        for a descriptor, None for host blocks)."""
+        graphs, xs, labels, mask, n_edges = self._materialize(graphs, xs, labels, mask)
         self.opt.zero_grad(set_to_none=True)
         logits, _, _ = self.model(graphs, xs, deterministic=False, rngs=self.rngs)
         loss = (masked_softmax_cross_entropy(logits, labels, mask)
@@ -359,16 +428,60 @@ class SampledTrainer:
         loss.backward()
         self.opt.step()
         with torch.no_grad():
-            return loss.detach(), masked_accuracy(logits, labels, mask)
+            return loss.detach(), masked_accuracy(logits, labels, mask), n_edges
+
+    def _dev_train_body(self, packs: torch.Tensor):
+        """C sequential device-sampler steps over the (C, 2B+1) descriptors
+        (han_tpu's ``dev_train_chunk``): (losses (C,), accs (C,), real
+        sampled edges). The body of a captured dispatch."""
+        losses, accs, n_edges = zip(*(self._train_step(_Descriptor(packed), None, None, None)
+                                      for packed in packs))
+        return torch.stack(losses), torch.stack(accs), sum(n_edges)
+
+    def _train_call(self, batch):
+        """One train dispatch: host-sampled blocks, a descriptor, or C
+        stacked descriptors (:meth:`_chunked`); returns (losses, accs) as
+        (steps,) device tensors. Descriptors go through a GraphedStep per
+        C: eager on the CPU, captured on the card after the trainer's
+        first dispatch, which runs eagerly."""
+        if not isinstance(batch[0], _Descriptor):
+            loss, acc, _ = self._train_step(*batch)
+            return loss[None], acc[None]
+        packs = batch[0].packed
+        packs = packs if packs.dim() == 2 else packs[None]
+        step = self._train_steps.get(packs.shape[0])
+        if step is None:
+            step = self._train_steps[packs.shape[0]] = GraphedStep(
+                self._dev_train_body, capture=self.capture, device=self.device,
+                generators=(self.rngs.device,), warmup=0 if self._train_steps else 1)
+        losses, accs, n_edges = step(packs)
+        self._pending_edge_counts.append(n_edges.clone())  # a replay rewrites it
+        return losses, accs
 
     @torch.no_grad()
     def _eval_step(self, graphs, xs, labels, mask):
-        """(sum of masked loss, sum of masked correct, sum of mask, embed)."""
-        graphs, xs, labels, mask = self._materialize(graphs, xs, labels, mask)
-        logits, embed, _ = self.model(graphs, xs, deterministic=True)
+        """(sum of masked loss, sum of masked correct, sum of mask) as one
+        (3,) tensor, and the real sampled edges (as in :meth:`_train_step`)."""
+        graphs, xs, labels, mask, n_edges = self._materialize(graphs, xs, labels, mask)
+        logits, _, _ = self.model(graphs, xs, deterministic=True)
         loss_i = -(labels * torch.log_softmax(logits, dim=-1)).sum(dim=-1)
         correct = (logits.argmax(-1) == labels.argmax(-1)).float()
-        return (loss_i * mask).sum(), (correct * mask).sum(), mask.sum(), embed
+        return torch.stack([(loss_i * mask).sum(), (correct * mask).sum(), mask.sum()]), n_edges
+
+    def _dev_eval_body(self, packed: torch.Tensor):
+        """One descriptor's evaluation batch (han_tpu's ``dev_eval_step``):
+        the body of the captured evaluation."""
+        return self._eval_step(_Descriptor(packed), None, None, None)
+
+    def _eval_call(self, batch) -> torch.Tensor:
+        """One evaluation batch → (loss sum, correct sum, mask sum) on the
+        device; a descriptor goes through the eval GraphedStep (captured on
+        the card from its second call)."""
+        if not isinstance(batch[0], _Descriptor):
+            return self._eval_step(*batch)[0]
+        sums, n_edges = self._dev_eval(batch[0].packed)
+        self._pending_edge_counts.append(n_edges.clone())  # a replay rewrites it
+        return sums
 
     def flush_sampled_edges(self) -> int:
         """Fold the device sampler's pending real-edge counts into
@@ -399,6 +512,22 @@ class SampledTrainer:
                 fut = nxt
             if fut is not None:
                 yield fut[0], self._upload(fut[1].result())
+
+    def _chunked(self, indexed_iter):
+        """Group uploaded device-sampler descriptors into stacks of
+        ``steps_per_call`` (han_tpu/train/sampled.py:482-498); yields
+        (last_batch_index, (stacked descriptor, None, None, None)). The tail
+        (< steps_per_call batches) is yielded as single descriptors, which
+        reuse the one-step dispatch instead of capturing a shorter chunk."""
+        buf, bis = [], []
+        for bi, batch in indexed_iter:
+            buf.append(batch[0].packed)
+            bis.append(bi)
+            if len(buf) == self.steps_per_call:
+                yield bi, (_Descriptor(torch.stack(buf)), None, None, None)
+                buf, bis = [], []
+        for bi, packed in zip(bis, buf):
+            yield bi, (_Descriptor(packed), None, None, None)
 
     # -- batch iteration ---------------------------------------------------
     def _seed_batches(self, idx: np.ndarray, *, shuffle: bool, epoch: int):
@@ -494,7 +623,7 @@ class SampledTrainer:
                 break
             batch = self._make_batch(seeds, valid, sample_seed=10_000_019 + epoch,
                                      fanout=fanout, block_size=block)
-            tot += torch.stack(self._eval_step(*batch)[:3])
+            tot += self._eval_call(batch)
         tot_l, tot_c, tot_n = tot.tolist()
         tot_n = max(tot_n, 1.0)
         return tot_l / tot_n, tot_c / tot_n
@@ -508,7 +637,7 @@ class SampledTrainer:
         best = {"state": self._snapshot(), "epoch": -1}
         train_idx = np.where(self.ds.train_mask)[0]
         val_idx = np.where(self.ds.val_mask)[0]
-        train_losses, step_times, train_edges = [], [], 0
+        train_losses, step_losses, step_times, train_edges = [], [], [], 0
         self.host_block_s = []
         t_start = time.perf_counter()
         for epoch in range(cfg.epochs):
@@ -518,16 +647,22 @@ class SampledTrainer:
             n_done = 0
             batches = enumerate(
                 self._seed_batches(train_idx, shuffle=True, epoch=epoch))
+            step_iter = self._prefetched_indexed(batches, lambda bi: epoch * 65_537 + bi)
+            if self.steps_per_call > 1:
+                step_iter = self._chunked(step_iter)
             t_step = time.perf_counter()
-            for _, batch in self._prefetched_indexed(
-                    batches, lambda bi: epoch * 65_537 + bi):
-                loss, acc = self._train_step(*batch)
-                loss, acc = torch.stack([loss, acc]).tolist()  # waits for the step
-                loss_sum += loss
-                acc_sum += acc
-                n_done += 1
+            for _, batch in step_iter:
+                losses, accs = self._train_call(batch)
+                # waits for the dispatch; summed in step order, as single steps
+                losses, accs = torch.stack([losses, accs]).tolist()
+                for loss, acc in zip(losses, accs):
+                    loss_sum += loss
+                    acc_sum += acc
+                step_losses.extend(losses)
+                n_done += len(losses)
                 now = time.perf_counter()
-                step_times.append(now - t_step)
+                # a dispatch of C steps counts as C steps of its mean time
+                step_times.extend([(now - t_step) / len(losses)] * len(losses))
                 t_step = now
             # fold the device sampler's counts in every epoch
             train_edges += self.flush_sampled_edges() - edges0
@@ -559,11 +694,13 @@ class SampledTrainer:
             # train step
             "edges_heads_per_s": (train_edges * heads / sum(step_times)
                                   if step_times else None),
+            "captured": self.capture,
         }
         if self.device.type == "cuda":
             result["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.device)
         self.logger.log(result)
         result["epoch_train_loss"] = train_losses
+        result["step_train_loss"] = step_losses
         result["step_time_s"] = step_times
         return result
 
@@ -572,17 +709,22 @@ class SampledTrainer:
 
 
 def step_breakdown(trainer: SampledTrainer, idx: np.ndarray, *,
-                   n_steps: int = 5, epoch: int = 7) -> dict[str, Any]:
+                   n_steps: int = 8, epoch: int = 7) -> dict[str, Any]:
     """Where one sampled train step's time goes, on the card.
 
     host_block_ms: median time to build one batch's host half (the C++
     sampler, index conversion, pinning) — the prefetch thread's work per
     step. device_ms: device time per train step (uploads included), the
     sum of the CUDA kernel and copy times ``torch.profiler`` records over
-    ``n_steps`` steps, or None when the profiler records no device events.
-    The steps train the model further."""
-    from torch.autograd import DeviceType
+    ``n_steps`` steps dispatched as ``fit()`` dispatches them (in stacks of
+    ``steps_per_call``, captured where the trainer captures), or None when
+    the profiler records no device events; launches: kernel launches
+    (``cudaLaunchKernel``) and graph launches (``cudaGraphLaunch``) per
+    step. The steps run twice before the profiled pass (so that every
+    dispatch is captured by then) and train the model further."""
     from torch.profiler import ProfilerActivity, profile
+
+    from han_tpu_torch.utils.prof import device_events
 
     batches, host_s = [], []
     for i, (seeds, valid) in zip(range(n_steps), trainer._seed_batches(
@@ -590,17 +732,25 @@ def step_breakdown(trainer: SampledTrainer, idx: np.ndarray, *,
         t0 = time.perf_counter()
         batches.append(trainer._prepare(seeds, valid, 900 + i))
         host_s.append(time.perf_counter() - t0)
-    trainer._train_step(*trainer._upload(batches[0]))  # warm
+    calls = list(enumerate(trainer._upload(b) for b in batches))
+    if trainer.steps_per_call > 1:
+        calls = list(trainer._chunked(calls))
+    for _ in range(2):  # warm: the first dispatch eager, then the captures
+        for _, b in calls:
+            trainer._train_call(b)
     torch.cuda.synchronize(trainer.device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for b in batches:
-            trainer._train_step(*trainer._upload(b))
+        for _, b in calls:
+            trainer._train_call(b)
         torch.cuda.synchronize(trainer.device)
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
+    events = prof.key_averages()
+    dev_us = sum(e.self_device_time_total for e in device_events(events))
+    count = lambda key: sum(e.count for e in events if e.key == key) / len(batches)
     trainer.flush_sampled_edges()
     return {"host_block_ms": statistics.median(host_s) * 1e3,
-            "device_ms": dev_us / 1e3 / len(batches) if dev_us else None}
+            "device_ms": dev_us / 1e3 / len(batches) if dev_us else None,
+            "kernel_launches": count("cudaLaunchKernel"),
+            "graph_launches": count("cudaGraphLaunch")}
 
 
 def _gather_neighbors(csr, nodes: np.ndarray) -> np.ndarray:

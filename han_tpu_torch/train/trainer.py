@@ -31,6 +31,13 @@ formats are also accepted at S = 1 (a 1-shard partition, with or without a
 process group). Not ported yet: checkpoint/resume, the heads and mp mesh
 axes, the csr/ring (segment-op) partitions, data-parallel sampled and
 inductive training, and ``arch="han_shared"``.
+
+On one CUDA device the train step and the evaluation are each captured as
+a CUDA graph and replayed every epoch (train/graphed.py), han_tpu's one
+jitted program a step: epoch 0 runs them eagerly (a real step), epoch 1
+captures them, and Adam is ``capturable`` (its step counts on the card).
+The mesh runs eagerly (NCCL collectives inside a captured step are not
+ported), and so does the CPU.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from han_tpu_torch.parallel.mesh import Mesh, make_mesh
 from han_tpu_torch.parallel.ring_bcsr import ring_partition_bcsr
 from han_tpu_torch.train.config import Config
 from han_tpu_torch.train.eval_embed import kmeans_eval, knn_eval
+from han_tpu_torch.train.graphed import GraphedStep, want_capture
 from han_tpu_torch.utils.device import resolve_device
 
 PARTITIONED_FORMATS = ("partitioned_bcsr", "ring_bcsr")
@@ -176,11 +184,17 @@ class Trainer:
     """Full-graph HAN or GAT training on one device (CUDA unless
     ``device="cpu"``), or on this rank's device of a graph-axis mesh. A GAT
     runs on graph 0 and features 0, as han_tpu's ``_apply`` does: its
-    logits are its embedding, and it logs zero semantic alphas."""
+    logits are its embedding, and it logs zero semantic alphas.
+
+    ``capture``: None captures the train and eval steps as CUDA graphs on
+    one CUDA device and runs them eagerly on the CPU and on a mesh; True
+    on the CPU raises ValueError, on a mesh NotImplementedError; False runs
+    them eagerly on the card."""
 
     def __init__(self, ds: HeteroDataset, cfg: Config, *,
                  device: torch.device | str | None = None,
-                 logger: MetricLogger | None = None):
+                 logger: MetricLogger | None = None,
+                 capture: bool | None = None):
         # float32 stays full float32 on the card (TF32 off for matmuls and
         # cuDNN convolutions alike)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -188,6 +202,10 @@ class Trainer:
         self.ds = ds
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.capture = want_capture(
+            capture, self.device,
+            "the graph-axis mesh runs eagerly (NCCL collectives inside a "
+            "captured step are not ported)" if on_mesh(cfg) else None)
         self.mesh = None
         if on_mesh(cfg):
             # raises unless graph_axis is the world size and the device
@@ -215,10 +233,15 @@ class Trainer:
                        ("test", ds.test_mask))}
         self._total_edges = int(sum(a.nnz for a in ds.metapath_adjs))
         self._is_han = cfg.model.arch.startswith("han")
-        self.opt = torch.optim.Adam(self.model.parameters(), lr=cfg.train.lr)
+        # capturable: the step counts and the bias correction stay on the
+        # card, so the update can be replayed
+        self.opt = torch.optim.Adam(self.model.parameters(), lr=cfg.train.lr,
+                                    capturable=self.capture)
         self.rngs = DropoutGenerators(
-            device=torch.Generator(self.device).manual_seed(cfg.train.seed + 1),
-            host=torch.Generator().manual_seed(cfg.train.seed + 1))
+            device=torch.Generator(self.device).manual_seed(cfg.train.seed + 1))
+        self._train = GraphedStep(self._train_body, capture=self.capture, device=self.device,
+                                  generators=(self.rngs.device,))
+        self._eval = GraphedStep(self._eval_body, capture=self.capture, device=self.device)
 
     def _apply(self, *, deterministic: bool, rngs: DropoutGenerators | None = None):
         """(logits, embedding, alphas (N, P) or None)."""
@@ -230,7 +253,19 @@ class Trainer:
     def train_step(self):
         """One Adam step on the train nodes; returns (loss, acc, mean
         semantic alphas, zeros for a GAT) as device tensors, from the
-        pre-update forward."""
+        pre-update forward. Captured: the first call runs eagerly, the
+        second captures the step and every later call replays it, which
+        rewrites the returned tensors: read or clone them before the next
+        call."""
+        return self._train()
+
+    def eval_step(self, mask: torch.Tensor):
+        """(loss, acc, logits, embedding) at the current parameters over the
+        nodes of ``mask`` (bool (N,)). Captured as :meth:`train_step` is,
+        with ``mask`` copied into the graph's static mask buffer."""
+        return self._eval(mask)
+
+    def _train_body(self):
         self.opt.zero_grad(set_to_none=True)
         logits, _, alphas = self._apply(deterministic=False, rngs=self.rngs)
         loss = (masked_softmax_cross_entropy(logits, self.labels, self.masks["train"])
@@ -244,8 +279,7 @@ class Trainer:
             return loss.detach(), acc, mean_alphas
 
     @torch.no_grad()
-    def eval_step(self, mask: torch.Tensor):
-        """(loss, acc, logits, embedding) at the current parameters."""
+    def _eval_body(self, mask: torch.Tensor):
         logits, embed, _ = self._apply(deterministic=True)
         loss = masked_softmax_cross_entropy(logits, self.labels, mask)
         return loss, masked_accuracy(logits, self.labels, mask), logits, embed
@@ -286,7 +320,8 @@ class Trainer:
                                  "best_val_acc": es.best_val_acc})
                 break
 
-        # restore best & final evaluation (ex_acm3025.py:247-291)
+        # restore best & final evaluation (ex_acm3025.py:247-291); the
+        # parameters are copied in place, so a captured eval step reads them
         self.model.load_state_dict(best["state"])
         ts_loss, ts_acc, _, embed = self.eval_step(self.masks["test"])
         result = {
@@ -294,6 +329,7 @@ class Trainer:
             "best_epoch": best["epoch"],
             "train_time_s": time.perf_counter() - t_start,
             "median_step_time_s": statistics.median(step_times) if step_times else None,
+            "captured": self.capture,
         }
         if self.device.type == "cuda":
             result["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.device)

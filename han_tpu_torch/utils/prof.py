@@ -13,6 +13,8 @@ han_tpu/utils/prof.py):
 - ``profile_steps(step, steps)`` — the profile reader of the
   ``scripts/prof_*_torch.py`` scripts: host-clock step times, then a
   profiler window read per step;
+- ``device_events(events)`` — the device work among a profile's events
+  (what every device time here sums);
 - ``card()`` and ``write_runs`` — the card's name and power limit, and the
   scripts' report.
 """
@@ -121,13 +123,29 @@ class StepTimer:
         return s[len(s) // 2] if s else float("nan")
 
 
+def device_events(events) -> list:
+    """The CUDA events of ``prof.key_averages()`` that are device work:
+    kernels, copies, fills. A ``record_function`` range (such as
+    ``Optimizer.step#Adam.step``) shows on the device too, spanning the
+    kernels launched inside it, and summing it would count them twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def profile_steps(step: Callable, steps: int, warmup: int = 3, window: int = 5) -> dict:
     """Where the time of ``step()`` goes on the card. ``step()`` runs one
     train step and returns its loss as a device tensor; each call ends in
-    ``float(loss)``. After ``warmup`` untimed steps: the median of ``steps``
-    steps on the host clock, then a ``torch.profiler`` window of ``window``
-    steps, read per step: device time (the self time of every CUDA event:
-    kernels, copies, fills), kernel launches (``cudaLaunchKernel`` calls),
+    ``float(loss)``. After ``warmup`` untimed steps (a trainer that
+    captures its step runs the first eagerly and captures it on the
+    second, so the timed steps are replays): the median of ``steps`` steps
+    on the host clock, then a ``torch.profiler`` window of ``window``
+    steps, read per step: device time (the self time of every CUDA event
+    of :func:`device_events`: kernels, copies, fills, those of replayed
+    graphs included), kernel
+    launches (``cudaLaunchKernel`` calls), graph launches
+    (``cudaGraphLaunch``), ``launches`` (the two together),
     the collectives (c10d ops) with their host self time and that of
     ``record_param_comms`` around them, the ops with the most host self
     time and the device events with the most device time. The device
@@ -149,15 +167,19 @@ def profile_steps(step: Callable, steps: int, warmup: int = 3, window: int = 5) 
     events = prof.key_averages()
     per_step = lambda us: us / window / 1e3  # profiler µs over the window → ms a step
     cpu = [e for e in events if e.device_type == DeviceType.CPU]
-    cuda = [e for e in events if e.device_type == DeviceType.CUDA]
+    cuda = device_events(events)
     device_ms = per_step(sum(e.self_device_time_total for e in cuda))
     c10d = [e for e in cpu if e.key.startswith("c10d::")]
     comms = [e for e in cpu if e.key == "record_param_comms"]
     median_ms = statistics.median(times) * 1e3
+    kernels, graphs = (sum(e.count for e in cpu if e.key == key) / window
+                       for key in ("cudaLaunchKernel", "cudaGraphLaunch"))
     return {
         "steps": steps, "median_step_ms": median_ms, "min_step_ms": min(times) * 1e3,
         "device_ms": device_ms, "device_share": device_ms / median_ms,
-        "kernel_launches": sum(e.count for e in cpu if e.key == "cudaLaunchKernel") / window,
+        "kernel_launches": kernels,
+        "graph_launches": graphs,
+        "launches": kernels + graphs,
         "collectives": {e.key: e.count / window for e in c10d},
         "collective_host_ms": per_step(sum(e.self_cpu_time_total for e in c10d)),
         "record_param_comms_host_ms": per_step(sum(e.self_cpu_time_total for e in comms)),

@@ -11,7 +11,12 @@ blocks (train/sampled.py) and the one-ahead host prefetch.
     python3 scripts/bench_scale_torch.py                           # 10M edges
     python3 scripts/bench_scale_torch.py --nodes 500000 --avg-degree 100
     python3 scripts/bench_scale_torch.py --nodes 500000 --avg-degree 100 --sampler device
+    python3 scripts/bench_scale_torch.py --nodes 500000 --avg-degree 100 --sampler device \
+        --steps-per-call 4
 
+With the device sampler each dispatch is a captured CUDA graph, of
+``--steps-per-call`` steps (the epoch's tail as single steps), as
+scripts/bench_scale.py's ``--steps-per-call`` scans C steps per jit call.
 Prints one JSON line: sampled edges·heads per second of train step
 (forward + backward), the step time, and the host-block / device split
 (train/sampled.step_breakdown). Needs a CUDA card; exits non-zero without.
@@ -31,7 +36,7 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-WARMUP = 3  # untimed steps before the timed loop
+WARMUP = 3  # untimed dispatches before the timed loop
 
 
 def main(argv=None):
@@ -44,9 +49,11 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=512)
     p.add_argument("--fanout", type=int, default=16)
     p.add_argument("--steps", type=int, default=30,
-                   help="train batches in the epoch (the first WARMUP are untimed)")
+                   help="train batches in the epoch (the first WARMUP dispatches are untimed)")
     p.add_argument("--impl", default="ell_fused", choices=["ell", "ell_fused"])
     p.add_argument("--sampler", default="host", choices=["host", "device"])
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="device sampler: C steps per dispatch (one captured graph)")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
 
@@ -75,29 +82,37 @@ def main(argv=None):
     cfg.train.log_file = ""
     trainer = SampledTrainer(ds, cfg, batch_size=args.batch_size,
                              fanout=args.fanout, eval_batches=1,
-                             sampler=args.sampler, device=dev)
+                             sampler=args.sampler, steps_per_call=args.steps_per_call,
+                             device=dev)
     train_idx = np.where(ds.train_mask)[0]
 
     # timed loop: one epoch over --steps batches with prefetch, as fit();
-    # the first WARMUP batches warm up (kernel build and load, the caching
-    # and pinned-memory allocators, cuBLAS)
+    # the first WARMUP dispatches warm up (kernel build and load, the
+    # caching and pinned-memory allocators, cuBLAS, the eager first
+    # dispatch and the capture)
     batches = trainer._prefetched_indexed(
         enumerate(trainer._seed_batches(train_idx, shuffle=True, epoch=0)),
         lambda bi: bi)
+    if trainer.steps_per_call > 1:
+        batches = trainer._chunked(batches)
     for _ in range(WARMUP):
         _, batch = next(batches)
-        loss, _ = trainer._train_step(*batch)
-        final_loss = float(loss)
+        final_loss = float(trainer._train_call(batch)[0][-1])
+    if trainer.steps_per_call > 1:
+        # capture the one-step dispatch too (the chunker's tail uses it),
+        # as scripts/bench_scale.py warms its per-step program
+        seeds = np.asarray(train_idx[:args.batch_size], np.int32)
+        trainer._train_call(trainer._make_batch(seeds, np.ones(seeds.shape[0], bool), 999))
     edges0 = trainer.flush_sampled_edges()
     torch.cuda.reset_peak_memory_stats(dev)
     step_times = []
     t_loop0 = time.perf_counter()
     t_step = t_loop0
     for _, batch in batches:
-        loss, _ = trainer._train_step(*batch)
-        final_loss = float(loss)  # waits for the step, as fit() does
+        losses, _ = trainer._train_call(batch)
+        final_loss = float(losses[-1])  # waits for the dispatch, as fit() does
         now = time.perf_counter()
-        step_times.append(now - t_step)
+        step_times.extend([(now - t_step) / len(losses)] * len(losses))
         t_step = now
     t_total = time.perf_counter() - t_loop0
     edges_per_step = (trainer.flush_sampled_edges() - edges0) / len(step_times)
@@ -111,8 +126,8 @@ def main(argv=None):
         capture_output=True, text=True).stdout.strip().splitlines()
     result = {
         "metric": (f"sampled-edges·heads/s (train fwd+bwd, impl={args.impl}, "
-                   f"sampler={args.sampler}, N={n}, E={total_edges}, "
-                   f"B={args.batch_size}, f={args.fanout})"),
+                   f"sampler={args.sampler}, steps_per_call={args.steps_per_call}, "
+                   f"N={n}, E={total_edges}, B={args.batch_size}, f={args.fanout})"),
         "value": edges_per_step * heads / (t_total / len(step_times)),
         "unit": "edges·heads/s",
         "detail": {
@@ -122,6 +137,9 @@ def main(argv=None):
             "device_ms": split["device_ms"],
             "device_fraction_of_step": (split["device_ms"] / step_ms
                                         if split["device_ms"] else None),
+            "kernel_launches_per_step": split["kernel_launches"],
+            "graph_launches_per_step": split["graph_launches"],
+            "captured": trainer.capture,
             "graph_edges": total_edges,
             "sampled_edges_per_step": edges_per_step,
             "final_loss": final_loss,

@@ -1,15 +1,17 @@
 """Where the time of the GAT presets' train step goes on one CUDA card: the
 pubmed preset (GAT, hid 8, heads (8, 1), dropouts 0.6) on the Pubmed-shaped
 Planetoid fixture (datasets/planetoid.write_planetoid, written to a
-temporary directory) through flash on BCSR graphs and through csr, and the
-ppi preset's inductive step (two graphs of ppi_synthetic at PPI's shape:
-24 graphs of up to 3,200 nodes, 50 features, 121 labels; dense attention).
+temporary directory) through flash on BCSR graphs and through csr, each
+with its step captured as a CUDA graph and run eagerly, and the ppi
+preset's inductive step, which runs eagerly (two graphs of ppi_synthetic
+at PPI's shape: 24 graphs of up to 3,200 nodes, 50 features, 121 labels;
+dense attention).
 
 Each run is read by ``utils/prof.profile_steps``, the reader of
 ``scripts/prof_mesh_torch.py``: the median of ``--steps`` train steps on
 the host clock, then a ``torch.profiler`` window of 5 steps read per step
-(device time, kernel launches, the device events with the most device
-time, peak memory).
+(device time, kernel and graph launches, the device events with the most
+device time, peak memory).
 
     python3 scripts/prof_gat_torch.py [--steps 20] [--out chiprun_out/prof_gat.json]
 
@@ -52,13 +54,14 @@ def main(argv=None):
         pubmed = load_dataset("pubmed", root=tmp)
     results = []
     for impl, fmt in (("flash", "bcsr"), ("csr", "csr")):
-        cfg = preset("pubmed")
-        cfg.model.impl, cfg.data.graph_format = impl, fmt
-        torch.cuda.reset_peak_memory_stats()
-        t = Trainer(pubmed, cfg, logger=MetricLogger(echo=False))
-        results.append({"run": f"pubmed {impl}",
-                        **profile_steps(lambda: t.train_step()[0], args.steps)})
-        del t
+        for captured in (True, False):
+            cfg = preset("pubmed")
+            cfg.model.impl, cfg.data.graph_format = impl, fmt
+            torch.cuda.reset_peak_memory_stats()
+            t = Trainer(pubmed, cfg, logger=MetricLogger(echo=False), capture=captured)
+            results.append({"run": f"pubmed {impl} {'captured' if captured else 'eager'}",
+                            **profile_steps(lambda: t.train_step()[0], args.steps)})
+            del t
     ppi = ppi_synthetic(n_graphs=24, nodes_per_graph=3200, n_feats=50, n_labels=121,
                         avg_degree=28, seed=0)
     cfg = preset("ppi")

@@ -1,15 +1,18 @@
 """Where the time of the dblp preset's train step goes on one CUDA card, one
-device against the graph-axis backends: ``bcsr`` (one device),
-``partitioned_bcsr``, ``ring_bcsr`` under deterministic mode (the split
-backward), then ``bcsr`` again, all in one NCCL rank of a spawned world
-(the partitioned formats as 1-shard partitions, so the collectives run
-through NCCL with one rank), on ``dblp_synthetic``.
+device against the graph-axis backends: ``bcsr`` (one device, its step
+captured as a CUDA graph), ``bcsr`` run eagerly, ``partitioned_bcsr``,
+``ring_bcsr`` under deterministic mode (the split backward), then the
+captured ``bcsr`` again, all in one NCCL rank of a spawned world (the
+partitioned formats as 1-shard partitions, so the collectives run through
+NCCL with one rank, eagerly: a mesh step is not captured), on
+``dblp_synthetic``.
 
 For each format, ``utils/prof.profile_steps``: the median of ``--steps``
 train steps on the host clock (after 3 untimed steps; each step ends in
 ``float(loss)``), then a ``torch.profiler`` window of 5 steps, read per
 step: device time (the self time of every CUDA event: kernels, copies,
-fills), kernel launches (``cudaLaunchKernel`` calls), the collectives
+fills), kernel and graph launches (``cudaLaunchKernel``,
+``cudaGraphLaunch``; a captured step is one graph launch), the collectives
 (c10d ops) with their host self time and that of ``record_param_comms``
 around them, the ops with the most host self time, and the device events
 (kernels, copies, fills) with the most device time. The device share is
@@ -30,10 +33,12 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-RUNS = (("bcsr", False), ("partitioned_bcsr", False), ("ring_bcsr", True), ("bcsr", False))
+# (graph_format, deterministic mode, captured)
+RUNS = (("bcsr", False, True), ("bcsr", False, False), ("partitioned_bcsr", False, False),
+        ("ring_bcsr", True, False), ("bcsr", False, True))
 
 
-def measure(fmt: str, deterministic: bool, steps: int) -> dict:
+def measure(fmt: str, deterministic: bool, captured: bool, steps: int) -> dict:
     import torch
 
     from han_tpu_torch.datasets.registry import dblp_synthetic
@@ -43,17 +48,20 @@ def measure(fmt: str, deterministic: bool, steps: int) -> dict:
 
     cfg = preset("dblp")
     cfg.data.graph_format = fmt
-    t = Trainer(dblp_synthetic(seed=0), cfg, logger=MetricLogger(echo=False))
+    t = Trainer(dblp_synthetic(seed=0), cfg, logger=MetricLogger(echo=False),
+                capture=None if captured else False)
+    if t.capture != captured:
+        raise RuntimeError(f"{fmt}: capture is {t.capture}, want {captured}")
     torch.use_deterministic_algorithms(deterministic)
     try:
         stats = profile_steps(lambda: t.train_step()[0], steps)
     finally:
         torch.use_deterministic_algorithms(False)
-    return {"format": fmt, "deterministic": deterministic, **stats}
+    return {"format": fmt, "deterministic": deterministic, "captured": captured, **stats}
 
 
 def rank_body(steps: int) -> list[dict]:
-    return [measure(fmt, det, steps) for fmt, det in RUNS]
+    return [measure(fmt, det, captured, steps) for fmt, det, captured in RUNS]
 
 
 def main(argv=None):

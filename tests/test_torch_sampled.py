@@ -135,8 +135,9 @@ def test_big_csr_is_bench_scale_copy():
 
 def test_device_sample_block_exhaustive_matches_jax(small_ds):
     """With fanout >= max degree the device sampler takes every neighbor, so
-    the port's blocks equal han_tpu's whatever the random streams: nbr,
-    deg, nodes and the edge count, one and two hops, with masked seeds."""
+    the port's blocks equal han_tpu's whatever the random streams (the
+    port's counter hash, han_tpu's jax.random key): nbr, deg, nodes and the
+    edge count, one and two hops, with masked seeds."""
     csr = tsampled._ScipyCSRView(small_ds.metapath_adjs[1])
     f = max_degree(small_ds)
     seeds = np.array([0, 5, 9, 33, 64, 127], np.int32)
@@ -149,7 +150,8 @@ def test_device_sample_block_exhaustive_matches_jax(small_ds):
         got = tsampled._device_sample_block(
             torch.from_numpy(csr.row_ptr), torch.from_numpy(csr.col_idx),
             torch.from_numpy(seeds), torch.from_numpy(valid),
-            torch.Generator().manual_seed(0), fanout=f, hops=hops, block_size=block)
+            tsampled.sample_key(torch.tensor(0, dtype=torch.int32), 0), fanout=f,
+            hops=hops, block_size=block)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
@@ -204,7 +206,7 @@ def test_train_steps_match_jax(small_ds):
             opt_state = jt.tx.init(params)
             tt.model.load_state_dict(params_from_flax(params))
         params, opt_state, rng, jloss, jacc = jt._train_step(params, opt_state, rng, *jb)
-        tloss, tacc = tt._train_step(*tb)
+        tloss, tacc, _ = tt._train_step(*tb)
         np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-4, err_msg=f"step {bi}")
         np.testing.assert_allclose(float(tacc), float(jacc), rtol=1e-4, err_msg=f"step {bi}")
     assert tt.sampled_edge_count == jt.sampled_edge_count > 0
@@ -222,7 +224,7 @@ def test_seed_rows_match_full_graph(small_ds, sampler, resident):
     t = make_trainer(small_ds, batch_size=16, fanout=f, block_size=16 * (f + 1),
                      sampler=sampler, resident_features=resident)
     seeds = np.arange(16, dtype=np.int32)
-    graphs, xs, _, _ = t._materialize(*t._make_batch(seeds, np.ones(16, bool), 0))
+    graphs, xs, _, _, _ = t._materialize(*t._make_batch(seeds, np.ones(16, bool), 0))
     assert type(graphs[0]).__name__ == ("TreeEllGraph" if sampler == "device" else "EllGraph")
     with torch.no_grad():
         block_logits = t.model(graphs, xs)[0]
@@ -286,7 +288,8 @@ def test_auto_takes_ell_fused_only_where_the_kernel_takes_the_dtype(small_ds, dt
 
 def test_run_routes_sampled_training_and_rejects_unported():
     """scripts/train_torch.py --set train.sampled=true reaches the sampled
-    trainer through run(); unported options raise."""
+    trainer through run(); unported options raise, and steps_per_call > 1
+    with the host sampler raises ValueError, as in han_tpu."""
     main = runpy.run_path("scripts/train_torch.py", run_name="not_main")["main"]
     result = main(["--device", "cpu", "--dataset", "acm_synthetic", "--set", "train.sampled=true",
                    "--set", "train.batch_size=64", "--set", "train.epochs=1",
@@ -297,8 +300,124 @@ def test_run_routes_sampled_training_and_rejects_unported():
     cfg = small_cfg(tpreset)
     with pytest.raises(NotImplementedError, match="resume"):
         tsampled.SampledTrainer(ds, cfg, batch_size=8, fanout=3, device="cpu").fit(resume=True)
-    with pytest.raises(NotImplementedError, match="steps_per_call"):
-        tsampled.SampledTrainer(ds, cfg, batch_size=8, fanout=3, steps_per_call=2)
+    with pytest.raises(ValueError, match="steps_per_call > 1 needs sampler='device'"):
+        tsampled.SampledTrainer(ds, cfg, batch_size=8, fanout=3, steps_per_call=2,
+                                device="cpu")
     cfg.train.sampled, cfg.mesh.graph_axis = True, 2
     with pytest.raises(NotImplementedError, match="DPSampledTrainer"):
         run(cfg, ds, device="cpu")
+
+
+# -- steps_per_call and the descriptor-keyed device sampler ------------------
+
+
+def test_device_sampler_key_comes_from_descriptor(small_ds):
+    """The device sampler keys its offsets from the sample seed in the
+    descriptor (its last element), on the device: a sample seed gives the
+    same blocks whichever batches were sampled before, and another seed
+    gives other blocks at a fanout below the degree. The draws are
+    uniforms in [0, 1)."""
+    t = make_trainer(small_ds, batch_size=16, fanout=2, sampler="device")
+    seeds, valid = np.arange(16, dtype=np.int32), np.ones(16, bool)
+    blocks = {}
+    for order in ((3, 5), (5, 3)):
+        for sample_seed in order:
+            desc = t._make_batch(seeds, valid, sample_seed)[0]
+            assert int(desc.packed[-1]) == sample_seed
+            graphs, xs, _, _, ne = t._materialize(desc, None, None, None)
+            got = [g.nbr.numpy() for g in graphs] + [x.numpy() for x in xs] + [int(ne)]
+            if sample_seed in blocks:
+                for a, b in zip(got[:-1], blocks[sample_seed][:-1]):
+                    np.testing.assert_array_equal(a, b)
+                assert got[-1] == blocks[sample_seed][-1]
+            blocks[sample_seed] = got
+    assert any((a != b).any() for a, b in zip(blocks[3][2:4], blocks[5][2:4]))
+    u = tsampled.sample_uniform(tsampled.sample_key(torch.tensor([7], dtype=torch.int32), 1),
+                                0, 64, 16, "cpu")
+    assert u.dtype == torch.float32 and float(u.min()) >= 0.0 and float(u.max()) < 1.0
+    assert 0.4 < float(u.mean()) < 0.6 and torch.unique(u).numel() > 1000
+
+
+class _Rows(MetricLogger):
+    """Keeps the per-epoch (epoch, train loss, val loss) rows of fit()."""
+
+    def __init__(self):
+        super().__init__("", echo=False)
+        self.rows = []
+
+    def log(self, rec):
+        if "train_loss" in rec:
+            self.rows.append((rec["epoch"], rec["train_loss"], rec["val_loss"]))
+
+
+def test_device_sampler_chunked_dispatch_matches(small_ds):
+    """steps_per_call = 3 runs C descriptors per dispatch (on the CPU, the
+    same body a captured graph holds, eagerly): the (epoch, train loss,
+    val loss) rows equal those of single-step dispatch (port of
+    tests/test_sampled_trainer.py:367-394, its tolerances), with dropout
+    on, and the chunker yields full stacks then the tail as single
+    descriptors."""
+    rows = {}
+    for spc in (1, 3):
+        cfg = small_cfg(tpreset, epochs=4)
+        cfg.model.attn_drop = cfg.model.ffd_drop = 0.3
+        log = _Rows()
+        # 48 train nodes in batches of 10: a chunk of 3, then 2 single steps
+        t = tsampled.SampledTrainer(small_ds, cfg, batch_size=10, fanout=6, sampler="device",
+                                    steps_per_call=spc, device="cpu", logger=log)
+        t.fit()
+        rows[spc] = log.rows
+        if spc == 3:
+            assert sorted(t._train_steps) == [1, 3]  # chunks of 3 and the tail
+    assert rows[1] and len(rows[1]) == len(rows[3])
+    for (e1, l1, v1), (e3, l3, v3) in zip(rows[1], rows[3]):
+        assert e1 == e3
+        np.testing.assert_allclose(l1, l3, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(v1, v3, rtol=1e-6, atol=1e-7)
+    t = make_trainer(small_ds, batch_size=8, fanout=6, sampler="device", steps_per_call=3)
+    batches = [(bi, t._make_batch(np.full(8, bi, np.int32), np.ones(8, bool), bi))
+               for bi in range(7)]
+    chunks = list(t._chunked(iter(batches)))
+    assert [bi for bi, _ in chunks] == [2, 5, 6]
+    assert [tuple(b[0].packed.shape) for _, b in chunks] == [(3, 17), (3, 17), (17,)]
+    np.testing.assert_array_equal(chunks[1][1][0].packed[2].numpy(),
+                                  batches[5][1][0].packed.numpy())
+
+
+def test_chunked_steps_match_jax(small_ds):
+    """The port against han_tpu at steps_per_call = 3: two dispatches of 3
+    device-sampled steps from the same flax initial weights, fanout >= max
+    degree (so both samplers take every neighbor: the same blocks whatever
+    their keys), dropout off, the same packed descriptors (asserted
+    equal). The per-step losses agree at rtol 1e-5, the accuracies at rtol
+    1e-6."""
+    import tempfile
+
+    f = max_degree(small_ds)
+    jcfg = small_cfg(jpreset)
+    jcfg.train.checkpoint_dir = tempfile.mkdtemp()
+    jt = jsampled.SampledTrainer(small_ds, jcfg, batch_size=8, fanout=f, sampler="device",
+                                 steps_per_call=3)
+    tt = make_trainer(small_ds, batch_size=8, fanout=f, sampler="device", steps_per_call=3)
+    train_idx = np.where(small_ds.train_mask)[0]
+    seeds = list(tt._seed_batches(train_idx, shuffle=True, epoch=0))[:6]
+    jpacks, tbatches = [], []
+    for bi, (s, v) in enumerate(seeds):
+        jpacks.append(jt._make_batch(s, v, sample_seed=bi)[0])
+        tbatches.append((bi, tt._make_batch(s, v, sample_seed=bi)))
+        np.testing.assert_array_equal(tbatches[-1][1][0].packed.numpy(), jpacks[-1])
+    params = jt._init_params_from(jax.random.PRNGKey(0), jpacks[0], None)
+    init_edges = jt.sampled_edge_count  # han_tpu inits through one host block
+    opt_state = jt.tx.init(params)
+    tt.model.load_state_dict(params_from_flax(params))
+    rng = jax.random.PRNGKey(0)
+    for c, (_, tb) in enumerate(tt._chunked(iter(tbatches))):
+        stack = np.stack(jpacks[3 * c: 3 * c + 3])
+        params, opt_state, rng, jloss, jacc = jt._train_step(params, opt_state, rng, stack,
+                                                             None, None, None)
+        tloss, tacc = tt._train_call(tb)
+        np.testing.assert_allclose(tloss.numpy(), np.asarray(jloss), rtol=1e-5,
+                                   err_msg=f"dispatch {c}")
+        np.testing.assert_allclose(tacc.numpy(), np.asarray(jacc), rtol=1e-6,
+                                   err_msg=f"dispatch {c}")
+    assert tt.flush_sampled_edges() == jt.flush_sampled_edges() - init_edges > 0
