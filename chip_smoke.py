@@ -16,8 +16,18 @@ together, and the C++ sampler), then drives the ported paths:
   eager, then replays), checks that the flash kernels' seed buffers hold a
   new seed at every replay, profiles the step captured and eager, and
   holds 10 captured epochs at dropout 0 to 10 eager ones (CAPTURE_TOL);
-  then the acm preset for 2 epochs on the dataset run() loads by the name
-  "acm" (acm_synthetic where ACM3025.mat is absent);
+  runs the dblp preset (dropout 0.6, captured) 10 epochs with a checkpoint
+  every epoch, then again preempted after epoch 4 (the guard tripped from
+  the logger) and resumed in a fresh Trainer, which must draw the
+  uninterrupted run's flash seeds from the same generator states (equal)
+  and agree on the losses (CAPTURE_TOL), the best epoch and the test
+  metrics; scores the resumed run's test embedding with KMeans and the
+  silhouette; trains the dblp preset 3 epochs with arch="han_shared"
+  through flash and holds HANShared through flash against csr (dropout 0),
+  and its csr coefficients (rows summing to 1) against
+  edge_attention_coefs; calls han_tpu_torch.entry.entry() (logits
+  (3025, 3)); then the acm preset for 2 epochs on the dataset run() loads
+  by the name "acm" (acm_synthetic where ACM3025.mat is absent);
 - GAT family: writes a Pubmed-shaped Planetoid fixture
   (datasets/planetoid.write_planetoid: 19,717 nodes, 500
   features, 44,324 edges; about 23,000 occupied 128x128 tiles) to a
@@ -36,7 +46,8 @@ together, and the C++ sampler), then drives the ported paths:
   both loss trajectories against the one-device run (the mesh runs
   eagerly); then, on one card under deterministic mode at dropout 0, the
   captured split-backward step twice (is it bitwise repeatable?) and
-  eagerly;
+  eagerly, and the dblp resume above under deterministic mode (losses
+  within rtol 1e-6, DETERMINISTIC_RESUME_TOL);
 - sampled: holds the ell_fused kernel against its plain version at the
   sampled block's shape (and at a large odd fanout, at D = 3 and at K·D =
   256), trains the 100M-edge
@@ -45,7 +56,11 @@ together, and the C++ sampler), then drives the ported paths:
   for 2 epochs through run(), runs 10 steps of the device sampler
   (captured), and holds the device sampler with steps_per_call 4 (one
   graph of 4 steps) against 1 at dropout 0 over 2 epochs of 16 steps
-  (SAMPLED_CHUNK_TOL), with both median steps.
+  (SAMPLED_CHUNK_TOL), with both median steps; then preempts the
+  configuration mid-epoch (2 epochs of 8 steps, dropouts 0.6; the device
+  sampler at steps_per_call 4, and the host sampler) and resumes it in a
+  fresh trainer, its per-step losses held to the uninterrupted run's
+  (SAMPLED_CHUNK_TOL).
 
 - bf16 features: the flash kernels with bf16 v against their plain
   versions at the DBLP shape (dropout 0 and 0.6), and 3 epochs of the dblp
@@ -328,6 +343,20 @@ def main(argv=None) -> None:
     # -- phase 4f: the captured step against the eager one ------------------
     check_dblp_capture(ds, dev, card)
 
+    # -- phase 4g: preempted and resumed, captured, fused backward ----------
+    resume = dblp_resume(ds, dev, score=True)
+    check_dblp_resume(resume, CAPTURE_TOL, "dblp resume (fused backward)", n_mp)
+    km = resume["kmeans"]
+    if not -1.0 <= km["silhouette"] <= 1.0:
+        fail(f"silhouette {km['silhouette']} outside [-1, 1]")
+    print(f"silhouette: kmeans_eval(with_silhouette=True) on the resumed run's test "
+          f"embedding ({km['n']} nodes): nmi {km['nmi']:.4f}, ari {km['ari']:.4f}, "
+          f"silhouette {km['silhouette']:.4f}; {km['s']:.3f} s; {card}", flush=True)
+
+    # -- phases 4h, 4i: HANShared through flash and csr; entry() -------------
+    shared = train_han_shared(ds, dev, n_mp, card)
+    check_entry(dev, card)
+
     bf16_train = train_bf16(ds, dev, n_mp, card)
     del ds, graph
     torch.cuda.empty_cache()
@@ -359,14 +388,17 @@ def main(argv=None) -> None:
         stats[key]["err"] = max(stats[key]["err"], err)
     bench = run_bench(root)
 
-    # launches: the dblp runs (phases 4, 4a), the pubmed run (phase 4d), the
-    # multi-device runs (phase 4b) and the benchmark (phase 9)
+    # launches: the dblp runs (phases 4, 4a, 4g, 4h), the pubmed run (phase
+    # 4d), the multi-device runs (phase 4b, with the deterministic resume)
+    # and the benchmark (phase 9)
     part, ring = mesh["partitioned_bcsr"]["launches"], mesh["ring_bcsr"]["launches"]
-    launches = {"fwd": (fwd_n + bf16_train["fwd"] + pubmed["launches"]["fwd"] + part["fwd"]
-                        + ring["fwd"] + bench["fwd"]),
-                "bwd": (bwd_n + bf16_train["bwd"] + pubmed["launches"]["bwd"] + part["bwd"]
-                        + bench["bwd"]),
-                "row": ring["row"], "col": ring["col"]}
+    det = mesh["resume deterministic"]
+    launches = {"fwd": (fwd_n + bf16_train["fwd"] + resume["launches"]["fwd"] + shared["fwd"]
+                        + pubmed["launches"]["fwd"] + part["fwd"] + ring["fwd"] + det["fwd"]
+                        + bench["fwd"]),
+                "bwd": (bwd_n + bf16_train["bwd"] + resume["launches"]["bwd"] + shared["bwd"]
+                        + pubmed["launches"]["bwd"] + part["bwd"] + bench["bwd"]),
+                "row": ring["row"] + det["row"], "col": ring["col"] + det["col"]}
     src = "han_tpu_torch/csrc/flash_gat.cu"
     tpu = "han_tpu/ops/pallas/flash_gat.py"
     kernels = [
@@ -767,13 +799,277 @@ def check_dblp_capture(ds, dev, card: str) -> None:
               f"{r['max_memory_allocated']} B; {card}", flush=True)
 
 
+class TripAt:
+    """A preemption guard that reads as tripped from its ``n``-th poll on
+    (the sampled trainer polls once a dispatch)."""
+
+    def __init__(self, n: int):
+        self.left = n
+
+    @property
+    def triggered(self) -> bool:
+        self.left -= 1
+        return self.left <= 0
+
+
+def dblp_resume(ds, dev, epochs: int = 10, preempt_after: int = 4, score: bool = False) -> dict:
+    """Phase 4g's runs: the dblp preset (dropout 0.6, captured) for
+    ``epochs`` epochs with checkpoint_every=1, uninterrupted; again,
+    preempted after epoch ``preempt_after`` (guard.trip() from the logger);
+    then resumed in a fresh Trainer. Per run and epoch: the train loss, the
+    flash seeds (the values of the seed tensors draw_seed returned, read
+    after the epoch's train step: a replay rewrites the captured ones) and
+    the dropout generator's state; then the best epoch, the test metrics,
+    the time, the peak memory and the flash launches of all three runs.
+    ``score``: KMeans with the silhouette on the resumed run's test
+    embedding (after the launches are read)."""
+    import tempfile
+
+    import torch
+
+    from han_tpu_torch.ops import flash_gat as fg
+    from han_tpu_torch.train.config import preset
+    from han_tpu_torch.train.eval_embed import kmeans_eval
+    from han_tpu_torch.train.preempt import PreemptionGuard
+    from han_tpu_torch.train.trainer import MetricLogger, Trainer, training_state
+
+    n_mp = len(ds.metapath_adjs)
+    counters = {"fwd": "flash_fwd_launches", "bwd": "flash_bwd_launches",
+                "row": "flash_bwd_row_launches", "col": "flash_bwd_col_launches"}
+    drawn = []
+    draw = fg.draw_seed
+
+    def recording(p, gen):
+        seed = draw(p, gen)
+        if isinstance(seed, torch.Tensor):
+            drawn.append(seed)
+        return seed
+
+    class Recorder(MetricLogger):
+        def __init__(self, guard=None):
+            super().__init__("", echo=False)
+            self.guard, self.gen = guard, None
+            self.seeds, self.states, self.losses = {}, {}, {}
+
+        def log(self, rec):
+            if "train_loss" in rec:
+                e = rec["epoch"]
+                self.seeds[e] = [int(x) for x in drawn[-n_mp:]]
+                self.states[e] = self.gen.get_state().tolist()
+                self.losses[e] = rec["train_loss"]
+                if self.guard is not None and e == preempt_after:
+                    self.guard.trip()
+
+    out = {}
+    for attr in counters.values():
+        setattr(fg, attr, 0)
+    fg.draw_seed = recording
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            for name, tag, resume in (("uninterrupted", "a", False), ("preempted", "b", False),
+                                      ("resumed", "b", True)):
+                cfg = preset("dblp")
+                cfg.train.epochs, cfg.train.log_file = epochs, ""
+                cfg.train.checkpoint_every, cfg.train.checkpoint_dir = 1, f"{root}/{tag}"
+                guard = PreemptionGuard(install=False) if name == "preempted" else None
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                log = Recorder(guard)
+                t = Trainer(ds, cfg, device=dev, logger=log, guard=guard)
+                log.gen = t.rngs.device
+                r = t.fit(resume=resume)
+                torch.cuda.synchronize()
+                out[name] = {
+                    "seeds": log.seeds, "states": log.states, "losses": log.losses,
+                    "s": time.perf_counter() - t0, "captured": t.capture,
+                    "preempted": r.get("preempted", False),
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    **{k: r[k] for k in ("best_epoch", "test_loss", "test_acc") if k in r}}
+                if name == "preempted":
+                    out[name]["saved_state"] = t.restore_latest()["rng"].tolist()
+                if name == "uninterrupted":  # one save's cost: state to file, renamed
+                    store, times = t.checkpoints(), []
+                    for i in range(5):
+                        t0 = time.perf_counter()
+                        store.save(1000 + i, training_state(t.model, t.opt, t.rngs.device))
+                        times.append(time.perf_counter() - t0)
+                    out["save_ms"] = statistics.median(times) * 1e3
+                    out["save_bytes"] = (store.path / "1000.pt").stat().st_size
+    finally:
+        fg.draw_seed = draw
+    out["launches"] = {k: getattr(fg, v) for k, v in counters.items()}
+    if score:
+        _, _, _, embed = t.eval_step(t.masks["test"])
+        test = t.masks["test"]
+        t0 = time.perf_counter()
+        out["kmeans"] = kmeans_eval(embed[test], t.labels[test], seed=cfg.train.seed,
+                                    with_silhouette=True)
+        out["kmeans"]["s"] = time.perf_counter() - t0
+        out["kmeans"]["n"] = int(test.sum())
+    return out
+
+
+def check_dblp_resume(res: dict, tol: dict, label: str, n_mp: int, epochs: int = 10,
+                      preempt_after: int = 4) -> None:
+    """Phase 4g's checks: the resumed epochs draw the uninterrupted run's
+    flash seeds (equal) from the same generator states (equal: the state
+    read after replay k is the one the eager epoch k + 1 continues from),
+    and their losses agree within ``tol``; the same best epoch and test
+    metrics; the launch counts exact."""
+    import numpy as np
+
+    a, b, c = res["uninterrupted"], res["preempted"], res["resumed"]
+    rest = list(range(preempt_after + 1, epochs))
+    if not (a["captured"] and c["captured"] and b["preempted"]) or sorted(c["losses"]) != rest:
+        fail(f"{label}: captured {a['captured']}/{c['captured']}, preempted {b['preempted']}, "
+             f"resumed epochs {sorted(c['losses'])} (want {rest})")
+    if b["saved_state"] != b["states"][preempt_after]:
+        fail(f"{label}: the checkpoint's generator state is not the one read after epoch "
+             f"{preempt_after}")
+    for e in rest:
+        if c["seeds"][e] != a["seeds"][e] or c["states"][e] != a["states"][e]:
+            fail(f"{label}: epoch {e} drew seeds {c['seeds'][e]} (state {c['states'][e]}), "
+                 f"the uninterrupted run {a['seeds'][e]} (state {a['states'][e]})")
+    for e in range(preempt_after + 1):
+        if b["seeds"][e] != a["seeds"][e]:
+            fail(f"{label}: the preempted run's epoch {e} drew other seeds than the first run")
+    la, lc = [a["losses"][e] for e in rest], [c["losses"][e] for e in rest]
+    if not np.allclose(lc, la, **tol):
+        fail(f"{label}: resumed losses {lc} against uninterrupted {la} (tolerance {tol})")
+    if (c["best_epoch"] != a["best_epoch"]
+            or not np.allclose([c["test_loss"], c["test_acc"]], [a["test_loss"], a["test_acc"]],
+                               **tol)):
+        fail(f"{label}: resumed best_epoch {c['best_epoch']}, test {c['test_loss']} / "
+             f"{c['test_acc']}; uninterrupted {a['best_epoch']}, {a['test_loss']} / "
+             f"{a['test_acc']}")
+    steps = 2 * epochs  # train steps of the three runs; the preempted run skips its test
+    want = {"fwd": n_mp * (2 * steps + 2), "bwd": n_mp * steps, "row": 0, "col": 0}
+    if "deterministic" in label:
+        want.update(bwd=0, row=n_mp * steps, col=n_mp * steps)
+    if res["launches"] != want:
+        fail(f"{label}: launches {res['launches']}, want {want}")
+    print(f"{label}: preempted after epoch {preempt_after}, resumed in a fresh Trainer "
+          f"(captured): the flash seeds and generator states of epochs {rest[0]}-{rest[-1]} "
+          f"equal the uninterrupted run's (seeds epoch {rest[0]}: {c['seeds'][rest[0]]}); "
+          f"losses {'bitwise equal' if la == lc else 'NOT bitwise equal'} (largest relative "
+          f"difference {max(abs(x - y) / abs(x) for x, y in zip(la, lc)):.3e}, tolerance "
+          f"{tol}); best_epoch {c['best_epoch']}, test_acc {c['test_acc']:.4f}; launches "
+          f"{res['launches']}", flush=True)
+    print(f"{label}: wall time uninterrupted {a['s']:.3f} s, preempted {b['s']:.3f} s, "
+          f"resumed {c['s']:.3f} s (trainer build and test scoring included); one checkpoint "
+          f"save {res['save_ms']:.3f} ms (median of 5, {res['save_bytes']} B); "
+          f"max_memory_allocated {a['max_memory_allocated']} / {b['max_memory_allocated']} / "
+          f"{c['max_memory_allocated']} B", flush=True)
+
+
+def train_han_shared(ds, dev, n_mp: int, card: str) -> dict:
+    """Phase 4h: the dblp preset with arch="han_shared" (one feature tensor
+    for every tower) for 3 epochs through run(), captured, through flash:
+    launch counts exact; its step profiled captured (profile_trainer). Then
+    at dropout 0 and the same weights, HANShared
+    through flash against HANShared through csr (rtol 1e-4, atol 1e-5: the
+    f32 accumulation order); with return_coefs through csr, each APTPA
+    row's coefficients sum to 1 (1e-5) and edge_attention_coefs, head by
+    head, agrees with them (1e-6). Returns the run's flash launches."""
+    import numpy as np
+    import torch
+
+    from han_tpu_torch.ops import flash_gat as fg
+    from han_tpu_torch.ops.attention import edge_attention_coefs
+    from han_tpu_torch.train.config import preset
+    from han_tpu_torch.train.trainer import MetricLogger, Trainer, build_graphs, build_model, run
+
+    cfg = preset("dblp")
+    cfg.model.arch = "han_shared"
+    cfg.train.epochs = 3
+    fg.flash_fwd_launches = fg.flash_bwd_launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    result = run(cfg, ds, device=dev)
+    torch.cuda.synchronize()
+    n = {"fwd": fg.flash_fwd_launches, "bwd": fg.flash_bwd_launches}
+    losses = result["epoch_train_loss"]
+    want = {"fwd": n_mp * (2 * 3 + 1), "bwd": n_mp * 3}
+    if (len(losses) != 3 or not all(np.isfinite(losses)) or not np.isfinite(result["test_loss"])
+            or n != want or not result["captured"]):
+        fail(f"han_shared: losses {losses}, test {result['test_loss']}, launches {n} (want "
+             f"{want}), captured {result['captured']}")
+    print(f"han_shared (dblp preset, 3 epochs, captured, flash): losses "
+          f"{', '.join(f'{x:.5f}' for x in losses)}, test_acc {result['test_acc']:.4f}; "
+          f"launches {n}; max_memory_allocated {result['max_memory_allocated']} B; {card}",
+          flush=True)
+    profile_trainer("dblp han_shared step (dropout 0.6)", lambda: Trainer(
+        ds, cfg, device=dev, logger=MetricLogger(echo=False)), card)
+
+    cfg.model.attn_drop = cfg.model.ffd_drop = 0.0
+    flash = build_model(ds, cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    flash_graphs = build_graphs(ds, cfg, dev)
+    cfg.data.graph_format, cfg.model.impl = "csr", "csr"
+    csr = build_model(ds, cfg).to(dev)
+    csr.load_state_dict(flash.state_dict())
+    csr_graphs = build_graphs(ds, cfg, dev)
+    x = torch.from_numpy(ds.features).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = flash(flash_graphs, x)[0]
+        csr.return_coefs = True
+        want_logits, _, _, coefs = csr(csr_graphs, x)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    err = float((got - want_logits).abs().max())
+    if not torch.allclose(got, want_logits, rtol=1e-4, atol=1e-5):
+        fail(f"han_shared: flash logits against csr, largest difference {err}")
+    p = ds.metapath_names.index("APTPA")
+    g = csr_graphs[p]
+    rows = g.row_idx[: g.n_edges]
+    sums = torch.zeros(ds.n_nodes, device=dev).index_add_(0, rows, coefs[p][: g.n_edges])
+    sum_err = float((sums - 1).abs().max())
+    layer = csr.towers[p].layers[0]
+    with torch.no_grad():
+        fts = torch.einsum("nf,fkd->nkd", x, layer.kernel)
+        ld = torch.einsum("nkd,kd->nk", fts, layer.attn_dst_kernel) + layer.attn_dst_bias
+        ls = torch.einsum("nkd,kd->nk", fts, layer.attn_src_kernel) + layer.attn_src_bias
+        by_head = edge_attention_coefs(g, ld, ls, slope=layer.slope).mean(dim=-1)
+    coef_err = float((by_head - coefs[p]).abs().max())
+    if sum_err > 1e-5 or coef_err > 1e-6:
+        fail(f"han_shared APTPA coefficients: row sums off 1 by {sum_err}, "
+             f"edge_attention_coefs off by {coef_err}")
+    print(f"han_shared at dropout 0: flash logits against csr within rtol 1e-4 (largest "
+          f"difference {err:.3e}); APTPA ({g.n_edges} edges) coefficients through csr: rows "
+          f"sum to 1 within {sum_err:.3e}, edge_attention_coefs within {coef_err:.3e}; both "
+          f"forwards and coefficients {t_fwd:.3f} s, max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated()} B; {card}", flush=True)
+    return n
+
+
+def check_entry(dev, card: str) -> None:
+    """Phase 4i: han_tpu_torch.entry.entry() gives finite logits of shape
+    (3025, 3) on the card."""
+    import torch
+
+    from han_tpu_torch.entry import entry
+
+    t0 = time.perf_counter()
+    forward, args = entry(dev)
+    logits = forward(*args)
+    torch.cuda.synchronize()
+    if tuple(logits.shape) != (3025, 3) or logits.device.type != "cuda" or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"entry(): logits {tuple(logits.shape)} on {logits.device}")
+    print(f"entry(): logits {tuple(logits.shape)} {logits.dtype} on {logits.device}, "
+          f"{time.perf_counter() - t0:.3f} s (dataset and graphs built); {card}", flush=True)
+
+
 def mesh_train_rank(epochs: int) -> dict:
     """One rank of phase 4b: the dblp preset through run() with
     graph_format partitioned_bcsr, then ring_bcsr under deterministic mode;
     each run's losses, step time, memory and launch counts. Then, on this
     rank's card alone (bcsr), deterministic mode at dropout 0: the split
     backward captured twice and run eagerly once, for whether the captured
-    step repeats bitwise."""
+    step repeats bitwise; and dblp_resume (phase 4g) in deterministic
+    mode."""
     import torch
     import torch.distributed as dist
 
@@ -822,6 +1118,13 @@ def mesh_train_rank(epochs: int) -> dict:
             "losses": result["epoch_train_loss"], "captured": result["captured"],
             "median_step_ms": statistics.median(result["epoch_step_time_s"][1:]) * 1e3,
             "launches": {k: getattr(fg, v) for k, v in counters.items()}}
+    # phase 4g in deterministic mode (the split backward)
+    torch.use_deterministic_algorithms(True)
+    try:
+        out["resume deterministic"] = dblp_resume(
+            ds, torch.device("cuda", torch.cuda.current_device()))
+    finally:
+        torch.use_deterministic_algorithms(False)
     return out
 
 
@@ -851,6 +1154,7 @@ def train_multi_device(want_losses, epochs: int, n_mp: int) -> dict:
                           "col": world * n_mp * epochs}}
     det = {name: res.pop(f"deterministic {name}")
            for name in ("captured", "captured again", "eager")}
+    det_resume = res.pop("resume deterministic")
     for fmt, run in res.items():
         got = run["losses"]
         if not np.allclose(got, want_losses, rtol=2e-4, atol=2e-5):
@@ -877,7 +1181,15 @@ def train_multi_device(want_losses, epochs: int, n_mp: int) -> dict:
           f"largest relative difference {max(abs(a - b) / abs(b) for a, b in zip(cap, eager)):.3e} "
           f"(capturable Adam); median step captured {det['captured']['median_step_ms']:.4f} ms, "
           f"eager {det['eager']['median_step_ms']:.4f} ms; launches {split}", flush=True)
+    check_dblp_resume(det_resume, DETERMINISTIC_RESUME_TOL,
+                      "dblp resume (deterministic, split backward, one card)", n_mp)
+    res["resume deterministic"] = det_resume["launches"]
     return res
+
+
+# deterministic mode: the resumed run's first epoch runs eagerly where the
+# uninterrupted run replays its graph, on the same kernels in the same order
+DETERMINISTIC_RESUME_TOL = dict(rtol=1e-6, atol=0.0)
 
 
 def check_small_han(dev) -> None:
@@ -1084,6 +1396,7 @@ def train_sampled(dev, native, card: str) -> int:
     # -- phase 7b: steps_per_call 4 against 1 -------------------------------
     steps, epochs = 16, 2
     ds16 = dataclasses.replace(ds, train_mask=np.arange(ds.n_nodes) < steps * 512)
+    ds8 = dataclasses.replace(ds, train_mask=np.arange(ds.n_nodes) < 8 * 512)
     del ds, ds10
     runs = {}
     for spc in (1, 4):
@@ -1127,7 +1440,99 @@ def train_sampled(dev, native, card: str) -> int:
               f"(share {sp['device_ms'] / (r['median_step_time_s'] * 1e3):.3f}), launches a step "
               f"{sp['kernel_launches']:g} kernels + {sp['graph_launches']:g} graphs, "
               f"max_memory_allocated {r['max_memory_allocated']} B; {card}", flush=True)
-    return launches
+    del ds16
+    torch.cuda.empty_cache()
+    return launches + sampled_resume(ds8, dev, cfg_for, card)
+
+
+def sampled_resume(ds, dev, cfg_for, card: str, steps: int = 8, epochs: int = 2) -> int:
+    """Phase 7c: the sampled configuration (dropouts 0.6) for ``epochs``
+    epochs of ``steps`` steps, uninterrupted; again, preempted mid-epoch
+    (the guard polled once a dispatch: with the device sampler at
+    steps_per_call 4 after the third dispatch, epoch 1 cursor 4; with the
+    host sampler after the eleventh, epoch 1 cursor 3, the batch its
+    prefetch thread holds dropped); then resumed in a fresh trainer. The
+    per-step losses of the preempted and resumed runs agree with the
+    uninterrupted run's within SAMPLED_CHUNK_TOL, and so do the test
+    metrics; launch and call counts exact. Returns the ell_fused launches
+    (the host sampler's runs)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from han_tpu_torch.ops import ell_fused as ef
+    from han_tpu_torch.ops import tree_ell
+    from han_tpu_torch.train.sampled import _EPOCH_STRIDE, SampledTrainer
+    from han_tpu_torch.train.trainer import MetricLogger
+
+    n_mp = len(ds.metapath_adjs)
+    ell_n = 0
+    for sampler, spc, trip in (("device", 4, 3), ("host", 1, 11)):
+        runs = {}
+        tree_ell.tree_ell_calls = 0
+        ef.ell_fused_launches = 0
+        with tempfile.TemporaryDirectory() as root:
+            for name, tag, guard in (("uninterrupted", "a", None), ("preempted", "b", TripAt(trip)),
+                                     ("resumed", "b", None)):
+                cfg = cfg_for(sampler, epochs)
+                cfg.train.checkpoint_dir = f"{root}/{tag}"
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                t = SampledTrainer(ds, cfg, batch_size=512, fanout=16, sampler=sampler,
+                                   steps_per_call=spc, device=dev, guard=guard,
+                                   logger=MetricLogger(echo=False))
+                r = t.fit(resume=name == "resumed")
+                torch.cuda.synchronize()
+                r["s"] = time.perf_counter() - t0
+                r["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+                if name == "preempted":
+                    state = t.restore_latest()
+                    r["at"] = (state["epoch"], state["cursor"], t.checkpoints().latest_step())
+                runs[name] = r
+                del t
+                torch.cuda.empty_cache()
+        a, b, c = runs["uninterrupted"], runs["preempted"], runs["resumed"]
+        label = f"sampled resume ({sampler} sampler, steps_per_call {spc})"
+        epoch, cursor, step_id = b["at"]
+        done = len(b["step_train_loss"])
+        if (not b.get("preempted") or epoch != 1 or step_id != epoch * _EPOCH_STRIDE + cursor
+                or done != steps + cursor or not 0 < cursor < steps):
+            fail(f"{label}: preempted {b.get('preempted')} at epoch {epoch}, cursor {cursor}, "
+                 f"step id {step_id}, after {done} steps")
+        got = b["step_train_loss"] + c["step_train_loss"]
+        if len(got) != epochs * steps or not np.allclose(got, a["step_train_loss"],
+                                                         **SAMPLED_CHUNK_TOL):
+            fail(f"{label}: per-step losses {got} against {a['step_train_loss']}")
+        if not np.allclose([c["test_loss"], c["test_acc"]], [a["test_loss"], a["test_acc"]],
+                           **SAMPLED_CHUNK_TOL) or c["best_epoch"] != a["best_epoch"]:
+            fail(f"{label}: test {c['test_loss']} / {c['test_acc']} (best epoch "
+                 f"{c['best_epoch']}) against {a['test_loss']} / {a['test_acc']} "
+                 f"({a['best_epoch']})")
+        # train steps, val batches (one an epoch; the preempted run evaluates
+        # epoch 0 only) and test batches (2,048 / 512, not in the preempted run)
+        blocks = n_mp * (2 * epochs * steps + 2 * epochs + 2 * 4)
+        got_n = tree_ell.tree_ell_calls if sampler == "device" else ef.ell_fused_launches
+        other = ef.ell_fused_launches if sampler == "device" else tree_ell.tree_ell_calls
+        if got_n != blocks or other or not (a["captured"] == c["captured"] == (sampler == "device")):
+            fail(f"{label}: {got_n} blocks through its attention (want {blocks}), {other} "
+                 f"through the other; captured {a['captured']} / {c['captured']}")
+        ell_n += ef.ell_fused_launches
+        rest = c["step_train_loss"]
+        print(f"{label}: preempted at epoch {epoch}, cursor {cursor} (step id {step_id}), "
+              f"resumed in a fresh trainer: {len(rest)} resumed steps, per-step losses "
+              f"within {SAMPLED_CHUNK_TOL} of the uninterrupted run ("
+              f"{'bitwise equal' if got == a['step_train_loss'] else 'NOT bitwise equal'}, "
+              f"largest difference {max(abs(x - y) for x, y in zip(got, a['step_train_loss'])):.3e}"
+              f"); test_acc {c['test_acc']:.4f}; {got_n} blocks through "
+              f"{'tree attention' if sampler == 'device' else 'ell_fused'}", flush=True)
+        print(f"{label}: wall time uninterrupted {a['s']:.3f} s, preempted {b['s']:.3f} s, "
+              f"resumed {c['s']:.3f} s (trainer build included); median step "
+              f"{a['median_step_time_s'] * 1e3:.4f} / {c['median_step_time_s'] * 1e3:.4f} ms; "
+              f"max_memory_allocated {a['max_memory_allocated']} / "
+              f"{b['max_memory_allocated']} / {c['max_memory_allocated']} B; {card}", flush=True)
+    return ell_n
 
 
 # steps_per_call 4 against 1: the same steps, kernels and order (the tree

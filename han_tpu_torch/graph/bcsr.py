@@ -30,7 +30,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from han_tpu_torch.graph.containers import _to
+from han_tpu_torch.graph.containers import CSRGraph, _to
 
 _MAX_TILE = 256  # the largest bm and bn the flash kernels take
 
@@ -231,3 +231,10 @@ def bcsr_from_dense(adj: np.ndarray, *, bm: int = DEF_BM,
     a = np.asarray(adj) != 0
     rows, cols = np.nonzero(a)
     return bcsr_from_coo(rows, cols, a.shape[0], bm=bm, bn=bn)
+
+
+def bcsr_from_csr(csr: CSRGraph, *, bm: int = DEF_BM, bn: int = DEF_BN) -> BCSRGraph:
+    """The BCSRGraph of a CSRGraph's real edges (host-side)."""
+    rows = csr.row_idx[: csr.n_edges].cpu().numpy()
+    cols = csr.col_idx[: csr.n_edges].cpu().numpy()
+    return bcsr_from_coo(rows, cols, csr.n_nodes, bm=bm, bn=bn)

@@ -3,7 +3,8 @@
 - :class:`DenseGraph` — boolean N×N adjacency and its additive ``-1e9``
   attention bias; the small-graph oracle path.
 - :class:`CSRGraph` — row_ptr/col_idx with the edge arrays padded to a fixed
-  length; padding edges point at the sentinel row ``n_nodes``.
+  length; padding edges point at the sentinel row ``n_nodes``
+  (``csr_from_dense`` and ``dense_from_csr`` convert between the two).
 - :class:`EllGraph` — ELLPACK: per-row neighbor lists padded to a fixed
   fanout ``(N, F)``; the sampled mini-batch blocks. :class:`TreeEllGraph`
   adds the parent maps of the device sampler's tree-shaped blocks.
@@ -136,6 +137,35 @@ def dense_from_numpy(adj: np.ndarray, *, add_self_loops: bool = True,
         for _ in range(nhood - 1):
             reach = (reach.astype(np.float32) @ step.astype(np.float32)) > 0
     return DenseGraph(adj=torch.from_numpy(reach), n_nodes=n)
+
+
+def csr_from_dense(graph: DenseGraph | np.ndarray, *, edge_pad_to: int = 128) -> CSRGraph:
+    """Convert a dense adjacency (a DenseGraph or an array; nonzero = edge)
+    into padded CSR on the CPU."""
+    if isinstance(graph, DenseGraph):
+        a = graph.adj.cpu().numpy()
+    else:
+        a = np.asarray(graph) != 0
+    n = a.shape[0]
+    rows, cols = np.nonzero(a)  # row-major, so sorted by (row, col)
+    nnz = rows.shape[0]
+    e_pad = max(_round_up(max(nnz, 1), edge_pad_to), edge_pad_to)
+    row_ptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=row_ptr[1:])
+    col_idx = np.full(e_pad, n, dtype=np.int64)
+    row_idx = np.full(e_pad, n, dtype=np.int64)
+    col_idx[:nnz] = cols
+    row_idx[:nnz] = rows
+    return CSRGraph(row_ptr=torch.from_numpy(row_ptr), col_idx=torch.from_numpy(col_idx),
+                    row_idx=torch.from_numpy(row_idx), n_nodes=n, n_edges=int(nnz))
+
+
+def dense_from_csr(csr: CSRGraph) -> DenseGraph:
+    """Materialize a CSRGraph as a dense boolean adjacency on the CPU."""
+    n = csr.n_nodes
+    a = torch.zeros((n, n), dtype=torch.bool)
+    a[csr.row_idx[: csr.n_edges].cpu(), csr.col_idx[: csr.n_edges].cpu()] = True
+    return DenseGraph(adj=a, n_nodes=n)
 
 
 def csr_from_scipy(sp_mat: Any, *, edge_pad_to: int = 128) -> CSRGraph:

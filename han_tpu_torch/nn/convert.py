@@ -1,5 +1,5 @@
 """Parameter conversion between han_tpu's flax trees and this package's
-``state_dict``s, for HAN, GAT and GATConv.
+``state_dict``s, for HAN, HANShared, GAT, GATConv and ConstAttention.
 
 The torch modules keep the flax parameter names and shapes; only the
 submodule paths differ:
@@ -9,7 +9,9 @@ submodule paths differ:
     classifier_{i}/…          ↔  classifiers.{i}.…
     GATConv_{i}/… (GAT)       ↔  layers.{i}.…
 
-A bare GATConv tree maps name for name.
+HANShared's tree has HAN's names (``tower_{p}``, ``SemanticAttention_0``,
+``classifier_{i}``). A bare GATConv tree, and ConstAttention's ``kernel``
+and ``bias``, map name for name.
 """
 
 from __future__ import annotations

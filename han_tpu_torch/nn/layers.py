@@ -1,5 +1,5 @@
-"""Neural layers: multi-head graph attention and semantic attention (port of
-han_tpu/nn/layers.py:39-134,189-209).
+"""Neural layers: multi-head graph attention, the constant-attention
+ablation and semantic attention (port of han_tpu/nn/layers.py:39-209).
 
 Parameters keep the flax shapes (``kernel (F,K,D)``, ``attn_dst_kernel
 (K,D)``, ...) and flax's initializers, so ``nn/convert.py`` maps a flax
@@ -14,6 +14,9 @@ parameter tree onto a ``state_dict`` name for name.
   (han_tpu/nn/layers.py:55-61): x and ``kernel`` are cast to it, the
   einsums sum in f32 and are cast back, the attention logits and the
   output are f32, and the parameters stay f32.
+- ``ConstAttention`` reproduces ``attn_head_const_1`` (utils/layers.py:
+  49-81): the logits are the adjacency (1 on edges), not learned, so every
+  neighbor gets the same weight; dense graphs only.
 - ``SemanticAttention`` reproduces ``SimpleAttLayer`` (utils/layers.py:
   132-164) including the *per-node* softmax over meta-paths and normal(0.1)
   initialization.
@@ -29,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from han_tpu_torch.ops.attention import Impl, attention_aggregate
+from han_tpu_torch.graph.containers import DenseGraph
+from han_tpu_torch.ops.attention import Impl, attention_aggregate, leaky_relu
 
 
 @dataclasses.dataclass
@@ -142,6 +146,52 @@ class GATConv(nn.Module):
         if return_coefs:
             return out, coefs
         return out
+
+
+class ConstAttention(nn.Module):
+    """Uniform-over-neighbors ablation head (reference attn_head_const_1):
+    logits = the 0/1 adjacency rather than learned, then the masked softmax
+    and aggregation of ``GATConv``. Input dropout is one mask over x (not
+    one a head), then the coefficient and feature dropout, drawn in that
+    order."""
+
+    def __init__(self, in_dim: int, out_dim: int, num_heads: int, *,
+                 activation: Callable[[torch.Tensor], torch.Tensor] = F.elu,
+                 slope: float = 0.2, attn_drop: float = 0.0, ffd_drop: float = 0.0,
+                 concat_heads: bool = True, generator: torch.Generator | None = None):
+        super().__init__()
+        self.activation = activation
+        self.slope, self.attn_drop, self.ffd_drop = slope, attn_drop, ffd_drop
+        self.concat_heads = concat_heads
+        self.kernel = nn.Parameter(
+            glorot_uniform_(torch.empty(in_dim, num_heads, out_dim), generator))
+        self.bias = nn.Parameter(torch.zeros(num_heads, out_dim))
+
+    def forward(self, graph: DenseGraph, x: torch.Tensor, *, deterministic: bool = True,
+                rngs: DropoutGenerators | None = None) -> torch.Tensor:
+        if not isinstance(graph, DenseGraph):
+            raise TypeError("ConstAttention requires a DenseGraph")
+        n = x.shape[0]
+        k, d = self.bias.shape
+        drop_in = 0.0 if deterministic else self.ffd_drop
+        drop_coef = 0.0 if deterministic else self.attn_drop
+        if (drop_in > 0.0 or drop_coef > 0.0) and rngs is None:
+            raise ValueError("dropout needs rngs (DropoutGenerators)")
+
+        def dropout(t: torch.Tensor, p: float) -> torch.Tensor:
+            if p <= 0.0:
+                return t
+            keep = 1.0 - p
+            mask = torch.rand(t.shape, generator=rngs.device, device=t.device) < keep
+            return torch.where(mask, t / keep, 0.0)
+
+        fts = torch.einsum("nf,fkd->nkd", dropout(x, drop_in), self.kernel)
+        # reference: the adjacency recovered as 1 - bias/-1e9
+        logits = leaky_relu(graph.adj.float(), self.slope)
+        coefs = dropout(torch.softmax(logits + graph.bias, dim=-1), drop_coef)  # (N, N)
+        agg = torch.einsum("nm,mkd->nkd", coefs, dropout(fts, drop_in))
+        out = self.activation(agg + self.bias[None])
+        return out.reshape(n, k * d) if self.concat_heads else out.mean(dim=1)
 
 
 class SemanticAttention(nn.Module):

@@ -1,4 +1,4 @@
-"""The model family (port of han_tpu/nn/models.py:31-183):
+"""The model family (port of han_tpu/nn/models.py:31-230):
 
 - :class:`GAT` ↔ reference ``GAT.inference`` (gat.py:8-32): multi-head
   concat layers, then an output layer whose heads project to n_classes and
@@ -6,6 +6,9 @@
 - :class:`HAN` ↔ reference ``HeteGAT_multi.inference`` (gat.py:34-77):
   independent GAT towers per meta-path, semantic attention fusion, and a
   classifier that averages n_heads[-1] Dense layers.
+- :class:`HANShared` ↔ reference ``HeteGAT.inference`` (gat.py:132-203):
+  one feature input shared by the towers, and with ``return_coefs`` each
+  tower's first-layer attention coefficients, averaged over heads.
 """
 
 from __future__ import annotations
@@ -55,11 +58,20 @@ class _MetapathTower(nn.Module):
         self.layers = nn.ModuleList(layers)
 
     def forward(self, graph, x: torch.Tensor, *, deterministic: bool = True,
-                rngs: DropoutGenerators | None = None) -> torch.Tensor:
-        h = x
-        for layer in self.layers:
-            h = layer(graph, h, deterministic=deterministic, rngs=rngs)
-        return h
+                rngs: DropoutGenerators | None = None, return_coefs: bool = False):
+        """The tower's output; with ``return_coefs`` also the first layer's
+        coefficients averaged over heads (reference gat.py:172-173): dense
+        (K, N, N) → (N, N), csr (E_pad, K) → (E_pad,), aligned with the
+        graph's row_idx/col_idx."""
+        h, coefs = x, None
+        for i, layer in enumerate(self.layers):
+            if return_coefs and i == 0:
+                h, coefs = layer(graph, h, deterministic=deterministic, rngs=rngs,
+                                 return_coefs=True)
+                coefs = coefs.mean(dim=0) if coefs.dim() == 3 else coefs.mean(dim=-1)
+            else:
+                h = layer(graph, h, deterministic=deterministic, rngs=rngs)
+        return (h, coefs) if return_coefs else h
 
 
 class GAT(_MetapathTower):
@@ -125,7 +137,36 @@ class HAN(nn.Module):
                 rngs: DropoutGenerators | None = None):
         embeds = [tower(graph, x, deterministic=deterministic, rngs=rngs)
                   for tower, graph, x in zip(self.towers, graphs, xs)]
+        return self._fuse(embeds)
+
+    def _fuse(self, embeds: Sequence[torch.Tensor]):
+        """Semantic attention over the towers' embeddings, then the
+        classifier: (logits, embedding, alphas)."""
         multi = torch.stack(embeds, dim=1)  # (N, P, K*hid)
         final, alphas = self.semantic(multi)
         logits = sum(c(final) for c in self.classifiers) / len(self.classifiers)
         return logits, final, alphas
+
+
+class HANShared(HAN):
+    """HAN with one feature input shared by the meta-path towers (reference
+    HeteGAT): ``forward(graphs, x)`` → ``(logits, embedding, alphas)``, and
+    with ``return_coefs`` a fourth item, each tower's coefficients (see
+    ``_MetapathTower.forward``): dense (N, N) matrices or csr per-edge
+    vectors. The fused backends (flash, ell_fused, the partitioned ones)
+    never materialize coefficients and raise NotImplementedError on
+    ``return_coefs``. Parameters and their names are HAN's."""
+
+    def __init__(self, in_dim: int, n_classes: int, n_metapaths: int, *,
+                 return_coefs: bool = False, **kwargs):
+        super().__init__(in_dim, n_classes, n_metapaths, **kwargs)
+        self.return_coefs = return_coefs
+
+    def forward(self, graphs: Sequence, x: torch.Tensor, *, deterministic: bool = True,
+                rngs: DropoutGenerators | None = None):
+        outs = [tower(graph, x, deterministic=deterministic, rngs=rngs,
+                      return_coefs=self.return_coefs)
+                for tower, graph in zip(self.towers, graphs)]
+        if not self.return_coefs:
+            return self._fuse(outs)
+        return *self._fuse([h for h, _ in outs]), [c for _, c in outs]

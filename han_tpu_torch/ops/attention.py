@@ -164,6 +164,32 @@ def spmm_aggregate(graph: CSRGraph, coefs: torch.Tensor,
     return out[:n].reshape(n, k, d).to(fts.dtype)
 
 
+def edge_attention_coefs(graph: CSRGraph, logit_dst: torch.Tensor,
+                         logit_src: torch.Tensor, *, slope: float = 0.2) -> torch.Tensor:
+    """Per-edge attention coefficients (E_pad, K) for analysis, computed one
+    head at a time over 1-D edge arrays, so the peak is O(E) a head instead
+    of the (E, K) edge tensors of :func:`csr_attention`; padding edges get
+    exactly 0 (han_tpu/ops/attention.py:220-250; reference coefficient
+    output, gat.py:148-173)."""
+    k = logit_dst.shape[1]
+    zero = logit_dst.new_zeros((1, k))
+    ld_pad = torch.cat([logit_dst, zero])
+    ls_pad = torch.cat([logit_src, zero])
+    rows, cols, real = graph.row_idx, graph.col_idx, graph.edge_mask
+    n_seg = graph.n_nodes + 1
+    outs = []
+    for h in range(k):
+        le = leaky_relu(ld_pad[rows, h] + ls_pad[cols, h], slope)
+        le = torch.where(real, le, MASK_VALUE)
+        seg_max = le.new_full((n_seg,), float("-inf")).scatter_reduce(
+            0, rows, le, reduce="amax")
+        seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+        e = torch.where(real, torch.exp(le - seg_max[rows]), 0.0)
+        seg_sum = e.new_zeros(n_seg).index_add_(0, rows, e)
+        outs.append(e / seg_sum[rows].clamp_min(1e-30))
+    return torch.stack(outs, dim=1)
+
+
 def csr_attention(
     graph: CSRGraph,
     fts: torch.Tensor,

@@ -62,12 +62,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _worker(rank, fn, world_size, backend, port, args, env, out_dir):
+def _worker(rank, world_size, backend, port, env, out_dir):
     os.environ.update(env)  # before this process initializes CUDA
     if backend == "nccl":
         torch.cuda.set_device(rank)
     else:
         torch.set_num_threads(1)  # S CPU ranks share the machine's cores
+    with open(os.path.join(out_dir, "call.pkl"), "rb") as f:
+        fn, args = pickle.load(f)
     dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
                             world_size=world_size, rank=rank)
     try:
@@ -85,13 +87,20 @@ def spawn(fn, world_size: int, backend: str = "gloo", args: tuple = (),
     under gloo) and return their results in rank order. ``env`` is set in
     each process before anything else runs. A failing rank raises here
     (``torch.multiprocessing.ProcessRaisedException``), after the others
-    are stopped."""
+    are stopped.
+
+    ``fn`` and ``args`` reach the processes through a file, not through
+    the pipe that starts them: CPython writes a process's start data into
+    that pipe while holding its read end, so a process that dies before
+    reading more than the pipe's 64 KiB (an argument that fails to load,
+    a rank killed at start) would leave the parent blocked for good."""
     if backend not in ("gloo", "nccl"):
         raise ValueError(f"backend must be gloo or nccl, got {backend!r}")
     with tempfile.TemporaryDirectory() as out_dir:
+        with open(os.path.join(out_dir, "call.pkl"), "wb") as f:
+            pickle.dump((fn, args), f)
         torch.multiprocessing.start_processes(
-            _worker, args=(fn, world_size, backend, _free_port(), args,
-                           dict(env or {}), out_dir),
+            _worker, args=(world_size, backend, _free_port(), dict(env or {}), out_dir),
             nprocs=world_size, join=True, start_method="spawn")
         results = []
         for rank in range(world_size):

@@ -16,7 +16,7 @@ from typing import Sequence
 
 @dataclasses.dataclass
 class ModelConfig:
-    arch: str = "han"  # han | han_shared | gat (han_shared is not ported)
+    arch: str = "han"  # han | han_shared | gat
     hid_units: Sequence[int] = (8,)
     n_heads: Sequence[int] = (8, 1)
     semantic_dim: int = 128  # mp_att_size (gat.py:37)
@@ -47,8 +47,8 @@ class TrainConfig:
     epochs: int = 200
     patience: int = 100
     seed: int = 42
-    checkpoint_dir: str = "checkpoints"  # (checkpointing is not ported)
-    checkpoint_every: int = 0
+    checkpoint_dir: str = "checkpoints"  # <checkpoint_dir>/<dataset>[_sampled|_inductive]/<step>.pt
+    checkpoint_every: int = 0  # additionally every N epochs (0 = only on best)
     log_file: str = ""  # jsonl metrics log ("" = stdout only)
     sampled: bool = False  # neighbor-sampled mini-batch training (train/sampled.py)
     batch_size: int = 512

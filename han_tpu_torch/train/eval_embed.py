@@ -12,7 +12,9 @@ device; no scikit-learn.
   centre, tolerance 1e-4 of the mean feature variance, 300 iterations),
   drawn from a ``torch.Generator`` seeded ``seed + r``, so its draws are
   not scikit-learn's; the run with the least inertia is kept. NMI with the
-  arithmetic mean and ARI, as scikit-learn computes them.
+  arithmetic mean and ARI, as scikit-learn computes them, and with
+  ``with_silhouette`` the euclidean silhouette of each repeat's assignment
+  (:func:`silhouette_score`, scikit-learn's).
 """
 
 from __future__ import annotations
@@ -223,15 +225,47 @@ def ari_score(y_true: torch.Tensor, y_pred: torch.Tensor) -> float:
     return 2.0 * (tp * tn - fn * fp) / ((tp + fn) * (fn + tn) + (tp + fp) * (fp + tn))
 
 
+def silhouette_score(x, labels, *, block: int = 4096) -> float:
+    """Mean euclidean silhouette coefficient of the assignment ``labels``
+    (scikit-learn's ``silhouette_score``), in float64 on x's device: per
+    sample, a = the mean distance to the rest of its cluster, b = the least
+    mean distance to another cluster, s = (b - a) / max(a, b), and 0 for a
+    sample alone in its cluster. Distances are taken ``block`` rows at a
+    time. Raises ValueError unless 2 <= #clusters <= #samples - 1."""
+    x = _as_f64(x)
+    _, lab = torch.unique(torch.as_tensor(labels).to(x.device), return_inverse=True)
+    n, k = x.shape[0], int(lab.max()) + 1
+    if not 2 <= k <= n - 1:
+        raise ValueError(f"the silhouette needs 2 <= clusters <= samples - 1, got {k} "
+                         f"clusters of {n} samples")
+    onehot = F.one_hot(lab, k).to(torch.float64)
+    counts = onehot.sum(dim=0)
+    sums = torch.cat([  # (N, K): summed distances from each sample to each cluster
+        torch.cdist(x[i:i + block], x, compute_mode="donot_use_mm_for_euclid_dist") @ onehot
+        for i in range(0, n, block)])
+    rest = counts[lab] - 1
+    a = sums.gather(1, lab[:, None])[:, 0] / rest.clamp_min(1)
+    b = (sums / counts).scatter(1, lab[:, None], float("inf")).amin(dim=1)
+    s = torch.where(rest > 0, (b - a) / torch.maximum(a, b), 0.0)
+    return float(torch.nan_to_num(s).mean())
+
+
 def kmeans_eval(x, y, *, n_clusters: int | None = None, repeats: int = 10,
-                seed: int = 0) -> dict[str, float]:
+                seed: int = 0, with_silhouette: bool = False) -> dict[str, float]:
     """KMeans clustering of the embedding; NMI and ARI averaged over
-    repeats. ``n_clusters`` defaults to the number of distinct labels."""
+    repeats. ``n_clusters`` defaults to the number of distinct labels.
+    ``with_silhouette`` adds the euclidean silhouette of each repeat's
+    assignment, averaged (the data/exp.py:25-63 ``my_Kmeans`` variant)."""
     x = _as_f64(x)
     y = _label_ids(y).to(x.device)
     k = int(n_clusters or torch.unique(y).numel())
-    nmi, ari = [], []
+    nmi, ari, sil = [], [], []
     for pred, _ in _kmeans_seeds(x, k, 10, [seed + r for r in range(repeats)]):
         nmi.append(nmi_score(y, pred))
         ari.append(ari_score(y, pred))
-    return {"nmi": float(np.mean(nmi)), "ari": float(np.mean(ari))}
+        if with_silhouette:
+            sil.append(silhouette_score(x, pred))
+    out = {"nmi": float(np.mean(nmi)), "ari": float(np.mean(ari))}
+    if with_silhouette:
+        out["silhouette"] = float(np.mean(sil))
+    return out

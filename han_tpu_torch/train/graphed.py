@@ -112,6 +112,15 @@ class GraphedStep:
                 setattr(mod, name, getattr(mod, name) + n)
         return self.outputs
 
+    def expect_uncaptured(self, what: str) -> None:
+        """Raises RuntimeError once the body is captured: ``what`` (a state
+        load that puts new tensors where the graph reads the old ones, such
+        as ``Optimizer.load_state_dict``) must come before the capture, or
+        the replays would go on reading the stale buffers."""
+        if self.graph is not None:
+            raise RuntimeError(f"{what} after the step was captured: its replays would "
+                               "read the old buffers (load the state before the first step)")
+
     def _capture(self, inputs) -> None:
         self.inputs = [x.detach().to(self.device, copy=True) for x in inputs]
         graph = torch.cuda.CUDAGraph()

@@ -6,8 +6,15 @@ base_gattn.py:50-59,71-94; batching semantics from utils/process_ppi.py).
 The B graphs of a batch run as a loop over ``DenseGraph``s (han_tpu vmaps
 them); the logits are stacked and the per-graph losses averaged. Its
 steps run eagerly on the card: capturing them as a CUDA graph (han_tpu
-jits them) is not ported, nor are checkpoint/resume, the preemption guard
-and data-parallel batches over a mesh.
+jits them) is not ported, nor are data-parallel batches over a mesh.
+
+The resilience contract is the other trainers' (train/trainer.py): with a
+``checkpoint_dir``, a save on every best epoch and every
+``checkpoint_every`` epochs under ``<checkpoint_dir>/<dataset>_inductive``,
+each holding the parameters, Adam's state, the dropout generator's state,
+the next epoch's batch-order generator state, the epoch and the early-stop
+trackers; ``fit(resume=True)`` continues the uninterrupted trajectory, and
+a tripped ``guard`` saves and stops at the end of the epoch.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from han_tpu_torch.graph.containers import DenseGraph
 from han_tpu_torch.nn.layers import DropoutGenerators
 from han_tpu_torch.nn.losses import l2_regularizer, masked_sigmoid_cross_entropy, micro_f1
 from han_tpu_torch.nn.models import GAT
+from han_tpu_torch.train.trainer import CheckpointStore, load_training_state, training_state
 from han_tpu_torch.utils.device import resolve_device
 
 
@@ -38,7 +46,9 @@ class InductiveTrainer:
                  attn_drop: float = 0.0, ffd_drop: float = 0.0,
                  patience: int | None = None, impl: str = "auto",
                  batch_size: int = 2, seed: int = 0,
-                 device: torch.device | str | None = None, logger=None):
+                 device: torch.device | str | None = None,
+                 checkpoint_dir: str = "", checkpoint_every: int = 0,
+                 logger=None, guard=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.ds = ds
@@ -47,7 +57,11 @@ class InductiveTrainer:
         self.l2_coef = l2_coef
         self.patience = patience
         self.logger = logger
+        self.guard = guard
         self.seed = seed
+        self.checkpoint_every = checkpoint_every
+        self.store = (CheckpointStore(checkpoint_dir, f"{ds.name}_inductive")
+                      if checkpoint_dir else None)
         if impl not in ("auto", "dense"):
             # the padded multi-graph batch (G, N_max, N_max) holds one dense
             # adjacency per component (reference process_ppi.py pads dense
@@ -63,6 +77,9 @@ class InductiveTrainer:
                          generator=torch.Generator().manual_seed(seed)).to(self.device)
         self.opt = torch.optim.Adam(self.model.parameters(), lr=lr)
         self._splits: dict[str, tuple[torch.Tensor, ...]] = {}
+
+    def _snapshot(self) -> dict[str, torch.Tensor]:
+        return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
 
     def _split(self, which: str) -> tuple[torch.Tensor, ...]:
         """(adj, features, labels, node_mask) of a split, on the device."""
@@ -121,18 +138,56 @@ class InductiveTrainer:
                                       m_b.reshape(-1))))
         return {"loss": float(np.mean(losses)), "micro_f1": float(np.mean(f1s))}
 
-    def fit(self, epochs: int = 20, *, log=None) -> dict[str, Any]:
+    def _order_rng(self, epoch: int) -> np.random.Generator:
+        """The batch-order generator of an epoch."""
+        return np.random.default_rng(self.seed * 1_000_003 + epoch)
+
+    def restore_latest(self, step: int | None = None) -> dict[str, Any] | None:
+        """The saved resume state of ``step`` (None: the latest save), or
+        None when nothing was saved; loads nothing into the trainer."""
+        return self.store.load(step)
+
+    def _save(self, epoch: int, best: dict, bad_epochs: int, best_step: int) -> None:
+        self.store.save(epoch, training_state(
+            self.model, self.opt, self.rngs.device,
+            order_rng=self._order_rng(epoch + 1).bit_generator.state, epoch=epoch,
+            best_f1=best["f1"], best_loss=best["loss"], bad_epochs=bad_epochs,
+            best_step=best_step))
+
+    def fit(self, epochs: int = 20, *, log=None, resume: bool = False) -> dict[str, Any]:
+        """Train with early stopping, restore the best parameters and
+        evaluate on the test graphs. ``resume`` (with a checkpoint_dir):
+        continue from the latest checkpoint (a fresh start when there is
+        none)."""
         emit = log if log is not None else (
             self.logger.log if self.logger is not None else print)
         history, step_times = [], []
         best = {"f1": -1.0, "loss": np.inf, "state": None, "epoch": -1}
         bad_epochs = 0
+        start_epoch, best_step = 0, -1
+        order_rng = None
+        if resume and self.store is not None:
+            restored = self.store.load()
+            if restored is not None:
+                # the per-epoch batch order and the dropout stream continue
+                # as in the uninterrupted run
+                load_training_state(restored, self.model, self.opt, self.rngs.device)
+                order_rng = np.random.default_rng()
+                order_rng.bit_generator.state = restored["order_rng"]
+                best.update(f1=restored["best_f1"], loss=restored["best_loss"])
+                bad_epochs = restored["bad_epochs"]
+                start_epoch = restored["epoch"] + 1
+                best_step = restored["best_step"]
+                if best_step == restored["epoch"]:
+                    best.update(state=self._snapshot(), epoch=best_step)
+                elif best_step >= 0:
+                    best.update(state=self.store.load(best_step)["model"], epoch=best_step)
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(self.device)
-        for epoch in range(epochs):
+        for epoch in range(start_epoch, epochs):
             t0 = time.perf_counter()
             losses = []
-            rng = np.random.default_rng(self.seed * 1_000_003 + epoch)
+            rng = order_rng if epoch == start_epoch and order_rng else self._order_rng(epoch)
             for batch in self._batches("train", rng):
                 t1 = time.perf_counter()
                 losses.append(float(self.train_step(*batch)))  # waits for the step
@@ -149,11 +204,21 @@ class InductiveTrainer:
             improved_any = val["micro_f1"] >= best["f1"] or val["loss"] <= best["loss"]
             if is_best:
                 best.update(f1=val["micro_f1"], loss=val["loss"], epoch=epoch,
-                            state={k: v.detach().clone()
-                                   for k, v in self.model.state_dict().items()})
+                            state=self._snapshot())
+                best_step = epoch
             bad_epochs = 0 if improved_any else bad_epochs + 1
+            saved = self.store is not None and (is_best or (
+                self.checkpoint_every and (epoch + 1) % self.checkpoint_every == 0))
+            if saved:
+                self._save(epoch, best, bad_epochs, best_step)
             if self.patience is not None and bad_epochs > self.patience:
                 break
+            if self.guard is not None and self.guard.triggered:
+                # preemption: save the whole resume state and stop
+                if self.store is not None and not saved:
+                    self._save(epoch, best, bad_epochs, best_step)
+                emit({"preempted_at": epoch})
+                return {"preempted": True, "history": history}
         if best["state"] is not None:
             # restore-best-then-test (reference ex_acm3025.py:247)
             self.model.load_state_dict(best["state"])

@@ -40,9 +40,20 @@ Differences from han_tpu:
   replay;
 - ``fit()`` folds the device sampler's edge counts in every epoch instead
   of letting the pending list grow;
-- the best parameters are kept in memory; checkpoint/resume, the
-  preemption cursor and the data-parallel trainer are not ported and
-  raise ``NotImplementedError``.
+- the data-parallel trainer is not ported.
+
+Checkpoints (train/trainer.CheckpointStore, under
+``<checkpoint_dir>/<dataset>_sampled``) hold the whole resume state,
+including a mid-epoch batch cursor: the step id is ``epoch *
+_EPOCH_STRIDE + cursor`` (an end-of-epoch save is ``(epoch + 1) *
+_EPOCH_STRIDE``, cursor 0). The batch order and every batch's sample seed
+are functions of (seed, epoch, batch index), so a run preempted after batch
+b resumes by replaying the epoch's permutation from batch b: the host
+sampler samples again the block its prefetch thread held when the guard
+tripped, and the device sampler's counter hash rebuilds the same blocks.
+The guard is polled once a dispatch, so with ``steps_per_call`` C the
+cursor lands at the end of a chunk; the resumed epoch groups its remaining
+batches into chunks from the cursor on, as han_tpu's ``_chunked`` does.
 
 With the device sampler on a CUDA device, every train dispatch and every
 sampled evaluation batch is a CUDA graph (train/graphed.py), han_tpu's
@@ -79,11 +90,15 @@ from han_tpu_torch.ops.flash_gat import fmix32, mul32
 from han_tpu_torch.ops.tree_ell import tree_parent_maps
 from han_tpu_torch.train.config import Config
 from han_tpu_torch.train.graphed import GraphedStep, want_capture
-from han_tpu_torch.train.trainer import EarlyStopState, MetricLogger, build_model
+from han_tpu_torch.train.trainer import (CheckpointStore, EarlyStopState, MetricLogger,
+                                         build_model, load_training_state, training_state)
 from han_tpu_torch.utils.device import resolve_device
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
+# checkpoint step id = epoch * stride + batch_cursor (0 = end of epoch,
+# stored as (epoch+1)*stride); far above any realistic batches/epoch
+_EPOCH_STRIDE = 1_000_000
 
 
 def _resident_gather(tab: torch.Tensor, nd: torch.Tensor) -> torch.Tensor:
@@ -224,9 +239,6 @@ class SampledTrainer:
             raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
         if steps_per_call > 1 and sampler != "device":
             raise ValueError("steps_per_call > 1 needs sampler='device'")
-        if guard is not None:
-            raise NotImplementedError(
-                "preemption (guard and batch cursor) is not ported yet")
         if cfg.model.impl not in ("auto", "ell", "ell_fused"):
             raise ValueError(
                 "sampled training runs on the ell or ell_fused backends")
@@ -238,6 +250,8 @@ class SampledTrainer:
         torch.backends.cudnn.allow_tf32 = False
         self.ds = ds
         self.cfg = cfg
+        # preemption flag polled after every train dispatch (train/preempt.py)
+        self.guard = guard
         self.device = resolve_device(device)
         self.capture = want_capture(
             capture, self.device,
@@ -628,30 +642,63 @@ class SampledTrainer:
         tot_n = max(tot_n, 1.0)
         return tot_l / tot_n, tot_c / tot_n
 
+    # -- checkpointing --------------------------------------------------------
+    def checkpoints(self) -> CheckpointStore:
+        return CheckpointStore(self.cfg.train.checkpoint_dir, f"{self.ds.name}_sampled")
+
+    def restore_latest(self, step: int | None = None) -> dict[str, Any] | None:
+        """The saved resume state of ``step`` (None: the latest save), or
+        None when nothing was saved; loads nothing into the trainer."""
+        return self.checkpoints().load(step)
+
+    def _save(self, store: CheckpointStore, step: int, **scalars) -> None:
+        store.save(step, training_state(self.model, self.opt, self.rngs.device, **scalars))
+
     def fit(self, *, resume: bool = False) -> dict[str, Any]:
-        if resume:
-            raise NotImplementedError(
-                "checkpoint/resume of the sampled trainer is not ported yet")
+        """Train with early stopping, restore the best parameters and
+        evaluate on the test nodes. ``resume``: continue from the latest
+        checkpoint, mid-epoch if it was preempted there (a fresh start
+        when there is none)."""
         cfg = self.cfg.train
         es = EarlyStopState()
         best = {"state": self._snapshot(), "epoch": -1}
+        best_step = -1
+        store = self.checkpoints()
+        start_epoch, start_cursor = 0, 0
+        carry_sums = (0.0, 0.0, 0)
+        if resume:
+            restored = store.load()
+            if restored is not None:
+                load_training_state(restored, self.model, self.opt, self.rngs.device,
+                                    self._train_steps.values())
+                es = EarlyStopState(restored["best_val_loss"], restored["best_val_acc"],
+                                    restored["bad_epochs"])
+                start_cursor = restored["cursor"]
+                start_epoch = restored["epoch"] + (start_cursor == 0)
+                carry_sums = (restored["loss_sum"], restored["acc_sum"], restored["n_batches"])
+                best_step = restored["best_step"]
+                if best_step >= 0:
+                    best = {"state": store.load(best_step)["model"],
+                            "epoch": best_step // _EPOCH_STRIDE - 1}
         train_idx = np.where(self.ds.train_mask)[0]
         val_idx = np.where(self.ds.val_mask)[0]
         train_losses, step_losses, step_times, train_edges = [], [], [], 0
         self.host_block_s = []
         t_start = time.perf_counter()
-        for epoch in range(cfg.epochs):
+        preempted = False
+        for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
             edges0 = self.flush_sampled_edges()
-            loss_sum = acc_sum = 0.0
-            n_done = 0
-            batches = enumerate(
-                self._seed_batches(train_idx, shuffle=True, epoch=epoch))
+            resumed = epoch == start_epoch and start_cursor
+            loss_sum, acc_sum, n_done = carry_sums if resumed else (0.0, 0.0, 0)
+            skip = start_cursor if epoch == start_epoch else 0
+            batches = ((bi, b) for bi, b in enumerate(
+                self._seed_batches(train_idx, shuffle=True, epoch=epoch)) if bi >= skip)
             step_iter = self._prefetched_indexed(batches, lambda bi: epoch * 65_537 + bi)
             if self.steps_per_call > 1:
                 step_iter = self._chunked(step_iter)
             t_step = time.perf_counter()
-            for _, batch in step_iter:
+            for bi, batch in step_iter:
                 losses, accs = self._train_call(batch)
                 # waits for the dispatch; summed in step order, as single steps
                 losses, accs = torch.stack([losses, accs]).tolist()
@@ -664,6 +711,20 @@ class SampledTrainer:
                 # a dispatch of C steps counts as C steps of its mean time
                 step_times.extend([(now - t_step) / len(losses)] * len(losses))
                 t_step = now
+                if self.guard is not None and self.guard.triggered:
+                    # preemption: the whole resume state, with the batch
+                    # cursor; the batch the prefetch thread holds is dropped
+                    # and sampled again on resume from its seed
+                    self._save(store, epoch * _EPOCH_STRIDE + bi + 1, epoch=epoch,
+                               cursor=bi + 1, loss_sum=loss_sum, acc_sum=acc_sum,
+                               n_batches=n_done, best_val_loss=es.best_val_loss,
+                               best_val_acc=es.best_val_acc, bad_epochs=es.bad_epochs,
+                               best_step=best_step)
+                    self.logger.log({"preempted_at": [epoch, bi + 1]})
+                    preempted = True
+                    break
+            if preempted:
+                break
             # fold the device sampler's counts in every epoch
             train_edges += self.flush_sampled_edges() - edges0
             train_losses.append(loss_sum / max(n_done, 1))
@@ -676,10 +737,22 @@ class SampledTrainer:
             keep, _ = es.update(vl_loss, vl_acc)
             if keep:
                 best = {"state": self._snapshot(), "epoch": epoch}
+                best_step = (epoch + 1) * _EPOCH_STRIDE
+            if keep or (cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0):
+                self._save(store, (epoch + 1) * _EPOCH_STRIDE, epoch=epoch, cursor=0,
+                           loss_sum=0.0, acc_sum=0.0, n_batches=0,
+                           best_val_loss=es.best_val_loss, best_val_acc=es.best_val_acc,
+                           bad_epochs=es.bad_epochs, best_step=best_step)
             if es.bad_epochs >= cfg.patience:
                 break
+        if preempted:
+            self.flush_sampled_edges()
+            self.final_params = self._snapshot()
+            return {"preempted": True, "train_time_s": time.perf_counter() - t_start,
+                    "epoch_train_loss": train_losses, "step_train_loss": step_losses}
 
         self.model.load_state_dict(best["state"])
+        self.final_params = self._snapshot()
         ts_loss, ts_acc = self.evaluate(np.where(self.ds.test_mask)[0], epoch=0)
         self.flush_sampled_edges()
         heads = self.cfg.model.n_heads[0]

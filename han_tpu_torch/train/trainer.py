@@ -1,5 +1,5 @@
 """Semi-supervised node-classification trainer (port of
-han_tpu/train/trainer.py:41-134,157-306,316-425,466-521, single device).
+han_tpu/train/trainer.py:41-134,157-521).
 
 Reproduces the reference training dynamics (ex_acm3025.py:121-293):
 full-graph steps, Adam + an explicit global L2 term over all parameters
@@ -15,9 +15,19 @@ reference early-stopping policy (ex_acm3025.py:225-240):
 
 ``run()`` routes ``cfg.train.sampled`` to the sampled mini-batch trainer
 (train/sampled.py) and a MultiGraphDataset (``ppi``) to the inductive
-trainer (train/inductive.py). ``model.arch`` is ``han`` or ``gat`` (one
-graph, the first meta-path's). After the test evaluation a HAN run scores
-the test nodes' embedding with KNN and KMeans (train/eval_embed.py).
+trainer (train/inductive.py). ``model.arch`` is ``han``, ``han_shared``
+(one feature tensor shared by the towers) or ``gat`` (one graph, the first
+meta-path's). After the test evaluation a HAN run scores the test nodes'
+embedding with KNN and KMeans (train/eval_embed.py).
+
+Checkpoints (han_tpu's orbax manager, :class:`CheckpointStore`): a save on
+every best epoch and every ``checkpoint_every`` epochs, each holding the
+whole resume state (parameters, Adam's state, the dropout generator's
+state, the epoch and the early-stop trackers), so ``fit(resume=True)`` in a
+fresh trainer continues the uninterrupted run's trajectory; it restores
+the best parameters from the last best save, not from the latest save. A
+tripped ``guard`` (train/preempt.PreemptionGuard) saves and stops at the
+end of the epoch.
 
 Graph-axis multi-device training (``cfg.mesh.graph_axis`` = S = the world
 size of the process group, one process per device): the graphs are
@@ -37,17 +47,22 @@ a CUDA graph and replayed every epoch (train/graphed.py), han_tpu's one
 jitted program a step: epoch 0 runs them eagerly (a real step), epoch 1
 captures them, and Adam is ``capturable`` (its step counts on the card).
 The mesh runs eagerly (NCCL collectives inside a captured step are not
-ported), and so does the CPU.
+ported), and so does the CPU. A resume loads its state before the first
+step, which runs eagerly, and the capture follows as in a fresh run: the
+optimizer's load makes new state tensors, which a graph captured earlier
+would not read (the train step's GraphedStep raises on such a load).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
 import statistics
+import tempfile
 import time
-from typing import Any
+from typing import Any, Iterable
 
 import numpy as np
 import torch
@@ -62,7 +77,7 @@ from han_tpu_torch.graph.synthetic import HeteroDataset
 from han_tpu_torch.nn.layers import DropoutGenerators
 from han_tpu_torch.nn.losses import (l2_regularizer, masked_accuracy,
                                      masked_softmax_cross_entropy)
-from han_tpu_torch.nn.models import GAT, HAN
+from han_tpu_torch.nn.models import GAT, HAN, HANShared
 from han_tpu_torch.parallel.flash_shard import partition_bcsr
 from han_tpu_torch.parallel.mesh import Mesh, make_mesh
 from han_tpu_torch.parallel.ring_bcsr import ring_partition_bcsr
@@ -135,7 +150,8 @@ def build_model(ds: HeteroDataset, cfg: Config,
     if m.arch == "gat":
         return GAT(in_dim, ds.n_classes, **common)
     if m.arch == "han_shared":
-        raise NotImplementedError("arch 'han_shared' (HANShared) is not ported yet")
+        return HANShared(in_dim, ds.n_classes, len(ds.metapath_adjs),
+                         semantic_dim=m.semantic_dim, **common)
     raise ValueError(f"unknown arch {m.arch!r}")
 
 
@@ -158,6 +174,70 @@ class EarlyStopState:
         else:
             self.bad_epochs += 1
         return improved_both, not improved_any
+
+
+class CheckpointStore:
+    """Resume checkpoints of one run, one file a step:
+    ``<root>/<name>/<step>.pt`` (han_tpu's orbax ``CheckpointManager``).
+    A save writes a temporary file in the directory and renames it over the
+    step's name, so a reader never sees half a file; nothing is pruned.
+    Files hold tensors, numbers, strings, lists and dicts only and load
+    with ``torch.load(weights_only=True)``; tensors load on the CPU."""
+
+    def __init__(self, root: str, name: str):
+        self.path = pathlib.Path(root).absolute() / name
+
+    def save(self, step: int, state: dict[str, Any]) -> None:
+        self.path.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=self.path, prefix=f".{step}.", suffix=".tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                torch.save(state, f)
+            os.replace(tmp, self.path / f"{step}.pt")
+        except BaseException:
+            os.unlink(tmp)
+            raise
+
+    def latest_step(self) -> int | None:
+        steps = [int(p.stem) for p in self.path.glob("*.pt") if p.stem.isdigit()]
+        return max(steps, default=None)
+
+    def load(self, step: int | None = None) -> dict[str, Any] | None:
+        """The state saved at ``step`` (None: the latest step; None when the
+        directory holds no checkpoint). A named step that is missing or
+        does not load raises."""
+        if step is None:
+            step = self.latest_step()
+            if step is None:
+                return None
+        return torch.load(self.path / f"{step}.pt", map_location="cpu", weights_only=True)
+
+
+def training_state(model: nn.Module, opt: torch.optim.Optimizer,
+                   generator: torch.Generator, **scalars) -> dict[str, Any]:
+    """The state a resume needs: the parameters, the optimizer's state
+    (capturable Adam's step counts included), the dropout generator's state
+    and the trainer's counters."""
+    return {"model": model.state_dict(), "opt": opt.state_dict(),
+            "rng": generator.get_state(), **scalars}
+
+
+def load_training_state(state: dict[str, Any], model: nn.Module,
+                        opt: torch.optim.Optimizer, generator: torch.Generator,
+                        train_steps: Iterable[GraphedStep] = ()) -> None:
+    """Loads :func:`training_state`'s tensors. The parameters are copied in
+    place; the optimizer's state tensors are new ones, so a train step
+    already captured (one of ``train_steps``) would go on reading the old
+    ones: that raises. The optimizer keeps its own ``capturable`` setting
+    (a checkpoint of an eager run resumes captured, and the reverse)."""
+    for step in train_steps:
+        step.expect_uncaptured("loading a training state")
+    model.load_state_dict(state["model"])
+    saved = state["opt"]
+    for group, live in zip(saved["param_groups"], opt.param_groups, strict=True):
+        group["capturable"] = live["capturable"]
+    opt.load_state_dict(saved)
+    generator.set_state(state["rng"])
 
 
 class MetricLogger:
@@ -194,13 +274,15 @@ class Trainer:
     def __init__(self, ds: HeteroDataset, cfg: Config, *,
                  device: torch.device | str | None = None,
                  logger: MetricLogger | None = None,
-                 capture: bool | None = None):
+                 capture: bool | None = None, guard=None):
         # float32 stays full float32 on the card (TF32 off for matmuls and
         # cuDNN convolutions alike)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.ds = ds
         self.cfg = cfg
+        # preemption flag polled at epoch boundaries (train/preempt.py)
+        self.guard = guard
         self.device = resolve_device(device)
         self.capture = want_capture(
             capture, self.device,
@@ -233,6 +315,7 @@ class Trainer:
                        ("test", ds.test_mask))}
         self._total_edges = int(sum(a.nnz for a in ds.metapath_adjs))
         self._is_han = cfg.model.arch.startswith("han")
+        self._shared = cfg.model.arch == "han_shared"
         # capturable: the step counts and the bias correction stay on the
         # card, so the update can be replayed
         self.opt = torch.optim.Adam(self.model.parameters(), lr=cfg.train.lr,
@@ -245,6 +328,8 @@ class Trainer:
 
     def _apply(self, *, deterministic: bool, rngs: DropoutGenerators | None = None):
         """(logits, embedding, alphas (N, P) or None)."""
+        if self._shared:  # one feature tensor for every tower
+            return self.model(self.graphs, self.xs[0], deterministic=deterministic, rngs=rngs)
         if self._is_han:
             return self.model(self.graphs, self.xs, deterministic=deterministic, rngs=rngs)
         logits = self.model(self.graphs[0], self.xs[0], deterministic=deterministic, rngs=rngs)
@@ -284,13 +369,54 @@ class Trainer:
         loss = masked_softmax_cross_entropy(logits, self.labels, mask)
         return loss, masked_accuracy(logits, self.labels, mask), logits, embed
 
-    def fit(self) -> dict[str, Any]:
+    def checkpoints(self) -> CheckpointStore:
+        return CheckpointStore(self.cfg.train.checkpoint_dir, self.ds.name)
+
+    def restore_latest(self, step: int | None = None) -> dict[str, Any] | None:
+        """The saved resume state (:func:`training_state` plus ``epoch``,
+        the early-stop trackers and ``best_step``) of ``step``, or of the
+        latest save when None; None when nothing was saved. Loads nothing
+        into the trainer."""
+        return self.checkpoints().load(step)
+
+    def _save(self, store: CheckpointStore, epoch: int, es: EarlyStopState,
+              best_step: int) -> None:
+        if self.coordinator:  # every rank holds the same state
+            store.save(epoch, training_state(
+                self.model, self.opt, self.rngs.device, epoch=epoch,
+                best_val_loss=es.best_val_loss, best_val_acc=es.best_val_acc,
+                bad_epochs=es.bad_epochs, best_step=best_step))
+
+    def fit(self, *, resume: bool = False) -> dict[str, Any]:
+        """Train with early stopping, restore the best parameters and
+        evaluate on the test nodes. ``resume``: continue from the latest
+        checkpoint (a fresh start when there is none)."""
         cfg = self.cfg.train
         es = EarlyStopState()
         best = {"state": self._snapshot(), "epoch": -1}
+        store = self.checkpoints()
+        start_epoch = 0
+        best_step = -1  # epoch of the last best (not periodic) save
+        if resume:
+            restored = store.load()
+            if restored is not None:
+                # the checkpoint holds the whole post-epoch state, so the
+                # continued run emits the uninterrupted run's trajectory
+                load_training_state(restored, self.model, self.opt, self.rngs.device,
+                                    (self._train,))
+                es = EarlyStopState(restored["best_val_loss"], restored["best_val_acc"],
+                                    restored["bad_epochs"])
+                start_epoch = restored["epoch"] + 1
+                # the best parameters come from the last best save, not
+                # from the latest (maybe periodic) one (ex_acm3025.py:247)
+                best_step = restored["best_step"]
+                if best_step == restored["epoch"]:
+                    best = {"state": self._snapshot(), "epoch": best_step}
+                elif best_step >= 0:
+                    best = {"state": store.load(best_step)["model"], "epoch": best_step}
         train_losses, step_times = [], []
         t_start = time.perf_counter()
-        for epoch in range(cfg.epochs):
+        for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
             tr_loss, tr_acc, alphas = self.train_step()
             tr_loss, tr_acc = float(tr_loss), float(tr_acc)  # waits for the step
@@ -314,15 +440,29 @@ class Trainer:
             keep, _ = es.update(vl_loss, vl_acc)
             if keep:
                 best = {"state": self._snapshot(), "epoch": epoch}
+                best_step = epoch
+            if keep or (cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0):
+                # save-on-best keeps the reference dynamics (ex_acm3025.py:
+                # 226-229); the periodic save is the preemption recovery point
+                self._save(store, epoch, es, best_step)
             if es.bad_epochs >= cfg.patience:
                 self.logger.log({"early_stop": epoch,
                                  "best_val_loss": es.best_val_loss,
                                  "best_val_acc": es.best_val_acc})
                 break
+            if self.guard is not None and self.guard.triggered:
+                # preemption: save the whole resume state and stop;
+                # fit(resume=True) continues the trajectory
+                self._save(store, epoch, es, best_step)
+                self.logger.log({"preempted_at": epoch})
+                self.final_params = self._snapshot()
+                return {"preempted": True, "train_time_s": time.perf_counter() - t_start,
+                        "epoch_train_loss": train_losses}
 
         # restore best & final evaluation (ex_acm3025.py:247-291); the
         # parameters are copied in place, so a captured eval step reads them
         self.model.load_state_dict(best["state"])
+        self.final_params = self._snapshot()
         ts_loss, ts_acc, _, embed = self.eval_step(self.masks["test"])
         result = {
             "test_loss": float(ts_loss), "test_acc": float(ts_acc),
@@ -368,6 +508,10 @@ def run(cfg: Config, ds: HeteroDataset | MultiGraphDataset | None = None, *,
             attn_drop=cfg.model.attn_drop, ffd_drop=cfg.model.ffd_drop,
             patience=cfg.train.patience, impl=cfg.model.impl,
             batch_size=max(2, cfg.mesh.graph_axis), seed=cfg.train.seed, device=device,
+            # the inductive trainer shares the other trainers' resilience
+            # contract
+            checkpoint_dir=cfg.train.checkpoint_dir,
+            checkpoint_every=cfg.train.checkpoint_every,
             logger=MetricLogger(cfg.train.log_file))
         result = trainer.fit(epochs=cfg.train.epochs)
         return {k: v for k, v in result.items() if k != "history"}

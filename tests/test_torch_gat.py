@@ -23,6 +23,7 @@ from han_tpu_torch.graph import build as tbuild  # noqa: E402
 from han_tpu_torch.nn import losses as tlosses  # noqa: E402
 from han_tpu_torch.nn.convert import flax_from_params, params_from_flax  # noqa: E402
 from han_tpu_torch.nn.models import GAT as TGAT  # noqa: E402
+from han_tpu_torch.nn.models import HANShared as THANShared  # noqa: E402
 from han_tpu_torch.train import trainer as ttrainer  # noqa: E402
 from han_tpu_torch.train.config import preset as tpreset  # noqa: E402
 
@@ -186,9 +187,9 @@ def test_build_model_archs(tiny_ds):
     assert isinstance(model, TGAT) and all(layer.dtype == torch.bfloat16
                                            for layer in model.layers)
     assert model.layers[-1].concat_heads is False and len(model.layers) == 2
-    cfg.model.arch = "han_shared"
-    with pytest.raises(NotImplementedError, match="han_shared"):
-        ttrainer.build_model(tiny_ds, cfg)
+    cfg.model.arch = "han_shared"  # HANShared: HAN's towers, one shared input
+    model = ttrainer.build_model(tiny_ds, cfg)
+    assert isinstance(model, THANShared) and len(model.towers) == 2
     cfg.model.arch = "mlp"
     with pytest.raises(ValueError, match="mlp"):
         ttrainer.build_model(tiny_ds, cfg)

@@ -111,7 +111,8 @@ def test_pick_tiles_rules():
 
 def test_port_imports_no_jax():
     """The port (every module, the sampled path's, the multi-device and
-    the calibration ones included), its entry scripts, the benchmark, the
+    the calibration ones, entry() and the preemption guard included), its
+    entry scripts, the benchmark, the
     calibration script and the chip smoke test load neither jax, han_tpu
     nor scikit-learn."""
     code = (
@@ -132,6 +133,7 @@ def test_port_imports_no_jax():
         "import han_tpu_torch.parallel.mesh, han_tpu_torch.parallel.launch\n"
         "import han_tpu_torch.parallel.flash_shard, han_tpu_torch.parallel.ring_bcsr\n"
         "import han_tpu_torch.parallel.dryrun\n"
+        "import han_tpu_torch.entry, han_tpu_torch.train.preempt\n"
         "bad = [m for m in sys.modules if m in ('jax', 'han_tpu', 'sklearn')"
         " or m.startswith(('jax.', 'han_tpu.', 'sklearn.'))]\n"
         "assert not bad, bad\n")

@@ -433,6 +433,29 @@ def test_init_distributed_is_a_noop_without_torchrun(monkeypatch):
     launch.shutdown()
 
 
+def test_spawn_fails_instead_of_hanging_when_a_rank_cannot_start():
+    """A rank that dies while loading its arguments (more than a pipe's
+    64 KiB of them) makes spawn raise; it does not leave the parent blocked
+    writing the rank's start data. Run in a child process under a time
+    limit, so that a hang fails this test instead of the suite."""
+    import pathlib
+    import subprocess
+    import sys
+
+    tests = pathlib.Path(__file__).resolve().parent
+    code = ("import torch_parallel_ranks as r\n"
+            "from han_tpu_torch.parallel import launch\n"
+            "launch.spawn(r.count_args, 2, 'gloo', args=(r.Unloadable(), bytes(200_000)))\n")
+    env = dict(__import__("os").environ, PYTHONPATH=f"{tests}:{tests.parent}")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=tests.parent, env=env)
+    assert proc.returncode != 0
+    assert "fails to load on purpose" in proc.stderr, proc.stderr[-2000:]
+    ok = subprocess.run([sys.executable, "-c", code.replace("r.Unloadable(), ", "")],
+                        capture_output=True, text=True, timeout=120, cwd=tests.parent, env=env)
+    assert ok.returncode == 0, ok.stderr[-2000:]
+
+
 @pytest.mark.parametrize("s_n", [1, 3, 4])
 def test_partitioners_match_han_tpu(s_n):
     """partition_bcsr and ring_partition_bcsr equal han_tpu's, field by

@@ -29,6 +29,7 @@ from han_tpu_torch.graph.containers import ell_from_csr  # noqa: E402
 from han_tpu_torch.nn.convert import params_from_flax  # noqa: E402
 from han_tpu_torch.train import sampled as tsampled  # noqa: E402
 from han_tpu_torch.train.config import preset as tpreset  # noqa: E402
+from han_tpu_torch.train.preempt import PreemptionGuard  # noqa: E402
 from han_tpu_torch.train.trainer import MetricLogger, run  # noqa: E402
 
 
@@ -286,10 +287,12 @@ def test_auto_takes_ell_fused_only_where_the_kernel_takes_the_dtype(small_ds, dt
     assert np.isfinite(result["test_loss"])
 
 
-def test_run_routes_sampled_training_and_rejects_unported():
+def test_run_routes_sampled_training_and_rejects_unported(tmp_path):
     """scripts/train_torch.py --set train.sampled=true reaches the sampled
-    trainer through run(); unported options raise, and steps_per_call > 1
-    with the host sampler raises ValueError, as in han_tpu."""
+    trainer through run(); guard= and fit(resume=True) are ported (with no
+    checkpoint the run starts fresh); unported options raise, and
+    steps_per_call > 1 with the host sampler raises ValueError, as in
+    han_tpu."""
     main = runpy.run_path("scripts/train_torch.py", run_name="not_main")["main"]
     result = main(["--device", "cpu", "--dataset", "acm_synthetic", "--set", "train.sampled=true",
                    "--set", "train.batch_size=64", "--set", "train.epochs=1",
@@ -298,8 +301,10 @@ def test_run_routes_sampled_training_and_rejects_unported():
     ds = jsyn.planted_hetero(n_nodes=64, n_feats=8, n_classes=2, n_metapaths=1,
                              avg_degree=4.0, train_per_class=8, n_val=8, seed=0)
     cfg = small_cfg(tpreset)
-    with pytest.raises(NotImplementedError, match="resume"):
-        tsampled.SampledTrainer(ds, cfg, batch_size=8, fanout=3, device="cpu").fit(resume=True)
+    cfg.train.checkpoint_dir, cfg.train.epochs = str(tmp_path), 1
+    res = tsampled.SampledTrainer(ds, cfg, batch_size=8, fanout=3, device="cpu",
+                                  guard=PreemptionGuard(install=False)).fit(resume=True)
+    assert np.isfinite(res["test_loss"]) and len(res["epoch_train_loss"]) == 1
     with pytest.raises(ValueError, match="steps_per_call > 1 needs sampler='device'"):
         tsampled.SampledTrainer(ds, cfg, batch_size=8, fanout=3, steps_per_call=2,
                                 device="cpu")

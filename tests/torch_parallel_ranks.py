@@ -101,3 +101,18 @@ def world_checks(case, han, epochs):
                         for fmt in ("partitioned_bcsr", "ring_bcsr")}
     return res
 
+
+
+def _fail_on_load():
+    raise RuntimeError("this argument fails to load on purpose")
+
+
+class Unloadable:
+    """An argument that pickles but raises when a rank unpickles it."""
+
+    def __reduce__(self):
+        return (_fail_on_load, ())
+
+
+def count_args(*args):
+    return len(args)
