@@ -10,7 +10,14 @@ together, and the C++ sampler), then drives the ported paths:
   graph with a single-edge tile and rows without edges (D = 3 zero-padded
   to 4 by the wrappers), and on the strips of a 4-way partition of DBLP's
   largest meta-path (every shard of partition_bcsr, and ring cells with a
-  non-zero column offset); checks a small HAN against the dense path;
+  non-zero column offset); holds the batched kernels (one launch for
+  DBLP's three meta-paths stacked, graph/stack.py) to their plain versions
+  and, path by path, to single-path launches with the path's seed
+  (forward and sweeps bitwise), with one batched launch timed against
+  three single ones; holds the per-rank body of the heads axis (heads 4-7
+  of 8 at head_offset 4, on the strips and ring cells of a 2-way
+  partition, dropout 0.6) to heads 4-7 of the 8-head launch (forward
+  bitwise); checks a small HAN against the dense path;
   trains the dblp preset for 10 epochs on the DBLP-shaped dataset with its
   train and eval steps captured as CUDA graphs (train/graphed.py: epoch 0
   eager, then replays), checks that the flash kernels' seed buffers hold a
@@ -21,7 +28,12 @@ together, and the C++ sampler), then drives the ported paths:
   the logger) and resumed in a fresh Trainer, which must draw the
   uninterrupted run's flash seeds from the same generator states (equal)
   and agree on the losses (CAPTURE_TOL), the best epoch and the test
-  metrics; scores the resumed run's test embedding with KMeans and the
+  metrics; holds HAN(vmap_towers=True) to the sequential HAN fed the same
+  weights at dropout 0 (logits and first-step gradients, rtol 1e-5) and
+  trains the dblp preset with vmap_towers 10 epochs, captured, one
+  forward and one fused backward launch a train step for the three
+  meta-paths, its step profiled beside the sequential one's; scores the
+  resumed run's test embedding with KMeans and the
   silhouette; trains the dblp preset 3 epochs with arch="han_shared"
   through flash and holds HANShared through flash against csr (dropout 0),
   and its csr coefficients (rows summing to 1) against
@@ -42,9 +54,14 @@ together, and the C++ sampler), then drives the ported paths:
 - multi-device: in a world of torch.cuda.device_count() NCCL ranks (one
   process per card, spawned), trains the dblp preset 10 epochs with
   graph_format partitioned_bcsr, then ring_bcsr under
-  torch.use_deterministic_algorithms(True) (the split backward), and holds
-  both loss trajectories against the one-device run (the mesh runs
-  eagerly); then, on one card under deterministic mode at dropout 0, the
+  torch.use_deterministic_algorithms(True) (the split backward), csr
+  (PartitionedCSR, shard_attn.py) and ring (PartitionedCSR2D,
+  ring_attn.py) at dropout 0, and partitioned_bcsr with vmap_towers (the
+  stacked PartitionedBCSR, batched split backward), and holds each loss
+  trajectory against its one-device run (the mesh runs eagerly; on one
+  card every mesh axis has one rank: the heads and mp grids are held on
+  gloo worlds by the CPU tests); then, on one card under deterministic
+  mode at dropout 0, the
   captured split-backward step twice (is it bitwise repeatable?) and
   eagerly, and the dblp resume above under deterministic mode (losses
   within rtol 1e-6, DETERMINISTIC_RESUME_TOL);
@@ -278,10 +295,12 @@ def main(argv=None) -> None:
     ld, ls, v, g = dblp_inputs(gen, n, ds.n_nodes, k, d)
 
     stats = check_dblp(graph, ld, ls, v, g)
+    # -- phase 3e: the batched kernels, one launch for the meta-paths --------
+    batched = check_batched(dev, ds, card)
     if args.only == "flash_gat":
         print(json.dumps({"card": card, "flash": {
             key: {"ms_by_dropout": st["ms_by_dropout"], "plain_ms": st["plain_ms"]}
-            for key, st in stats.items()}}), flush=True)
+            for key, st in stats.items()}, "batched": batched}), flush=True)
         return
     for p in (0.0, 0.6):
         tf32_control(f"DBLP, dropout {p}", graph, ld, ls, v, g,
@@ -300,6 +319,10 @@ def main(argv=None) -> None:
 
     # -- phase 3c: the kernels on the strips of a 4-way partition ------------
     for name, err in check_strips(dev, ds.metapath_adjs[big]).items():
+        stats[name]["err"] = max(stats[name]["err"], err)
+
+    # -- phase 3f: the kernels under the heads axis (head_offset 4) ---------
+    for name, err in check_head_offset(dev, ds.metapath_adjs[big]).items():
         stats[name]["err"] = max(stats[name]["err"], err)
 
     # -- phase 3b: a small HAN through the kernels vs the dense path ---------
@@ -341,7 +364,10 @@ def main(argv=None) -> None:
           f"max_memory_allocated {result['max_memory_allocated']} B; {card}", flush=True)
 
     # -- phase 4f: the captured step against the eager one ------------------
-    check_dblp_capture(ds, dev, card)
+    losses_dropout0 = check_dblp_capture(ds, dev, card)
+
+    # -- phase 4j: the meta-path towers stacked (vmap_towers) ----------------
+    vmap = train_vmap_towers(ds, dev, card)
 
     # -- phase 4g: preempted and resumed, captured, fused backward ----------
     resume = dblp_resume(ds, dev, score=True)
@@ -371,7 +397,7 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
 
     # -- phase 4b: multi-device training through the partitioned backends ----
-    mesh = train_multi_device(losses, cfg.train.epochs, n_mp)
+    mesh = train_multi_device(losses, losses_dropout0, vmap["losses"], cfg.train.epochs, n_mp)
 
     # -- phases 5-7: the sampled path ------------------------------------------
     ell = check_ell_fused(dev)
@@ -392,6 +418,7 @@ def main(argv=None) -> None:
     # 4d), the multi-device runs (phase 4b, with the deterministic resume)
     # and the benchmark (phase 9)
     part, ring = mesh["partitioned_bcsr"]["launches"], mesh["ring_bcsr"]["launches"]
+    stacked = mesh["partitioned_bcsr stacked"]["launches"]
     det = mesh["resume deterministic"]
     launches = {"fwd": (fwd_n + bf16_train["fwd"] + resume["launches"]["fwd"] + shared["fwd"]
                         + pubmed["launches"]["fwd"] + part["fwd"] + ring["fwd"] + det["fwd"]
@@ -422,7 +449,21 @@ def main(argv=None) -> None:
          "plain_ms": cal_stats[key]["plain_ms"], "bound_ms": cal_stats[key]["bound"][0],
          "bound_by": cal_stats[key]["bound"][1], "library_ms": None}
         for key, line in (("prim", 63), ("fwd_strip", 74), ("fwd_strip_bf16", 112),
-                          ("bwd_strip", 144))]
+                          ("bwd_strip", 144))] + [
+        # the same kernels, one launch for DBLP's three meta-paths (phase 3e);
+        # launches: the vmap_towers run (phase 4j) and the stacked partition
+        # (phase 4b, deterministic: the split pair)
+        {"name": f"flash_gat_{name}_batched", "route": "cuda", "source": src,
+         "replaces": f"{tpu}:{line} (vmapped)",
+         "launches": {"fwd": vmap["launches"]["fwd"] + stacked["fwd"],
+                      "bwd": vmap["launches"]["bwd"] + stacked["bwd"],
+                      "row": stacked["row"], "col": stacked["col"]}[key],
+         "max_abs_err": batched[key]["err"], "ms": batched[key]["ms"],
+         "plain_ms": batched[key]["plain_ms"], "bound_ms": batched[key]["bound_ms"],
+         "bound_by": batched[key]["bound_by"], "library_ms": batched[key].get("library_ms"),
+         "single_launches_ms": batched[key]["single_sum_ms"]}
+        for name, key, line in (("fwd", "fwd", 187), ("bwd", "bwd", 395),
+                                ("bwd_row", "row", 354), ("bwd_col", "col", 395))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -603,6 +644,160 @@ def check_strips(dev, adj) -> dict:
     return errs
 
 
+def check_batched(dev, ds, card: str) -> dict:
+    """Phase 3e: the batched flash kernels, one launch for HAN's meta-paths.
+    DBLP's meta-paths (with self-loops, 128x128 tiles, n_pad 4096) stacked
+    (graph/stack.py: tiles and maps padded to the largest), K = D = 8, at
+    dropout 0 and 0.6 (one seed a path): the batched forward, fused
+    backward and both sweeps against their plain versions (the phase 3
+    tolerances), and path p against a launch of graph p alone with seed p:
+    forward and sweeps bitwise (torch.equal), fused backward within atol
+    1e-4, rtol 1e-3 (dld's atomics). Then the device time of one batched
+    launch of each kernel against the sum of the single-path launches, the
+    batched plain versions' (a loop over the paths; host time included),
+    one scaled_dot_product_attention call over the three paths as the
+    forward's yardstick (sdpa_yardstick, batched), and the bound of the
+    stack (the sum of the per-path bounds). Returns the errors, times and
+    bounds per kernel."""
+    import torch
+
+    from han_tpu_torch.graph.build import metapath_to_bcsr
+    from han_tpu_torch.graph.stack import stack_graphs
+    from han_tpu_torch.ops import flash_gat as fg
+
+    graphs = [metapath_to_bcsr(a).to(dev) for a in ds.metapath_adjs]
+    st = stack_graphs(graphs)
+    n_p, n, k, d = len(graphs), st.n_pad, 8, 8
+    print(f"batched: {n_p} meta-paths stacked, tiles {tuple(st.tiles.shape)} "
+          f"(occupied {[g.n_tiles for g in graphs]}), map widths "
+          f"{st.c_max} / {st.r_max}", flush=True)
+    gen = torch.Generator(dev).manual_seed(3)
+    per = [dblp_inputs(gen, n, ds.n_nodes, k, d) for _ in graphs]
+    ld, ls, v, g = (torch.stack([x[i] for x in per]) for i in range(4))
+    stats = {key: {"err": 0.0} for key in ("fwd", "bwd", "row", "col")}
+    for p in (0.0, 0.6):
+        seeds = torch.tensor([1234567, 7654321, 2468013], dtype=torch.int32, device=dev)
+        meta = fg.FlashMeta(dropout_p=p, seed=seeds)
+        print(f"batched, dropout {p}:", flush=True)
+        out, lse = fg.flash_fwd_cuda(st, ld, ls, v, meta)
+        out_p, lse_p = fg.flash_fwd_plain(st, ld, ls, v, meta)
+        torch.cuda.synchronize()
+        e = max(check("out", out, out_p, 1e-5, 1e-4), check("lse", lse, lse_p, 1e-5, 1e-4))
+        stats["fwd"]["err"] = max(stats["fwd"]["err"], e)
+        delta = (g * out).view(n_p, n, k, d).sum(-1).transpose(1, 2).contiguous()
+        args = (st, ld, ls, v, g, lse, delta, meta)
+        fused = fg.flash_bwd_cuda(*args)
+        row = fg.flash_bwd_row_cuda(*args)
+        col = fg.flash_bwd_col_cuda(*args)
+        for key, got, want in (("bwd", fused, fg.flash_bwd_plain(*args)),
+                               ("row", (row,), (fg.flash_bwd_row_plain(*args),)),
+                               ("col", col, fg.flash_bwd_col_plain(*args))):
+            for name, a, b in zip(("dld", "dls", "dv") if key == "bwd" else
+                                  ("dld",) if key == "row" else ("dls", "dv"), got, want):
+                stats[key]["err"] = max(stats[key]["err"],
+                                        check(f"{name} ({key})", a, b, 1e-4, 1e-3))
+        singles = []
+        for i, gp in enumerate(graphs):
+            mp = fg.FlashMeta(dropout_p=p, seed=seeds[i:i + 1])
+            o1, l1 = fg.flash_fwd_cuda(gp, ld[i], ls[i], v[i], mp)
+            a1 = (gp, ld[i], ls[i], v[i], g[i], lse[i], delta[i], mp)
+            if not (torch.equal(out[i], o1) and torch.equal(lse[i], l1)):
+                fail(f"batched forward path {i} differs from its single-path launch")
+            if not (torch.equal(row[i], fg.flash_bwd_row_cuda(*a1))
+                    and all(torch.equal(x[i], y) for x, y in zip(col, fg.flash_bwd_col_cuda(*a1)))):
+                fail(f"batched sweeps path {i} differ from their single-path launches")
+            for name, x, y in zip(("dld", "dls", "dv"), fused, fg.flash_bwd_cuda(*a1)):
+                check(f"path {i} {name} (fused) vs single", x[i], y, 1e-4, 1e-3)
+            singles.append(a1)
+        print(f"  batched forward and sweeps bitwise equal to the {n_p} single-path "
+              f"launches", flush=True)
+    t = {"fwd": (timed(lambda: fg.flash_fwd_cuda(st, ld, ls, v, meta)),
+                 timed(lambda: [fg.flash_fwd_cuda(*a[:4], a[-1]) for a in singles])),
+         "bwd": (timed(lambda: fg.flash_bwd_cuda(*args)),
+                 timed(lambda: [fg.flash_bwd_cuda(*a) for a in singles])),
+         "row": (timed(lambda: fg.flash_bwd_row_cuda(*args)),
+                 timed(lambda: [fg.flash_bwd_row_cuda(*a) for a in singles])),
+         "col": (timed(lambda: fg.flash_bwd_col_cuda(*args)),
+                 timed(lambda: [fg.flash_bwd_col_cuda(*a) for a in singles]))}
+    plain = {"fwd": lambda: fg.flash_fwd_plain(st, ld, ls, v, meta),
+             "bwd": lambda: fg.flash_bwd_plain(*args),
+             "row": lambda: fg.flash_bwd_row_plain(*args),
+             "col": lambda: fg.flash_bwd_col_plain(*args)}
+    for key, fn in plain.items():
+        stats[key]["plain_ms"] = timed(fn, reps=3, host_waits=True)
+    torch.cuda.empty_cache()
+    stats["fwd"]["library_ms"] = sdpa_yardstick(st, ld, ls, v, k, d)
+    per_bounds = [flash_bounds(gp, k, d) for gp in graphs]
+    for key, (ms, ms_single) in t.items():
+        b = [pb[key] for pb in per_bounds]
+        by = "bytes" if sum(x[0] for x in b if x[1] == "bytes") >= sum(
+            x[0] for x in b if x[1] != "bytes") else "operations"
+        stats[key].update(ms=ms, single_sum_ms=ms_single, bound_ms=sum(x[0] for x in b),
+                          bound_by=by)
+        print(f"  {key}: batched {ms:.4f} ms, {n_p} single launches {ms_single:.4f} ms, "
+              f"bound {stats[key]['bound_ms']:.4f} ms ({by}); dropout 0.6; {card}", flush=True)
+    return stats
+
+
+def check_head_offset(dev, adj) -> dict:
+    """Phase 3f: the kernels under the heads axis. DBLP's largest meta-path
+    (with self-loops) cut two ways with 128x128 tiles: on each strip of
+    partition_bcsr and each ring cell (s, (s - 1) mod 2) of
+    ring_partition_bcsr (its column-block offset not 0), at dropout 0.6,
+    the per-rank body of sharded_flash_attention and of the ring on heads
+    4-7 of 8 (head_offset = 4, han_tpu's h_off) against heads 4-7 of the
+    launch on all 8 heads: forward (out, lse) bitwise (torch.equal), the
+    fused backward and both sweeps within atol 1e-4, rtol 1e-3. Returns
+    the largest errors per kernel."""
+    import torch
+
+    from han_tpu_torch.graph.build import with_self_loops
+    from han_tpu_torch.ops import flash_gat as fg
+    from han_tpu_torch.parallel.flash_shard import partition_bcsr
+    from han_tpu_torch.parallel.ring_bcsr import ring_partition_bcsr
+
+    a = with_self_loops(adj)
+    pg = partition_bcsr(a, 2, bm=128, bn=128).to(dev)
+    rg = ring_partition_bcsr(a, 2, bm=128, bn=128).to(dev)
+    cells = [(f"shard {s}", pg.strip(s), dict(row_block_offset=pg.row_block_off[s]))
+             for s in range(2)]
+    cells += [(f"ring cell ({s},{(s - 1) % 2})", rg.cell(s, 1),
+               dict(row_block_offset=s * rg.nb_r_loc,
+                    col_block_offset=rg.cs_of_step[s][1] * rg.nb_c_loc)) for s in range(2)]
+    gen = torch.Generator(dev).manual_seed(4)
+    rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    k, d, h0 = 8, 8, 4
+    hi = lambda x: x.view(x.shape[0], k, d)[:, h0:].reshape(x.shape[0], -1).contiguous()
+    errs = {"fwd": 0.0, "bwd": 0.0, "row": 0.0, "col": 0.0}
+    seed = fg.seed_tensor(97531, dev)
+    for label, graph, off in cells:
+        n_rows, n_cols = graph.nb_r * graph.bm, graph.nb_c * graph.bn
+        ld, ls, v, g = rnd(k, n_rows), rnd(k, n_cols), rnd(n_cols, k * d), rnd(n_rows, k * d)
+        full = fg.FlashMeta(dropout_p=0.6, seed=seed, **off)
+        part = fg.FlashMeta(dropout_p=0.6, seed=seed, head_offset=h0, **off)
+        out, lse = fg.flash_fwd_cuda(graph, ld, ls, v, full)
+        out4, lse4 = fg.flash_fwd_cuda(graph, ld[h0:].contiguous(), ls[h0:].contiguous(),
+                                       hi(v), part)
+        torch.cuda.synchronize()
+        if not (torch.equal(out4, hi(out)) and torch.equal(lse4, lse[h0:])):
+            fail(f"{label}: heads 4-7 at head_offset 4 differ from the 8-head launch's")
+        delta = (g * out).view(n_rows, k, d).sum(-1).T.contiguous()
+        args = (graph, ld, ls, v, g, lse, delta, full)
+        args4 = (graph, ld[h0:].contiguous(), ls[h0:].contiguous(), hi(v), hi(g),
+                 lse[h0:].contiguous(), delta[h0:].contiguous(), part)
+        for key, f in (("bwd", fg.flash_bwd_cuda), ("row", fg.flash_bwd_row_cuda),
+                       ("col", fg.flash_bwd_col_cuda)):
+            got, want = f(*args4), f(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for x, y in zip(got, want):
+                y = hi(y) if y.shape[1] == k * d else y[h0:]
+                errs[key] = max(errs[key], check(f"{label} {key} heads 4-7", x, y, 1e-4, 1e-3))
+        print(f"  {label}: forward at head_offset 4 bitwise equal to heads 4-7 of the 8-head "
+              f"launch (dropout 0.6)", flush=True)
+    return errs
+
+
 def head_dim_graph(n: int = 600, seed: int = 4):
     """A small graph for the head-dim checks (128x128 tiles, n_pad 640):
     a dense corner (density 0.3 over rows and columns 0-255), scattered
@@ -718,14 +913,104 @@ def profile_trainer(label: str, make, card: str) -> dict:
     return st
 
 
-def check_dblp_capture(ds, dev, card: str) -> None:
+VMAP_TOL = dict(rtol=1e-5)  # stacked against sequential towers at dropout 0
+
+
+def train_vmap_towers(ds, dev, card: str, epochs: int = 10) -> dict:
+    """Phase 4j: HAN(vmap_towers=True), the meta-path towers stacked. At
+    dropout 0, the logits and the first step's gradients of the stacked
+    model against the sequential HAN fed the same weights
+    (nn/convert.py:stack_towers), through the batched and the single-path
+    flash kernels: rtol 1e-5 (VMAP_TOL; atol 1e-5 of each tensor's largest
+    value: the fused backward's atomics). Then the dblp preset with
+    vmap_towers through run(), captured, for ``epochs`` epochs: the loss
+    falls, and a train step takes one forward and one fused backward
+    launch for the three meta-paths (one forward an eval). The step
+    profiled captured beside the sequential one's. Returns the losses and
+    launches."""
+    import numpy as np
+    import torch
+
+    from han_tpu_torch.graph.build import metapath_to_bcsr
+    from han_tpu_torch.graph.stack import stack_graphs
+    from han_tpu_torch.nn.convert import stack_towers
+    from han_tpu_torch.nn.losses import l2_regularizer, masked_softmax_cross_entropy
+    from han_tpu_torch.ops import flash_gat as fg
+    from han_tpu_torch.train.config import preset
+    from han_tpu_torch.train.trainer import MetricLogger, Trainer, build_model, run
+
+    cfg = preset("dblp")
+    cfg.model.attn_drop = cfg.model.ffd_drop = 0.0
+    seq = build_model(ds, cfg, generator=torch.Generator().manual_seed(0)).to(dev)
+    cfg.model.vmap_towers = True
+    vm = build_model(ds, cfg, generator=torch.Generator().manual_seed(1)).to(dev)
+    vm.load_state_dict(stack_towers(seq.state_dict()))
+    graphs = [metapath_to_bcsr(a).to(dev) for a in ds.metapath_adjs]
+    x = torch.from_numpy(ds.features).to(dev)
+    labels = torch.from_numpy(ds.labels).to(dev)
+    mask = torch.from_numpy(ds.train_mask).to(dev)
+    outs = {}
+    for name, model, g, xs in (("sequential", seq, graphs, [x] * len(graphs)),
+                               ("stacked", vm, stack_graphs(graphs), torch.stack([x] * len(graphs)))):
+        logits = model(g, xs)[0]
+        loss = (masked_softmax_cross_entropy(logits, labels, mask)
+                + l2_regularizer(model.parameters(), cfg.train.l2_coef))
+        loss.backward()
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        outs[name] = (logits.detach(), stack_towers(grads) if name == "sequential" else grads)
+    torch.cuda.synchronize()
+    check("vmap_towers logits vs sequential", outs["stacked"][0], outs["sequential"][0],
+          1e-5 * float(outs["sequential"][0].abs().max()), **VMAP_TOL)
+    err = max(check(f"vmap_towers grad {k}", outs["stacked"][1][k], want,
+                    1e-5 * float(want.abs().max()), **VMAP_TOL)
+              for k, want in outs["sequential"][1].items())
+    print(f"vmap_towers at dropout 0: logits and first-step gradients of all "
+          f"{len(outs['stacked'][1])} parameters within rtol 1e-5 of the sequential HAN "
+          f"(largest gradient error {err:.3e})", flush=True)
+    del seq, vm, outs
+
+    cfg = preset("dblp")
+    cfg.train.epochs = epochs
+    cfg.model.vmap_towers = True
+    fg.flash_fwd_launches = fg.flash_bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    result = run(cfg, ds, device=dev)
+    torch.cuda.synchronize()
+    fwd_n, bwd_n = fg.flash_fwd_launches, fg.flash_bwd_launches
+    losses = result["epoch_train_loss"]
+    if not result["captured"] or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"vmap_towers dblp: captured {result['captured']}, losses {losses}")
+    if fwd_n != 2 * epochs + 1 or bwd_n != epochs:
+        fail(f"vmap_towers dblp: launches fwd {fwd_n} (want {2 * epochs + 1}), bwd {bwd_n} "
+             f"(want {epochs})")
+    print(f"vmap_towers dblp (captured): losses {losses[0]:.5f} -> {losses[-1]:.5f}, test_acc "
+          f"{result['test_acc']:.4f}; launches fwd {fwd_n} bwd {bwd_n} = 1 fwd + 1 bwd per "
+          f"train step for {len(ds.metapath_adjs)} meta-paths; median step epochs 2-{epochs} "
+          f"{statistics.median(result['epoch_step_time_s'][1:]) * 1e3:.4f} ms, "
+          f"max_memory_allocated {result['max_memory_allocated']} B; {card}", flush=True)
+
+    def trainer(vmap):
+        c = preset("dblp")
+        c.train.log_file, c.model.vmap_towers = "", vmap
+        return Trainer(ds, c, device=dev, logger=MetricLogger(echo=False))
+
+    prof = {name: profile_trainer(f"dblp step, {name} towers (dropout 0.6)",
+                                  lambda v=vmap: trainer(v), card)
+            for name, vmap in (("stacked", True), ("sequential", False))}
+    return {"losses": losses, "launches": {"fwd": fwd_n, "bwd": bwd_n}, "profile": prof,
+            "err": err}
+
+
+def check_dblp_capture(ds, dev, card: str) -> list:
     """Phase 4f: the dblp preset's captured step against its eager one.
     The flash kernels' seed buffers (the tensors draw_seed returned during
     the capture, read after each replay) hold new seeds at every replay;
     each step profiled captured and eager at the preset's dropouts 0.6;
     then, at dropout 0, 10 epochs of fit() eager, captured, and captured
     with Adam(fused=True), whose loss trajectories agree within
-    CAPTURE_TOL, their medians of epochs 2-10 and device time a step."""
+    CAPTURE_TOL, their medians of epochs 2-10 and device time a step.
+    Returns the eager dropout-0 losses (phase 4b's one-device reference
+    for the csr backends)."""
     import numpy as np
     import torch
 
@@ -797,6 +1082,7 @@ def check_dblp_capture(ds, dev, card: str) -> None:
               f"{statistics.median(r['epoch_step_time_s'][1:]) * 1e3:.4f} ms, device "
               f"{r['device_ms']:.4f} ms a step (profiled after the fit), max_memory_allocated "
               f"{r['max_memory_allocated']} B; {card}", flush=True)
+    return eager
 
 
 class TripAt:
@@ -1062,10 +1348,23 @@ def check_entry(dev, card: str) -> None:
           f"{time.perf_counter() - t0:.3f} s (dataset and graphs built); {card}", flush=True)
 
 
+# phase 4b's runs: (label, graph_format, deterministic mode, dropout (None:
+# the preset's 0.6), vmap_towers)
+MESH_RUNS = (("partitioned_bcsr", "partitioned_bcsr", False, None, False),
+             ("ring_bcsr", "ring_bcsr", True, None, False),
+             ("csr", "partitioned", False, 0.0, False),
+             ("ring", "ring", False, 0.0, False),
+             ("partitioned_bcsr stacked", "partitioned_bcsr", True, None, True))
+
+
 def mesh_train_rank(epochs: int) -> dict:
     """One rank of phase 4b: the dblp preset through run() with
-    graph_format partitioned_bcsr, then ring_bcsr under deterministic mode;
-    each run's losses, step time, memory and launch counts. Then, on this
+    graph_format partitioned_bcsr, ring_bcsr under deterministic mode, csr
+    (PartitionedCSR) and ring (PartitionedCSR2D) at dropout 0, and
+    partitioned_bcsr with vmap_towers under deterministic mode (the stacked
+    PartitionedBCSR: its strips in one batched launch of the forward and of
+    each sweep; mp axis 1); each run's losses, step time,
+    memory and launch counts (MESH_RUNS). Then, on this
     rank's card alone (bcsr), deterministic mode at dropout 0: the split
     backward captured twice and run eagerly once, for whether the captured
     step repeats bitwise; and dblp_resume (phase 4g) in deterministic
@@ -1082,11 +1381,14 @@ def mesh_train_rank(epochs: int) -> dict:
                 "row": "flash_bwd_row_launches", "col": "flash_bwd_col_launches"}
     ds = dblp_synthetic(seed=0)
     out = {}
-    for fmt, deterministic in (("partitioned_bcsr", False), ("ring_bcsr", True)):
+    for label, fmt, deterministic, dropout, vmap in MESH_RUNS:
         cfg = preset("dblp")
         cfg.train.epochs = epochs
         cfg.data.graph_format = fmt
         cfg.mesh.graph_axis = dist.get_world_size()
+        cfg.model.vmap_towers = vmap
+        if dropout is not None:
+            cfg.model.attn_drop = cfg.model.ffd_drop = dropout
         torch.cuda.reset_peak_memory_stats()
         for attr in counters.values():
             setattr(fg, attr, 0)
@@ -1096,7 +1398,7 @@ def mesh_train_rank(epochs: int) -> dict:
             torch.cuda.synchronize()
         finally:
             torch.use_deterministic_algorithms(False)
-        out[fmt] = {"losses": result["epoch_train_loss"], "test_loss": result["test_loss"],
+        out[label] = {"losses": result["epoch_train_loss"], "test_loss": result["test_loss"],
                     "median_step_ms": statistics.median(result["epoch_step_time_s"][1:]) * 1e3,
                     "max_memory_allocated": result["max_memory_allocated"],
                     "launches": {k: getattr(fg, v) for k, v in counters.items()}}
@@ -1128,15 +1430,20 @@ def mesh_train_rank(epochs: int) -> dict:
     return out
 
 
-def train_multi_device(want_losses, epochs: int, n_mp: int) -> dict:
+def train_multi_device(want_losses, want_dropout0, want_stacked, epochs: int,
+                       n_mp: int) -> dict:
     """Phase 4b: mesh_train_rank in a world of one NCCL rank per card. Each
-    run's losses must match the one-device run's (rtol 2e-4, atol 2e-5:
-    the dropout keys are global, so the masks replay); the launch counts
-    are exact: per rank and epoch, the forward on every train and eval
-    pass (S steps a pass on the ring), the fused backward on the partitioned
-    run, the split pair and no fused backward on the deterministic ring
-    run. CUBLAS_WORKSPACE_CONFIG, which deterministic mode needs, is set in
-    the ranks only, so the phases in this process keep their numbers."""
+    run's losses must match its one-device run's (rtol 2e-4, atol 2e-5):
+    the flash runs the dblp preset's (dropout 0.6: the dropout keys are
+    global, so the masks replay), the stacked one the vmap_towers run's
+    (phase 4j), the csr and ring runs the eager dropout-0 run's (phase 4f:
+    their dropout streams are their own). The launch counts are exact: per
+    rank and epoch, the forward on every train and eval pass (S steps a
+    pass on the ring; one batched launch a pass when stacked), the fused
+    backward on the partitioned run, the split pair and no fused backward
+    on the deterministic runs, no flash kernel on the csr runs.
+    CUBLAS_WORKSPACE_CONFIG, which deterministic mode needs, is set in the
+    ranks only, so the phases in this process keep their numbers."""
     import numpy as np
     import torch
 
@@ -1146,23 +1453,31 @@ def train_multi_device(want_losses, epochs: int, n_mp: int) -> dict:
     t0 = time.perf_counter()
     res = spawn(mesh_train_rank, world, "nccl", args=(epochs,),
                 env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})[0]
-    print(f"multi-device: {world} NCCL rank(s), two runs in "
+    print(f"multi-device: {world} NCCL rank(s), {len(MESH_RUNS)} runs in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     passes = n_mp * (2 * epochs + 1)
+    none = {"fwd": 0, "bwd": 0, "row": 0, "col": 0}
     want = {"partitioned_bcsr": {"fwd": passes, "bwd": n_mp * epochs, "row": 0, "col": 0},
             "ring_bcsr": {"fwd": world * passes, "bwd": 0, "row": world * n_mp * epochs,
-                          "col": world * n_mp * epochs}}
+                          "col": world * n_mp * epochs},
+            "csr": none, "ring": none,
+            "partitioned_bcsr stacked": {"fwd": 2 * epochs + 1, "bwd": 0, "row": epochs,
+                                         "col": epochs}}
+    reference = {"partitioned_bcsr": want_losses, "ring_bcsr": want_losses,
+                 "csr": want_dropout0, "ring": want_dropout0,
+                 "partitioned_bcsr stacked": want_stacked}
     det = {name: res.pop(f"deterministic {name}")
            for name in ("captured", "captured again", "eager")}
     det_resume = res.pop("resume deterministic")
     for fmt, run in res.items():
-        got = run["losses"]
-        if not np.allclose(got, want_losses, rtol=2e-4, atol=2e-5):
-            fail(f"{fmt}: losses {got} do not match the one-device run {want_losses}")
+        got, ref = run["losses"], reference[fmt]
+        if not np.allclose(got, ref, rtol=2e-4, atol=2e-5):
+            fail(f"{fmt}: losses {got} do not match the one-device run {ref}")
         if run["launches"] != want[fmt]:
             fail(f"{fmt}: launches {run['launches']}, want {want[fmt]}")
-        dev = max(abs(a - b) / abs(b) for a, b in zip(got, want_losses))
-        print(f"{fmt} (graph axis {world}{', deterministic' if fmt == 'ring_bcsr' else ''}): "
+        dev = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+        det_mode = any(r[0] == fmt and r[2] for r in MESH_RUNS)
+        print(f"{fmt} (graph axis {world}{', deterministic' if det_mode else ''}): "
               f"losses {got[0]:.5f} -> {got[-1]:.5f}, largest relative difference from the "
               f"one-device run {dev:.3e}; launches {run['launches']}; median step "
               f"{run['median_step_ms']:.3f} ms, max_memory_allocated "
@@ -1546,25 +1861,31 @@ def sdpa_yardstick(graph, ld, ls, v, k, d) -> float:
     call with q = k = 0 (so q·kᵀ = 0) and the additive mask z = lrelu(ld_i
     + ls_j) on edges, -1e9 off them, is softmax(z)·v: the flash forward at
     dropout 0 on the rows with edges, held so (atol 1e-4, rtol 1e-3:
-    another kernel's exp and summation order). A yardstick only: the port
-    never calls it. Returns its device ms (``timed``)."""
+    another kernel's exp and summation order); on a stack of P graphs one
+    call with a batch of P. A yardstick only: the port never calls it.
+    Returns its device ms (``timed``)."""
     import torch
     import torch.nn.functional as F
 
     from han_tpu_torch.ops import flash_gat as fg
 
-    n = ld.shape[1]
-    adj = fg.tile_adjacency(graph)
-    raw = ld[:, :, None] + ls[:, None, :]
-    mask = torch.where(adj, torch.maximum(raw, 0.2 * raw), -1e9)[None]  # (1, K, n, n)
+    n = ld.shape[-1]
+    if graph.n_paths is None:  # one graph: a batch of one
+        lb, sb, vb = ld[None], ls[None], v[None]
+        adj = fg.tile_adjacency(graph)[None]
+    else:  # a stack of P graphs: a batch of P
+        lb, sb, vb = ld, ls, v
+        adj = torch.stack([fg.tile_adjacency(graph.path(p)) for p in range(graph.n_paths)])
+    raw = lb[:, :, :, None] + sb[:, :, None, :]
+    mask = torch.where(adj[:, None], torch.maximum(raw, 0.2 * raw), -1e9)  # (P, K, n, n)
     del raw
-    q = torch.zeros((1, k, n, d), device=ld.device)
-    vv = v.view(n, k, d).permute(1, 0, 2)[None].contiguous()
-    out = F.scaled_dot_product_attention(q, q, vv, attn_mask=mask)[0].permute(1, 0, 2)
+    q = torch.zeros((lb.shape[0], k, n, d), device=ld.device)
+    vv = vb.view(-1, n, k, d).permute(0, 2, 1, 3).contiguous()
+    out = F.scaled_dot_product_attention(q, q, vv, attn_mask=mask).permute(0, 2, 1, 3)
     want, _ = fg.flash_fwd_cuda(graph, ld, ls, v, fg.FlashMeta())
-    real = adj.any(dim=1)
+    real = adj.any(dim=-1)
     check("SDPA yardstick vs the forward kernel (rows with edges)",
-          out.reshape(n, k * d)[real], want[real], 1e-4, 1e-3)
+          out.reshape(-1, n, k * d)[real], want.reshape(-1, n, k * d)[real], 1e-4, 1e-3)
     ms = timed(lambda: F.scaled_dot_product_attention(q, q, vv, attn_mask=mask))
     print(f"  SDPA yardstick device ms {ms:.4f}", flush=True)
     del mask, adj
@@ -1950,8 +2271,9 @@ def check_calibration(dev) -> dict:
 def run_calibration(root) -> dict:
     """Phase 8b: scripts/cal_vpu_torch.py at its full R (16,384 primitive
     passes, 2,048 strip passes) on the card-wide strip; prints its JSON and
-    returns the launches (each timing: two warm-up and ten timed launches;
-    the strip bodies: f32 with and without p·v, bf16, backward)."""
+    returns the launches (each timing: ops/calibrate.py's
+    LAUNCHES_PER_TIMING, two warm-up launches and seven timed pairs; the
+    strip bodies: f32 with and without p·v, bf16, backward)."""
     import runpy
 
     import torch
@@ -1960,15 +2282,19 @@ def run_calibration(root) -> dict:
 
     for attr in CAL_COUNTERS.values():
         setattr(cal, attr, 0)
+    cal.relaunches.clear()
     t0 = time.perf_counter()
     main = runpy.run_path(str(root / "scripts" / "cal_vpu_torch.py"), run_name="not_main")["main"]
     result = main(["--out", str(root / "build" / "CALIBRATION_H100.json")])
     torch.cuda.synchronize()
     n = {key: getattr(cal, attr) for key, attr in CAL_COUNTERS.items()}
-    want = {"prim": 14 * 12, "fwd_strip": 2 * 12, "fwd_strip_bf16": 12, "bwd_strip": 12}
+    per = cal.LAUNCHES_PER_TIMING
+    want = {"prim": 14 * per, "fwd_strip": 2 * per, "fwd_strip_bf16": per, "bwd_strip": per}
+    want = {k: v + cal.relaunches.get(k, 0) for k, v in want.items()}
     if n != want:
         fail(f"calibration launches {n}, want {want}")
-    print(f"calibration: {time.perf_counter() - t0:.2f} s, launches {n}", flush=True)
+    print(f"calibration: {time.perf_counter() - t0:.2f} s, launches {n} (repeated behind a "
+          f"longer spin: {dict(cal.relaunches)})", flush=True)
     print(json.dumps(result), flush=True)
     return n
 
@@ -2048,18 +2374,23 @@ def run_bench(root) -> dict:
         fg.flash_fwd_launches = fg.flash_bwd_launches = 0
         for attr in CAL_COUNTERS.values():
             setattr(cal, attr, 0)
+        cal.relaunches.clear()
         t0 = time.perf_counter()
         res = main(argv)
         torch.cuda.synchronize()
         n = {"fwd": fg.flash_fwd_launches, "bwd": fg.flash_bwd_launches,
              **{key: getattr(cal, attr) for key, attr in CAL_COUNTERS.items()}}
+        per = cal.LAUNCHES_PER_TIMING
         want = {"fwd": n_mp * (main_calls + calls), "bwd": n_mp * main_calls, "prim": 0,
-                "fwd_strip": 24, "fwd_strip_bf16": 12, "bwd_strip": 12}
+                "fwd_strip": 2 * per, "fwd_strip_bf16": per, "bwd_strip": per}
+        # a timed launch repeated behind a longer spin (ops/calibrate.py)
+        want = {k: v + cal.relaunches.get(k, 0) for k, v in want.items()}
         if n != want:
             fail(f"bench {arm}: launches {n}, want {want}")
         if not (res["value"] > 0 and res["vs_baseline"] and "roofline" in res["detail"]):
             fail(f"bench {arm}: {res}")
-        print(f"bench {arm}: {time.perf_counter() - t0:.2f} s, launches {n}", flush=True)
+        print(f"bench {arm}: {time.perf_counter() - t0:.2f} s, launches {n} (repeated behind a "
+              f"longer spin: {dict(cal.relaunches)})", flush=True)
         total["fwd"] += n["fwd"]
         total["bwd"] += n["bwd"]
     return total

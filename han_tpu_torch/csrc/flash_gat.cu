@@ -108,6 +108,15 @@
 // - D is a template argument (4, 8, 16 or 32; ops/flash_gat.py pads any
 //   smaller D with zero columns). D = 4 pads the products' n8 or k8 side
 //   with zeros, D = 16 and 32 take two and four.
+// - HAN's meta-path towers sweep P graphs of one geometry (han_tpu runs them
+//   as one nn.vmap, whose pallas_call gains a leading grid axis): every
+//   kernel takes the path on blockIdx.z, so P graphs go in one launch. A
+//   block shifts each array by its path's stride (Batch) and reads its
+//   path's seed (and, for the strips of a stacked partition, its row-block
+//   offset) from device memory; everything else is the single-path kernel,
+//   so path p of a batched launch computes what a launch of path p alone
+//   computes, bit for bit. Paths padded to the largest tile list and map
+//   width cost nothing: the counts bound each block's walk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,6 +147,29 @@ struct Offsets {
   int head;
   int col_block;
 };
+
+// A batched launch sweeps P graphs of one geometry (HAN's meta-paths, the
+// counterpart of a vmapped pallas_call): path p = blockIdx.z. Every array
+// holds the P paths back to back, each at the single-path layout: tiles
+// [P, t_pitch, bm, bn], maps [P, nb, pitch], counts [P, nb], the (k, n)
+// vectors [P, k, n], the (n, k*d) features [P, n, k*d], and the seeds
+// [P] (one word a path). P = 1 is the single-path call.
+struct Batch {
+  int t_pitch;           // tile slots a path
+  const int* row_block;  // [P] row-block offsets added to Offsets::row_block, or null
+};
+
+// Path p's dropout seed and global row-block offset.
+struct PathKeys {
+  uint32_t seed;
+  int row_block;
+};
+
+template <bool DROP>
+__device__ __forceinline__ PathKeys path_keys(const Drop& drop, const Offsets& off,
+                                              const Batch& batch, int p) {
+  return {DROP ? drop.seed[p] : 0u, off.row_block + (batch.row_block ? batch.row_block[p] : 0)};
+}
 
 // murmur3 finalizer; ops/flash_gat.py:fmix32 is the same function on
 // int64. Its first xor-shift distributes over xor, so drop_bits(row_key,
@@ -315,7 +347,7 @@ __global__ void __launch_bounds__(512) fwd_kernel(
     const float* __restrict__ ld, const float* __restrict__ ls,
     const VT* __restrict__ v, float* __restrict__ out,
     float* __restrict__ lse, int n_rows, int n_cols, int bm, int bn, int k,
-    float slope, Drop drop, Offsets off) {
+    float slope, Drop drop, Offsets off, Batch batch) {
   constexpr int ND = (D + 7) / 8;              // n8 tiles of the head dim
   constexpr int VCOL = D * (int)sizeof(VT);    // bytes of one column of v
   constexpr int VCH = VCOL < 16 ? VCOL : 16;   // cp.async size for v
@@ -330,7 +362,20 @@ __global__ void __launch_bounds__(512) fwd_kernel(
   const int r_lo = (tid >> 5) * 16 + gq;  // rows r_lo and r_lo + 8
   const int kd = k * D;
 
-  const uint32_t head_key = DROP ? drop_head_key(*drop.seed, off.head + h) : 0u;
+  // this block's path of a batched launch (Batch)
+  const size_t pr = (size_t)blockIdx.z * n_rows, pc = (size_t)blockIdx.z * n_cols;
+  tiles += (size_t)blockIdx.z * batch.t_pitch * bm * bn;
+  fcount += pr / bm;
+  fcol += pr / bm * c_pitch;
+  ftile += pr / bm * c_pitch;
+  ld += pr * k;
+  ls += pc * k;
+  v += pc * kd;
+  out += pr * kd;
+  lse += pr * k;
+  const PathKeys pk = path_keys<DROP>(drop, off, batch, blockIdx.z);
+
+  const uint32_t head_key = DROP ? drop_head_key(pk.seed, off.head + h) : 0u;
   float ld2[2], m[2], l[2];
   uint32_t row_key[2];
 #pragma unroll
@@ -338,7 +383,7 @@ __global__ void __launch_bounds__(512) fwd_kernel(
     const int r = r_lo + 8 * rr;
     ld2[rr] = ld[(size_t)h * n_rows + (size_t)rb * bm + r] * LOG2E;
     row_key[rr] = DROP ? drop_half(drop_row_key(head_key,
-                                                (uint32_t)((off.row_block + rb) * bm + r)))
+                                                (uint32_t)((pk.row_block + rb) * bm + r)))
                        : 0u;
     m[rr] = NEG2;
     l[rr] = 0.f;
@@ -560,7 +605,7 @@ __global__ void __launch_bounds__(512) bwd_col_kernel(
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dld, float* __restrict__ dls, float* __restrict__ dv,
     int n_rows, int n_cols, int bm, int bn, int k, float slope, Drop drop,
-    Offsets off) {
+    Offsets off, Batch batch) {
   constexpr int KD = (D + 7) / 8;  // k8 steps (g.v) and n8 tiles (dv) of D
   constexpr int GP = gpitch(D);
   constexpr bool V_EXACT = std::is_same<VT, __nv_bfloat16>::value;
@@ -580,6 +625,24 @@ __global__ void __launch_bounds__(512) bwd_col_kernel(
   const int half = bm / 2;
   const int j0 = 32 * cq + 4 * gq;
   const int kd = k * D;
+
+  // this block's path of a batched launch (Batch); dld's atomics stay in
+  // the path's own rows
+  const size_t pr = (size_t)blockIdx.z * n_rows, pc = (size_t)blockIdx.z * n_cols;
+  tiles += (size_t)blockIdx.z * batch.t_pitch * bm * bn;
+  bcount += pc / bn;
+  brow += pc / bn * r_pitch;
+  btile += pc / bn * r_pitch;
+  ld += pr * k;
+  ls += pc * k;
+  v += pc * kd;
+  g += pr * kd;
+  lse += pr * k;
+  delta += pr * k;
+  if constexpr (FUSE_DLD) dld += pr * k;
+  dls += pc * k;
+  dv += pc * kd;
+  const PathKeys pk = path_keys<DROP>(drop, off, batch, blockIdx.z);
 
   // per column: ls, the dropout column key, and v as the A operand of g.v
   // (a0 (column j0 + 2 tile, d = t), a1 (j0 + 2 tile + 1, t), a2 (j0 +
@@ -612,7 +675,7 @@ __global__ void __launch_bounds__(512) bwd_col_kernel(
 #pragma unroll
       for (int e = 0; e < 4; ++e) dv_acc[tile][nt][e] = 0.f;
 
-  const uint32_t head_key = DROP ? drop_head_key(*drop.seed, off.head + h) : 0u;
+  const uint32_t head_key = DROP ? drop_head_key(pk.seed, off.head + h) : 0u;
   const int count = bcount[cb];
   const int* step_row = brow + (size_t)cb * r_pitch;
   const int* step_tile = btile + (size_t)cb * r_pitch;
@@ -630,7 +693,7 @@ __global__ void __launch_bounds__(512) bwd_col_kernel(
     if constexpr (DROP) {  // the row keys, hashed once a row and block
       uint32_t* rk_s = reinterpret_cast<uint32_t*>(vec_s + 3 * bm);
       for (int i = tid; i < bm; i += nthr)
-        rk_s[i] = drop_half(drop_row_key(head_key, (uint32_t)((off.row_block + rb) * bm + i)));
+        rk_s[i] = drop_half(drop_row_key(head_key, (uint32_t)((pk.row_block + rb) * bm + i)));
     }
     float* g_s = vec_s + 4 * bm;
     constexpr int GQ = D / 4;  // 16-byte chunks of a row of g
@@ -862,7 +925,7 @@ __global__ void __launch_bounds__(512) bwd_row_kernel(
     const VT* __restrict__ v, const float* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dld, int n_rows, int n_cols, int bm, int bn, int k,
-    float slope, Drop drop, Offsets off) {
+    float slope, Drop drop, Offsets off, Batch batch) {
   constexpr int KD = (D + 7) / 8;              // k8 steps of g.v
   constexpr int VCOL = D * (int)sizeof(VT);    // bytes of one column of v
   constexpr int VCH = VCOL < 16 ? VCOL : 16;   // cp.async size for v
@@ -878,8 +941,23 @@ __global__ void __launch_bounds__(512) bwd_row_kernel(
   const int r_lo = (tid >> 5) * 16 + gq;  // rows r_lo and r_lo + 8
   const int kd = k * D;
 
+  // this block's path of a batched launch (Batch)
+  const size_t pr = (size_t)blockIdx.z * n_rows, pc = (size_t)blockIdx.z * n_cols;
+  tiles += (size_t)blockIdx.z * batch.t_pitch * bm * bn;
+  fcount += pr / bm;
+  fcol += pr / bm * c_pitch;
+  ftile += pr / bm * c_pitch;
+  ld += pr * k;
+  ls += pc * k;
+  v += pc * kd;
+  g += pr * kd;
+  lse += pr * k;
+  delta += pr * k;
+  dld += pr * k;
+  const PathKeys pk = path_keys<DROP>(drop, off, batch, blockIdx.z);
+
   // per row: ld, lse (log2 domain), delta, the dropout row key
-  const uint32_t head_key = DROP ? drop_head_key(*drop.seed, off.head + h) : 0u;
+  const uint32_t head_key = DROP ? drop_head_key(pk.seed, off.head + h) : 0u;
   float ld_r[2], lse2[2], delta_r[2], acc[2];
   uint32_t row_key[2];
 #pragma unroll
@@ -890,7 +968,7 @@ __global__ void __launch_bounds__(512) bwd_row_kernel(
     lse2[rr] = lse[hr] * LOG2E;
     delta_r[rr] = delta[hr];
     row_key[rr] = DROP ? drop_half(drop_row_key(head_key,
-                                                (uint32_t)((off.row_block + rb) * bm + r)))
+                                                (uint32_t)((pk.row_block + rb) * bm + r)))
                        : 0u;
     acc[rr] = 0.f;
   }
@@ -1079,15 +1157,15 @@ int launch_fwd(const void* tiles, const void* fcount, const void* fcol,
                const void* ftile, int c_pitch, const void* ld, const void* ls,
                const void* v, void* out, void* lse, int n_rows, int n_cols,
                int bm, int bn, int k, float slope, Drop drop, Offsets off,
-               cudaStream_t stream) {
+               int n_paths, Batch batch, cudaStream_t stream) {
   const size_t smem = fwd_smem(bm, bn, D, sizeof(VT));
   cudaError_t err = set_smem(fwd_kernel<D, VT, DROP>, smem);
   if (err != cudaSuccess) return (int)err;
-  fwd_kernel<D, VT, DROP><<<dim3(n_rows / bm, k), 2 * bm, smem, stream>>>(
+  fwd_kernel<D, VT, DROP><<<dim3(n_rows / bm, k, n_paths), 2 * bm, smem, stream>>>(
       (const int8_t*)tiles, (const int*)fcount, (const int*)fcol,
       (const int*)ftile, c_pitch, (const float*)ld, (const float*)ls,
       (const VT*)v, (float*)out, (float*)lse, n_rows, n_cols, bm, bn, k,
-      slope, drop, off);
+      slope, drop, off, batch);
   return (int)cudaGetLastError();
 }
 
@@ -1097,16 +1175,17 @@ int launch_bwd(const void* tiles, const void* bcount, const void* brow,
                const void* v, const void* g, const void* lse,
                const void* delta, void* dld, void* dls, void* dv, int n_rows,
                int n_cols, int bm, int bn, int k, float slope, Drop drop,
-               Offsets off, cudaStream_t stream) {
+               Offsets off, int n_paths, Batch batch, cudaStream_t stream) {
   const size_t smem = bwd_smem(bm, bn, D, FUSE_DLD);
   cudaError_t err = set_smem(bwd_col_kernel<D, FUSE_DLD, VT, DROP>, smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_col_kernel<D, FUSE_DLD, VT, DROP><<<dim3(n_cols / bn, k), 2 * bn, smem, stream>>>(
-      (const int8_t*)tiles, (const int*)bcount, (const int*)brow,
-      (const int*)btile, r_pitch, (const float*)ld, (const float*)ls,
-      (const VT*)v, (const float*)g, (const float*)lse,
-      (const float*)delta, (float*)dld, (float*)dls, (float*)dv, n_rows,
-      n_cols, bm, bn, k, slope, drop, off);
+  bwd_col_kernel<D, FUSE_DLD, VT, DROP>
+      <<<dim3(n_cols / bn, k, n_paths), 2 * bn, smem, stream>>>(
+          (const int8_t*)tiles, (const int*)bcount, (const int*)brow,
+          (const int*)btile, r_pitch, (const float*)ld, (const float*)ls,
+          (const VT*)v, (const float*)g, (const float*)lse,
+          (const float*)delta, (float*)dld, (float*)dls, (float*)dv, n_rows,
+          n_cols, bm, bn, k, slope, drop, off, batch);
   return (int)cudaGetLastError();
 }
 
@@ -1116,16 +1195,16 @@ int launch_bwd_row(const void* tiles, const void* fcount, const void* fcol,
                    const void* ls, const void* v, const void* g,
                    const void* lse, const void* delta, void* dld, int n_rows,
                    int n_cols, int bm, int bn, int k, float slope, Drop drop,
-                   Offsets off, cudaStream_t stream) {
+                   Offsets off, int n_paths, Batch batch, cudaStream_t stream) {
   const size_t smem = fwd_smem(bm, bn, D, sizeof(VT));
   cudaError_t err = set_smem(bwd_row_kernel<D, VT, DROP>, smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_row_kernel<D, VT, DROP><<<dim3(n_rows / bm, k), 2 * bm, smem, stream>>>(
+  bwd_row_kernel<D, VT, DROP><<<dim3(n_rows / bm, k, n_paths), 2 * bm, smem, stream>>>(
       (const int8_t*)tiles, (const int*)fcount, (const int*)fcol,
       (const int*)ftile, c_pitch, (const float*)ld, (const float*)ls,
       (const VT*)v, (const float*)g, (const float*)lse,
       (const float*)delta, (float*)dld, n_rows, n_cols, bm, bn, k, slope,
-      drop, off);
+      drop, off, batch);
   return (int)cudaGetLastError();
 }
 
@@ -1154,6 +1233,10 @@ int dispatch(int d, int v_bf16, int drop_on, F&& f) {
   }
 }
 
+bool bad_batch(int n_paths, int t_pitch) {
+  return n_paths <= 0 || n_paths > 65535 || t_pitch <= 0;
+}
+
 // The column sweep, with or without the fused dld.
 template <bool FUSE_DLD>
 int bwd_entry(const void* tiles, const void* bcount, const void* brow,
@@ -1163,15 +1246,19 @@ int bwd_entry(const void* tiles, const void* bcount, const void* brow,
               int n_cols, int bm, int bn, int k, int d, int v_bf16,
               float slope, int drop_on, const void* seed, unsigned thresh,
               float drop_scale, int row_block_off, int head_off,
-              int col_block_off, void* stream) {
-  if (bad_geometry(n_rows, n_cols, bm, bn, k)) return (int)cudaErrorInvalidValue;
+              int col_block_off, int n_paths, int t_pitch,
+              const void* path_row_block, void* stream) {
+  if (bad_geometry(n_rows, n_cols, bm, bn, k) || bad_batch(n_paths, t_pitch))
+    return (int)cudaErrorInvalidValue;
   const Drop drop{drop_on, (const uint32_t*)seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
+  const Batch batch{t_pitch, (const int*)path_row_block};
   return dispatch(d, v_bf16, drop_on, [&](auto dim, auto tag, auto dropping) {
     return launch_bwd<decltype(dim)::value, FUSE_DLD, typename decltype(tag)::type,
                       decltype(dropping)::value>(
         tiles, bcount, brow, btile, r_pitch, ld, ls, v, g, lse, delta, dld, dls,
-        dv, n_rows, n_cols, bm, bn, k, slope, drop, off, (cudaStream_t)stream);
+        dv, n_rows, n_cols, bm, bn, k, slope, drop, off, n_paths, batch,
+        (cudaStream_t)stream);
   });
 }
 
@@ -1179,27 +1266,35 @@ int bwd_entry(const void* tiles, const void* bcount, const void* brow,
 
 extern "C" {
 
+// Every entry point sweeps n_paths graphs of one geometry in one launch
+// (Batch: path p's arrays follow path p - 1's, each at the layout below;
+// n_paths = 1 is one graph). seed: n_paths uint32 words in device memory,
+// read when drop_on (may be null when not). t_pitch: tile slots a path.
+// path_row_block: n_paths int32 row-block offsets in device memory added to
+// row_block_off, or null. Every array 16-byte aligned. Each returns a
+// cudaError_t code (0 = launched).
+
 // Forward. tiles int8 [T, bm, bn]; fcount int32 [nb_r]; fcol, ftile int32
 // [nb_r, c_pitch]; ld f32 [k, n_rows]; ls f32 [k, n_cols]; v f32, or bf16
 // when v_bf16, [n_cols, k*d] -> out f32 [n_rows, k*d], lse f32 [k, n_rows].
-// seed: one uint32 in device memory, read when drop_on (may be null when
-// not). Every array 16-byte aligned. Returns a cudaError_t code (0 =
-// launched).
 int han_flash_fwd(const void* tiles, const void* fcount, const void* fcol,
                   const void* ftile, int c_pitch, const void* ld,
                   const void* ls, const void* v, void* out, void* lse,
                   int n_rows, int n_cols, int bm, int bn, int k, int d,
                   int v_bf16, float slope, int drop_on, const void* seed,
                   unsigned thresh, float drop_scale, int row_block_off,
-                  int head_off, int col_block_off, void* stream) {
-  if (bad_geometry(n_rows, n_cols, bm, bn, k)) return (int)cudaErrorInvalidValue;
+                  int head_off, int col_block_off, int n_paths, int t_pitch,
+                  const void* path_row_block, void* stream) {
+  if (bad_geometry(n_rows, n_cols, bm, bn, k) || bad_batch(n_paths, t_pitch))
+    return (int)cudaErrorInvalidValue;
   const Drop drop{drop_on, (const uint32_t*)seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
+  const Batch batch{t_pitch, (const int*)path_row_block};
   return dispatch(d, v_bf16, drop_on, [&](auto dim, auto tag, auto dropping) {
     return launch_fwd<decltype(dim)::value, typename decltype(tag)::type,
                       decltype(dropping)::value>(
         tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, out, lse, n_rows,
-        n_cols, bm, bn, k, slope, drop, off, (cudaStream_t)stream);
+        n_cols, bm, bn, k, slope, drop, off, n_paths, batch, (cudaStream_t)stream);
   });
 }
 
@@ -1214,11 +1309,13 @@ int han_flash_bwd(const void* tiles, const void* bcount, const void* brow,
                   void* dv, int n_rows, int n_cols, int bm, int bn, int k,
                   int d, int v_bf16, float slope, int drop_on, const void* seed,
                   unsigned thresh, float drop_scale, int row_block_off,
-                  int head_off, int col_block_off, void* stream) {
+                  int head_off, int col_block_off, int n_paths, int t_pitch,
+                  const void* path_row_block, void* stream) {
   return bwd_entry<true>(tiles, bcount, brow, btile, r_pitch, ld, ls, v, g,
                          lse, delta, dld, dls, dv, n_rows, n_cols, bm, bn, k,
                          d, v_bf16, slope, drop_on, seed, thresh, drop_scale,
-                         row_block_off, head_off, col_block_off, stream);
+                         row_block_off, head_off, col_block_off, n_paths,
+                         t_pitch, path_row_block, stream);
 }
 
 // Split backward, row sweep: the forward's map and the fused backward's
@@ -1230,15 +1327,19 @@ int han_flash_bwd_row(const void* tiles, const void* fcount, const void* fcol,
                       int n_rows, int n_cols, int bm, int bn, int k, int d,
                       int v_bf16, float slope, int drop_on, const void* seed,
                       unsigned thresh, float drop_scale, int row_block_off,
-                      int head_off, int col_block_off, void* stream) {
-  if (bad_geometry(n_rows, n_cols, bm, bn, k)) return (int)cudaErrorInvalidValue;
+                      int head_off, int col_block_off, int n_paths,
+                      int t_pitch, const void* path_row_block, void* stream) {
+  if (bad_geometry(n_rows, n_cols, bm, bn, k) || bad_batch(n_paths, t_pitch))
+    return (int)cudaErrorInvalidValue;
   const Drop drop{drop_on, (const uint32_t*)seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
+  const Batch batch{t_pitch, (const int*)path_row_block};
   return dispatch(d, v_bf16, drop_on, [&](auto dim, auto tag, auto dropping) {
     return launch_bwd_row<decltype(dim)::value, typename decltype(tag)::type,
                           decltype(dropping)::value>(
         tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, g, lse, delta, dld,
-        n_rows, n_cols, bm, bn, k, slope, drop, off, (cudaStream_t)stream);
+        n_rows, n_cols, bm, bn, k, slope, drop, off, n_paths, batch,
+        (cudaStream_t)stream);
   });
 }
 
@@ -1251,12 +1352,13 @@ int han_flash_bwd_col(const void* tiles, const void* bcount, const void* brow,
                       int n_rows, int n_cols, int bm, int bn, int k, int d,
                       int v_bf16, float slope, int drop_on, const void* seed,
                       unsigned thresh, float drop_scale, int row_block_off,
-                      int head_off, int col_block_off, void* stream) {
+                      int head_off, int col_block_off, int n_paths,
+                      int t_pitch, const void* path_row_block, void* stream) {
   return bwd_entry<false>(tiles, bcount, brow, btile, r_pitch, ld, ls, v, g,
                           lse, delta, nullptr, dls, dv, n_rows, n_cols, bm, bn,
                           k, d, v_bf16, slope, drop_on, seed, thresh,
                           drop_scale, row_block_off, head_off, col_block_off,
-                          stream);
+                          n_paths, t_pitch, path_row_block, stream);
 }
 
 const char* han_error_string(int code) {

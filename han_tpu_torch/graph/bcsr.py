@@ -86,22 +86,34 @@ class BCSRGraph:
     # the block counts come from the maps, so the same container holds a
     # rectangle: a graph-axis shard's strip (local rows × global columns)
     # or a ring cell (parallel/); on a square graph they are n_pad / bm
-    # and n_pad / bn
+    # and n_pad / bn. A stack of P graphs (graph/stack.py) has a leading P
+    # axis on every array.
     @property
     def nb_r(self) -> int:
-        return int(self.fwd_count.shape[0])
+        return int(self.fwd_count.shape[-1])
 
     @property
     def nb_c(self) -> int:
-        return int(self.bwd_count.shape[0])
+        return int(self.bwd_count.shape[-1])
 
     @property
     def c_max(self) -> int:
-        return int(self.fwd_col.shape[1])
+        return int(self.fwd_col.shape[-1])
 
     @property
     def r_max(self) -> int:
-        return int(self.bwd_row.shape[1])
+        return int(self.bwd_row.shape[-1])
+
+    @property
+    def n_paths(self) -> int | None:
+        """P for a stack of P graphs, None for one graph."""
+        return int(self.tiles.shape[0]) if self.tiles.dim() == 4 else None
+
+    def path(self, p: int) -> "BCSRGraph":
+        """Graph p of a stack (views)."""
+        return dataclasses.replace(self, **{
+            f: getattr(self, f)[p] for f in ("tiles", "fwd_count", "fwd_col", "fwd_tile",
+                                            "bwd_count", "bwd_row", "bwd_tile")})
 
     def occupancy(self) -> float:
         """Fraction of the padded dense tile grid that is occupied."""

@@ -63,11 +63,27 @@ def normal01_(t: torch.Tensor, generator: torch.Generator | None = None):
         return t.normal_(0.0, 0.1, generator=generator)
 
 
+def _rand(shape: tuple, towers: tuple[int, int, int] | None, rngs: DropoutGenerators,
+          device) -> torch.Tensor:
+    """Uniform draws of ``shape``; with ``towers`` = (lo, hi, P) (a rank's
+    towers of an mp mesh axis) the draws of all P towers, sliced to
+    lo..hi−1, so each tower's mask is the one a one-device run draws."""
+    if towers is None:
+        return torch.rand(shape, generator=rngs.device, device=device)
+    lo, hi, total = towers
+    return torch.rand((total, *shape[1:]), generator=rngs.device, device=device)[lo:hi]
+
+
 class GATConv(nn.Module):
     """Multi-head graph attention convolution (reference attn_head × K heads).
 
     Output is the concatenation over heads, (N, K * out_dim), when
     ``concat_heads`` else the head mean, (N, out_dim).
+
+    ``n_paths`` = P stacks P independent layers (HAN's meta-path towers run
+    together, han_tpu's ``nn.vmap`` over the towers): every parameter gains
+    a leading P axis, each path's initialized as one layer's, and the
+    forward takes a stack of P graphs (graph/stack.py) and x (P, N, F).
     """
 
     def __init__(self, in_dim: int, out_dim: int, num_heads: int, *,
@@ -76,28 +92,39 @@ class GATConv(nn.Module):
                  ffd_drop: float = 0.0, residual: bool = False,
                  concat_heads: bool = True, impl: Impl = "auto",
                  dtype: torch.dtype = torch.float32,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, n_paths: int | None = None):
         super().__init__()
         k, d = num_heads, out_dim
         self.dtype = dtype
         self.activation = activation
         self.slope, self.attn_drop, self.ffd_drop = slope, attn_drop, ffd_drop
         self.residual, self.concat_heads, self.impl = residual, concat_heads, impl
-        self.kernel = nn.Parameter(glorot_uniform_(torch.empty(in_dim, k, d), generator))
-        self.attn_dst_kernel = nn.Parameter(glorot_uniform_(torch.empty(k, d), generator))
-        self.attn_dst_bias = nn.Parameter(torch.zeros(k))
-        self.attn_src_kernel = nn.Parameter(glorot_uniform_(torch.empty(k, d), generator))
-        self.attn_src_bias = nn.Parameter(torch.zeros(k))
-        self.bias = nn.Parameter(torch.zeros(k, d))
-        self.res_kernel = (
-            nn.Parameter(glorot_uniform_(torch.empty(in_dim, k, d), generator))
-            if residual and in_dim != out_dim else None)
+        lead = () if n_paths is None else (n_paths,)
+
+        def param(shape, init):
+            t = torch.zeros((*lead, *shape))
+            for view in (t,) if n_paths is None else t.unbind(0):
+                if init is not None:
+                    init(view, generator)
+            return nn.Parameter(t)
+
+        self.kernel = param((in_dim, k, d), glorot_uniform_)
+        self.attn_dst_kernel = param((k, d), glorot_uniform_)
+        self.attn_dst_bias = param((k,), None)
+        self.attn_src_kernel = param((k, d), glorot_uniform_)
+        self.attn_src_bias = param((k,), None)
+        self.bias = param((k, d), None)
+        self.res_kernel = (param((in_dim, k, d), glorot_uniform_)
+                           if residual and in_dim != out_dim else None)
 
     def forward(self, graph, x: torch.Tensor, *, deterministic: bool = True,
                 rngs: DropoutGenerators | None = None,
-                return_coefs: bool = False):
-        n, f = x.shape
-        k, d = self.bias.shape
+                return_coefs: bool = False, towers: tuple[int, int, int] | None = None):
+        """``towers`` = (lo, hi, P): this stacked layer runs towers lo..hi−1
+        of P (an mp mesh axis), and its dropout draws are those towers' of
+        a one-device run."""
+        lead, (n, f) = x.shape[:-2], x.shape[-2:]
+        k, d = self.bias.shape[-2:]
         x = x.to(self.dtype)
         w = self.kernel.to(self.dtype)
         drop_in = 0.0 if deterministic else self.ffd_drop
@@ -109,40 +136,42 @@ class GATConv(nn.Module):
             # independent input dropout per head (reference drops `seq`
             # inside each attn_head call, layers.py:18-19)
             keep = 1.0 - drop_in
-            mask = torch.rand((k, n, f), generator=rngs.device, device=x.device) < keep
-            xk = torch.where(mask, x[None] / keep, 0.0)  # (K, N, F)
-            fts = torch.einsum("knf,fkd->nkd", xk.float(), w.float()).to(self.dtype)
+            mask = _rand((*lead, k, n, f), towers, rngs, x.device) < keep
+            xk = torch.where(mask, x.unsqueeze(-3) / keep, 0.0)  # ([P,] K, N, F)
+            fts = torch.einsum("...knf,...fkd->...nkd", xk.float(), w.float()).to(self.dtype)
         else:
-            fts = torch.einsum("nf,fkd->nkd", x.float(), w.float()).to(self.dtype)
+            fts = torch.einsum("...nf,...fkd->...nkd", x.float(), w.float()).to(self.dtype)
 
         # per-head scalar attention terms (reference f_1 / f_2, layers.py:23-24),
         # f32 whatever the compute dtype
-        logit_dst = torch.einsum("nkd,kd->nk", fts.float(), self.attn_dst_kernel) + self.attn_dst_bias
-        logit_src = torch.einsum("nkd,kd->nk", fts.float(), self.attn_src_kernel) + self.attn_src_bias
+        logit_dst = (torch.einsum("...nkd,...kd->...nk", fts.float(), self.attn_dst_kernel)
+                     + self.attn_dst_bias.unsqueeze(-2))
+        logit_src = (torch.einsum("...nkd,...kd->...nk", fts.float(), self.attn_src_kernel)
+                     + self.attn_src_bias.unsqueeze(-2))
 
         # feature dropout before aggregation (reference layers.py:31-32)
         fts_agg = fts
         if drop_in > 0.0:
-            mask = torch.rand(fts.shape, generator=rngs.device, device=x.device) < keep
+            mask = _rand(fts.shape, towers, rngs, x.device) < keep
             fts_agg = torch.where(mask, fts / keep, 0.0)
 
         agg = attention_aggregate(
             graph, fts_agg, logit_dst, logit_src, slope=self.slope,
             coef_dropout=drop_coef,
             generator=rngs.device if rngs is not None else None,
-            impl=self.impl, return_coefs=return_coefs)
+            impl=self.impl, return_coefs=return_coefs, towers=towers)
         if return_coefs:
             agg, coefs = agg
 
-        ret = agg.float() + self.bias[None]  # (N, K, D), f32
+        ret = agg.float() + self.bias.unsqueeze(-3)  # ([P,] N, K, D), f32
         if self.residual:
             if self.res_kernel is not None:
-                ret = ret + torch.einsum("nf,fkd->nkd", x.float(), self.res_kernel)
+                ret = ret + torch.einsum("...nf,...fkd->...nkd", x.float(), self.res_kernel)
             else:
-                ret = ret + x[:, None, :].float()
+                ret = ret + x.unsqueeze(-2).float()
 
         out = self.activation(ret)
-        out = out.reshape(n, k * d) if self.concat_heads else out.mean(dim=1)
+        out = out.reshape(*lead, n, k * d) if self.concat_heads else out.mean(dim=-2)
         if return_coefs:
             return out, coefs
         return out

@@ -19,8 +19,15 @@ One mathematical spec, several executions:
 
 A TreeEllGraph (device-sampled block) goes to the gather-only tree
 attention (ops/tree_ell.py), a PartitionedBCSR to the edge-partitioned flash
-backend (parallel/flash_shard.py) and a RingBCSR to the ring backend
-(parallel/ring_bcsr.py), whatever ``impl`` says.
+backend (parallel/flash_shard.py), a RingBCSR to the ring backend
+(parallel/ring_bcsr.py), a PartitionedCSR to the sharded csr backend
+(parallel/shard_attn.py) and a PartitionedCSR2D to the csr ring
+(parallel/ring_attn.py), whatever ``impl`` says.
+
+A stack of P graphs (graph/stack.py; HAN's meta-path towers) comes with
+P-stacked features ``(P, N, K, D)``: a BCSRGraph or PartitionedBCSR stack
+goes to the flash kernels in one launch for the P paths, any other stack
+path by path.
 
 All take features in head-major layout ``fts: (N, K, D)`` and per-head node
 logit terms ``logit_dst, logit_src: (N, K)`` and return ``(N, K, D)``.
@@ -41,8 +48,12 @@ from han_tpu_torch.graph.containers import (MASK_VALUE, CSRGraph, DenseGraph,
 from han_tpu_torch.ops.ell_fused import ell_fused_attention
 from han_tpu_torch.ops.flash_gat import flash_gat_attention
 from han_tpu_torch.ops.tree_ell import tree_ell_attention
+from han_tpu_torch.graph.stack import path
+from han_tpu_torch.parallel.edge_partition import PartitionedCSR
 from han_tpu_torch.parallel.flash_shard import PartitionedBCSR, sharded_flash_attention
+from han_tpu_torch.parallel.ring_attn import PartitionedCSR2D, ring_attention
 from han_tpu_torch.parallel.ring_bcsr import RingBCSR, ring_flash_attention
+from han_tpu_torch.parallel.shard_attn import partitioned_attention
 
 Impl = Literal["auto", "dense", "ell", "ell_fused", "csr", "flash"]
 
@@ -224,6 +235,7 @@ def attention_aggregate(
     generator: torch.Generator | None = None,
     impl: Impl = "auto",
     return_coefs: bool = False,
+    towers: tuple[int, int, int] | None = None,
 ):
     """Dispatch on graph container type / requested implementation.
 
@@ -232,8 +244,18 @@ def attention_aggregate(
     (a device tensor: no host round trip, so a captured step draws anew at
     every replay). ``auto`` sends a BCSRGraph to flash (no
     flash-vs-csr crossover has been measured on the H100 yet) and an
-    EllGraph to ell, as han_tpu does.
+    EllGraph to ell, as han_tpu does. ``towers``: a stack's paths are
+    towers lo..hi−1 of P (ops/flash_gat.py:draw_path_seeds).
     """
+    if fts.dim() == 4 and not isinstance(graph, (BCSRGraph, PartitionedBCSR)):
+        # a stack without a batched kernel: path by path, each drawing its own
+        # masks
+        if return_coefs:
+            raise NotImplementedError("return_coefs unsupported on a stack of graphs")
+        return torch.stack([attention_aggregate(
+            path(graph, p), fts[p], logit_dst[p], logit_src[p], slope=slope,
+            coef_dropout=coef_dropout, generator=generator, impl=impl)
+            for p in range(fts.shape[0])])
     if isinstance(graph, TreeEllGraph):
         # device-sampled tree blocks: gather-only backward through the
         # parent maps (ops/tree_ell.py)
@@ -249,11 +271,23 @@ def attention_aggregate(
             raise NotImplementedError("return_coefs unsupported on PartitionedBCSR")
         return sharded_flash_attention(
             graph, fts, logit_dst, logit_src, slope=slope,
-            coef_dropout=coef_dropout, generator=generator)
+            coef_dropout=coef_dropout, generator=generator, towers=towers)
     if isinstance(graph, RingBCSR):
         if return_coefs:
             raise NotImplementedError("return_coefs unsupported on RingBCSR")
         return ring_flash_attention(
+            graph, fts, logit_dst, logit_src, slope=slope,
+            coef_dropout=coef_dropout, generator=generator)
+    if isinstance(graph, PartitionedCSR):
+        if return_coefs:
+            raise NotImplementedError("return_coefs unsupported on PartitionedCSR")
+        return partitioned_attention(
+            graph, fts, logit_dst, logit_src, slope=slope,
+            coef_dropout=coef_dropout, generator=generator)
+    if isinstance(graph, PartitionedCSR2D):
+        if return_coefs:
+            raise NotImplementedError("return_coefs unsupported on PartitionedCSR2D")
+        return ring_attention(
             graph, fts, logit_dst, logit_src, slope=slope,
             coef_dropout=coef_dropout, generator=generator)
     if impl == "auto":
@@ -292,5 +326,5 @@ def attention_aggregate(
     if impl == "flash":
         return flash_gat_attention(
             graph, fts, logit_dst, logit_src, slope=slope,
-            coef_dropout=coef_dropout, generator=generator)
+            coef_dropout=coef_dropout, generator=generator, towers=towers)
     raise ValueError(f"unknown impl {impl!r}")

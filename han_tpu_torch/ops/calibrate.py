@@ -39,6 +39,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+import statistics
 import subprocess
 
 import numpy as np
@@ -314,25 +316,58 @@ def make_inputs(n_strips: int, bm: int = TILE, sub: int = TILE, d: int = D,
             "v": f32(sub, d), "g": f32(bm, d)}
 
 
-def time_marginal(fn, r_lo: int, r_hi: int, outer: int = 5) -> tuple[float, float, float]:
+PAIRS = 7  # (r_lo, r_hi) run pairs of a marginal timing
+LAUNCHES_PER_TIMING = 2 + 2 * PAIRS  # with one warm-up call of each length
+SPIN_CYCLES = 8_000_000  # about 4 ms of the card's clock, queued before each timed launch
+# launches that time_marginal repeated because the spin ended first, by kernel
+# ("prim", "fwd_strip", "fwd_strip_bf16", "bwd_strip"): on top of
+# LAUNCHES_PER_TIMING
+relaunches: dict[str, int] = {}
+
+
+def time_marginal(fn, r_lo: int, r_hi: int, kernel: str,
+                  outer: int = PAIRS) -> tuple[float, float, float]:
     """Seconds per extra in-kernel pass between ``fn(r_lo)`` and
-    ``fn(r_hi)`` (each one launch): CUDA events, one warm-up call each, the
-    minimum of ``outer`` runs. Returns (seconds per pass, t(r_lo),
-    t(r_hi)); t(r_hi) / t(r_lo) near r_hi / r_lo shows the passes were
-    not folded."""
+    ``fn(r_hi)`` (each one launch): CUDA events, one warm-up call each,
+    then ``outer`` pairs, each an r_lo run right before an r_hi run, so a
+    drift of the card's clock between the two lengths cancels within the
+    pair. Each timed launch is queued behind a spin kernel
+    (``torch.cuda._sleep``) that must still be running when the launch
+    is queued, so the start event fires on the card after the launch is
+    queued: the wrapper's host time before the launch (about 0.45 ms on an
+    idle card, which made t(R) = a + b·R with a fixed a and pulled
+    t(2R)/t(R) below 2 at short R) is not counted. Where the spin ended
+    first, the run is repeated with a spin twice as long, up to 16 x
+    SPIN_CYCLES, and then it raises; ``relaunches[kernel]`` counts the
+    repeated launches. Returns (seconds per pass, t(r_lo),
+    t(r_hi)): the median over the pairs of the marginal time, the median
+    t(r_lo), and that times the pairs' median t(r_hi) / t(r_lo) ratio,
+    which near r_hi / r_lo shows the passes were not folded."""
     def once(r):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(r)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) * 1e-3
+        spin = SPIN_CYCLES
+        while True:
+            torch.cuda._sleep(spin)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(r)
+            late = start.query()  # the spin ended before the launch was queued
+            end.record()
+            end.synchronize()
+            if not late:
+                return start.elapsed_time(end) * 1e-3
+            if spin >= 16 * SPIN_CYCLES:
+                raise RuntimeError(f"time_marginal: a spin of {spin} cycles ended before the "
+                                   f"launch was queued")
+            relaunches[kernel] = relaunches.get(kernel, 0) + 1
+            spin *= 2
 
     for r in (r_lo, r_hi):
         once(r)
-    t_lo = min(once(r_lo) for _ in range(outer))
-    t_hi = min(once(r_hi) for _ in range(outer))
-    return max((t_hi - t_lo) / (r_hi - r_lo), 1e-12), t_lo, t_hi
+    pairs = [(once(r_lo), once(r_hi)) for _ in range(outer)]
+    per_pass = statistics.median((hi - lo) / (r_hi - r_lo) for lo, hi in pairs)
+    t_lo = statistics.median(lo for lo, _ in pairs)
+    ratio = statistics.median(hi / lo for lo, hi in pairs)
+    return max(per_pass, 1e-12), t_lo, t_lo * ratio
 
 
 # ---------------------------------------------------------------------------
@@ -374,32 +409,61 @@ def _inputs(n_strips: int) -> dict[str, torch.Tensor]:
     return {k: torch.from_numpy(v).to("cuda") for k, v in make_inputs(n_strips).items()}
 
 
-def calibrate_strips(n_strips: int, strip_reps: int) -> dict:
+# Seconds a pass of each strip body on a card of 1,056 strips (132 SMs x 8),
+# the last calibration (results/CALIBRATION_H100.json, NVIDIA H100 80GB
+# HBM3, 700.00 W): what :func:`strip_reps` sizes R by.
+STRIP_PASS_S = {"fwd_strip_s": 1.7100857570767402e-05, "fwd_strip_s_mxu": 3.695463761687279e-05,
+                "fwd_strip_s_bf16_mxu": 3.057432919740677e-05,
+                "bwd_strip_s_mxu": 7.622887194156648e-05}
+STRIP_PASS_STRIPS = 1056
+STRIP_MIN_S = 0.02  # the shortest t(R) of a strip timing (see strip_reps)
+
+
+def strip_reps(key: str, n_strips: int, base: int) -> int:
+    """The R of strip body ``key``'s R → 2R timing: ``base`` (halved for
+    the backward body, as cal_vpu.py:335 times it) or more, a multiple of
+    the HEADS passes the f32 bodies unroll, with t(R) at least STRIP_MIN_S
+    at the last measured time a pass (scaled to ``n_strips``). A launch
+    costs a fixed time besides its passes (on the H100 up to about 0.25
+    ms for the MXU body, measured with time_marginal's spin), which pulls
+    t(2R)/t(R) below 2 by that time over t(R): at t(R) = 20 ms about 1 %,
+    far inside SCALING. Timed at R = 256 (4.4 ms) and with the host's time
+    before the launch counted, fwd_strip_s once measured 1.8939."""
+    if key == "bwd_strip_s_mxu":
+        base //= 2
+    pass_s = STRIP_PASS_S[key] * n_strips / STRIP_PASS_STRIPS
+    r = max(base, math.ceil(STRIP_MIN_S / pass_s))
+    return -(-r // HEADS) * HEADS
+
+
+def calibrate_strips(n_strips: int, base_reps: int) -> dict:
     """The four strip timings (seconds per card-wide pass), with
-    ``elems_per_strip``, the time per 128×128 tile-head, elements/s and the
-    R → 2R time ratio of each."""
+    ``elems_per_strip``, the time per 128×128 tile-head, elements/s, the
+    R of each timing (:func:`strip_reps`) and its R → 2R time ratio."""
     inp = _inputs(n_strips)
     a = [inp[k] for k in ("ld", "ls", "adj", "v")]
     v16 = inp["v"].to(torch.bfloat16)
-    bodies = {
-        "fwd_strip_s": (lambda r: fwd_strip_cuda(*a, r, mxu=False), strip_reps),
-        "fwd_strip_s_mxu": (lambda r: fwd_strip_cuda(*a, r, mxu=True), strip_reps),
-        "fwd_strip_s_bf16_mxu": (lambda r: fwd_strip_bf16_cuda(*a[:3], v16, r), strip_reps),
-        # half the passes, as cal_vpu.py:335 (the backward body is the longer)
-        "bwd_strip_s_mxu": (lambda r: bwd_strip_cuda(*a, inp["g"], r), strip_reps // 2),
+    bodies = {  # (the body, its kernel)
+        "fwd_strip_s": (lambda r: fwd_strip_cuda(*a, r, mxu=False), "fwd_strip"),
+        "fwd_strip_s_mxu": (lambda r: fwd_strip_cuda(*a, r, mxu=True), "fwd_strip"),
+        "fwd_strip_s_bf16_mxu": (lambda r: fwd_strip_bf16_cuda(*a[:3], v16, r),
+                                 "fwd_strip_bf16"),
+        "bwd_strip_s_mxu": (lambda r: bwd_strip_cuda(*a, inp["g"], r), "bwd_strip"),
     }
     elems = n_strips * TILE * TILE
     out = {"elems_per_strip": elems, "n_strips": n_strips, "tile_s": {},
-           "card_elems_per_s": {}, "scaling": {}}
-    for key, (fn, reps) in bodies.items():
-        tp, t_lo, t_hi = time_marginal(fn, reps, 2 * reps)
+           "card_elems_per_s": {}, "scaling": {}, "strip_reps": {}}
+    for key, (fn, kernel) in bodies.items():
+        reps = strip_reps(key, n_strips, base_reps)
+        tp, t_lo, t_hi = time_marginal(fn, reps, 2 * reps, kernel)
         out[key] = tp
         out["tile_s"][key] = tp / n_strips
         out["card_elems_per_s"][key] = elems / tp
         out["scaling"][key] = t_hi / t_lo
+        out["strip_reps"][key] = reps
         print(f"{key:22s}: {tp * 1e6:9.3f} us/pass, {tp / n_strips * 1e9:8.3f} ns per "
-              f"tile-head, {elems / tp:.4e} elements/s, t(2R)/t(R) {t_hi / t_lo:.3f}",
-              flush=True)
+              f"tile-head, {elems / tp:.4e} elements/s, R {reps}, t(R) {t_lo * 1e3:.3f} ms, "
+              f"t(2R)/t(R) {t_hi / t_lo:.4f}", flush=True)
     return out
 
 
@@ -412,7 +476,7 @@ def calibrate_prims(n_strips: int, reps: int) -> dict:
     for op in OPS:
         for name, x in (("f32", x32), ("bf16", x32.to(torch.bfloat16))):
             tp, t_lo, t_hi = time_marginal(lambda r, op=op, x=x: prim_cuda(x, op, r),
-                                           reps, 2 * reps)
+                                           reps, 2 * reps, "prim")
             rates[f"{op}_{name}"] = elems / tp
             scaling[f"{op}_{name}"] = t_hi / t_lo
             print(f"{op:7s} {name:4s}: {tp * 1e6:8.3f} us/pass -> {elems / tp / 1e12:7.3f} "

@@ -80,6 +80,14 @@ Every wrapper uses the plain version only for tensors on the CPU. For a
 CUDA tensor it launches the kernel or raises; there is no fallback.
 ``flash_fwd_launches``, ``flash_bwd_launches``, ``flash_bwd_row_launches``
 and ``flash_bwd_col_launches`` count kernel launches.
+
+Every function also takes a stack of P graphs of one geometry
+(graph/stack.py: a leading P axis on the graph's arrays and on ld, ls, v,
+g, lse and delta; P seeds), HAN's meta-path towers: han_tpu vmaps the
+towers, and a vmapped ``pallas_call`` is one call whose grid gains the P
+axis. Here each kernel takes the path on its grid's third axis, so a stack
+is ONE launch (counted once), and path p computes what a call on graph p
+alone with seed p computes. The plain versions loop over the paths.
 """
 
 from __future__ import annotations
@@ -111,16 +119,26 @@ class FlashMeta:
     """Scalar arguments of both kernels: the slope, the dropout rate, and
     han_tpu's int32 meta[4] (seed, row-block, head and column-block
     offsets). The offsets globalize the dropout keys for sharded runs and
-    are 0 on one device. ``seed`` is a one-element int32 tensor (its
-    uint32 bits are the key), which the kernels read from device memory;
-    the plain versions also take an int."""
+    are 0 on one device. ``seed`` is an int32 tensor of one element a path
+    (its uint32 bits are the key), which the kernels read from device
+    memory; the plain versions also take an int. ``row_block_offset`` may
+    also be an int32 tensor of one offset a path (the strips of a stacked
+    partition), which the kernels read from device memory."""
 
     slope: float = 0.2
     dropout_p: float = 0.0
     seed: torch.Tensor | int = 0
-    row_block_offset: int = 0
+    row_block_offset: int | torch.Tensor = 0
     head_offset: int = 0
     col_block_offset: int = 0
+
+
+def path_meta(meta: FlashMeta, p: int) -> FlashMeta:
+    """Path p's meta of a stack's: its seed and row-block offset."""
+    seed = meta.seed[p:p + 1] if isinstance(meta.seed, torch.Tensor) else meta.seed
+    off = meta.row_block_offset
+    return dataclasses.replace(
+        meta, seed=seed, row_block_offset=int(off[p]) if isinstance(off, torch.Tensor) else off)
 
 
 # ---------------------------------------------------------------------------
@@ -261,6 +279,10 @@ def flash_fwd_plain(graph: BCSRGraph, ld: torch.Tensor, ls: torch.Tensor,
     dense (n_rows, n_cols) temporaries stay one head wide. ``mm`` takes the
     product P·V (:func:`mm_3xtf32`, :func:`mm_1xtf32`: how the kernels'
     products compare)."""
+    if ld.dim() == 3:  # a stack: path by path
+        res = [flash_fwd_plain(graph.path(p), ld[p], ls[p], v[p], path_meta(meta, p), mm)
+               for p in range(ld.shape[0])]
+        return torch.stack([o for o, _ in res]), torch.stack([x for _, x in res])
     k, n_rows = ld.shape
     n_cols = ls.shape[1]
     d = v.shape[1] // k
@@ -304,12 +326,24 @@ def _bwd_terms(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta, mm):
         yield h, torch.where(raw >= 0, dz, meta.slope * dz), c_agg, g_h
 
 
+def _per_path(fn, graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta, *extra):
+    """A backward plain version on a stack, path by path; its outputs
+    stacked."""
+    res = [fn(graph.path(p), ld[p], ls[p], v[p], g[p], lse[p], delta[p], path_meta(meta, p),
+              *extra) for p in range(ld.shape[0])]
+    if isinstance(res[0], tuple):
+        return tuple(torch.stack(x) for x in zip(*res))
+    return torch.stack(res)
+
+
 def flash_bwd_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta,
                     mm=torch.matmul):
     """The fused backward on dense tensors: dld = Σ_j dz, dls = Σ_i dz,
     dv = c'ᵀ g (see :func:`_bwd_terms`; ``mm`` takes g·v and c'ᵀ g, as in
     :func:`flash_fwd_plain`). Returns dld (K, n_rows), dls (K, n_cols), dv
     (n_cols, K·D)."""
+    if ld.dim() == 3:
+        return _per_path(flash_bwd_plain, graph, ld, ls, v, g, lse, delta, meta, mm)
     dld, dls, dv = [], [], []
     for _, dzs, c_agg, g_h in _bwd_terms(graph, ld, ls, v, g, lse, delta, meta, mm):
         dld.append(dzs.sum(dim=1))
@@ -322,12 +356,16 @@ def flash_bwd_row_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashM
                         mm=torch.matmul):
     """The row sweep: dld (K, n_rows) only (``mm`` takes g·v, as in
     :func:`flash_bwd_plain`)."""
+    if ld.dim() == 3:
+        return _per_path(flash_bwd_row_plain, graph, ld, ls, v, g, lse, delta, meta, mm)
     return torch.stack([dzs.sum(dim=1) for _, dzs, _, _ in
                         _bwd_terms(graph, ld, ls, v, g, lse, delta, meta, mm)])
 
 
 def flash_bwd_col_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
     """The column sweep: dls (K, n_cols) and dv (n_cols, K·D) only."""
+    if ld.dim() == 3:
+        return _per_path(flash_bwd_col_plain, graph, ld, ls, v, g, lse, delta, meta)
     dls, dv = [], []
     for _, dzs, c_agg, g_h in _bwd_terms(graph, ld, ls, v, g, lse, delta, meta, torch.matmul):
         dls.append(dzs.sum(dim=0))
@@ -352,25 +390,27 @@ def padded_head_dim(d: int) -> int:
 
 
 def pad_heads(x: torch.Tensor, k: int, dp: int) -> torch.Tensor:
-    """(rows, K·D) → (rows, K·dp), each head's D columns zero-padded to dp;
-    contiguous (F.pad that pads nothing returns a view)."""
-    rows = x.shape[0]
-    d = x.shape[1] // k
-    return F.pad(x.view(rows, k, d), (0, dp - d)).reshape(rows, k * dp).contiguous()
+    """([P,] rows, K·D) → ([P,] rows, K·dp), each head's D columns
+    zero-padded to dp; contiguous (F.pad that pads nothing returns a
+    view)."""
+    lead = x.shape[:-1]
+    d = x.shape[-1] // k
+    return F.pad(x.view(*lead, k, d), (0, dp - d)).reshape(*lead, k * dp).contiguous()
 
 
 def unpad_heads(x: torch.Tensor, k: int, d: int) -> torch.Tensor:
-    """(rows, K·dp) → (rows, K·D): the first D columns of each head."""
-    rows = x.shape[0]
-    return x.view(rows, k, -1)[:, :, :d].reshape(rows, k * d).contiguous()
+    """([P,] rows, K·dp) → ([P,] rows, K·D): the first D columns of each
+    head."""
+    lead = x.shape[:-1]
+    return x.view(*lead, k, -1)[..., :d].reshape(*lead, k * d).contiguous()
 
 
 def fwd_head_padded(fwd, graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
     """fwd (the forward kernel's wrapper, or its plain version) with v's
     head dim padded to :func:`padded_head_dim`; out sliced back. lse does
     not depend on v."""
-    k = ld.shape[0]
-    d = v.shape[1] // k
+    k = ld.shape[-2]
+    d = v.shape[-1] // k
     dp = padded_head_dim(d)
     if dp == d:
         return fwd(graph, ld, ls, v, meta)
@@ -383,8 +423,8 @@ def bwd_head_padded(bwd, graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: Flash
     tuple ending in dv) with v's and g's head dims padded; dv sliced back.
     delta is formed from the unpadded g and out, which the zero columns do
     not change."""
-    k = ld.shape[0]
-    d = v.shape[1] // k
+    k = ld.shape[-2]
+    d = v.shape[-1] // k
     dp = padded_head_dim(d)
     if dp == d:
         return bwd(graph, ld, ls, v, g, lse, delta, meta)
@@ -399,7 +439,7 @@ def bwd_head_padded(bwd, graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: Flash
 # ---------------------------------------------------------------------------
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-_SCALARS = [_I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _U, _F, _I, _I, _I, _P]
+_SCALARS = [_I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _U, _F, _I, _I, _I, _I, _I, _P, _P]
 _ARGTYPES = {
     "han_flash_fwd": [_P, _P, _P, _P, _I] + [_P] * 5 + _SCALARS,
     "han_flash_bwd": [_P, _P, _P, _P, _I] + [_P] * 9 + _SCALARS,
@@ -422,20 +462,25 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(graph: BCSRGraph, maps: str, floats: dict) -> tuple[int, int, int, int]:
+def _check(graph: BCSRGraph, maps: str, floats: dict) -> tuple[int, int, int, int, int]:
     """Raise on anything the kernels do not take; returns (k, d, n_rows,
-    n_cols). The row domain is ``ld.shape[1]`` and the column domain
-    ``ls.shape[1]``; both maps' block counts must match them. ``maps`` is
-    "fwd" or "bwd", the map the kernel walks; ``floats`` maps each float
-    argument's name to (tensor, expected shape as letters: K heads, R rows,
-    C columns, F = K·D flat features). Every float argument is float32,
+    n_cols, n_paths). The row domain is ``ld.shape[-1]`` and the column
+    domain ``ls.shape[-1]``; both maps' block counts must match them.
+    ``maps`` is "fwd" or "bwd", the map the kernel walks; ``floats`` maps
+    each float argument's name to (tensor, expected shape as letters: K
+    heads, R rows, C columns, F = K·D flat features), each with a leading P
+    axis when the graph is a stack of P. Every float argument is float32,
     except ``v``, which may be bfloat16."""
     dev = floats["ld"][0].device
     if dev.type != "cuda":
         raise ValueError(f"the flash kernels take CUDA tensors, got {dev}")
-    k, n_rows = floats["ld"][0].shape
-    n_cols = floats["ls"][0].shape[1]
-    d = floats["v"][0].shape[1] // k
+    lead = () if graph.n_paths is None else (graph.n_paths,)
+    if floats["ld"][0].dim() != 2 + len(lead):
+        raise ValueError(f"ld: need {2 + len(lead)} dims for a graph of "
+                         f"{graph.n_paths or 1} path(s), got {tuple(floats['ld'][0].shape)}")
+    k, n_rows = floats["ld"][0].shape[-2:]
+    n_cols = floats["ls"][0].shape[-1]
+    d = floats["v"][0].shape[-1] // k
     if d not in KERNEL_HEAD_DIMS:
         raise NotImplementedError(
             f"head dim {d} has no kernel instantiation {KERNEL_HEAD_DIMS}")
@@ -445,7 +490,7 @@ def _check(graph: BCSRGraph, maps: str, floats: dict) -> tuple[int, int, int, in
                          f"{n_rows} x {n_cols}")
     dims = {"K": k, "F": k * d, "R": n_rows, "C": n_cols}
     for name, (t, shape) in floats.items():
-        want = tuple(dims[s] for s in shape)
+        want = lead + tuple(dims[s] for s in shape)
         dtypes = V_DTYPES if name == "v" else (torch.float32,)
         if (t.device != dev or t.dtype not in dtypes or not t.is_contiguous()
                 or tuple(t.shape) != want):
@@ -459,7 +504,7 @@ def _check(graph: BCSRGraph, maps: str, floats: dict) -> tuple[int, int, int, in
             raise ValueError(f"graph.{name}: need a contiguous {dt} tensor on "
                              f"{dev} (BCSRGraph.to(device))")
     check_layout(graph, {n: t for n, (t, _) in floats.items()})
-    return k, d, n_rows, n_cols
+    return k, d, n_rows, n_cols, (lead or (1,))[0]
 
 
 def check_layout(graph: BCSRGraph, tensors: dict) -> None:
@@ -467,8 +512,8 @@ def check_layout(graph: BCSRGraph, tensors: dict) -> None:
     (graph/bcsr.py:tile_error) or on data that is not 16-byte aligned (the
     kernels stage tiles and slices with 16-byte cp.async copies): the
     device-independent part of ``_check``."""
-    if tuple(graph.tiles.shape[1:]) != (graph.bm, graph.bn):
-        raise ValueError("graph.tiles must be (T, bm, bn)")
+    if tuple(graph.tiles.shape[-2:]) != (graph.bm, graph.bn):
+        raise ValueError("graph.tiles must be ([P,] T, bm, bn)")
     err = tile_error(graph.bm, graph.bn)
     if err:
         raise ValueError(err)
@@ -478,28 +523,37 @@ def check_layout(graph: BCSRGraph, tensors: dict) -> None:
         raise ValueError(f"{', '.join(bad)}: the flash kernels need 16-byte aligned data")
 
 
-def _seed_ptr(meta: FlashMeta, device) -> int | None:
-    """The device address of the dropout seed; None (a null pointer) when
-    dropout is off. Raises unless the seed is a one-element int32 tensor
-    on ``device``."""
+def _path_ints(name: str, t, n_paths: int, device) -> int:
+    """The device address of an int32 tensor of one value a path; raises
+    unless it is one, contiguous, on ``device``."""
+    if (not isinstance(t, torch.Tensor) or t.device != device or t.dtype != torch.int32
+            or t.numel() != n_paths or not t.is_contiguous()):
+        raise ValueError(f"meta.{name}: the kernels read it from device memory: need a "
+                         f"contiguous int32 tensor of {n_paths} element(s) on {device} "
+                         f"(draw_seed, seed_tensor), got {t!r}")
+    return t.data_ptr()
+
+
+def _seed_ptr(meta: FlashMeta, device, n_paths: int = 1) -> int | None:
+    """The device address of the dropout seeds (one a path); None (a null
+    pointer) when dropout is off. Raises unless the seed is an int32 tensor
+    of ``n_paths`` elements on ``device``."""
     if meta.dropout_p <= 0.0:
         return None
-    seed = meta.seed
-    if (not isinstance(seed, torch.Tensor) or seed.device != device
-            or seed.dtype != torch.int32 or seed.numel() != 1):
-        raise ValueError(f"meta.seed: the kernels read the dropout seed from device "
-                         f"memory: need a one-element int32 tensor on {device} "
-                         f"(draw_seed, seed_tensor), got {seed!r}")
-    return seed.data_ptr()
+    return _path_ints("seed", meta.seed, n_paths, device)
 
 
-def _scalars(graph: BCSRGraph, v, n_rows, n_cols, k, d, meta: FlashMeta):
+def _scalars(graph: BCSRGraph, v, n_rows, n_cols, k, d, n_paths, meta: FlashMeta):
     drop = meta.dropout_p > 0.0
+    rbo = meta.row_block_offset
+    per_path = isinstance(rbo, torch.Tensor)
     return (n_rows, n_cols, graph.bm, graph.bn, k, d, int(v.dtype == torch.bfloat16),
             meta.slope, int(drop),
-            _seed_ptr(meta, v.device), keep_threshold(meta.dropout_p) if drop else 0,
-            1.0 / (1.0 - meta.dropout_p), meta.row_block_offset,
-            meta.head_offset, meta.col_block_offset,
+            _seed_ptr(meta, v.device, n_paths),
+            keep_threshold(meta.dropout_p) if drop else 0,
+            1.0 / (1.0 - meta.dropout_p), 0 if per_path else rbo,
+            meta.head_offset, meta.col_block_offset, n_paths, int(graph.tiles.shape[-3]),
+            _path_ints("row_block_offset", rbo, n_paths, v.device) if per_path else None,
             torch.cuda.current_stream(v.device).cuda_stream)
 
 
@@ -511,16 +565,17 @@ def _raise_on(rc: int, lib, name: str) -> None:
 
 def _fwd_launch(graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
     global flash_fwd_launches
-    k, d, n_rows, n_cols = _check(graph, "fwd", {
+    k, d, n_rows, n_cols, n_paths = _check(graph, "fwd", {
         "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF")})
-    out = torch.empty((n_rows, k * d), dtype=torch.float32, device=ld.device)
-    lse = torch.empty((k, n_rows), dtype=torch.float32, device=ld.device)
+    lead = ld.shape[:-2]
+    out = torch.empty((*lead, n_rows, k * d), dtype=torch.float32, device=ld.device)
+    lse = torch.empty((*lead, k, n_rows), dtype=torch.float32, device=ld.device)
     lib = _lib()
     rc = lib.han_flash_fwd(
         graph.tiles.data_ptr(), graph.fwd_count.data_ptr(),
         graph.fwd_col.data_ptr(), graph.fwd_tile.data_ptr(), graph.c_max,
         ld.data_ptr(), ls.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *_scalars(graph, v, n_rows, n_cols, k, d, meta))
+        lse.data_ptr(), *_scalars(graph, v, n_rows, n_cols, k, d, n_paths, meta))
     _raise_on(rc, lib, "han_flash_fwd")
     flash_fwd_launches += 1
     return out, lse
@@ -530,13 +585,14 @@ def _bwd_col_sweep(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta,
                    fuse_dld: bool):
     """Launch the column-sweep kernel: han_flash_bwd (with the atomic dld)
     or han_flash_bwd_col (dls and dv only). Returns (dld or None, dls, dv)."""
-    k, d, n_rows, n_cols = _check(graph, "bwd", {
+    k, d, n_rows, n_cols, n_paths = _check(graph, "bwd", {
         "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF"), "g": (g, "RF"),
         "lse": (lse, "KR"), "delta": (delta, "KR")})
-    dld = (torch.zeros((k, n_rows), dtype=torch.float32, device=ld.device)
+    lead = ld.shape[:-2]
+    dld = (torch.zeros((*lead, k, n_rows), dtype=torch.float32, device=ld.device)
            if fuse_dld else None)
-    dls = torch.empty((k, n_cols), dtype=torch.float32, device=ld.device)
-    dv = torch.empty((n_cols, k * d), dtype=torch.float32, device=ld.device)
+    dls = torch.empty((*lead, k, n_cols), dtype=torch.float32, device=ld.device)
+    dv = torch.empty((*lead, n_cols, k * d), dtype=torch.float32, device=ld.device)
     lib = _lib()
     name = "han_flash_bwd" if fuse_dld else "han_flash_bwd_col"
     rc = getattr(lib, name)(
@@ -545,7 +601,7 @@ def _bwd_col_sweep(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta,
         ld.data_ptr(), ls.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         *([dld.data_ptr()] if fuse_dld else []), dls.data_ptr(), dv.data_ptr(),
-        *_scalars(graph, v, n_rows, n_cols, k, d, meta))
+        *_scalars(graph, v, n_rows, n_cols, k, d, n_paths, meta))
     _raise_on(rc, lib, name)
     return dld, dls, dv
 
@@ -559,17 +615,17 @@ def _bwd_launch(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
 
 def _bwd_row_launch(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
     global flash_bwd_row_launches
-    k, d, n_rows, n_cols = _check(graph, "fwd", {
+    k, d, n_rows, n_cols, n_paths = _check(graph, "fwd", {
         "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF"), "g": (g, "RF"),
         "lse": (lse, "KR"), "delta": (delta, "KR")})
-    dld = torch.empty((k, n_rows), dtype=torch.float32, device=ld.device)
+    dld = torch.empty((*ld.shape[:-2], k, n_rows), dtype=torch.float32, device=ld.device)
     lib = _lib()
     rc = lib.han_flash_bwd_row(
         graph.tiles.data_ptr(), graph.fwd_count.data_ptr(),
         graph.fwd_col.data_ptr(), graph.fwd_tile.data_ptr(), graph.c_max,
         ld.data_ptr(), ls.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dld.data_ptr(),
-        *_scalars(graph, v, n_rows, n_cols, k, d, meta))
+        *_scalars(graph, v, n_rows, n_cols, k, d, n_paths, meta))
     _raise_on(rc, lib, "han_flash_bwd_row")
     flash_bwd_row_launches += 1
     return dld
@@ -638,7 +694,9 @@ class _FlashGAT(torch.autograd.Function):
     """(ld, ls, v) → out; the backward is :func:`flash_bwd` (fused, or split
     under deterministic mode; kernels or plain versions). ``ctx.meta``
     keeps the forward's seed tensor: the backward replays its mask and
-    draws nothing."""
+    draws nothing. On a stack of P graphs every tensor carries the P axis
+    and each kernel is one launch for the P paths (``torch.func.vmap`` has
+    no rule for this function: stack explicitly)."""
 
     @staticmethod
     def forward(ctx, ld, ls, v, graph, meta):
@@ -652,8 +710,9 @@ class _FlashGAT(torch.autograd.Function):
         ld, ls, v, out, lse = ctx.saved_tensors
         g = g.contiguous()
         # per-head delta_i = g_i · out_i, formed outside the kernel as in
-        # han_tpu (_flash_core_flat_bwd)
-        delta = (g * out).view(g.shape[0], ld.shape[0], -1).sum(-1).T.contiguous()
+        # han_tpu (_flash_core_flat_bwd); ([P,] K, n) for a stack
+        delta = (g * out).view(*g.shape[:-1], ld.shape[-2], -1).sum(-1).transpose(-1, -2)
+        delta = delta.contiguous()
         dld, dls, dv = flash_bwd(ctx.graph, ld, ls, v, g, lse, delta, ctx.meta)
         # dv is f32 from the kernels, cast to v's type outside them as in
         # han_tpu (flash_gat.py:701)
@@ -678,29 +737,48 @@ def check_args(slope: float, coef_dropout: float,
             f"features, got {fts.dtype}")
 
 
-def draw_seed(coef_dropout: float, generator: torch.Generator | None) -> torch.Tensor | int:
-    """The kernels' dropout seed: a one-element int32 tensor drawn on the
-    generator's device (no host round trip; inside a captured CUDA graph a
-    registered generator draws a new one at every replay); 0 when dropout
-    is off. Every shard of a partitioned run draws the same seed from the
-    same generator state."""
+def draw_seed(coef_dropout: float, generator: torch.Generator | None,
+              n: int = 1) -> torch.Tensor | int:
+    """The kernels' dropout seeds: an int32 tensor of ``n`` seeds (one a
+    path of a stack) drawn on the generator's device (no host round trip;
+    inside a captured CUDA graph a registered generator draws new ones at
+    every replay); 0 when dropout is off. Every shard of a partitioned run
+    draws the same seeds from the same generator state."""
     if coef_dropout <= 0.0:
         return 0
-    return torch.randint(0, 2 ** 31 - 1, (1,), generator=generator,
+    return torch.randint(0, 2 ** 31 - 1, (n,), generator=generator,
                          device=generator.device, dtype=torch.int32)
+
+
+def draw_path_seeds(coef_dropout: float, generator: torch.Generator | None,
+                    n_paths: int, towers: tuple[int, int, int] | None = None):
+    """The seeds of ``n_paths`` stacked paths; ``towers`` = (lo, hi, P):
+    the paths are towers lo..hi−1 of P (a rank of an mp mesh axis), so all
+    P seeds are drawn and the slice kept, and each tower's seed is the one
+    a one-device run draws for it."""
+    if towers is None:
+        # one path draws as every single-path caller does
+        return (draw_seed(coef_dropout, generator) if n_paths == 1
+                else draw_seed(coef_dropout, generator, n_paths))
+    lo, hi, total = towers
+    if hi - lo != n_paths:
+        raise ValueError(f"towers {towers} do not match the {n_paths} stacked paths")
+    seeds = draw_seed(coef_dropout, generator, total)
+    return seeds[lo:hi].contiguous() if isinstance(seeds, torch.Tensor) else seeds
 
 
 def flash_gat_attention(
     graph: BCSRGraph,
-    fts: torch.Tensor,        # (N, K, D)
-    logit_dst: torch.Tensor,  # (N, K)
-    logit_src: torch.Tensor,  # (N, K)
+    fts: torch.Tensor,        # ([P,] N, K, D)
+    logit_dst: torch.Tensor,  # ([P,] N, K)
+    logit_src: torch.Tensor,  # ([P,] N, K)
     *,
     slope: float = 0.2,
     coef_dropout: float = 0.0,
     generator: torch.Generator | None = None,
     row_block_offset: int = 0,
     head_offset: int = 0,
+    towers: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
     """Drop-in implementation for ops.attention.attention_aggregate.
 
@@ -711,22 +789,28 @@ def flash_gat_attention(
     to the kernels as bf16 and are widened in registers; logits, softmax
     and accumulators are f32, and the result is cast to ``fts.dtype``
     (han_tpu/ops/pallas/flash_gat.py:749-784).
-    Returns (N, K, D) in ``fts.dtype``.
+    A stack of P graphs (graph/stack.py) with P-stacked tensors runs as
+    one launch of each kernel, one seed a path (``towers``: see
+    :func:`draw_path_seeds`). Returns ([P,] N, K, D) in ``fts.dtype``.
     """
     check_args(slope, coef_dropout, generator, fts)
     if not isinstance(graph, BCSRGraph):
         raise TypeError("flash impl needs a BCSRGraph (graph/bcsr.py builders; "
                         "graph_format='bcsr' in the trainer)")
-    n, k, d = fts.shape
+    lead = fts.shape[:-3]
+    if lead != (() if graph.n_paths is None else (graph.n_paths,)):
+        raise ValueError(f"features {tuple(fts.shape)} do not match a graph of "
+                         f"{graph.n_paths or 1} path(s)")
+    n, k, d = fts.shape[-3:]
     pad = graph.n_pad - n
     # contiguous: with no padding (n == n_pad) F.pad returns the transposed
     # view, which the kernels refuse
-    v = F.pad(fts.reshape(n, k * d), (0, 0, 0, pad)).contiguous()
-    ld = F.pad(logit_dst.to(torch.float32).T, (0, pad)).contiguous()
-    ls = F.pad(logit_src.to(torch.float32).T, (0, pad)).contiguous()
+    v = F.pad(fts.reshape(*lead, n, k * d), (0, 0, 0, pad)).contiguous()
+    ld = F.pad(logit_dst.to(torch.float32).transpose(-1, -2), (0, pad)).contiguous()
+    ls = F.pad(logit_src.to(torch.float32).transpose(-1, -2), (0, pad)).contiguous()
     meta = FlashMeta(slope=float(slope), dropout_p=float(coef_dropout),
-                     seed=draw_seed(coef_dropout, generator),
+                     seed=draw_path_seeds(coef_dropout, generator, graph.n_paths or 1, towers),
                      row_block_offset=int(row_block_offset),
                      head_offset=int(head_offset))
     out = _FlashGAT.apply(ld, ls, v, graph, meta)
-    return out[:n].view(n, k, d).to(fts.dtype)
+    return out[..., :n, :].view(*lead, n, k, d).to(fts.dtype)

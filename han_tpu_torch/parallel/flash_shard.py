@@ -1,23 +1,30 @@
-"""Edge-partitioned flash-GAT over the graph axis (port of
-han_tpu/parallel/flash_shard.py).
+"""Edge-partitioned flash-GAT over the ('graph', 'heads') mesh axes (port
+of han_tpu/parallel/flash_shard.py).
 
 Destination rows are split into contiguous row-block-aligned strips, one
-per rank. Each rank owns its rows' incoming edge tiles as a BCSR strip
-(rows local, columns global) and sweeps them with the same CUDA flash
-kernels as one device (ops/flash_gat.py), at ``row_block_offset`` = its
-first global row block, so the dropout keys, and the masks, are those of a
-one-device run.
+per rank of the graph axis. Each rank owns its rows' incoming edge tiles
+as a BCSR strip (rows local, columns global) and sweeps them with the same
+CUDA flash kernels as one device (ops/flash_gat.py) for its K / heads
+heads, at ``row_block_offset`` = its first global row block and
+``head_offset`` = heads-rank × K / heads (han_tpu's ``h_off``), so the
+dropout keys, and the masks, are those of a one-device run, head for head.
 
 Source features and logit_src are replicated: the model outside attention
 runs replicated on every rank. The collectives (parallel/mesh.py) are
 those ``shard_map``'s AD gives han_tpu:
 
-- forward: rank s slices its strip's logit_dst through ``perm``, runs the
-  strip, all-gathers the strips and reorders them by ``perm``;
-- backward: each rank's strip gives dld for its rows (all-gathered) and
-  partial dls and dv over all columns (all-reduced), so every rank returns
-  the same full gradients and the replicated parameters stay equal with no
+- forward: rank (g, h) slices its strip's logit_dst through ``perm`` and
+  its heads of every input, runs the strip, and the strips are gathered
+  over the heads axis, then the graph axis, and reordered by ``perm``;
+- backward: each rank's strip gives dld for its rows and heads (gathered)
+  and partial dls and dv over all columns for its heads (gathered over the
+  heads axis, all-reduced over the graph axis), so every rank returns the
+  same full gradients and the replicated parameters stay equal with no
   data-parallel pass.
+
+A stacked partition (graph/stack.py, HAN's meta-path towers) sweeps every
+path's strip in one launch of each kernel, each path at its own row-block
+offsets (read by the kernels from device memory).
 """
 
 from __future__ import annotations
@@ -31,8 +38,8 @@ import torch.nn.functional as F
 from han_tpu_torch.graph.bcsr import DEF_BM, DEF_BN, BCSRGraph, build_tile_arrays, pick_tiles
 from han_tpu_torch.graph.containers import _to
 from han_tpu_torch.ops import flash_gat as fg
-from han_tpu_torch.parallel.mesh import (Mesh, gather_rows, local_rows,
-                                         make_mesh, sum_grads)
+from han_tpu_torch.parallel.mesh import (Mesh, gather_heads, gather_rows, local_heads,
+                                         local_rows, make_mesh, sum_grads)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +53,9 @@ class PartitionedBCSR:
     perm:      int64[n_nodes]: global row → padded slot (s·n_loc + local)
     mesh:      the mesh attention runs on (set by the trainer); None: every
                rank of the default process group
+
+    A stack of P partitions (graph/stack.py) has a leading P axis on every
+    array and P tuples of offsets.
     """
 
     tiles: torch.Tensor
@@ -66,15 +76,34 @@ class PartitionedBCSR:
     n_shards: int
     mesh: Mesh | None = None
 
+    @property
+    def n_paths(self) -> int | None:
+        """P for a stack of P partitions, None for one."""
+        return int(self.tiles.shape[0]) if self.tiles.dim() == 5 else None
+
     def strip(self, s: int) -> BCSRGraph:
         """Shard s as a BCSRGraph over n_loc rows × n_pad columns (views of
-        the stacked tensors; edge counts per shard are not kept)."""
+        the stacked tensors; edge counts per shard are not kept); of a
+        stack, the P paths' strips s as a stacked BCSRGraph (copies: the
+        kernels take each path's arrays back to back)."""
+        if self.n_paths is None:
+            pick = lambda t: t[s]
+        else:
+            pick = lambda t: t[:, s].contiguous()
         return BCSRGraph(
-            tiles=self.tiles[s], fwd_count=self.fwd_count[s],
-            fwd_col=self.fwd_col[s], fwd_tile=self.fwd_tile[s],
-            bwd_count=self.bwd_count[s], bwd_row=self.bwd_row[s],
-            bwd_tile=self.bwd_tile[s], n_nodes=self.n_loc, n_pad=self.n_loc,
-            bm=self.bm, bn=self.bn, n_edges=0, n_tiles=int(self.tiles.shape[1]))
+            tiles=pick(self.tiles), fwd_count=pick(self.fwd_count),
+            fwd_col=pick(self.fwd_col), fwd_tile=pick(self.fwd_tile),
+            bwd_count=pick(self.bwd_count), bwd_row=pick(self.bwd_row),
+            bwd_tile=pick(self.bwd_tile), n_nodes=self.n_loc, n_pad=self.n_loc,
+            bm=self.bm, bn=self.bn, n_edges=0, n_tiles=int(self.tiles.shape[-3]))
+
+    def strip_row_block_off(self, s: int, device) -> int | torch.Tensor:
+        """Shard s's first global row block: an int, or of a stack, an int32
+        tensor of one a path on ``device`` (the kernels read it there)."""
+        if self.n_paths is None:
+            return self.row_block_off[s]
+        return torch.tensor([off[s] for off in self.row_block_off], dtype=torch.int32,
+                            device=device)
 
     def to(self, device) -> "PartitionedBCSR":
         return _to(self, device)
@@ -164,39 +193,64 @@ def partition_bcsr(adj, n_shards: int, *, bm: int = DEF_BM, bn: int = DEF_BN,
 
 def sharded_flash_attention(
     graph: PartitionedBCSR,
-    fts: torch.Tensor,        # (N, K, D), replicated
-    logit_dst: torch.Tensor,  # (N, K), replicated
-    logit_src: torch.Tensor,  # (N, K), replicated
+    fts: torch.Tensor,        # ([P,] N, K, D), replicated
+    logit_dst: torch.Tensor,  # ([P,] N, K), replicated
+    logit_src: torch.Tensor,  # ([P,] N, K), replicated
     *,
     mesh: Mesh | None = None,
     slope: float = 0.2,
     coef_dropout: float = 0.0,
     generator: torch.Generator | None = None,
+    towers: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
     """Distributed sibling of flash_gat_attention: the same math and
-    kernels, one row strip per rank; global tensors in, global (N, K, D)
+    kernels, one row strip per rank of the graph axis and K / heads heads
+    per rank of the heads axis; global tensors in, global ([P,] N, K, D)
     out on every rank. ``mesh`` defaults to ``graph.mesh``, else every rank
-    of the default process group; ``generator`` (on this rank's device)
-    draws the dropout seed as a device tensor, the same on every rank (the
-    same generator seed and draw order). Runs eagerly: a captured step
-    with NCCL collectives inside is not ported."""
+    of the default process group on the graph axis; ``generator`` (on this
+    rank's device) draws the dropout seeds as a device tensor, the same on
+    every rank (the same generator seed and draw order; ``towers``: see
+    ops/flash_gat.py:draw_path_seeds). Runs eagerly: a captured step with
+    NCCL collectives inside is not ported."""
     # bf16 features on the partitioned backends are not ported yet
     fg.check_args(slope, coef_dropout, generator, fts, dtypes=(torch.float32,))
     mesh = mesh or graph.mesh or make_mesh(device=fts.device)
-    if graph.n_shards != mesh.size:
-        raise ValueError(f"the graph has {graph.n_shards} shards, the mesh "
-                         f"{mesh.size} ranks")
-    n, k, d = fts.shape
-    s = mesh.rank
-    fts = sum_grads(fts, mesh)
-    logit_src = sum_grads(logit_src, mesh)
-    v = F.pad(fts.reshape(n, k * d), (0, 0, 0, graph.n_pad - n))
-    ls = F.pad(logit_src.to(torch.float32).T, (0, graph.n_pad - n)).contiguous()
-    ld_all = logit_dst.new_zeros((graph.n_shards * graph.n_loc, k)).index_copy(
-        0, graph.perm, logit_dst.to(torch.float32))
-    ld = local_rows(ld_all, mesh).T.contiguous()  # (k, n_loc)
+    ax_g, ax_h = mesh.graph, mesh.heads
+    if graph.n_shards != ax_g.size:
+        raise ValueError(f"the graph has {graph.n_shards} shards, the mesh's graph axis "
+                         f"{ax_g.size} ranks")
+    n, k, d = fts.shape[-3:]
+    if k % ax_h.size:
+        raise ValueError(f"{k} heads do not split over a heads axis of {ax_h.size}")
+    n_paths = graph.n_paths
+    lead = fts.shape[:-3]
+    if lead != (() if n_paths is None else (n_paths,)):
+        raise ValueError(f"features {tuple(fts.shape)} do not match a partition of "
+                         f"{n_paths or 1} path(s)")
+    k_loc = k // ax_h.size
+    s = ax_g.rank
+    # replicated inputs: each rank takes its heads (the backward gathers the
+    # heads' gradients) and its strip's partial sums add over the graph axis
+    fts = local_heads(sum_grads(fts, ax_g), ax_h)
+    logit_src = local_heads(sum_grads(logit_src.to(torch.float32), ax_g), ax_h, dim=-1)
+    v = F.pad(fts.reshape(*lead, n, k_loc * d), (0, 0, 0, graph.n_pad - n)).contiguous()
+    ls = F.pad(logit_src.transpose(-1, -2), (0, graph.n_pad - n)).contiguous()
+    slots = graph.n_shards * graph.n_loc
+    if n_paths is None:
+        ld_all = logit_dst.new_zeros((slots, k)).index_copy(
+            0, graph.perm, logit_dst.to(torch.float32))
+    else:
+        path_idx = torch.arange(n_paths, device=fts.device)[:, None]
+        ld_all = logit_dst.new_zeros((n_paths, slots, k)).index_put(
+            (path_idx, graph.perm), logit_dst.to(torch.float32))
+    ld = local_heads(local_rows(ld_all, ax_g, dim=-2), ax_h, dim=-1)  # ([P,] n_loc, k_loc)
     meta = fg.FlashMeta(slope=float(slope), dropout_p=float(coef_dropout),
-                        seed=fg.draw_seed(coef_dropout, generator),
-                        row_block_offset=graph.row_block_off[s])
-    out = fg._FlashGAT.apply(ld, ls, v, graph.strip(s), meta)  # (n_loc, k·d)
-    return gather_rows(out, mesh).index_select(0, graph.perm).view(n, k, d)
+                        seed=fg.draw_path_seeds(coef_dropout, generator, n_paths or 1, towers),
+                        row_block_offset=graph.strip_row_block_off(s, fts.device),
+                        head_offset=ax_h.rank * k_loc)
+    out = fg._FlashGAT.apply(ld.transpose(-1, -2).contiguous(), ls, v, graph.strip(s), meta)
+    out = gather_heads(out.view(*lead, graph.n_loc, k_loc, d), ax_h)
+    out = gather_rows(out, ax_g, dim=-3)  # ([P,] S·n_loc, K, D)
+    if n_paths is None:
+        return out.index_select(0, graph.perm)
+    return out[path_idx, graph.perm]

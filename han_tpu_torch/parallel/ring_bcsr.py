@@ -22,6 +22,11 @@ sharded (port of han_tpu/parallel/ring_bcsr.py).
   the rotation never waits on the step's kernel), and come home with one
   last rotation after the loop.
 
+On a heads axis each rank runs its K / heads heads at ``head_offset`` =
+heads-rank × K / heads (han_tpu's ``h_off``, ring_bcsr.py:377-378), so the
+masks are the one-device run's head for head, and the outputs gather over
+the heads axis.
+
 Each step posts the next step's sends and receives before it launches its
 kernel and waits on them after, as han_tpu issues the rotation before the
 kernel. Unlike han_tpu's uniform ``fori_loop`` body, the forward skips the
@@ -44,8 +49,9 @@ import torch.nn.functional as F
 from han_tpu_torch.graph.bcsr import DEF_BM, DEF_BN, BCSRGraph, build_tile_arrays, pick_tiles
 from han_tpu_torch.graph.containers import MASK_VALUE, _to
 from han_tpu_torch.ops import flash_gat as fg
-from han_tpu_torch.parallel.mesh import (Mesh, gather_rows, local_rows,
-                                         make_mesh, ring_shift, wait)
+from han_tpu_torch.parallel.mesh import (Axis, Mesh, gather_heads, gather_rows,
+                                         local_heads, local_rows, make_mesh, ring_shift,
+                                         wait)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,18 +206,19 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 class _RingFlash(torch.autograd.Function):
     """This rank's blocks (ld (K, n_loc), ls (K, n_loc), v (n_loc, K·D)) →
-    its rows' out (n_loc, K·D), over the S ring steps."""
+    its rows' out (n_loc, K·D), over the S ring steps of the graph axis
+    ``ring``."""
 
     @staticmethod
-    def forward(ctx, ld, ls, v, graph: RingBCSR, meta: fg.FlashMeta, mesh: Mesh):
-        s, n_s = mesh.rank, mesh.size
+    def forward(ctx, ld, ls, v, graph: RingBCSR, meta: fg.FlashMeta, ring: Axis):
+        s, n_s = ring.rank, ring.size
         k, n_loc = ld.shape
         out = v.new_zeros((n_loc, v.shape[1]))
         lse = ld.new_full((k, n_loc), MASK_VALUE)
         vb, lb = v, ls
         for t in range(n_s):
             # the next step's blocks fly while this step's kernel runs
-            nxt, works = ring_shift([vb, lb] if t < n_s - 1 else [], mesh)
+            nxt, works = ring_shift([vb, lb] if t < n_s - 1 else [], ring)
             o_t, lse_t = fg.flash_fwd(graph.cell(s, t), ld, lb, vb,
                                       graph.step_meta(meta, s, t))
             new_lse = torch.logaddexp(lse, lse_t)
@@ -221,14 +228,14 @@ class _RingFlash(torch.autograd.Function):
             if works:
                 vb, lb = nxt
         ctx.save_for_backward(ld, ls, v, out, lse)
-        ctx.graph, ctx.meta, ctx.mesh = graph, meta, mesh
+        ctx.graph, ctx.meta, ctx.ring = graph, meta, ring
         return out
 
     @staticmethod
     def backward(ctx, g):
         ld, ls, v, out, lse = ctx.saved_tensors
-        graph, meta, mesh = ctx.graph, ctx.meta, ctx.mesh
-        s, n_s = mesh.rank, mesh.size
+        graph, meta, ring = ctx.graph, ctx.meta, ctx.ring
+        s, n_s = ring.rank, ring.size
         k, n_loc = ld.shape
         g = g.contiguous()
         delta = (g * out).view(n_loc, k, -1).sum(-1).T.contiguous()
@@ -240,7 +247,7 @@ class _RingFlash(torch.autograd.Function):
             send = [vb, lb] if t < n_s - 1 else []
             if t > 0:
                 send += [dv + pv, dls + pl]
-            recv, works = ring_shift(send, mesh)
+            recv, works = ring_shift(send, ring)
             dld_t, dls_t, dv_t = fg.flash_bwd(graph.cell(s, t), ld, lb, vb, g, lse,
                                               delta, graph.step_meta(meta, s, t))
             dld += dld_t
@@ -250,7 +257,7 @@ class _RingFlash(torch.autograd.Function):
             if t > 0 and works:
                 dv, dls = recv[-2:]
             pv, pl = dv_t, dls_t
-        (dv, dls), works = ring_shift([dv + pv, dls + pl], mesh)  # the last hop home
+        (dv, dls), works = ring_shift([dv + pv, dls + pl], ring)  # the last hop home
         wait(works)
         return dld, dls, dv, None, None, None
 
@@ -269,23 +276,34 @@ def ring_flash_attention(
     """Distributed flash attention with O(N/S) feature blocks per rank in
     attention: the same math and masks as flash_gat_attention. Global
     tensors in, global (N, K, D) out on every rank; ``mesh`` defaults to
-    ``graph.mesh``, else every rank of the default process group.
-    ``generator`` (on this rank's device) draws the dropout seed as a
-    device tensor, the same on every rank. Runs eagerly: a captured step
-    with NCCL collectives inside is not ported."""
+    ``graph.mesh``, else every rank of the default process group on the
+    graph axis. ``generator`` (on this rank's device) draws the dropout
+    seed as a device tensor, the same on every rank. Runs eagerly: a
+    captured step with NCCL collectives inside is not ported."""
     # bf16 features on the partitioned backends are not ported yet
     fg.check_args(slope, coef_dropout, generator, fts, dtypes=(torch.float32,))
     mesh = mesh or graph.mesh or make_mesh(device=fts.device)
-    if graph.n_shards != mesh.size:
-        raise ValueError(f"the graph has {graph.n_shards} shards, the mesh "
-                         f"{mesh.size} ranks")
+    ax_g, ax_h = mesh.graph, mesh.heads
+    if graph.n_shards != ax_g.size:
+        raise ValueError(f"the graph has {graph.n_shards} shards, the mesh's graph axis "
+                         f"{ax_g.size} ranks")
     n, k, d = fts.shape
+    if k % ax_h.size:
+        raise ValueError(f"{k} heads do not split over a heads axis of {ax_h.size}")
+    k_loc = k // ax_h.size
     pad = graph.n_pad - n
-    v = local_rows(F.pad(fts.reshape(n, k * d), (0, 0, 0, pad)), mesh)
-    ld = local_rows(F.pad(logit_dst.to(torch.float32), (0, 0, 0, pad)), mesh)
-    ls = local_rows(F.pad(logit_src.to(torch.float32), (0, 0, 0, pad)), mesh)
+
+    def block(x):  # this rank's rows and heads, the backward gathering both
+        return local_heads(local_rows(F.pad(x, (0, 0) * (x.dim() - 1) + (0, pad)), ax_g),
+                           ax_h, dim=1)
+
+    v = block(fts).reshape(graph.n_loc, k_loc * d)
+    ld = block(logit_dst.to(torch.float32))
+    ls = block(logit_src.to(torch.float32))
     meta = fg.FlashMeta(slope=float(slope), dropout_p=float(coef_dropout),
                         seed=fg.draw_seed(coef_dropout, generator),
-                        row_block_offset=mesh.rank * graph.nb_r_loc)
-    out = _RingFlash.apply(ld.T.contiguous(), ls.T.contiguous(), v, graph, meta, mesh)
-    return gather_rows(out, mesh)[:n].view(n, k, d)
+                        row_block_offset=ax_g.rank * graph.nb_r_loc,
+                        head_offset=ax_h.rank * k_loc)
+    out = _RingFlash.apply(ld.T.contiguous(), ls.T.contiguous(), v, graph, meta, ax_g)
+    out = gather_heads(out.view(graph.n_loc, k_loc, d), ax_h)
+    return gather_rows(out, ax_g)[:n]

@@ -24,7 +24,7 @@ class ModelConfig:
     attn_drop: float = 0.6
     ffd_drop: float = 0.6
     impl: str = "auto"  # dense | csr | flash (bcsr graphs) | ell | ell_fused (sampled) | auto
-    vmap_towers: bool = False  # meta-path EP (not ported)
+    vmap_towers: bool = False  # meta-path EP: the towers stacked (nn/models.HAN)
     dtype: str = "float32"  # float32 | bfloat16 (feature compute type, nn/layers.GATConv)
 
 
@@ -34,7 +34,8 @@ class DataConfig:
     featype: str = "fea"  # 'fea' | 'adj' (ex_acm3025.py:92-93)
     edge_pad_to: int = 128
     # dense | csr | bcsr; on a mesh (or as a 1-shard partition):
-    # partitioned_bcsr (= bcsr with graph_axis > 1) | ring_bcsr
+    # partitioned_bcsr (= bcsr with graph_axis > 1) | ring_bcsr |
+    # partitioned (= csr with graph_axis > 1) | ring
     graph_format: str = "dense"
     tile_bm: int = 0  # BCSR tile height (0 = graph/bcsr.py default)
     tile_bn: int = 0  # BCSR tile width  (0 = default)
@@ -58,9 +59,8 @@ class TrainConfig:
 
 @dataclasses.dataclass
 class MeshConfig:
-    """Device mesh axes: graph × heads × mp. The graph axis is the world
-    size of the process group (torchrun); heads and mp stay 1 (not
-    ported)."""
+    """Device mesh axes: graph × heads × mp, whose product is the world
+    size of the process group (torchrun; one process per device)."""
 
     graph_axis: int = 1
     head_axis: int = 1

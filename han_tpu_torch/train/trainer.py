@@ -29,18 +29,26 @@ the best parameters from the last best save, not from the latest save. A
 tripped ``guard`` (train/preempt.PreemptionGuard) saves and stops at the
 end of the epoch.
 
-Graph-axis multi-device training (``cfg.mesh.graph_axis`` = S = the world
-size of the process group, one process per device): the graphs are
-partitioned (``partitioned_bcsr`` or ``bcsr`` → parallel/flash_shard.py,
-``ring_bcsr`` → parallel/ring_bcsr.py) and attention runs sharded; every
-rank builds the same model from ``cfg.train.seed``, draws the same dropout
-streams and runs the model outside attention replicated, so the
-collectives inside attention leave every rank with the same gradients and
-parameters. Only rank 0 logs and scores the embedding. Both partitioned
-formats are also accepted at S = 1 (a 1-shard partition, with or without a
-process group). Not ported yet: checkpoint/resume, the heads and mp mesh
-axes, the csr/ring (segment-op) partitions, data-parallel sampled and
-inductive training, and ``arch="han_shared"``.
+Multi-device training on the (mp, graph, heads) mesh (``cfg.mesh``, whose
+product is the world size of the process group, one process per device;
+parallel/mesh.py): on a graph or heads axis the graphs are partitioned
+(``partitioned_bcsr`` or ``bcsr`` → parallel/flash_shard.py,
+``ring_bcsr`` → parallel/ring_bcsr.py, ``partitioned`` or ``csr`` →
+parallel/edge_partition.py and shard_attn.py, ``ring`` →
+parallel/ring_attn.py) and attention runs sharded, rows over the graph
+axis and heads over the heads axis; an mp axis splits HAN's meta-path
+towers (``vmap_towers``, which it forces, as han_tpu does; with a graph
+axis too only on a stacked ``partitioned_bcsr``). Every rank builds the
+same model from ``cfg.train.seed``, draws the same dropout streams and
+runs the model outside attention replicated, so the collectives leave
+every rank with the same gradients and parameters. Only rank 0 logs,
+saves and scores the embedding. The partitioned formats are also accepted
+on one device (a 1-shard partition, with or without a process group). Not
+ported yet: data-parallel sampled and inductive training.
+
+``vmap_towers`` (``arch="han"`` only) stacks the meta-paths' graphs
+(graph/stack.py) and features, and the towers run together: one launch of
+each flash kernel a step for all meta-paths.
 
 On one CUDA device the train step and the evaluation are each captured as
 a CUDA graph and replayed every epoch (train/graphed.py), han_tpu's one
@@ -73,53 +81,64 @@ from han_tpu_torch.datasets.registry import load_dataset
 from han_tpu_torch.graph.bcsr import DEF_BM, DEF_BN
 from han_tpu_torch.graph.build import (metapath_to_bcsr, metapath_to_csr,
                                        metapath_to_dense, with_self_loops)
+from han_tpu_torch.graph.stack import stack_graphs
 from han_tpu_torch.graph.synthetic import HeteroDataset
 from han_tpu_torch.nn.layers import DropoutGenerators
 from han_tpu_torch.nn.losses import (l2_regularizer, masked_accuracy,
                                      masked_softmax_cross_entropy)
 from han_tpu_torch.nn.models import GAT, HAN, HANShared
+from han_tpu_torch.parallel.edge_partition import partition_csr
 from han_tpu_torch.parallel.flash_shard import partition_bcsr
 from han_tpu_torch.parallel.mesh import Mesh, make_mesh
+from han_tpu_torch.parallel.ring_attn import partition_csr_2d
 from han_tpu_torch.parallel.ring_bcsr import ring_partition_bcsr
 from han_tpu_torch.train.config import Config
 from han_tpu_torch.train.eval_embed import kmeans_eval, knn_eval
 from han_tpu_torch.train.graphed import GraphedStep, want_capture
 from han_tpu_torch.utils.device import resolve_device
 
-PARTITIONED_FORMATS = ("partitioned_bcsr", "ring_bcsr")
+PARTITIONED_FORMATS = ("partitioned_bcsr", "ring_bcsr", "partitioned", "ring")
 
 
 def on_mesh(cfg: Config) -> bool:
-    """Whether the run partitions its graphs over the graph axis."""
-    return cfg.mesh.graph_axis > 1 or cfg.data.graph_format in PARTITIONED_FORMATS
+    """Whether the run has a mesh: an axis above 1 or a partitioned format."""
+    m = cfg.mesh
+    return (m.graph_axis * m.head_axis * m.mp_axis > 1
+            or cfg.data.graph_format in PARTITIONED_FORMATS)
+
+
+def partitioned(cfg: Config) -> bool:
+    """Whether the graphs are partitioned (a graph or heads axis, or a
+    partitioned format); an mp axis alone stacks whole graphs."""
+    return (cfg.mesh.graph_axis > 1 or cfg.mesh.head_axis > 1
+            or cfg.data.graph_format in PARTITIONED_FORMATS)
 
 
 def build_graphs(ds: HeteroDataset, cfg: Config, device: torch.device | str = "cpu",
                  mesh: Mesh | None = None):
     """One graph container per meta-path, with self-loops, on ``device``; on
-    a mesh, a partition of it into ``cfg.mesh.graph_axis`` shards that
-    carries ``mesh`` to attention."""
-    if cfg.mesh.head_axis > 1 or cfg.mesh.mp_axis > 1:
-        raise NotImplementedError("the heads and mp mesh axes are not ported "
-                                  "(graph axis only)")
+    a graph or heads axis, a partition of it into ``cfg.mesh.graph_axis``
+    shards that carries ``mesh`` to attention (han_tpu/train/trainer.py:
+    41-98)."""
     fmt = cfg.data.graph_format
-    if on_mesh(cfg):
+    if partitioned(cfg):
         shards = cfg.mesh.graph_axis
         bm, bn = cfg.data.tile_bm or DEF_BM, cfg.data.tile_bn or DEF_BN
+        pad = cfg.data.edge_pad_to
         if fmt in ("bcsr", "partitioned_bcsr"):
-            part = partition_bcsr
+            part = lambda a: partition_bcsr(with_self_loops(a), shards, bm=bm, bn=bn)
         elif fmt == "ring_bcsr":
-            part = ring_partition_bcsr
-        elif fmt in ("csr", "partitioned", "ring"):
-            raise NotImplementedError(
-                f"graph_format {fmt!r} on a mesh (edge_partition/shard_attn, "
-                "ring_attn) is not ported yet (partitioned_bcsr | ring_bcsr)")
+            part = lambda a: ring_partition_bcsr(with_self_loops(a), shards, bm=bm, bn=bn)
+        elif fmt in ("csr", "partitioned"):
+            part = lambda a: partition_csr(metapath_to_csr(a, edge_pad_to=pad), shards,
+                                           edge_pad_to=pad)
+        elif fmt == "ring":
+            part = lambda a: partition_csr_2d(metapath_to_csr(a, edge_pad_to=pad), shards,
+                                              pad_to=pad)
         else:
             raise ValueError(f"graph_format {fmt!r} has no partitioned variant "
-                             "(partitioned_bcsr | ring_bcsr)")
-        graphs = [dataclasses.replace(
-            part(with_self_loops(a), shards, bm=bm, bn=bn), mesh=mesh)
-            for a in ds.metapath_adjs]
+                             "(partitioned_bcsr | ring_bcsr | partitioned | ring)")
+        graphs = [dataclasses.replace(part(a), mesh=mesh) for a in ds.metapath_adjs]
     elif fmt == "dense":
         graphs = [metapath_to_dense(a) for a in ds.metapath_adjs]
     elif fmt == "csr":
@@ -130,13 +149,13 @@ def build_graphs(ds: HeteroDataset, cfg: Config, device: torch.device | str = "c
                                    bn=cfg.data.tile_bn or None)
                   for a in ds.metapath_adjs]
     else:
-        raise ValueError(f"graph_format {fmt!r} is not ported "
-                         "(dense | csr | bcsr | partitioned_bcsr | ring_bcsr)")
+        raise ValueError(f"graph_format {fmt!r} is not ported (dense | csr | bcsr | "
+                         "partitioned_bcsr | ring_bcsr | partitioned | ring)")
     return [g.to(device) for g in graphs]
 
 
-def build_model(ds: HeteroDataset, cfg: Config,
-                generator: torch.Generator | None = None) -> nn.Module:
+def build_model(ds: HeteroDataset, cfg: Config, generator: torch.Generator | None = None,
+                mesh: Mesh | None = None) -> nn.Module:
     m = cfg.model
     if m.dtype not in ("float32", "bfloat16"):
         raise ValueError(f"model.dtype {m.dtype!r} is not float32 or bfloat16")
@@ -146,7 +165,8 @@ def build_model(ds: HeteroDataset, cfg: Config,
                   impl=m.impl, dtype=getattr(torch, m.dtype), generator=generator)
     if m.arch == "han":
         return HAN(in_dim, ds.n_classes, len(ds.metapath_adjs),
-                   semantic_dim=m.semantic_dim, vmap_towers=m.vmap_towers, **common)
+                   semantic_dim=m.semantic_dim, vmap_towers=m.vmap_towers, mesh=mesh,
+                   **common)
     if m.arch == "gat":
         return GAT(in_dim, ds.n_classes, **common)
     if m.arch == "han_shared":
@@ -286,20 +306,33 @@ class Trainer:
         self.device = resolve_device(device)
         self.capture = want_capture(
             capture, self.device,
-            "the graph-axis mesh runs eagerly (NCCL collectives inside a "
+            "the mesh runs eagerly (NCCL collectives inside a "
             "captured step are not ported)" if on_mesh(cfg) else None)
+        # han_tpu's rules (han_tpu/train/trainer.py:181-193): an mp axis runs
+        # the towers stacked, with a graph axis only over stacked
+        # PartitionedBCSR
+        if cfg.mesh.mp_axis > 1:
+            if cfg.mesh.graph_axis > 1 and cfg.data.graph_format not in (
+                    "bcsr", "partitioned_bcsr"):
+                raise ValueError("mp_axis x graph_axis composition requires "
+                                 "graph_format='bcsr' (stacked PartitionedBCSR)")
+            cfg.model.vmap_towers = True
+        self._stacked = cfg.model.vmap_towers
+        if self._stacked and cfg.model.arch != "han":
+            raise ValueError("vmap_towers requires arch='han'")
         self.mesh = None
         if on_mesh(cfg):
-            # raises unless graph_axis is the world size and the device
-            # matches the backend
-            self.mesh = make_mesh(graph=cfg.mesh.graph_axis, device=self.device)
+            # raises unless the axes' product is the world size and the
+            # device matches the backend
+            self.mesh = make_mesh(graph=cfg.mesh.graph_axis, heads=cfg.mesh.head_axis,
+                                  mp=cfg.mesh.mp_axis, device=self.device)
             self.device = self.mesh.device
         self.coordinator = self.mesh is None or self.mesh.rank == 0
         self.logger = logger or MetricLogger(
             cfg.train.log_file if self.coordinator else "", echo=self.coordinator)
         self.graphs = build_graphs(ds, cfg, self.device, mesh=self.mesh)
         self.model = build_model(
-            ds, cfg, generator=torch.Generator().manual_seed(cfg.train.seed)
+            ds, cfg, generator=torch.Generator().manual_seed(cfg.train.seed), mesh=self.mesh
         ).to(self.device)
         if cfg.data.featype == "adj":
             # ablation: each tower's input features are its meta-path's
@@ -309,6 +342,9 @@ class Trainer:
         else:
             x = torch.from_numpy(ds.features).to(self.device)
             self.xs = [x for _ in ds.metapath_adjs]
+        if self._stacked:
+            self.graphs = stack_graphs(self.graphs)
+            self.xs = torch.stack(self.xs)
         self.labels = torch.from_numpy(ds.labels).to(self.device)
         self.masks = {k: torch.from_numpy(m).to(self.device) for k, m in
                       (("train", ds.train_mask), ("val", ds.val_mask),
@@ -360,7 +396,7 @@ class Trainer:
         with torch.no_grad():
             acc = masked_accuracy(logits, self.labels, self.masks["train"])
             mean_alphas = (alphas.mean(dim=0) if alphas is not None
-                           else logits.new_zeros(len(self.graphs)))
+                           else logits.new_zeros(len(self.ds.metapath_adjs)))
             return loss.detach(), acc, mean_alphas
 
     @torch.no_grad()

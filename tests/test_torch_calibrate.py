@@ -134,3 +134,23 @@ def test_fold_check_flags_rates_above_the_ceiling():
     bad = cal.check_ceilings(result)
     assert len(bad) == 4 and bad[0].startswith("exp_bf16") and "bwd_strip" in bad[1]
     assert bad[2].startswith("mul_bf16: t(2R)/t(R)") and bad[3].startswith("fwd_strip_s: t(2R)")
+
+
+@pytest.mark.parametrize("n_strips, base", [(1056, 256), (1056, 2048), (8, 16)])
+def test_strip_reps_keep_each_timing_long(n_strips, base):
+    """Each strip body's R (bench_torch.py: 1,056 strips, base 256; the
+    calibration run: base 2,048) is a multiple of the 8 heads the f32
+    bodies unroll, never below the base (halved for the backward body), and
+    long enough that t(R) is at least STRIP_MIN_S at the last measured time
+    a pass; at the bench's shape the short forward body gets more than 256
+    passes (R = 256 ran 4.4 ms and once measured t(2R)/t(R) = 1.8939)."""
+    for key, pass_s in cal.STRIP_PASS_S.items():
+        r = cal.strip_reps(key, n_strips, base)
+        floor = base // 2 if key == "bwd_strip_s_mxu" else base
+        assert r % cal.HEADS == 0 and r >= floor, key
+        t_r = r * pass_s * n_strips / cal.STRIP_PASS_STRIPS
+        assert t_r >= cal.STRIP_MIN_S, key
+        # the least such R: one step of 8 passes fewer falls short
+        assert r == floor or (r - cal.HEADS) * pass_s * n_strips / cal.STRIP_PASS_STRIPS \
+            < cal.STRIP_MIN_S, key
+    assert cal.strip_reps("fwd_strip_s", 1056, 256) > 256

@@ -326,11 +326,14 @@ def test_trainer_on_mesh_matches_single_device(world4, single_device_run, fmt):
 
 @pytest.mark.parametrize("s_n", [2, 4])
 def test_dryrun(request, s_n):
-    """The dry run's deterministic losses agree across backends (< 1e-4)
-    and its train step is finite on every rank."""
+    """The dry run lays the ranks out as han_tpu does (a heads axis of 2 at
+    4 ranks, none at 2), its deterministic losses agree across backends
+    (< 1e-4) and its train step is finite on every rank."""
+    heads = 2 if s_n >= 4 else 1
     for rank in request.getfixturevalue(f"world{s_n}"):
         res = rank["dryrun"]
-        assert res["graph"] == s_n and res["det_max_dev"] < 1e-4
+        assert (res["graph"], res["heads"]) == (s_n // heads, heads)
+        assert res["det_max_dev"] < 1e-4
         assert all(np.isfinite(v) for v in res["losses"].values())
 
 
@@ -397,30 +400,104 @@ def test_deterministic_mode_takes_the_split_backward(monkeypatch):
         np.testing.assert_allclose(a.numpy(), f.numpy(), atol=1e-6)
 
 
-def test_mesh_and_trainer_refusals():
-    """The mesh needs graph = world size and no heads/mp axis; a mesh run
-    refuses the unported formats and sampled training."""
+def _refusal_mesh():
+    """make_mesh raises where han_tpu does (a mesh larger than the world,
+    a world not divisible by heads · mp) and on a mesh smaller than it."""
     assert make_mesh(graph=1, device="cpu").size == 1 and make_mesh(device="cpu").rank == 0
-    with pytest.raises(ValueError, match="world size"):
+    with pytest.raises(ValueError, match="exceeds 1 devices"):
         make_mesh(graph=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="exceeds 1 devices"):
         make_mesh(graph=1, heads=2)
+    with pytest.raises(ValueError, match="not divisible by heads\\*mp=2"):
+        make_mesh(mp=2)
+    mesh = make_mesh(graph=0, heads=1, mp=1, device="cpu")
+    assert (mesh.graph.size, mesh.heads.size, mesh.mp.size) == (1, 1, 1)
+
+
+def _refusal_heads_axis():
+    """A heads axis partitions the graphs (1-shard partitions at graph 1);
+    the trainer's mesh then exceeds a world of one process."""
     ds = ranks.trainer_ds()
     cfg = ranks.trainer_cfg("bcsr", 1, 1)
     cfg.mesh.head_axis = 2
-    with pytest.raises(NotImplementedError):
-        ttrainer.build_graphs(ds, cfg)
-    for fmt in ("csr", "ring"):
-        cfg = ranks.trainer_cfg(fmt, 2, 1)
-        with pytest.raises(NotImplementedError):
-            ttrainer.build_graphs(ds, cfg)
+    graphs = ttrainer.build_graphs(ds, cfg)
+    assert all(isinstance(g, tshard.PartitionedBCSR) and g.n_shards == 1 for g in graphs)
+    with pytest.raises(ValueError, match="exceeds"):
+        ttrainer.Trainer(ds, cfg, device="cpu")
+
+
+def _refusal_csr_formats():
+    """csr and ring on a graph axis build PartitionedCSR and
+    PartitionedCSR2D (they were refused before edge_partition.py,
+    shard_attn.py and ring_attn.py were ported); a format without a
+    partitioned variant raises."""
+    from han_tpu_torch.parallel.edge_partition import PartitionedCSR
+    from han_tpu_torch.parallel.ring_attn import PartitionedCSR2D
+
+    ds = ranks.trainer_ds()
+    for fmt, kind in (("csr", PartitionedCSR), ("partitioned", PartitionedCSR),
+                      ("ring", PartitionedCSR2D)):
+        graphs = ttrainer.build_graphs(ds, ranks.trainer_cfg(fmt, 2, 1))
+        assert all(isinstance(g, kind) and g.n_shards == 2 for g in graphs), fmt
+    with pytest.raises(ValueError, match="no partitioned variant"):
+        ttrainer.build_graphs(ds, ranks.trainer_cfg("dense", 2, 1))
+
+
+def _refusal_trainer():
+    """The trainer's mesh needs the world (ValueError); data-parallel
+    sampled training is not ported (NotImplementedError)."""
+    ds = ranks.trainer_ds()
     cfg = ranks.trainer_cfg("bcsr", 2, 1)
-    with pytest.raises(ValueError, match="world size"):
+    with pytest.raises(ValueError, match="exceeds"):
         ttrainer.Trainer(ds, cfg, device="cpu")
     cfg = ranks.trainer_cfg("ring_bcsr", 1, 1)
     cfg.train.sampled = True
     with pytest.raises(NotImplementedError, match="DPSampledTrainer"):
         ttrainer.run(cfg, ds, device="cpu")
+
+
+def _refusal_vmap_towers():
+    """han_tpu's rules: an mp axis forces vmap_towers (set before the mesh
+    is made), mp × graph needs bcsr / partitioned_bcsr, vmap_towers needs
+    arch='han'; a HAN's towers must split evenly over the mp axis."""
+    ds = ranks.trainer_ds()
+    cfg = ranks.trainer_cfg("bcsr", 1, 1)
+    cfg.mesh.mp_axis = 2
+    cfg.model.vmap_towers = False
+    with pytest.raises(ValueError, match="exceeds"):
+        ttrainer.Trainer(ds, cfg, device="cpu")
+    assert cfg.model.vmap_towers
+    cfg = ranks.trainer_cfg("ring_bcsr", 2, 1, mp_axis=2)
+    with pytest.raises(ValueError, match="composition requires"):
+        ttrainer.Trainer(ds, cfg, device="cpu")
+    cfg = ranks.trainer_cfg("bcsr", 1, 1)
+    cfg.model.arch, cfg.model.vmap_towers = "gat", True
+    with pytest.raises(ValueError, match="requires arch='han'"):
+        ttrainer.Trainer(ds, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("case", [_refusal_mesh, _refusal_heads_axis, _refusal_csr_formats,
+                                  _refusal_trainer, _refusal_vmap_towers],
+                         ids=lambda f: f.__name__.removeprefix("_refusal_"))
+def test_mesh_and_trainer_refusals(case):
+    """What the mesh and the trainer refuse, and what they took over from
+    refusals since the heads and mp axes and the csr partitions were
+    ported: one case each."""
+    case()
+
+
+@pytest.mark.parametrize("kind", ["partitioned_bcsr", "ring_bcsr", "csr", "ring"])
+def test_return_coefs_raises_on_partitioned_containers(kind):
+    """return_coefs stays NotImplementedError on every partitioned
+    container, as in han_tpu (han_tpu/ops/attention.py:309-341)."""
+    from han_tpu_torch.ops.attention import attention_aggregate
+
+    c = make_case(n=200, seed=2)
+    part, _ = ranks.GRID_BACKENDS[kind]
+    graph = part(c["adj"], 1, 64, 64)
+    args = [torch.from_numpy(c[x]) for x in ("fts", "ld", "ls")]
+    with pytest.raises(NotImplementedError, match="return_coefs"):
+        attention_aggregate(graph, *args, return_coefs=True)
 
 
 def test_init_distributed_is_a_noop_without_torchrun(monkeypatch):

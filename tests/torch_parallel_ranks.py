@@ -1,23 +1,45 @@
-"""Rank bodies of tests/test_torch_parallel.py: each runs inside one process
-of a spawned gloo world (han_tpu_torch.parallel.launch.spawn) and returns
-numpy results for the test process, which holds them against han_tpu. This
-module imports torch and the port only, so the ranks never load jax."""
+"""Rank bodies of tests/test_torch_parallel.py, test_torch_mesh_grid.py and
+test_torch_mp.py: each runs inside one process of a spawned gloo world
+(han_tpu_torch.parallel.launch.spawn) and returns numpy results for the
+test process, which holds them against han_tpu. This module imports torch
+and the port only, so the ranks never load jax."""
 
 import torch
 
 from han_tpu_torch.graph.bcsr import bcsr_from_scipy
+from han_tpu_torch.graph.build import metapath_to_csr
 from han_tpu_torch.graph.synthetic import planted_hetero
 from han_tpu_torch.nn.models import HAN
 from han_tpu_torch.ops import flash_gat as fg
 from han_tpu_torch.parallel import dryrun
+from han_tpu_torch.parallel.edge_partition import partition_csr
 from han_tpu_torch.parallel.flash_shard import partition_bcsr, sharded_flash_attention
 from han_tpu_torch.parallel.mesh import make_mesh
+from han_tpu_torch.parallel.ring_attn import partition_csr_2d, ring_attention
 from han_tpu_torch.parallel.ring_bcsr import ring_flash_attention, ring_partition_bcsr
+from han_tpu_torch.parallel.shard_attn import partitioned_attention
 from han_tpu_torch.train import trainer as ttrainer
 from han_tpu_torch.train.config import preset
 
 BACKENDS = {"sharded": (partition_bcsr, sharded_flash_attention),
             "ring": (ring_partition_bcsr, ring_flash_attention)}
+
+
+def _csr(adj):
+    return metapath_to_csr(adj, add_self_loops=False, edge_pad_to=32)
+
+
+# the four partitioned backends: (partitioner of (adj, shards, bm, bn),
+# attention); the csr ones on the adjacency as given (no added self-loops)
+GRID_BACKENDS = {
+    "partitioned_bcsr": (lambda a, s, bm, bn: partition_bcsr(a, s, bm=bm, bn=bn),
+                         sharded_flash_attention),
+    "ring_bcsr": (lambda a, s, bm, bn: ring_partition_bcsr(a, s, bm=bm, bn=bn),
+                  ring_flash_attention),
+    "csr": (lambda a, s, bm, bn: partition_csr(_csr(a), s, edge_pad_to=32),
+            partitioned_attention),
+    "ring": (lambda a, s, bm, bn: partition_csr_2d(_csr(a), s, pad_to=32), ring_attention),
+}
 
 
 def out_and_grads(fn, fts, ld, ls, w):
@@ -64,29 +86,63 @@ def han_logits(han):
     return out
 
 
-def trainer_cfg(fmt, graph_axis, epochs):
-    """The dblp preset (full widths, dropouts 0.6) at 64×64 tiles."""
+def trainer_cfg(fmt, graph_axis, epochs, mp_axis=1):
+    """The dblp preset (full widths, dropouts 0.6) at 64×64 tiles; an mp
+    axis runs the towers stacked (vmap_towers)."""
     cfg = preset("dblp")
     cfg.data.graph_format = fmt
     cfg.data.tile_bm = cfg.data.tile_bn = 64
     cfg.mesh.graph_axis = graph_axis
+    cfg.mesh.mp_axis = mp_axis
+    cfg.model.vmap_towers = mp_axis > 1
     cfg.train.epochs = epochs
     return cfg
 
 
-def trainer_ds():
-    return planted_hetero(n_nodes=250, n_feats=24, n_classes=3, n_metapaths=2,
+def trainer_ds(n_metapaths=2):
+    return planted_hetero(n_nodes=250, n_feats=24, n_classes=3, n_metapaths=n_metapaths,
                           avg_degree=10.0, train_per_class=20, n_val=30, seed=5)
 
 
-def train(fmt, graph_axis, epochs):
+def train(fmt, graph_axis, epochs, mp_axis=1, n_metapaths=2, vmap_towers=None):
     """Trainer.fit on the trainer dataset; the train losses, the test loss
     and the final parameters."""
-    t = ttrainer.Trainer(trainer_ds(), trainer_cfg(fmt, graph_axis, epochs), device="cpu",
+    cfg = trainer_cfg(fmt, graph_axis, epochs, mp_axis)
+    if vmap_towers is not None:
+        cfg.model.vmap_towers = vmap_towers
+    t = ttrainer.Trainer(trainer_ds(n_metapaths), cfg, device="cpu",
                          logger=ttrainer.MetricLogger(echo=False))
     result = t.fit()
     return {"losses": result["epoch_train_loss"], "test_loss": result["test_loss"],
             "state": {k: v.numpy().copy() for k, v in t.model.state_dict().items()}}
+
+
+def grid_checks(case):
+    """A graph 2 × heads 2 grid: the four partitioned backends on case's
+    inputs at dropout 0 and 0.4 (seed from a generator seeded 11), the
+    port's one-device flash at 0.4, the mesh's axes, and the dry run."""
+    mesh = make_mesh(graph=2, heads=2)
+    x = (case["fts"], case["ld"], case["ls"], case["w"])
+    gen = lambda: torch.Generator().manual_seed(11)
+    res = {"axes": {name: (ax.rank, ax.size, ax.ranks) for name, ax in
+                    (("mp", mesh.mp), ("graph", mesh.graph), ("heads", mesh.heads))}}
+    for p in (0.0, 0.4):
+        for name, (part, attn) in GRID_BACKENDS.items():
+            graph = part(case["adj"], 2, case["bm"], case["bn"])
+            res[name, p] = out_and_grads(
+                lambda *a: attn(graph, *a, mesh=mesh, coef_dropout=p, generator=gen()), *x)
+    single = bcsr_from_scipy(case["adj"], bm=case["bm"], bn=case["bn"])
+    res["single", 0.4] = out_and_grads(lambda *a: fg.flash_gat_attention(
+        single, *a, coef_dropout=0.4, generator=gen()), *x)
+    res["dryrun"] = dryrun.dryrun_step()
+    return res
+
+
+def mp_checks(runs, epochs):
+    """Trainer.fit for each (format, graph axis, mp axis, meta-paths) of
+    ``runs`` on the world's ranks."""
+    return {run: train(run[0], run[1], epochs, mp_axis=run[2], n_metapaths=run[3])
+            for run in runs}
 
 
 def world_checks(case, han, epochs):
