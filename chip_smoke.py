@@ -10,14 +10,14 @@ together, and the C++ sampler), then drives the ported paths:
   graph with a single-edge tile and rows without edges (D = 3 zero-padded
   to 4 by the wrappers), and on the strips of a 4-way partition of DBLP's
   largest meta-path (every shard of partition_bcsr, and ring cells with a
-  non-zero column offset); holds the batched kernels (one launch for
+  non-zero column offset; v f32 and bf16); holds the batched kernels (one launch for
   DBLP's three meta-paths stacked, graph/stack.py) to their plain versions
   and, path by path, to single-path launches with the path's seed
   (forward and sweeps bitwise), with one batched launch timed against
   three single ones; holds the per-rank body of the heads axis (heads 4-7
   of 8 at head_offset 4, on the strips and ring cells of a 2-way
-  partition, dropout 0.6) to heads 4-7 of the 8-head launch (forward
-  bitwise); checks a small HAN against the dense path;
+  partition, dropout 0.6, v f32 and bf16) to heads 4-7 of the 8-head
+  launch (forward bitwise); checks a small HAN against the dense path;
   trains the dblp preset for 10 epochs on the DBLP-shaped dataset with its
   train and eval steps captured as CUDA graphs (train/graphed.py: epoch 0
   eager, then replays), checks that the flash kernels' seed buffers hold a
@@ -38,8 +38,12 @@ together, and the C++ sampler), then drives the ported paths:
   through flash and holds HANShared through flash against csr (dropout 0),
   and its csr coefficients (rows summing to 1) against
   edge_attention_coefs; calls han_tpu_torch.entry.entry() (logits
-  (3025, 3)); then the acm preset for 2 epochs on the dataset run() loads
-  by the name "acm" (acm_synthetic where ACM3025.mat is absent);
+  (3025, 3)); trains the dblp preset with model.impl=auto (phase 4k: the
+  flash kernels launched as the preset's, DBLP's graphs sweeping fewer
+  tile elements an edge than ops/attention.flash_csr_threshold) and again
+  without the graphs' edge views (the views' peak memory); then the acm
+  preset for 2 epochs on the dataset run() loads by the name "acm"
+  (acm_synthetic where ACM3025.mat is absent);
 - GAT family: writes a Pubmed-shaped Planetoid fixture
   (datasets/planetoid.write_planetoid: 19,717 nodes, 500
   features, 44,324 edges; about 23,000 occupied 128x128 tiles) to a
@@ -47,10 +51,13 @@ together, and the C++ sampler), then drives the ported paths:
   preset's GAT through flash against csr, and the flash kernels against
   their plain versions at its two layer shapes (K = D = 8; K = 1, D = 3)
   at dropout 0 and 0.6, times both kernels there, trains the pubmed preset 10 epochs
-  through flash and again through csr, captured, and profiles both steps
-  captured and eager; then trains the ppi preset (the inductive trainer,
-  eager; dense attention) 3 epochs at full width on 24 synthetic graphs of
-  PPI's size;
+  through flash, through csr and with model.impl=auto (phase 4k: csr on
+  the BCSR graph's edge view, no flash launch; at dropout 0 its losses
+  against csr's), captured, and profiles the flash and csr steps captured
+  and eager; then trains the ppi preset (the inductive trainer, eager;
+  dense attention) 3 epochs at full width on 24 synthetic graphs of PPI's
+  size, and one epoch of its data-parallel batches on a one-rank NCCL
+  world against the one-device trainer (phase 4e', DP_TOL);
 - multi-device: in a world of torch.cuda.device_count() NCCL ranks (one
   process per card, spawned), trains the dblp preset 10 epochs with
   graph_format partitioned_bcsr, then ring_bcsr under
@@ -77,7 +84,12 @@ together, and the C++ sampler), then drives the ported paths:
   configuration mid-epoch (2 epochs of 8 steps, dropouts 0.6; the device
   sampler at steps_per_call 4, and the host sampler) and resumes it in a
   fresh trainer, its per-step losses held to the uninterrupted run's
-  (SAMPLED_CHUNK_TOL).
+  (SAMPLED_CHUNK_TOL); holds ell_fused on bf16 features to its plain
+  version at the same shapes (phase 3g, ELL_BF16_TOL); and runs
+  DPSampledTrainer on a one-rank NCCL world at the configuration's widths
+  (100,000 nodes, 10 steps, dropout 0) against SampledTrainer (DP_TOL),
+  a bf16 run of it through ell_fused and its device-sampler refusal
+  (phase 7d).
 
 - bf16 features: the flash kernels with bf16 v against their plain
   versions at the DBLP shape (dropout 0 and 0.6), and 3 epochs of the dblp
@@ -180,6 +192,30 @@ def timed(fn, reps=20, host_waits=False):
     return statistics.median(times)
 
 
+class OneRankNCCL:
+    """A process group of this process alone, NCCL on ``dev`` (phases 7d and
+    4e': the data-parallel trainers at S = 1; one card holds one NCCL
+    rank, so their collectives over more ranks run on gloo worlds in the
+    CPU tests)."""
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from han_tpu_torch.parallel.launch import _free_port
+
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                                rank=0, world_size=1)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+
+
 def check(name, got, want, atol, rtol):
     import torch
 
@@ -273,10 +309,12 @@ def main(argv=None) -> None:
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
 
     if args.only == "ell_fused":
-        ell = check_ell_fused(dev, ELL_SHAPES[:1])
-        print(json.dumps({"card": card, "ell_fused": {
-            "ms_by_dropout": ell["ms_by_dropout"], "plain_ms": ell["plain_ms"],
-            "bound_ms": ell["bound"][0]}}), flush=True)
+        print(json.dumps({"card": card, **{
+            f"ell_fused{tag}": {"ms_by_dropout": ell["ms_by_dropout"], "plain_ms": ell["plain_ms"],
+                                "bound_ms": ell["bound"][0]}
+            for tag, ell in (("", check_ell_fused(dev, ELL_SHAPES[:1])),
+                             ("_bf16", check_ell_fused(dev, ELL_SHAPES[:1], "bfloat16")))}}),
+              flush=True)
         return
 
     # -- phase 3: kernels vs plain at the DBLP shape -------------------------
@@ -384,6 +422,8 @@ def main(argv=None) -> None:
     check_entry(dev, card)
 
     bf16_train = train_bf16(ds, dev, n_mp, card)
+    # -- phase 4k: impl=auto on DBLP's graphs (flash), and the edge views' memory
+    dispatch = check_dispatch_dblp(ds, dev, card)
     del ds, graph
     torch.cuda.empty_cache()
     train_acm(dev)
@@ -401,7 +441,11 @@ def main(argv=None) -> None:
 
     # -- phases 5-7: the sampled path ------------------------------------------
     ell = check_ell_fused(dev)
+    # -- phase 3g: the ell_fused kernel on bf16 features
+    ell16 = check_ell_fused(dev, ELL_SHAPES, "bfloat16")
     ell_n = train_sampled(dev, native, card)
+    # -- phase 7d: DPSampledTrainer on a one-rank NCCL world
+    dp_ell = train_dp_sampled(dev, card)
 
     # -- phase 8: the calibration kernels, then the calibration run ---------
     cal_stats = check_calibration(dev)
@@ -414,17 +458,18 @@ def main(argv=None) -> None:
         stats[key]["err"] = max(stats[key]["err"], err)
     bench = run_bench(root)
 
-    # launches: the dblp runs (phases 4, 4a, 4g, 4h), the pubmed run (phase
-    # 4d), the multi-device runs (phase 4b, with the deterministic resume)
-    # and the benchmark (phase 9)
+    # launches: the dblp runs (phases 4, 4a, 4g, 4h, 4k), the pubmed run
+    # (phase 4d), the multi-device runs (phase 4b, with the deterministic
+    # resume) and the benchmark (phase 9)
     part, ring = mesh["partitioned_bcsr"]["launches"], mesh["ring_bcsr"]["launches"]
     stacked = mesh["partitioned_bcsr stacked"]["launches"]
     det = mesh["resume deterministic"]
     launches = {"fwd": (fwd_n + bf16_train["fwd"] + resume["launches"]["fwd"] + shared["fwd"]
-                        + pubmed["launches"]["fwd"] + part["fwd"] + ring["fwd"] + det["fwd"]
-                        + bench["fwd"]),
+                        + dispatch["fwd"] + pubmed["launches"]["fwd"] + part["fwd"]
+                        + ring["fwd"] + det["fwd"] + bench["fwd"]),
                 "bwd": (bwd_n + bf16_train["bwd"] + resume["launches"]["bwd"] + shared["bwd"]
-                        + pubmed["launches"]["bwd"] + part["bwd"] + bench["bwd"]),
+                        + dispatch["bwd"] + pubmed["launches"]["bwd"] + part["bwd"]
+                        + bench["bwd"]),
                 "row": ring["row"] + det["row"], "col": ring["col"] + det["col"]}
     src = "han_tpu_torch/csrc/flash_gat.cu"
     tpu = "han_tpu/ops/pallas/flash_gat.py"
@@ -439,9 +484,15 @@ def main(argv=None) -> None:
         for name, key, line in (("fwd", "fwd", "97,187"), ("bwd", "bwd", 395),
                                 ("bwd_row", "row", 354), ("bwd_col", "col", 395))] + [
         {"name": "ell_fused_fwd", "route": "cuda", "source": "han_tpu_torch/csrc/ell_fused.cu",
-         "replaces": "han_tpu/ops/pallas/ell_fused.py:54", "launches": ell_n,
+         "replaces": "han_tpu/ops/pallas/ell_fused.py:54", "launches": ell_n + dp_ell["f32"],
          "max_abs_err": ell["err"], "ms": ell["ms"], "plain_ms": ell["plain_ms"],
          "bound_ms": ell["bound"][0], "bound_by": ell["bound"][1], "library_ms": None},
+        # the same kernel on bf16 features (phase 3g); launches: phase 7d's bf16 run
+        {"name": "ell_fused_fwd_bf16", "route": "cuda", "source": "han_tpu_torch/csrc/ell_fused.cu",
+         "replaces": "han_tpu/ops/pallas/ell_fused.py:54 (bf16 features)",
+         "launches": dp_ell["bf16"], "max_abs_err": ell16["err"], "ms": ell16["ms"],
+         "plain_ms": ell16["plain_ms"], "bound_ms": ell16["bound"][0],
+         "bound_by": ell16["bound"][1], "library_ms": None},
     ] + [
         {"name": f"cal_{key}", "route": "cuda", "source": "han_tpu_torch/csrc/calibrate.cu",
          "replaces": f"scripts/cal_vpu.py:{line}", "launches": cal_n[key],
@@ -591,10 +642,12 @@ def check_strips(dev, adj) -> dict:
     tiles: every shard of partition_bcsr (1,024 local rows x 4,096 global
     columns, a non-zero row-block offset) and the ring cells (s, 1 + s mod
     3) of ring_partition_bcsr (t >= 1, so the column-block offset is not
-    0). On each: forward vs plain (out and lse, atol 1e-5, rtol 1e-4); row
-    and column sweeps vs plain, and the split vs the fused backward (atol
-    1e-4, rtol 1e-3); the split run twice, bitwise equal (torch.equal).
-    Returns the largest errors per kernel."""
+    0). On each, with v in f32 and in bf16 (the plain versions widen the
+    same bf16 values, so the f32 tolerances hold): forward vs plain (out
+    and lse, atol 1e-5, rtol 1e-4); row and column sweeps vs plain, and the
+    split vs the fused backward (atol 1e-4, rtol 1e-3); the split run
+    twice, bitwise equal (torch.equal). Returns the largest errors per
+    kernel."""
     import torch
 
     from han_tpu_torch.graph.build import with_self_loops
@@ -617,15 +670,16 @@ def check_strips(dev, adj) -> dict:
     errs = {"fwd": 0.0, "row": 0.0, "col": 0.0, "bwd": 0.0}
     for label, graph, off in strips:
         n_rows, n_cols = graph.nb_r * graph.bm, graph.nb_c * graph.bn
-        ld, ls, v, g = rnd(k, n_rows), rnd(k, n_cols), rnd(n_cols, k * d), rnd(n_rows, k * d)
+        ld, ls, v32, g = rnd(k, n_rows), rnd(k, n_cols), rnd(n_cols, k * d), rnd(n_rows, k * d)
         print(f"{label}: {n_rows} x {n_cols}, {int(graph.fwd_count.sum())} tiles, "
               f"offsets {off}", flush=True)
-        for p in (0.0, 0.6):
+        for v, p in ((v, p) for v in (v32, v32.to(torch.bfloat16)) for p in (0.0, 0.6)):
+            p_tag = f"p={p}{' bf16 v' if v.dtype == torch.bfloat16 else ''}"
             meta = fg.FlashMeta(dropout_p=p, seed=fg.seed_tensor(7654321, dev), **off)
             out, lse = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
             out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
-            errs["fwd"] = max(errs["fwd"], check(f"p={p} out", out, out_p, 1e-5, 1e-4),
-                              check(f"p={p} lse", lse, lse_p, 1e-5, 1e-4))
+            errs["fwd"] = max(errs["fwd"], check(f"{p_tag} out", out, out_p, 1e-5, 1e-4),
+                              check(f"{p_tag} lse", lse, lse_p, 1e-5, 1e-4))
             delta = (g * out).view(n_rows, k, d).sum(-1).T.contiguous()
             args = (graph, ld, ls, v, g, lse, delta, meta)
             split = (fg.flash_bwd_row_cuda(*args), *fg.flash_bwd_col_cuda(*args))
@@ -635,8 +689,9 @@ def check_strips(dev, adj) -> dict:
             torch.cuda.synchronize()
             for i, name in enumerate(("dld", "dls", "dv")):
                 key = "row" if i == 0 else "col"
-                errs[key] = max(errs[key], check(f"p={p} {name}", split[i], plain[i], 1e-4, 1e-3))
-                errs["bwd"] = max(errs["bwd"], check(f"p={p} {name} split vs fused", split[i],
+                errs[key] = max(errs[key], check(f"{p_tag} {name}", split[i], plain[i],
+                                                 1e-4, 1e-3))
+                errs["bwd"] = max(errs["bwd"], check(f"{p_tag} {name} split vs fused", split[i],
                                                      fused[i], 1e-4, 1e-3))
                 if not torch.equal(split[i], again[i]):
                     fail(f"{label}: the split backward's {name} differs between two runs")
@@ -747,8 +802,11 @@ def check_head_offset(dev, adj) -> dict:
     the per-rank body of sharded_flash_attention and of the ring on heads
     4-7 of 8 (head_offset = 4, han_tpu's h_off) against heads 4-7 of the
     launch on all 8 heads: forward (out, lse) bitwise (torch.equal), the
-    fused backward and both sweeps within atol 1e-4, rtol 1e-3. Returns
-    the largest errors per kernel."""
+    fused backward and both sweeps within atol 1e-4, rtol 1e-3; with v in
+    f32 and in bf16 (the backends' bf16 features), where the bf16 launches
+    are also held to their plain versions (the f32 tolerances: the plain
+    versions widen the same bf16 values). Returns the largest errors per
+    kernel."""
     import torch
 
     from han_tpu_torch.graph.build import with_self_loops
@@ -770,9 +828,11 @@ def check_head_offset(dev, adj) -> dict:
     hi = lambda x: x.view(x.shape[0], k, d)[:, h0:].reshape(x.shape[0], -1).contiguous()
     errs = {"fwd": 0.0, "bwd": 0.0, "row": 0.0, "col": 0.0}
     seed = fg.seed_tensor(97531, dev)
-    for label, graph, off in cells:
+    for (label, graph, off), bf16 in ((c, b) for c in cells for b in (False, True)):
         n_rows, n_cols = graph.nb_r * graph.bm, graph.nb_c * graph.bn
         ld, ls, v, g = rnd(k, n_rows), rnd(k, n_cols), rnd(n_cols, k * d), rnd(n_rows, k * d)
+        if bf16:
+            v, label = v.to(torch.bfloat16), f"{label}, bf16 v"
         full = fg.FlashMeta(dropout_p=0.6, seed=seed, **off)
         part = fg.FlashMeta(dropout_p=0.6, seed=seed, head_offset=h0, **off)
         out, lse = fg.flash_fwd_cuda(graph, ld, ls, v, full)
@@ -781,6 +841,10 @@ def check_head_offset(dev, adj) -> dict:
         torch.cuda.synchronize()
         if not (torch.equal(out4, hi(out)) and torch.equal(lse4, lse[h0:])):
             fail(f"{label}: heads 4-7 at head_offset 4 differ from the 8-head launch's")
+        if bf16:
+            out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, full)
+            errs["fwd"] = max(errs["fwd"], check(f"{label} out vs plain", out, out_p, 1e-5, 1e-4),
+                              check(f"{label} lse vs plain", lse, lse_p, 1e-5, 1e-4))
         delta = (g * out).view(n_rows, k, d).sum(-1).T.contiguous()
         args = (graph, ld, ls, v, g, lse, delta, full)
         args4 = (graph, ld[h0:].contiguous(), ls[h0:].contiguous(), hi(v), hi(g),
@@ -788,6 +852,11 @@ def check_head_offset(dev, adj) -> dict:
         for key, f in (("bwd", fg.flash_bwd_cuda), ("row", fg.flash_bwd_row_cuda),
                        ("col", fg.flash_bwd_col_cuda)):
             got, want = f(*args4), f(*args)
+            if bf16:
+                plain = {"bwd": fg.flash_bwd_plain, "row": fg.flash_bwd_row_plain,
+                         "col": fg.flash_bwd_col_plain}[key](*args)
+                for x, y in zip(*((t if isinstance(t, tuple) else (t,)) for t in (want, plain))):
+                    errs[key] = max(errs[key], check(f"{label} {key} vs plain", x, y, 1e-4, 1e-3))
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             for x, y in zip(got, want):
@@ -1545,22 +1614,34 @@ ELL_SHAPES = ((8704, 16, 512, 8, 8), (16384, 101, 2048, 8, 8), (4096, 16, 512, 8
               (4096, 16, 512, 8, 32))
 
 
-def check_ell_fused(dev, shapes=ELL_SHAPES) -> dict:
-    """Phases 5-6: the ell_fused kernel against its plain version (atol
-    1e-5, rtol 1e-4), one keep mask for both, with dropout 0 and 0.6, at
+# bf16 features: the kernel and its plain version sum the same f32 products
+# in different orders (1e-6 apart) and round the sum to bf16 once, so an
+# output may land one bf16 step (2^-8 of the value, at most 2^-7 relative)
+# apart; the f32 tolerance below it
+ELL_BF16_TOL = dict(atol=1e-5, rtol=2.0 ** -7)
+
+
+def check_ell_fused(dev, shapes=ELL_SHAPES, dtype: str = "float32") -> dict:
+    """Phases 5-6 (float32) and 3g (bfloat16 features): the ell_fused
+    kernel against its plain version (f32 atol 1e-5, rtol 1e-4; bf16
+    ELL_BF16_TOL), one keep mask for both, with dropout 0 and 0.6, at
     ``shapes``: the sampled block's shape (8,704 rows: 512 seed rows with up
     to 16 valid slots, the rest edgeless, as in a one-hop block; K = 8, D =
     8), a large odd fanout (F = 101, as in exact eval), D = 3 and K·D = 256;
-    rows without a valid slot must give exactly 0. First, a fanout whose
-    per-warp buffers outgrow a block must raise NotImplementedError. Device
-    times (``timed``) at the block shape. There the plain-torch backward is
-    held on the card against the same backward on the CPU (the card's
-    index_add_ sums with atomics in a varying order)."""
+    rows without a valid slot must give exactly 0 and the output comes in
+    the features' dtype. First (float32), a fanout whose per-warp buffers
+    outgrow a block must raise NotImplementedError. Device times
+    (``timed``) at the block shape, and the bound there (the features at
+    their dtype's bytes). There the plain-torch backward is held on the
+    card against the same backward on the CPU (the card's index_add_ sums
+    with atomics in a varying order; bf16 d_fts within ELL_BF16_TOL)."""
     import torch
 
     from han_tpu_torch.ops import ell_fused as ef
 
     gen = torch.Generator(dev).manual_seed(1)
+    dt = getattr(torch, dtype)
+    tol = ELL_BF16_TOL if dt == torch.bfloat16 else dict(atol=1e-5, rtol=1e-4)
 
     def block(n, f, n_seed, k, d):
         nbr = torch.full((n, f), n, dtype=torch.int32, device=dev)
@@ -1570,28 +1651,31 @@ def check_ell_fused(dev, shapes=ELL_SHAPES) -> dict:
         nbr[:n_seed] = torch.where(empty, n, real)
         nbr[3] = n  # a seed row with no valid slot
         rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
-        return nbr, rnd(n, k), rnd(n, k), rnd(n, k * d)
+        return nbr, rnd(n, k), rnd(n, k), rnd(n, k * d).to(dt)
 
-    # fanout x heads past a block's shared memory: NotImplementedError, and no
-    # error left behind for the launches below
-    z = torch.zeros((4, 8), device=dev)
-    try:
-        ef.ell_fused_fwd_cuda(torch.zeros((4, 2000), dtype=torch.int32, device=dev), z, z,
-                              z, None, 0.2, 0.0)
-        fail("ell_fused took fanout 2000 x 8 heads, past a block's shared memory")
-    except NotImplementedError as e:
-        print(f"ell_fused, fanout 2000 x 8 heads: {e}", flush=True)
+    if dt == torch.float32:
+        # fanout x heads past a block's shared memory: NotImplementedError,
+        # and no error left behind for the launches below
+        z = torch.zeros((4, 8), device=dev)
+        try:
+            ef.ell_fused_fwd_cuda(torch.zeros((4, 2000), dtype=torch.int32, device=dev), z, z,
+                                  z, None, 0.2, 0.0)
+            fail("ell_fused took fanout 2000 x 8 heads, past a block's shared memory")
+        except NotImplementedError as e:
+            print(f"ell_fused, fanout 2000 x 8 heads: {e}", flush=True)
     out = {"err": 0.0, "ms_by_dropout": {}}
     for i, (n, f, n_seed, k, d) in enumerate(shapes):
         nbr, ld, ls, fts = block(n, f, n_seed, k, d)
         for p in (0.0, 0.6):
             keep = ef.draw_keep(n, f, k, p, gen, dev) if p else None
             print(f"ell_fused {n} x F={f}, K={k}, D={d}, {n_seed} rows with slots, "
-                  f"dropout {p}:", flush=True)
+                  f"{dtype} features, dropout {p}:", flush=True)
             got = ef.ell_fused_fwd_cuda(nbr, ld, ls, fts, keep, 0.2, p)
             want = ef.ell_fused_fwd_plain(nbr, ld, ls, fts, keep, 0.2, p)
             torch.cuda.synchronize()
-            out["err"] = max(out["err"], check("out", got, want, 1e-5, 1e-4))
+            if got.dtype != dt or want.dtype != dt:
+                fail(f"ell_fused: {dtype} features gave {got.dtype} (plain {want.dtype})")
+            out["err"] = max(out["err"], check("out", got.float(), want.float(), **tol))
             if not bool((got[n_seed:] == 0).all() and (got[3] == 0).all()):
                 fail("ell_fused: an edgeless row is not exactly 0")
             if i == 0:
@@ -1608,16 +1692,19 @@ def check_ell_fused(dev, shapes=ELL_SHAPES) -> dict:
                 valid = int(slot.sum())
                 active = int(slot.any(1).sum())
                 gathered = int(torch.unique(nbr[slot]).numel())
+                fb = fts.element_size()
                 out["bound"] = bound(
-                    4 * nbr.numel() + 4 * n * k * d + 4 * active * k
-                    + 4 * gathered * k * (d + 1) + (valid * k if keep is not None else 0),
+                    4 * nbr.numel() + fb * n * k * d + 4 * active * k
+                    + gathered * k * (4 + fb * d) + (valid * k if keep is not None else 0),
                     valid * k * (2 * d + 9), valid * k)
-                g = torch.randn(n, k * d, generator=gen, device=dev)
+                g = torch.randn(n, k * d, generator=gen, device=dev).to(dt)
                 bwd = ef.ell_fused_bwd(nbr, ld, ls, fts, keep, g, 0.2, p)
                 cpu = lambda t: None if t is None else t.cpu()
                 ref = ef.ell_fused_bwd(*map(cpu, (nbr, ld, ls, fts, keep, g)), 0.2, p)
                 for name, a, b in zip(("d_fts", "d_ld", "d_ls"), bwd, ref):
-                    check(f"backward {name} (card vs cpu)", a.cpu(), b, 1e-4, 1e-3)
+                    btol = tol if name == "d_fts" and dt == torch.bfloat16 else dict(
+                        atol=1e-4, rtol=1e-3)
+                    check(f"backward {name} (card vs cpu)", a.cpu().float(), b.float(), **btol)
     return out
 
 
@@ -1758,6 +1845,104 @@ def train_sampled(dev, native, card: str) -> int:
     del ds16
     torch.cuda.empty_cache()
     return launches + sampled_resume(ds8, dev, cfg_for, card)
+
+
+# the data-parallel trainers at S = 1 against their one-device trainers: the
+# same blocks (or graphs), dropout streams and kernels; the data-parallel
+# step backpropagates its share of the loss and the L2 term in two passes
+# (two accumulations into each gradient) and forms the mean as a sum over
+# the global count: float order only
+DP_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def train_dp_sampled(dev, card: str, steps: int = 10) -> dict:
+    """Phase 7d: DPSampledTrainer on a one-rank NCCL world at the sampled
+    configuration's widths (acm preset: hid 8, heads (8, 1), semantic 128;
+    batch 512, fanout 16, the host sampler, ell_fused) on the
+    configuration's generator cut to 100,000 nodes (2 meta-paths of degree
+    100, 20 M edges; time), one epoch of ``steps`` steps at dropout 0:
+    its per-step losses and test metrics against SampledTrainer's on the
+    same seeds (DP_TOL), ell_fused launches exact (2 a train step and an
+    eval batch, one val and four test batches); a bf16 run
+    (model.dtype=bfloat16, impl=auto: ell_fused takes bf16) of 3 steps,
+    launches exact; the device sampler refused (NotImplementedError).
+    Returns the ell_fused launches of the f32 and bf16 DP runs."""
+    import numpy as np
+    import torch
+
+    from han_tpu_torch.graph.synthetic import scale_dataset
+    from han_tpu_torch.ops import ell_fused as ef
+    from han_tpu_torch.parallel.mesh import make_mesh
+    from han_tpu_torch.train.config import preset
+    from han_tpu_torch.train.sampled import DPSampledTrainer, SampledTrainer
+    from han_tpu_torch.train.trainer import MetricLogger
+
+    t0 = time.perf_counter()
+    ds = scale_dataset(100_000, 100, n_train=steps * 512, n_val=512, n_test=2_048, seed=0)
+    print(f"phase 7d dataset: {ds.n_nodes} nodes, "
+          f"{sum(int(a.nnz) for a in ds.metapath_adjs)} edges, built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    n_mp = len(ds.metapath_adjs)
+
+    def cfg_for(sampler="host", impl="ell_fused", dtype="float32"):
+        cfg = preset("acm")
+        cfg.model.impl, cfg.model.dtype = impl, dtype
+        cfg.model.attn_drop = cfg.model.ffd_drop = 0.0
+        cfg.train.sampled, cfg.train.sampler, cfg.train.epochs = True, sampler, 1
+        return cfg
+
+    kw = dict(batch_size=512, fanout=16, logger=MetricLogger(echo=False))
+    with OneRankNCCL(dev):
+        mesh = make_mesh(graph=1, device=dev)
+        runs = {}
+        for label in ("SampledTrainer", "DPSampledTrainer"):
+            ef.ell_fused_launches = 0
+            t0 = time.perf_counter()
+            t = (DPSampledTrainer(ds, cfg_for(), mesh=mesh, **kw) if label.startswith("DP")
+                 else SampledTrainer(ds, cfg_for(), device=dev, **kw))
+            build_s = time.perf_counter() - t0
+            r = t.fit()
+            torch.cuda.synchronize()
+            runs[label] = dict(r, ell=ef.ell_fused_launches, build_s=build_s)
+            del t
+        one, dp = runs["SampledTrainer"], runs["DPSampledTrainer"]
+        want = n_mp * (steps + 1 + 4)
+        if dp["ell"] != want or one["ell"] != want:
+            fail(f"phase 7d: ell_fused launches {dp['ell']} / {one['ell']}, want {want}")
+        if not (np.allclose(dp["step_train_loss"], one["step_train_loss"], **DP_TOL)
+                and np.allclose([dp["test_loss"], dp["test_acc"]],
+                                [one["test_loss"], one["test_acc"]], **DP_TOL)):
+            fail(f"phase 7d: DPSampledTrainer losses {dp['step_train_loss']} / test "
+                 f"{dp['test_loss']} against {one['step_train_loss']} / {one['test_loss']}")
+        print(f"DPSampledTrainer (one NCCL rank) against SampledTrainer, dropout 0, {steps} "
+              f"steps: per-step losses within {DP_TOL} (largest difference "
+              f"{max(abs(a - b) for a, b in zip(dp['step_train_loss'], one['step_train_loss'])):.3e}"
+              f"), ell_fused launches {dp['ell']}; median step {dp['median_step_time_s'] * 1e3:.3f}"
+              f" ms against {one['median_step_time_s'] * 1e3:.3f} ms, host block "
+              f"{dp['median_host_block_ms']:.3f} / {one['median_host_block_ms']:.3f} ms; trainer "
+              f"built in {dp['build_s']:.2f} / {one['build_s']:.2f} s; {card}", flush=True)
+
+        ds3 = dataclasses.replace(ds, train_mask=np.arange(ds.n_nodes) < 3 * 512)
+        cfg = cfg_for(impl="auto", dtype="bfloat16")
+        ef.ell_fused_launches = 0
+        t = DPSampledTrainer(ds3, cfg, mesh=mesh, **kw)
+        r16 = t.fit()
+        torch.cuda.synchronize()
+        bf16_n = ef.ell_fused_launches
+        if (cfg.model.impl != "ell_fused" or bf16_n != n_mp * (3 + 1 + 4)
+                or not np.isfinite(r16["step_train_loss"]).all()):
+            fail(f"phase 7d bf16: impl {cfg.model.impl}, ell_fused launches {bf16_n} (want "
+                 f"{n_mp * 8}), losses {r16['step_train_loss']}")
+        print(f"DPSampledTrainer, bf16 features (impl=auto -> ell_fused), 3 steps: losses "
+              f"{', '.join(f'{x:.5f}' for x in r16['step_train_loss'])}, ell_fused launches "
+              f"{bf16_n}; median step {r16['median_step_time_s'] * 1e3:.3f} ms; {card}",
+              flush=True)
+        try:
+            DPSampledTrainer(ds, cfg_for("device"), mesh=mesh, sampler="device", **kw)
+            fail("DPSampledTrainer took the device sampler")
+        except NotImplementedError as e:
+            print(f"DPSampledTrainer, device sampler: {e}", flush=True)
+    return {"f32": dp["ell"], "bf16": bf16_n}
 
 
 def sampled_resume(ds, dev, cfg_for, card: str, steps: int = 8, epochs: int = 2) -> int:
@@ -1968,6 +2153,67 @@ def train_bf16(ds, dev, n_mp: int, card: str) -> dict:
     return n
 
 
+def check_dispatch_dblp(ds, dev, card: str, epochs: int = 6) -> dict:
+    """Phase 4k (DBLP): the dblp preset with model.impl=auto, captured, for
+    ``epochs`` epochs: DBLP's meta-paths sweep 1.8-2.5 tile elements an
+    edge, below ops/attention.flash_csr_threshold, so auto launches the
+    flash kernels exactly as the preset does (3 forward + 3 backward a
+    train step, 3 forward an eval); then the preset itself with the graphs'
+    edge views dropped once the trainer is built. Each run's peak device
+    memory above what was allocated before its trainer was built (so the
+    difference is the views' 8 bytes an edge) and its median replayed
+    step (epochs 3 on: epoch 0 runs eagerly, epoch 1 captures). Returns the
+    launches."""
+    import dataclasses as dc
+    import gc
+
+    import numpy as np
+    import torch
+
+    from han_tpu_torch.ops import flash_gat as fg
+    from han_tpu_torch.train.config import preset
+    from han_tpu_torch.train.trainer import MetricLogger, Trainer
+
+    out = {}
+    for label in ("auto", "preset, no edge views"):
+        cfg = preset("dblp")
+        cfg.train.epochs = epochs
+        if label == "auto":
+            cfg.model.impl = "auto"
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated(dev)
+        t = Trainer(ds, cfg, device=dev, logger=MetricLogger(echo=False))
+        view = sum(4 * (g.edge_col.numel() + g.edge_row.numel() + g.edge_row_ptr.numel())
+                   for g in t.graphs)
+        if label != "auto":
+            t.graphs = [dc.replace(g, edge_row_ptr=None, edge_col=None, edge_row=None)
+                        for g in t.graphs]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fg.flash_fwd_launches = fg.flash_bwd_launches = 0
+        r = t.fit()
+        torch.cuda.synchronize()
+        n_mp = len(t.graphs)
+        got = (fg.flash_fwd_launches, fg.flash_bwd_launches)
+        want = (n_mp * (2 * epochs + 1), n_mp * epochs)
+        if got != want or not r["captured"] or not np.isfinite(r["epoch_train_loss"]).all():
+            fail(f"dblp {label}: flash launches {got} (want {want}), captured {r['captured']}, "
+                 f"losses {r['epoch_train_loss']}")
+        out[label] = {"launches": got, "peak": torch.cuda.max_memory_allocated(dev) - before,
+                      "step_ms": statistics.median(r["epoch_step_time_s"][2:]) * 1e3}
+        print(f"dblp, {label}: flash launches {got} = the preset's {n_mp} + {n_mp} a train "
+              f"step; median replayed step {out[label]['step_ms']:.4f} ms; peak memory above "
+              f"the run's start {out[label]['peak']} B; {card}", flush=True)
+        del t, r
+    a, b = out["auto"]["peak"], out["preset, no edge views"]["peak"]
+    print(f"dblp edge views: {view} B ({view / 1e6:.3f} MB) for the three meta-paths; peak "
+          f"with them {a} B, without {b} B (difference {a - b} B); {card}", flush=True)
+    return {"fwd": sum(v["launches"][0] for v in out.values()),
+            "bwd": sum(v["launches"][1] for v in out.values())}
+
+
 def train_acm(dev) -> None:
     """Phase 4c: run(preset("acm")) for 2 epochs with no dataset given, so
     run() loads it by the name "acm": ACM3025.mat where present, else the
@@ -2003,7 +2249,10 @@ def train_pubmed(dev, card: str, epochs: int = 10) -> dict:
     captured: losses finite and falling, launches exact (2 layers: forward
     2·(2·epochs + 1), backward 2·epochs); and the same epochs with
     model.impl=csr, data.graph_format=csr for the step time beside flash's.
-    Last, each of the two steps profiled captured and eager."""
+    Phase 4k: the same epochs with model.impl=auto, which takes csr on the
+    BCSR graph's edge view (no flash launch), timed; at dropout 0 its
+    losses against graph_format=csr's (CAPTURE_TOL). Last, the flash and
+    csr steps profiled captured and eager."""
     import tempfile
 
     import numpy as np
@@ -2014,6 +2263,7 @@ def train_pubmed(dev, card: str, epochs: int = 10) -> dict:
     from han_tpu_torch.graph.build import metapath_to_bcsr, metapath_to_csr
     from han_tpu_torch.nn.losses import masked_softmax_cross_entropy
     from han_tpu_torch.ops import flash_gat as fg
+    from han_tpu_torch.ops.attention import flash_csr_threshold
     from han_tpu_torch.train.config import preset
     from han_tpu_torch.train.trainer import MetricLogger, Trainer, build_model, run
 
@@ -2125,6 +2375,35 @@ def train_pubmed(dev, card: str, epochs: int = 10) -> dict:
         fail(f"pubmed csr: {fg.flash_fwd_launches} flash launches, losses "
              f"{res_csr['epoch_train_loss']}")
     csr_ms = statistics.median(res_csr["epoch_step_time_s"][1:]) * 1e3
+
+    # -- phase 4k (pubmed): model.impl=auto on the BCSR graph, which sweeps
+    # more tile elements an edge than the crossover, trains through csr on
+    # the graph's edge view: no flash launch; at dropout 0 its losses are
+    # those of graph_format=csr (the same edges, padded there)
+    auto = preset("pubmed")
+    auto.model.impl, auto.train.epochs = "auto", epochs
+    fg.flash_fwd_launches = fg.flash_bwd_launches = 0
+    res_auto = run(auto, ds, device=dev)
+    torch.cuda.synchronize()
+    if (fg.flash_fwd_launches or fg.flash_bwd_launches or not res_auto["captured"]
+            or not np.isfinite(res_auto["epoch_train_loss"]).all()):
+        fail(f"pubmed auto: flash launches {fg.flash_fwd_launches} + {fg.flash_bwd_launches} "
+             f"(want 0), captured {res_auto['captured']}, losses {res_auto['epoch_train_loss']}")
+    auto_ms = statistics.median(res_auto["epoch_step_time_s"][1:]) * 1e3
+    at0 = {}
+    for label, fmt, impl in (("auto", "bcsr", "auto"), ("csr", "csr", "csr")):
+        c = preset("pubmed")
+        c.data.graph_format, c.model.impl, c.train.epochs = fmt, impl, 5
+        c.model.attn_drop = c.model.ffd_drop = 0.0
+        at0[label] = run(c, ds, device=dev)["epoch_train_loss"]
+    if not np.allclose(at0["auto"], at0["csr"], **CAPTURE_TOL):
+        fail(f"pubmed auto against csr at dropout 0: {at0['auto']} against {at0['csr']}")
+    print(f"pubmed, model.impl=auto (phase 4k): {graph.elems_per_edge():.1f} tile elements an "
+          f"edge > {flash_csr_threshold(graph.bm, graph.bn)}: no flash launch; median step "
+          f"epochs 2-{epochs} {auto_ms:.3f} ms (flash {flash_ms:.3f}, csr {csr_ms:.3f}); "
+          f"max_memory_allocated {res_auto['max_memory_allocated']} B; at dropout 0 its losses "
+          f"within {CAPTURE_TOL} of graph_format=csr (largest difference "
+          f"{max(abs(a - b) for a, b in zip(at0['auto'], at0['csr'])):.3e}); {card}", flush=True)
     print(f"pubmed preset: losses {losses[0]:.5f} -> {losses[-1]:.5f}, test_acc "
           f"{result['test_acc']:.4f}; launches {launches}; median step epochs 2-{epochs}: "
           f"flash {flash_ms:.3f} ms, csr {csr_ms:.3f} ms (csr / flash "
@@ -2144,12 +2423,17 @@ def train_ppi(dev, epochs: int = 3) -> None:
     residual, no dropout; batches of 2 graphs, dense attention) through
     run() at full width on ppi_synthetic with PPI's shape: 24 graphs of
     1,600-3,200 nodes (about 2,400 a graph), 50 features, 121 labels.
-    Losses finite, the train loss falling, micro-F1 in [0, 1]."""
+    Losses finite, the train loss falling, micro-F1 in [0, 1]. Phase 4e':
+    the inductive trainer's data-parallel batches on a one-rank NCCL world
+    (the preset's widths, batches of 2, one epoch) against the one-device
+    trainer: train loss, test loss and micro-F1 within DP_TOL."""
     import numpy as np
     import torch
 
     from han_tpu_torch.datasets.ppi import ppi_synthetic
+    from han_tpu_torch.parallel.mesh import make_mesh
     from han_tpu_torch.train.config import preset
+    from han_tpu_torch.train.inductive import InductiveTrainer
     from han_tpu_torch.train.trainer import run
 
     t0 = time.perf_counter()
@@ -2177,6 +2461,31 @@ def train_ppi(dev, epochs: int = 3) -> None:
           f"{result['test_micro_f1']:.4f}; median step {result['median_step_time_s'] * 1e3:.3f} "
           f"ms, max_memory_allocated {result['max_memory_allocated']} B; "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # -- phase 4e': the data-parallel batches on a one-rank NCCL world
+    m = cfg.model
+    kw = dict(hid_units=tuple(m.hid_units), n_heads=tuple(m.n_heads), lr=cfg.train.lr,
+              l2_coef=cfg.train.l2_coef, residual=m.residual, attn_drop=m.attn_drop,
+              ffd_drop=m.ffd_drop, batch_size=2, seed=cfg.train.seed)
+    with OneRankNCCL(dev):
+        runs = {}
+        for label, extra in (("one device", dict(device=dev)),
+                             ("data-parallel", dict(mesh=make_mesh(graph=1, device=dev)))):
+            t0 = time.perf_counter()
+            r = InductiveTrainer(ds, **kw, **extra).fit(epochs=1, log=lambda rec: None)
+            torch.cuda.synchronize()
+            runs[label] = dict(r, s=time.perf_counter() - t0)
+    one, dp = runs["one device"], runs["data-parallel"]
+    if not np.allclose(dp["epoch_train_loss"] + [dp["test_loss"], dp["test_micro_f1"]],
+                       one["epoch_train_loss"] + [one["test_loss"], one["test_micro_f1"]],
+                       **DP_TOL):
+        fail(f"phase 4e': the data-parallel inductive trainer {dp['epoch_train_loss']} / "
+             f"{dp['test_loss']} against {one['epoch_train_loss']} / {one['test_loss']}")
+    print(f"ppi, data-parallel batches on one NCCL rank (phase 4e'), 1 epoch: train loss "
+          f"{dp['epoch_train_loss'][0]:.6f} against {one['epoch_train_loss'][0]:.6f}, test "
+          f"micro-F1 {dp['test_micro_f1']:.4f} ({DP_TOL}); median step "
+          f"{dp['median_step_time_s'] * 1e3:.3f} / {one['median_step_time_s'] * 1e3:.3f} ms; "
+          f"{dp['s']:.2f} / {one['s']:.2f} s", flush=True)
 
 
 CAL_COUNTERS = {"prim": "prim_launches", "fwd_strip": "fwd_strip_launches",

@@ -16,6 +16,12 @@
 // The keep mask is drawn outside the kernel (uint8 (N, F, K)) so that the
 // plain version and the backward apply the same one.
 //
+// Features (and the output) are f32 or bf16 (the FT template argument, as
+// han_tpu/ops/pallas/ell_fused.py:210-213,237 takes any feature dtype and
+// returns it): bf16 rows are gathered as bf16, half the bytes, and widened
+// to f32 in registers right after the load; the logits, the softmax and
+// the sums stay f32, and the output is rounded to bf16 once, at the store.
+//
 // What bounds it on the H100, and what the design does about it:
 // - At the sampled block of the 100M-edge configuration (8,704 rows, F =
 //   16, K*D = 64 float32 channels) the data is small (the feature rows it
@@ -36,14 +42,16 @@
 //   loop over the lane's slots and then log2(32 / Kp) xor shuffles. The
 //   dropped numerators e * keep go to a per-warp shared buffer [F][K], the
 //   neighbor ids to [F], the per-head scale (1 / (1-p)) / l to [K].
-// - Aggregation: lanes own V-wide channel groups (V = 4, 2 or 1 floats, as
-//   D and K*D allow, one 16-, 8- or 4-byte load a slot), with a runtime
+// - Aggregation: lanes own V-wide channel groups (V = 4, 2 or 1 channels,
+//   as D and K*D allow: one 16-, 8- or 4-byte load a slot in f32, half of
+//   that in bf16), with a runtime
 //   loop over the groups, so any D and K*D are taken. The numerators are
 //   read from shared memory (broadcast within a head), and the feature
 //   loads of UNROLL slots are issued before their FMAs; a slot whose
 //   numerator is 0 (empty or dropped) loads nothing.
 // - exps are exp2 on log2e-scaled logits.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -61,6 +69,7 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// V consecutive features at p, widened to f32 (one 4 V- or 2 V-byte load)
 template <int V>
 __device__ __forceinline__ void load_vec(float (&x)[V], const float* p) {
   if constexpr (V == 4) {
@@ -75,6 +84,22 @@ __device__ __forceinline__ void load_vec(float (&x)[V], const float* p) {
 }
 
 template <int V>
+__device__ __forceinline__ void load_vec(float (&x)[V], const __nv_bfloat16* p) {
+  if constexpr (V == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+    x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
+  } else if constexpr (V == 2) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    x[0] = a.x, x[1] = a.y;
+  } else {
+    x[0] = __bfloat162float(*p);
+  }
+}
+
+// x * s into V consecutive outputs at p (bf16: rounded to nearest even)
+template <int V>
 __device__ __forceinline__ void store_vec(float* p, const float (&x)[V], float s) {
   if constexpr (V == 4)
     *reinterpret_cast<float4*>(p) = make_float4(x[0] * s, x[1] * s, x[2] * s, x[3] * s);
@@ -84,15 +109,29 @@ __device__ __forceinline__ void store_vec(float* p, const float (&x)[V], float s
     *p = x[0] * s;
 }
 
+template <int V>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&x)[V], float s) {
+  if constexpr (V == 4) {
+    uint2 t;
+    *reinterpret_cast<__nv_bfloat162*>(&t.x) = __floats2bfloat162_rn(x[0] * s, x[1] * s);
+    *reinterpret_cast<__nv_bfloat162*>(&t.y) = __floats2bfloat162_rn(x[2] * s, x[3] * s);
+    *reinterpret_cast<uint2*>(p) = t;
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x[0] * s, x[1] * s);
+  } else {
+    *p = __float2bfloat16_rn(x[0] * s);
+  }
+}
+
 // floats of one warp's shared buffers: numerators [f][k], neighbor ids
 // [f], per-head scales [k]
 __host__ __device__ inline int warp_floats(int f, int k) { return f * k + f + k; }
 
-template <int V>
+template <int V, typename FT>
 __global__ void __launch_bounds__(WARPS * 32) ell_fused_fwd_kernel(
     const int* __restrict__ nbr, const float* __restrict__ ld,
-    const float* __restrict__ ls, const float* __restrict__ fts,
-    const uint8_t* __restrict__ keep, float* __restrict__ out, int n, int f,
+    const float* __restrict__ ls, const FT* __restrict__ fts,
+    const uint8_t* __restrict__ keep, FT* __restrict__ out, int n, int f,
     int k, int d, float slope, float drop_scale) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -103,7 +142,7 @@ __global__ void __launch_bounds__(WARPS * 32) ell_fused_fwd_kernel(
   int* j_s = reinterpret_cast<int*>(e_s + f * k);
   float* inv_s = reinterpret_cast<float*>(j_s + f);
   const int* nbr_r = nbr + (size_t)row * f;
-  float* out_r = out + (size_t)row * kd;
+  FT* out_r = out + (size_t)row * kd;
 
   // logits and softmax, one group of up to 32 heads at a time
   for (int h0 = 0; h0 < k; h0 += 32) {
@@ -132,7 +171,8 @@ __global__ void __launch_bounds__(WARPS * 32) ell_fused_fwd_kernel(
     }
     if (h0 == 0 && !__any_sync(FULL_MASK, any)) {
       // no valid slot: the softmax is empty, the output exactly 0
-      for (int c = lane; c < kd; c += 32) out_r[c] = 0.f;
+      const float zero[1] = {0.f};
+      for (int c = lane; c < kd; c += 32) store_vec<1>(out_r + c, zero, 0.f);
       return;
     }
     for (int o = kp; o < 32; o <<= 1) m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, o));
@@ -184,50 +224,63 @@ __global__ void __launch_bounds__(WARPS * 32) ell_fused_fwd_kernel(
   }
 }
 
-template <int V>
+template <int V, typename FT>
 int launch(const void* nbr, const void* ld, const void* ls, const void* fts,
            const void* keep, void* out, int n, int f, int k, int d, float slope,
            float drop_scale, cudaStream_t stream) {
   const size_t smem = (size_t)WARPS * warp_floats(f, k) * 4;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        ell_fused_fwd_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        ell_fused_fwd_kernel<V, FT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) {
       cudaGetLastError();  // clear it, or the next launch's check reports it
       return (int)err;
     }
   }
   const int blocks = (n + WARPS - 1) / WARPS;
-  ell_fused_fwd_kernel<V><<<blocks, WARPS * 32, smem, stream>>>(
-      (const int*)nbr, (const float*)ld, (const float*)ls, (const float*)fts,
-      (const uint8_t*)keep, (float*)out, n, f, k, d, slope, drop_scale);
+  ell_fused_fwd_kernel<V, FT><<<blocks, WARPS * 32, smem, stream>>>(
+      (const int*)nbr, (const float*)ld, (const float*)ls, (const FT*)fts,
+      (const uint8_t*)keep, (FT*)out, n, f, k, d, slope, drop_scale);
   return (int)cudaGetLastError();
 }
+
+template <typename T>
+struct Type {
+  using type = T;
+};
 
 }  // namespace
 
 extern "C" {
 
 // Forward. nbr int32 [n, f] (sentinel n; any id outside [0, n) is an empty
-// slot); ld, ls f32 [n, k]; fts f32 [n, k*d]; keep uint8 [n, f, k], or null
-// when dropout is off; drop_scale = 1 / (1 - p) (1 when off) -> out f32
-// [n, k*d] (16-byte aligned). Any f, k, d >= 1 whose per-warp buffers
-// (warp_floats) fit a block's shared memory; past that the launch returns
-// cudaErrorInvalidValue. Returns a cudaError_t code (0 = launched).
+// slot); ld, ls f32 [n, k]; fts f32, or bf16 when fts_bf16, [n, k*d]; keep
+// uint8 [n, f, k], or null when dropout is off; drop_scale = 1 / (1 - p) (1
+// when off) -> out [n, k*d] in fts's type. Any f, k, d >= 1 whose per-warp
+// buffers (warp_floats) fit a block's shared memory; past that the launch
+// returns cudaErrorInvalidValue. Returns a cudaError_t code (0 = launched).
 int han_ell_fused_fwd(const void* nbr, const void* ld, const void* ls,
                       const void* fts, const void* keep, void* out, int n,
-                      int f, int k, int d, float slope, float drop_scale,
-                      void* stream) {
+                      int f, int k, int d, int fts_bf16, float slope,
+                      float drop_scale, void* stream) {
   if (n < 0 || f <= 0 || k <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  const uintptr_t at = (uintptr_t)fts;
+  // V channels a lane: V elements of fts and out must be one aligned load
+  // and store (fts and out share their row pitch and base alignment)
+  const size_t es = fts_bf16 ? 2 : 4;
+  const uintptr_t at = (uintptr_t)fts | (uintptr_t)out;
   const int kd = k * d;
-  if (d % 4 == 0 && kd >= 128 && at % 16 == 0)
-    return launch<4>(nbr, ld, ls, fts, keep, out, n, f, k, d, slope, drop_scale, st);
-  if (d % 2 == 0 && kd >= 64 && at % 8 == 0)
-    return launch<2>(nbr, ld, ls, fts, keep, out, n, f, k, d, slope, drop_scale, st);
-  return launch<1>(nbr, ld, ls, fts, keep, out, n, f, k, d, slope, drop_scale, st);
+  const int v = d % 4 == 0 && kd >= 128 && at % (4 * es) == 0   ? 4
+                : d % 2 == 0 && kd >= 64 && at % (2 * es) == 0 ? 2
+                                                                : 1;
+  auto go = [&](auto tag) {
+    using FT = typename decltype(tag)::type;
+    if (v == 4) return launch<4, FT>(nbr, ld, ls, fts, keep, out, n, f, k, d, slope, drop_scale, st);
+    if (v == 2) return launch<2, FT>(nbr, ld, ls, fts, keep, out, n, f, k, d, slope, drop_scale, st);
+    return launch<1, FT>(nbr, ld, ls, fts, keep, out, n, f, k, d, slope, drop_scale, st);
+  };
+  return fts_bf16 ? go(Type<__nv_bfloat16>{}) : go(Type<float>{});
 }
 
 const char* han_error_string(int code) {

@@ -14,6 +14,14 @@ precomputed once on the host:
 Map padding convention (as in han_tpu): steps past a block's count repeat
 the last active entry (index 0 for empty blocks).
 
+The container may also carry an edge view of the same graph (han_tpu's):
+the edges sorted row-major as int32 ``edge_row_ptr`` [N + 1], ``edge_col``
+and ``edge_row`` [E], 8 bytes an edge beside the tiles, so that
+``impl="auto"`` can send a graph whose tiles are nearly empty to the csr
+backend (:meth:`BCSRGraph.as_csr`, ops/attention.flash_csr_threshold)
+without rebuilding it. :func:`bcsr_from_coo` keeps it unless asked not to;
+a graph of a stack (:meth:`BCSRGraph.path`, graph/stack.py) has none.
+
 Tile geometry is the port's own. The kernels (csrc/flash_gat.cu) give a
 warp 16 rows (forward) or 32 columns (backward column sweep) of a tile and
 the row sweep 4 threads a row, so bm and bn are multiples of 32 and at
@@ -82,6 +90,10 @@ class BCSRGraph:
     bn: int
     n_edges: int
     n_tiles: int  # true occupied tile count (T_pad >= n_tiles)
+    # optional edge view (module docstring): the edges sorted by (row, col)
+    edge_row_ptr: torch.Tensor | None = None  # int32[N + 1]
+    edge_col: torch.Tensor | None = None      # int32[E]
+    edge_row: torch.Tensor | None = None      # int32[E]
 
     # the block counts come from the maps, so the same container holds a
     # rectangle: a graph-axis shard's strip (local rows × global columns)
@@ -110,7 +122,7 @@ class BCSRGraph:
         return int(self.tiles.shape[0]) if self.tiles.dim() == 4 else None
 
     def path(self, p: int) -> "BCSRGraph":
-        """Graph p of a stack (views)."""
+        """Graph p of a stack (views; a stack carries no edge view)."""
         return dataclasses.replace(self, **{
             f: getattr(self, f)[p] for f in ("tiles", "fwd_count", "fwd_col", "fwd_tile",
                                             "bwd_count", "bwd_row", "bwd_tile")})
@@ -120,8 +132,21 @@ class BCSRGraph:
         return self.n_tiles / (self.nb_r * self.nb_c)
 
     def elems_per_edge(self) -> float:
-        """Tile elements the flash kernels sweep per real edge."""
+        """Tile elements the flash kernels sweep per real edge: the
+        quantity ``impl="auto"`` compares with the flash-vs-csr crossover
+        (flash's work grows with the swept tile area, csr's with E)."""
         return self.n_tiles * self.bm * self.bn / max(self.n_edges, 1)
+
+    def as_csr(self) -> CSRGraph:
+        """The edge view as a CSRGraph for the csr backend (its index
+        tensors int64, as CSRGraph holds them); raises ValueError when the
+        graph was built without it (``keep_edges=False``)."""
+        if self.edge_col is None:
+            raise ValueError("this BCSRGraph was built with keep_edges=False; rebuild "
+                             "with keep_edges=True for csr dispatch")
+        return CSRGraph(row_ptr=self.edge_row_ptr.long(), col_idx=self.edge_col.long(),
+                        row_idx=self.edge_row.long(), n_nodes=self.n_nodes,
+                        n_edges=self.n_edges)
 
     def to(self, device) -> "BCSRGraph":
         return _to(self, device)
@@ -213,8 +238,9 @@ def flat_fwd_map(fwd_count: np.ndarray, fwd_col: np.ndarray,
 
 def bcsr_from_coo(rows: np.ndarray, cols: np.ndarray, n: int, *,
                   bm: int = DEF_BM, bn: int = DEF_BN,
-                  n_edges: int | None = None) -> BCSRGraph:
-    """Build a BCSRGraph (on the CPU) from COO edge lists (host-side, O(E))."""
+                  n_edges: int | None = None, keep_edges: bool = True) -> BCSRGraph:
+    """Build a BCSRGraph (on the CPU) from COO edge lists (host-side, O(E)).
+    ``keep_edges`` also stores the row-sorted edge view (+8 B an edge)."""
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
     bm, bn, n_pad = pick_tiles(n, bm, bn)
@@ -222,13 +248,20 @@ def bcsr_from_coo(rows: np.ndarray, cols: np.ndarray, n: int, *,
     (tiles, fwd_count, fwd_col, fwd_tile, bwd_count, bwd_row, bwd_tile,
      n_tiles) = build_tile_arrays(rows, cols, nb_r, nb_c, bm, bn)
     t = torch.from_numpy
+    view = {}
+    if keep_edges:
+        order = np.lexsort((cols, rows))  # row-major, as the segment ops expect
+        counts = np.bincount(rows, minlength=n)
+        view = {"edge_row": t(rows[order].astype(np.int32)),
+                "edge_col": t(cols[order].astype(np.int32)),
+                "edge_row_ptr": t(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))}
     return BCSRGraph(
         tiles=t(tiles),
         fwd_count=t(fwd_count), fwd_col=t(fwd_col), fwd_tile=t(fwd_tile),
         bwd_count=t(bwd_count), bwd_row=t(bwd_row), bwd_tile=t(bwd_tile),
         n_nodes=n, n_pad=n_pad, bm=bm, bn=bn,
         n_edges=int(rows.shape[0]) if n_edges is None else int(n_edges),
-        n_tiles=n_tiles,
+        n_tiles=n_tiles, **view,
     )
 
 

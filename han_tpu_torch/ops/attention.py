@@ -57,6 +57,29 @@ from han_tpu_torch.parallel.shard_attn import partitioned_attention
 
 Impl = Literal["auto", "dense", "ell", "ell_fused", "csr", "flash"]
 
+# The flash-vs-csr crossover of ``impl="auto"`` on a BCSRGraph that carries
+# its edge view, in tile elements swept per real edge
+# (BCSRGraph.elems_per_edge), by tile geometry (bm, bn): above it the csr
+# backend's forward + backward takes less device time than flash's.
+# 128 x 128: scripts/flash_scale_demo_torch.py --sweep on an NVIDIA H100
+# 80GB HBM3 at 700 W, K = D = 8, 14 graphs from 1.8 (DBLP's APTPA) to 6,833
+# elements an edge: csr starts to win at 497 elements an edge with
+# coefficient dropout 0.6 (the presets' training setting) and at 655 with
+# dropout 0; the table holds the lower figure (PERF.md, section 6).
+# han_tpu's figures (2000 and 5500 at 512-wide tiles) are v5e numbers and
+# are not carried over. A geometry not in the table takes
+# FLASH_MAX_ELEMS_PER_EDGE, the 128 x 128 figure.
+FLASH_MAX_ELEMS_PER_EDGE_BY_TILE = {
+    (128, 128): 497.0,
+}
+FLASH_MAX_ELEMS_PER_EDGE = FLASH_MAX_ELEMS_PER_EDGE_BY_TILE[(128, 128)]
+
+
+def flash_csr_threshold(bm: int, bn: int) -> float:
+    """The flash-to-csr crossover (swept elements an edge) of a tile
+    geometry; the 128 x 128 figure for a geometry not measured."""
+    return FLASH_MAX_ELEMS_PER_EDGE_BY_TILE.get((int(bm), int(bn)), FLASH_MAX_ELEMS_PER_EDGE)
+
 
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
     return torch.where(x >= 0, x, slope * x)
@@ -242,10 +265,12 @@ def attention_aggregate(
     ``generator`` draws, on the features' device, the dense, csr, ell,
     ell_fused and tree dropout masks and the flash kernels' dropout seed
     (a device tensor: no host round trip, so a captured step draws anew at
-    every replay). ``auto`` sends a BCSRGraph to flash (no
-    flash-vs-csr crossover has been measured on the H100 yet) and an
-    EllGraph to ell, as han_tpu does. ``towers``: a stack's paths are
-    towers lo..hi−1 of P (ops/flash_gat.py:draw_path_seeds).
+    every replay). ``auto`` sends an EllGraph to ell and a BCSRGraph to
+    flash, or, where it carries its edge view and sweeps more tile
+    elements an edge than :func:`flash_csr_threshold` of its geometry, its
+    edge view to csr, as han_tpu does; a stack has no edge view and stays
+    on flash. ``towers``: a stack's paths are towers lo..hi−1 of P
+    (ops/flash_gat.py:draw_path_seeds).
     """
     if fts.dim() == 4 and not isinstance(graph, (BCSRGraph, PartitionedBCSR)):
         # a stack without a batched kernel: path by path, each drawing its own
@@ -298,7 +323,13 @@ def attention_aggregate(
         elif isinstance(graph, CSRGraph):
             impl = "csr"
         elif isinstance(graph, BCSRGraph):
-            impl = "flash"
+            # occupancy-aware: flash's work grows with the swept tile area,
+            # csr's with the edges
+            if (graph.edge_col is not None
+                    and graph.elems_per_edge() > flash_csr_threshold(graph.bm, graph.bn)):
+                graph, impl = graph.as_csr(), "csr"
+            else:
+                impl = "flash"
         else:
             raise TypeError(f"unknown graph container {type(graph)}")
     if impl == "dense":

@@ -25,6 +25,12 @@ kernel, (N, F, K) uint8, as ``torch.rand((N, F, K), generator=...) < 1 - p``
 — the same draw ``ell_attention`` makes from the same generator state — so
 the kernel, its plain version and the backward apply one mask.
 
+Features are f32 or bf16 (han_tpu computes in f32 and returns the input's
+dtype, ell_fused.py:210-213,237): the kernel gathers bf16 rows as bf16 and
+widens them in registers; the logits, the softmax and every sum stay f32,
+in the kernel, its plain version and the backward; the output and d_fts
+come back in the features' dtype.
+
 Every wrapper uses the plain version only for tensors on the CPU. For a
 CUDA tensor it launches the kernel or raises; there is no fallback.
 ``ell_fused_launches`` counts kernel launches.
@@ -43,11 +49,10 @@ ell_fused_launches = 0
 
 
 def kernel_takes(dtype: torch.dtype) -> bool:
-    """Whether the kernel takes features of ``dtype``: float32, at any
-    heads K and head dim D (bf16 features are not ported to it; ROADMAP.md
-    queue 1). The sampled trainer's ``impl="auto"`` asks this, so its
-    choice depends on the model, never on the device."""
-    return dtype == torch.float32
+    """Whether the kernel takes features of ``dtype``: float32 or bfloat16,
+    at any heads K and head dim D. The sampled trainer's ``impl="auto"``
+    asks this, so its choice depends on the model, never on the device."""
+    return dtype in (torch.float32, torch.bfloat16)
 
 
 def _ell_coefs(nbr: torch.Tensor, ld: torch.Tensor, ls: torch.Tensor,
@@ -75,8 +80,9 @@ def _keep_scale(keep: torch.Tensor | None, p: float):
 
 
 def ell_fused_fwd_plain(nbr, ld, ls, fts, keep, slope: float, p: float):
-    """nbr int32 (N, F) (sentinel N), ld/ls (N, K), fts (N, K·D), keep uint8
-    (N, F, K) or None → out (N, K·D). The kernel's math in plain torch."""
+    """nbr int32 (N, F) (sentinel N), ld/ls f32 (N, K), fts f32 or bf16 (N,
+    K·D), keep uint8 (N, F, K) or None → out (N, K·D) in fts's dtype. The
+    kernel's math in plain torch: f32 inside, one rounding at the end."""
     n, k = ld.shape
     f = nbr.shape[1]
     d = fts.shape[1] // k
@@ -85,15 +91,16 @@ def ell_fused_fwd_plain(nbr, ld, ls, fts, keep, slope: float, p: float):
     if mk is not None:  # reference order: softmax first, then dropout
         coefs = coefs * mk
     fts_pad = torch.cat([fts, fts.new_zeros((1, k * d))])
-    g = fts_pad[safe].view(n, f, k, d)
-    return torch.einsum("nfk,nfkd->nkd", coefs, g).reshape(n, k * d)
+    g = fts_pad[safe].view(n, f, k, d).float()
+    return torch.einsum("nfk,nfkd->nkd", coefs, g).reshape(n, k * d).to(fts.dtype)
 
 
 def ell_dz(nbr, ld, ls, fts, keep, g, slope: float, p: float):
     """The backward's recompute, shared with ops/tree_ell.py: with
     c̃ = c·mk (mk = keep/(1-p)), dz_f = c_f(mk_f·(g·v_f) −
-    Σ_f' c̃_f'(g·v_f')) folded with leaky_relu′ and zero on empty slots.
-    Returns dz (N, F, K), c̃ (N, F, K) and the sentinel-safe nbr (N, F)."""
+    Σ_f' c̃_f'(g·v_f')) folded with leaky_relu′ and zero on empty slots,
+    in f32 whatever the dtypes of fts and g. Returns dz (N, F, K), c̃ (N,
+    F, K) and the sentinel-safe nbr (N, F)."""
     n, k = ld.shape
     f = nbr.shape[1]
     d = fts.shape[1] // k
@@ -101,8 +108,8 @@ def ell_dz(nbr, ld, ls, fts, keep, g, slope: float, p: float):
     mk = _keep_scale(keep, p)
     c_agg = coefs * mk if mk is not None else coefs
     fts_pad = torch.cat([fts, fts.new_zeros((1, k * d))])
-    gv = torch.einsum("nkd,nfkd->nfk", g.view(n, k, d),
-                      fts_pad[safe].view(n, f, k, d))           # g_i · v_j
+    gv = torch.einsum("nkd,nfkd->nfk", g.view(n, k, d).float(),
+                      fts_pad[safe].view(n, f, k, d).float())   # g_i · v_j
     gv_agg = gv * mk if mk is not None else gv
     dz = coefs * (gv_agg - (c_agg * gv).sum(dim=1, keepdim=True))
     dz = torch.where(raw >= 0, dz, slope * dz)
@@ -112,16 +119,17 @@ def ell_dz(nbr, ld, ls, fts, keep, g, slope: float, p: float):
 def ell_fused_bwd(nbr, ld, ls, fts, keep, g, slope: float, p: float):
     """Gradients (d_fts (N, K·D), d_ld (N, K), d_ls (N, K)) of
     ``sum(out · g)``; han_tpu's ``_ell_fused_core_bwd`` in plain torch:
-    dld is the row sum of dz, dls and dv = Σ c̃ᵀ g scatter over the slots."""
+    dld is the row sum of dz, dls and dv = Σ c̃ᵀ g scatter over the slots,
+    summed in f32; d_fts comes back in fts's dtype."""
     n, k = ld.shape
     f = nbr.shape[1]
     kd = fts.shape[1]
     dz, c_agg, safe = ell_dz(nbr, ld, ls, fts, keep, g, slope, p)
     flat = safe.reshape(-1)
     dls = ld.new_zeros((n + 1, k)).index_add_(0, flat, dz.reshape(n * f, k))[:n]
-    cg = c_agg[..., None] * g.view(n, 1, k, kd // k)
-    dv = fts.new_zeros((n + 1, kd)).index_add_(0, flat, cg.reshape(n * f, kd))[:n]
-    return dv, dz.sum(dim=1), dls
+    cg = c_agg[..., None] * g.view(n, 1, k, kd // k).float()
+    dv = ld.new_zeros((n + 1, kd)).index_add_(0, flat, cg.reshape(n * f, kd))[:n]
+    return dv.to(fts.dtype), dz.sum(dim=1), dls
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -133,7 +141,7 @@ def _lib() -> ctypes.CDLL:
     from han_tpu_torch.ops import _build
 
     lib = _build.load("ell_fused")
-    lib.han_ell_fused_fwd.argtypes = [_P] * 6 + [_I] * 4 + [_F, _F, _P]
+    lib.han_ell_fused_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_F, _F, _P]
     lib.han_ell_fused_fwd.restype = ctypes.c_int
     lib.han_error_string.argtypes = [ctypes.c_int]
     lib.han_error_string.restype = ctypes.c_char_p
@@ -150,9 +158,10 @@ def ell_fused_fwd_cuda(nbr, ld, ls, fts, keep, slope: float, p: float):
     f = nbr.shape[1]
     d = fts.shape[1] // k
     if not kernel_takes(fts.dtype):
-        raise NotImplementedError(f"the ell_fused kernel takes float32 features, got {fts.dtype}")
+        raise NotImplementedError(
+            f"the ell_fused kernel takes float32 or bfloat16 features, got {fts.dtype}")
     want = {"nbr": (nbr, torch.int32, (n, f)), "ld": (ld, torch.float32, (n, k)),
-            "ls": (ls, torch.float32, (n, k)), "fts": (fts, torch.float32, (n, k * d))}
+            "ls": (ls, torch.float32, (n, k)), "fts": (fts, fts.dtype, (n, k * d))}
     if keep is not None:
         want["keep"] = (keep, torch.uint8, (n, f, k))
     for name, (t, dt, shape) in want.items():
@@ -160,12 +169,13 @@ def ell_fused_fwd_cuda(nbr, ld, ls, fts, keep, slope: float, p: float):
                 or tuple(t.shape) != shape):
             raise ValueError(f"{name}: need a contiguous {dt} {shape} tensor on "
                              f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    out = torch.empty((n, k * d), dtype=torch.float32, device=dev)
+    out = torch.empty((n, k * d), dtype=fts.dtype, device=dev)
     lib = _lib()
     rc = lib.han_ell_fused_fwd(
         nbr.data_ptr(), ld.data_ptr(), ls.data_ptr(), fts.data_ptr(),
         keep.data_ptr() if keep is not None else None, out.data_ptr(),
-        n, f, k, d, float(slope), 1.0 / (1.0 - p) if keep is not None else 1.0,
+        n, f, k, d, int(fts.dtype == torch.bfloat16), float(slope),
+        1.0 / (1.0 - p) if keep is not None else 1.0,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc == 1:  # cudaErrorInvalidValue: the per-warp buffers of F x K outgrow a block
         raise NotImplementedError(
@@ -223,15 +233,15 @@ def ell_fused_attention(
 ) -> torch.Tensor:
     """Drop-in implementation for ops.attention.attention_aggregate on an
     EllGraph whose n_nodes equals the feature rows. ``generator`` (on the
-    features' device) draws the keep mask. Returns (N, K, D) float32."""
+    features' device) draws the keep mask. Features f32 or bf16; logits
+    f32. Returns (N, K, D) in the features' dtype."""
     if not 0.0 <= coef_dropout < 1.0:
         raise ValueError(f"coef_dropout must be in [0, 1), got {coef_dropout}")
     if not 0.0 <= slope <= 1.0:
         # the kernel computes leaky_relu as max(x, slope*x)
         raise ValueError(f"slope must be in [0, 1], got {slope}")
     if not kernel_takes(fts.dtype):
-        raise NotImplementedError(
-            f"ell_fused takes float32 features, got {fts.dtype} (bf16 is not ported yet)")
+        raise NotImplementedError(f"ell_fused takes float32 or bfloat16 features, got {fts.dtype}")
     n, k, d = fts.shape
     if graph.n_nodes != n:
         raise ValueError(f"graph has {graph.n_nodes} nodes, features {n} rows")

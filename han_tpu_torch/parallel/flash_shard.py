@@ -210,10 +210,14 @@ def sharded_flash_attention(
     of the default process group on the graph axis; ``generator`` (on this
     rank's device) draws the dropout seeds as a device tensor, the same on
     every rank (the same generator seed and draw order; ``towers``: see
-    ops/flash_gat.py:draw_path_seeds). Runs eagerly: a captured step with
-    NCCL collectives inside is not ported."""
-    # bf16 features on the partitioned backends are not ported yet
-    fg.check_args(slope, coef_dropout, generator, fts, dtypes=(torch.float32,))
+    ops/flash_gat.py:draw_path_seeds). Features f32 or bf16, as
+    flash_gat_attention takes them: bf16 v streams to the kernels' bf16
+    instantiations; logits, lse and the strips' partial sums stay f32 (the
+    partial gradients of the features are summed over the graph axis in
+    f32), and the output comes in ``fts.dtype`` (han_tpu computes in f32
+    and casts back, flash_shard.py:189-192,241). Runs eagerly: a captured
+    step with NCCL collectives inside is not ported."""
+    fg.check_args(slope, coef_dropout, generator, fts)
     mesh = mesh or graph.mesh or make_mesh(device=fts.device)
     ax_g, ax_h = mesh.graph, mesh.heads
     if graph.n_shards != ax_g.size:
@@ -231,7 +235,8 @@ def sharded_flash_attention(
     s = ax_g.rank
     # replicated inputs: each rank takes its heads (the backward gathers the
     # heads' gradients) and its strip's partial sums add over the graph axis
-    fts = local_heads(sum_grads(fts, ax_g), ax_h)
+    dtype = fts.dtype
+    fts = local_heads(sum_grads(fts.float(), ax_g), ax_h).to(dtype)
     logit_src = local_heads(sum_grads(logit_src.to(torch.float32), ax_g), ax_h, dim=-1)
     v = F.pad(fts.reshape(*lead, n, k_loc * d), (0, 0, 0, graph.n_pad - n)).contiguous()
     ls = F.pad(logit_src.transpose(-1, -2), (0, graph.n_pad - n)).contiguous()
@@ -252,5 +257,5 @@ def sharded_flash_attention(
     out = gather_heads(out.view(*lead, graph.n_loc, k_loc, d), ax_h)
     out = gather_rows(out, ax_g, dim=-3)  # ([P,] S·n_loc, K, D)
     if n_paths is None:
-        return out.index_select(0, graph.perm)
-    return out[path_idx, graph.perm]
+        return out.index_select(0, graph.perm).to(dtype)
+    return out[path_idx, graph.perm].to(dtype)

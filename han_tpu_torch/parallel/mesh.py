@@ -39,6 +39,12 @@ the axis it is given:
   from its previous one with ``dist.batch_isend_irecv``; nothing to do on
   an axis of one rank (the ppermute skip of
   han_tpu/parallel/ring_bcsr.py:190-194).
+
+The data-parallel trainers (train/sampled.py:DPSampledTrainer,
+train/inductive.py) sum outside autograd: :func:`all_sum` for counts and
+metrics, :func:`all_reduce_grads` for the gradients after the backward
+(the psum that han_tpu's jit writes for a batch sharded over the axis),
+and :func:`all_gather_rows` for generator states.
 """
 
 from __future__ import annotations
@@ -253,6 +259,36 @@ def ring_shift(tensors, axis: Axis, step: int = 1):
         ops.append(dist.P2POp(dist.isend, t, nxt, axis.group))
         ops.append(dist.P2POp(dist.irecv, b, prv, axis.group))
     return bufs, dist.batch_isend_irecv(ops)
+
+
+def all_sum(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """``x`` summed over the ranks of ``axis`` (a new tensor; ``x`` itself on
+    an axis of one rank); not differentiable."""
+    if axis.group is None:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, group=axis.group)
+    return x
+
+
+def all_reduce_grads(params, axis: Axis) -> None:
+    """Sum the ``.grad`` of every parameter that has one over ``axis``, in
+    place, in one flat all_reduce (nothing to do on an axis of one rank)."""
+    if axis.group is None:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=axis.group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def all_gather_rows(x: torch.Tensor, axis: Axis, device: torch.device) -> torch.Tensor:
+    """(S, *x.shape): every rank's ``x`` in rank order over ``axis``, moved to
+    ``device`` for the collective (a CPU generator state on a CUDA rank) and
+    returned on the CPU; not differentiable. (``Generator.set_state`` takes
+    a row of it only as a copy: ``.clone()``; a view crashes it.)"""
+    return _all_gather(x.to(device)[None], axis).cpu()
 
 
 def wait(works) -> None:

@@ -213,7 +213,7 @@ class _RingFlash(torch.autograd.Function):
     def forward(ctx, ld, ls, v, graph: RingBCSR, meta: fg.FlashMeta, ring: Axis):
         s, n_s = ring.rank, ring.size
         k, n_loc = ld.shape
-        out = v.new_zeros((n_loc, v.shape[1]))
+        out = ld.new_zeros((n_loc, v.shape[1]))  # f32, whatever v's type
         lse = ld.new_full((k, n_loc), MASK_VALUE)
         vb, lb = v, ls
         for t in range(n_s):
@@ -240,7 +240,8 @@ class _RingFlash(torch.autograd.Function):
         g = g.contiguous()
         delta = (g * out).view(n_loc, k, -1).sum(-1).T.contiguous()
         dld = torch.zeros_like(ld)
-        dv, dls = torch.zeros_like(v), torch.zeros_like(ls)  # rotate with the data
+        # rotate with the data, summed in f32 whatever v's type
+        dv, dls = torch.zeros_like(v, dtype=ld.dtype), torch.zeros_like(ls)
         pv = pl = None  # the previous step's part, merged one step late
         vb, lb = v, ls
         for t in range(n_s):
@@ -259,7 +260,7 @@ class _RingFlash(torch.autograd.Function):
             pv, pl = dv_t, dls_t
         (dv, dls), works = ring_shift([dv + pv, dls + pl], ring)  # the last hop home
         wait(works)
-        return dld, dls, dv, None, None, None
+        return dld, dls, dv.to(v.dtype), None, None, None
 
 
 def ring_flash_attention(
@@ -278,10 +279,14 @@ def ring_flash_attention(
     tensors in, global (N, K, D) out on every rank; ``mesh`` defaults to
     ``graph.mesh``, else every rank of the default process group on the
     graph axis. ``generator`` (on this rank's device) draws the dropout
-    seed as a device tensor, the same on every rank. Runs eagerly: a
-    captured step with NCCL collectives inside is not ported."""
-    # bf16 features on the partitioned backends are not ported yet
-    fg.check_args(slope, coef_dropout, generator, fts, dtypes=(torch.float32,))
+    seed as a device tensor, the same on every rank. Features f32 or bf16,
+    as flash_gat_attention takes them: bf16 v blocks rotate and stream to
+    the kernels' bf16 instantiations; logits, lse, delta, the merge of the
+    steps' partial outputs and the rotating gradients stay f32, and the
+    output comes in ``fts.dtype`` (han_tpu computes in f32 and casts back,
+    ring_bcsr.py:360-362,408). Runs eagerly: a captured step with NCCL
+    collectives inside is not ported."""
+    fg.check_args(slope, coef_dropout, generator, fts)
     mesh = mesh or graph.mesh or make_mesh(device=fts.device)
     ax_g, ax_h = mesh.graph, mesh.heads
     if graph.n_shards != ax_g.size:
@@ -297,7 +302,7 @@ def ring_flash_attention(
         return local_heads(local_rows(F.pad(x, (0, 0) * (x.dim() - 1) + (0, pad)), ax_g),
                            ax_h, dim=1)
 
-    v = block(fts).reshape(graph.n_loc, k_loc * d)
+    v = block(fts.float()).reshape(graph.n_loc, k_loc * d).to(fts.dtype)
     ld = block(logit_dst.to(torch.float32))
     ls = block(logit_src.to(torch.float32))
     meta = fg.FlashMeta(slope=float(slope), dropout_p=float(coef_dropout),
@@ -306,4 +311,4 @@ def ring_flash_attention(
                         head_offset=ax_h.rank * k_loc)
     out = _RingFlash.apply(ld.T.contiguous(), ls.T.contiguous(), v, graph, meta, ax_g)
     out = gather_heads(out.view(graph.n_loc, k_loc, d), ax_h)
-    return gather_rows(out, ax_g)[:n]
+    return gather_rows(out, ax_g)[:n].to(fts.dtype)

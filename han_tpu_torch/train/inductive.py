@@ -1,12 +1,25 @@
 """Inductive multi-graph trainer, PPI-style (port of
-han_tpu/train/inductive.py:29-281 on one device): GAT over padded graph
-batches with the multi-label sigmoid loss and micro-F1 (reference
-base_gattn.py:50-59,71-94; batching semantics from utils/process_ppi.py).
+han_tpu/train/inductive.py:29-281): GAT over padded graph batches with the
+multi-label sigmoid loss and micro-F1 (reference base_gattn.py:50-59,71-94;
+batching semantics from utils/process_ppi.py).
 
 The B graphs of a batch run as a loop over ``DenseGraph``s (han_tpu vmaps
 them); the logits are stacked and the per-graph losses averaged. Its
 steps run eagerly on the card: capturing them as a CUDA graph (han_tpu
-jits them) is not ported, nor are data-parallel batches over a mesh.
+jits them) is not ported.
+
+Data parallelism (``mesh``, one process a rank; han_tpu shards the batch
+axis over the mesh's graph axis): every rank draws the same shuffled order
+and takes its contiguous share of each batch of B graphs (B a multiple of
+the axis size); its per-graph losses summed over B are its share of the
+batch mean, the gradients are summed over the axis and the L2 term added
+once after the sum, so the parameters stay equal on every rank and a step
+equals the one-device step on the whole batch. Evaluation gathers the
+batch's logits, labels and masks and scores them as one device does. Each
+rank draws its dropout from a generator of its own (``seed + 1 +
+rank·1,000,003``; rank 0 draws the one-device stream), where han_tpu
+splits one key into a stream a graph of the batch. Rank 0 saves, with every
+rank's generator state; every rank loads.
 
 The resilience contract is the other trainers' (train/trainer.py): with a
 ``checkpoint_dir``, a save on every best epoch and every
@@ -32,6 +45,8 @@ from han_tpu_torch.graph.containers import DenseGraph
 from han_tpu_torch.nn.layers import DropoutGenerators
 from han_tpu_torch.nn.losses import l2_regularizer, masked_sigmoid_cross_entropy, micro_f1
 from han_tpu_torch.nn.models import GAT
+from han_tpu_torch.parallel.mesh import (Axis, Mesh, all_gather_rows, all_reduce_grads,
+                                         all_sum, gather_rows)
 from han_tpu_torch.train.trainer import CheckpointStore, load_training_state, training_state
 from han_tpu_torch.utils.device import resolve_device
 
@@ -39,20 +54,28 @@ from han_tpu_torch.utils.device import resolve_device
 class InductiveTrainer:
     """GAT training on whole graphs of a MultiGraphDataset: Adam over
     batches of ``batch_size`` train graphs, early stopping on validation
-    micro-F1 and loss, restore-best-then-test."""
+    micro-F1 and loss, restore-best-then-test; data-parallel over
+    ``mesh``'s graph axis when given (the module docstring; the device is
+    the mesh's)."""
 
     def __init__(self, ds: MultiGraphDataset, *, hid_units=(256, 256),
                  n_heads=(4, 4, 6), lr=0.005, l2_coef=0.0, residual=True,
                  attn_drop: float = 0.0, ffd_drop: float = 0.0,
                  patience: int | None = None, impl: str = "auto",
-                 batch_size: int = 2, seed: int = 0,
+                 batch_size: int = 2, mesh: Mesh | None = None, seed: int = 0,
                  device: torch.device | str | None = None,
                  checkpoint_dir: str = "", checkpoint_every: int = 0,
                  logger=None, guard=None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.ds = ds
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # one device: an axis of one rank, whose collectives are the identity
+        self.axis = mesh.graph if mesh is not None else Axis(None, (0,), 0, 1)
+        if batch_size % self.axis.size:
+            raise ValueError(f"batch_size {batch_size} not divisible by the graph axis "
+                             f"({self.axis.size} ranks)")
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.batch_size = batch_size
         self.l2_coef = l2_coef
         self.patience = patience
@@ -69,8 +92,8 @@ class InductiveTrainer:
             warnings.warn(f"InductiveTrainer ignores impl={impl!r}: padded "
                           "multi-graph batching is dense by design")
         self.use_dropout = attn_drop > 0.0 or ffd_drop > 0.0
-        self.rngs = DropoutGenerators(
-            device=torch.Generator(self.device).manual_seed(seed + 1))
+        self.rngs = DropoutGenerators(device=torch.Generator(self.device).manual_seed(
+            seed + 1 + self.axis.rank * 1_000_003))
         self.model = GAT(ds.features.shape[-1], ds.labels.shape[-1], hid_units=hid_units,
                          n_heads=n_heads, residual=residual, impl="dense",
                          attn_drop=attn_drop, ffd_drop=ffd_drop,
@@ -91,15 +114,18 @@ class InductiveTrainer:
     def _batches(self, which: str, rng: np.random.Generator | None = None):
         """Batches of batch_size graphs, shuffled by rng when given; the
         last batch is padded with zero-node graphs, which the node masks
-        leave out of the loss."""
+        leave out of the loss. On a mesh, this rank's contiguous share of
+        each batch."""
         arrays = self._split(which)
         idx = np.arange(arrays[0].shape[0])
         if rng is not None:
             rng.shuffle(idx)
         b = self.batch_size
+        share = b // self.axis.size
+        lo = self.axis.rank * share
         for s in range(0, len(idx), b):
-            sel = torch.from_numpy(idx[s:s + b]).to(self.device)
-            pad = b - sel.numel()
+            sel = torch.from_numpy(idx[s:s + b][lo:lo + share]).to(self.device)
+            pad = share - sel.numel()
             yield tuple(torch.cat([a[sel], a.new_zeros((pad,) + a.shape[1:])]) if pad else a[sel]
                         for a in arrays)
 
@@ -113,25 +139,32 @@ class InductiveTrainer:
             for adj, x in zip(adj_b, x_b)])
 
     def _loss(self, logits, y_b, m_b) -> torch.Tensor:
+        """The graphs' losses summed over the batch size B: the batch mean,
+        or on a mesh this rank's share of it."""
         per_graph = torch.stack([masked_sigmoid_cross_entropy(lg, y, m)
                                  for lg, y, m in zip(logits, y_b, m_b)])
-        return per_graph.mean()
+        return per_graph.sum() / self.batch_size
 
     def train_step(self, adj_b, x_b, y_b, m_b) -> torch.Tensor:
-        """One Adam step on a batch; returns the loss (device tensor)."""
+        """One Adam step on a batch (this rank's share of it on a mesh);
+        returns the batch loss (device tensor)."""
         self.opt.zero_grad(set_to_none=True)
-        loss = (self._loss(self._apply(adj_b, x_b, train=True), y_b, m_b)
-                + l2_regularizer(self.model.parameters(), self.l2_coef))
+        loss = self._loss(self._apply(adj_b, x_b, train=True), y_b, m_b)
         loss.backward()
+        all_reduce_grads(self.model.parameters(), self.axis)
+        l2 = l2_regularizer(self.model.parameters(), self.l2_coef)
+        l2.backward()  # once, after the sum
         self.opt.step()
-        return loss.detach()
+        return (all_sum(loss, self.axis) + l2).detach()
 
     @torch.no_grad()
     def evaluate(self, which: str) -> dict[str, float]:
-        """Mean over the split's batches of the loss and the micro-F1."""
+        """Mean over the split's batches of the loss and the micro-F1 (on a
+        mesh, of the whole batches, gathered)."""
         losses, f1s = [], []
         for adj_b, x_b, y_b, m_b in self._batches(which):
             logits = self._apply(adj_b, x_b, train=False)
+            logits, y_b, m_b = (gather_rows(t.float(), self.axis) for t in (logits, y_b, m_b))
             losses.append(float(self._loss(logits, y_b, m_b)))
             c = logits.shape[-1]
             f1s.append(float(micro_f1(logits.reshape(-1, c), y_b.reshape(-1, c),
@@ -148,11 +181,13 @@ class InductiveTrainer:
         return self.store.load(step)
 
     def _save(self, epoch: int, best: dict, bad_epochs: int, best_step: int) -> None:
-        self.store.save(epoch, training_state(
-            self.model, self.opt, self.rngs.device,
-            order_rng=self._order_rng(epoch + 1).bit_generator.state, epoch=epoch,
-            best_f1=best["f1"], best_loss=best["loss"], bad_epochs=bad_epochs,
-            best_step=best_step))
+        rank_rngs = all_gather_rows(self.rngs.device.get_state(), self.axis, self.device)
+        if self.axis.rank == 0:  # rank 0 saves, with every rank's generator state
+            self.store.save(epoch, training_state(
+                self.model, self.opt, self.rngs.device,
+                order_rng=self._order_rng(epoch + 1).bit_generator.state, epoch=epoch,
+                best_f1=best["f1"], best_loss=best["loss"], bad_epochs=bad_epochs,
+                best_step=best_step, rank_rngs=rank_rngs))
 
     def fit(self, epochs: int = 20, *, log=None, resume: bool = False) -> dict[str, Any]:
         """Train with early stopping, restore the best parameters and
@@ -172,6 +207,7 @@ class InductiveTrainer:
                 # the per-epoch batch order and the dropout stream continue
                 # as in the uninterrupted run
                 load_training_state(restored, self.model, self.opt, self.rngs.device)
+                self.rngs.device.set_state(restored["rank_rngs"][self.axis.rank].clone())
                 order_rng = np.random.default_rng()
                 order_rng.bit_generator.state = restored["order_rng"]
                 best.update(f1=restored["best_f1"], loss=restored["best_loss"])

@@ -1,5 +1,6 @@
 """Mini-batch HAN training via L-hop neighbor-sampled blocks (port of
-han_tpu/train/sampled.py:49-805, one device).
+han_tpu/train/sampled.py:49-944): :class:`SampledTrainer` on one device,
+:class:`DPSampledTrainer` data-parallel over a mesh's graph axis.
 
 The full-graph trainer needs every meta-path adjacency and the whole
 feature matrix resident per step; this trainer is the sampled GNN recipe
@@ -23,8 +24,8 @@ Differences from han_tpu:
 
 - ``impl="auto"`` trains on ``ell_fused`` (the CUDA forward kernel) where
   the kernel takes the model's feature dtype
-  (``ops/ell_fused.kernel_takes``: float32, any heads and head dim), and
-  on ``ell`` otherwise, as han_tpu always does: han_tpu chose ``ell`` only
+  (``ops/ell_fused.kernel_takes``: float32 and bfloat16, any heads and
+  head dim), and on ``ell`` otherwise; han_tpu always takes ``ell``, only
   because Mosaic could not compile the fused kernel's gathers on the TPU.
   The choice depends on the model only, so the CPU and the card pick the
   same backend;
@@ -40,7 +41,10 @@ Differences from han_tpu:
   replay;
 - ``fit()`` folds the device sampler's edge counts in every epoch instead
   of letting the pending list grow;
-- the data-parallel trainer is not ported.
+- :class:`DPSampledTrainer` runs one process a rank, each sampling only
+  its own shard's block, and draws each rank's dropout from a generator
+  of its own (seeded from the run's seed and the rank), where han_tpu
+  splits one key into a stream a shard.
 
 Checkpoints (train/trainer.CheckpointStore, under
 ``<checkpoint_dir>/<dataset>_sampled``) hold the whole resume state,
@@ -83,11 +87,11 @@ from han_tpu_torch.graph.containers import EllGraph, TreeEllGraph
 from han_tpu_torch.graph.sampling import sample_subgraph
 from han_tpu_torch.graph.synthetic import HeteroDataset
 from han_tpu_torch.nn.layers import DropoutGenerators
-from han_tpu_torch.nn.losses import (l2_regularizer, masked_accuracy,
-                                     masked_softmax_cross_entropy)
+from han_tpu_torch.nn.losses import l2_regularizer
 from han_tpu_torch.ops.ell_fused import kernel_takes
 from han_tpu_torch.ops.flash_gat import fmix32, mul32
 from han_tpu_torch.ops.tree_ell import tree_parent_maps
+from han_tpu_torch.parallel.mesh import Axis, Mesh, all_gather_rows, all_reduce_grads, all_sum
 from han_tpu_torch.train.config import Config
 from han_tpu_torch.train.graphed import GraphedStep, want_capture
 from han_tpu_torch.train.trainer import (CheckpointStore, EarlyStopState, MetricLogger,
@@ -274,6 +278,9 @@ class SampledTrainer:
         ).to(self.device)
         self.opt = torch.optim.Adam(self.model.parameters(), lr=cfg.train.lr,
                                     capturable=self.capture)
+        # one device: an axis of one rank, whose collectives are the
+        # identity (DPSampledTrainer takes its mesh's graph axis)
+        self.axis = Axis(None, (0,), 0, 1)
         self.rngs = DropoutGenerators(
             device=torch.Generator(self.device).manual_seed(cfg.train.seed + 1))
         # the device sampler's dispatches: one step per number of
@@ -433,16 +440,26 @@ class SampledTrainer:
         """One Adam step on one uploaded batch (host-sampled blocks or a
         single descriptor); returns (loss, acc) as device tensors, from the
         pre-update forward, and the real sampled edges (a 0-d device tensor
-        for a descriptor, None for host blocks)."""
+        for a descriptor, None for host blocks). The loss and accuracy are
+        masked means over the batch's seeds on every rank of ``self.axis``:
+        the mask count is summed first, each rank backpropagates its share
+        of the mean, the gradients are summed, and the L2 term is added
+        once, after the sum."""
         graphs, xs, labels, mask, n_edges = self._materialize(graphs, xs, labels, mask)
         self.opt.zero_grad(set_to_none=True)
         logits, _, _ = self.model(graphs, xs, deterministic=False, rngs=self.rngs)
-        loss = (masked_softmax_cross_entropy(logits, labels, mask)
-                + l2_regularizer(self.model.parameters(), self.cfg.train.l2_coef))
-        loss.backward()
+        loss_i = -(labels * torch.log_softmax(logits, dim=-1)).sum(dim=-1)
+        correct = (logits.argmax(-1) == labels.argmax(-1)).float()
+        local = (loss_i * mask).sum()
+        sums = all_sum(torch.stack([local.detach().float(), (correct * mask).sum(), mask.sum()]),
+                       self.axis)
+        n = sums[2].clamp_min(1.0)
+        (local / n).backward()
+        all_reduce_grads(self.model.parameters(), self.axis)
+        l2 = l2_regularizer(self.model.parameters(), self.cfg.train.l2_coef)
+        l2.backward()
         self.opt.step()
-        with torch.no_grad():
-            return loss.detach(), masked_accuracy(logits, labels, mask), n_edges
+        return sums[0] / n + l2.detach(), sums[1] / n, n_edges
 
     def _dev_train_body(self, packs: torch.Tensor):
         """C sequential device-sampler steps over the (C, 2B+1) descriptors
@@ -489,10 +506,10 @@ class SampledTrainer:
 
     def _eval_call(self, batch) -> torch.Tensor:
         """One evaluation batch → (loss sum, correct sum, mask sum) on the
-        device; a descriptor goes through the eval GraphedStep (captured on
-        the card from its second call)."""
+        device, summed over ``self.axis``; a descriptor goes through the
+        eval GraphedStep (captured on the card from its second call)."""
         if not isinstance(batch[0], _Descriptor):
-            return self._eval_step(*batch)[0]
+            return all_sum(self._eval_step(*batch)[0], self.axis)
         sums, n_edges = self._dev_eval(batch[0].packed)
         self._pending_edge_counts.append(n_edges.clone())  # a replay rewrites it
         return sums
@@ -652,7 +669,16 @@ class SampledTrainer:
         return self.checkpoints().load(step)
 
     def _save(self, store: CheckpointStore, step: int, **scalars) -> None:
-        store.save(step, training_state(self.model, self.opt, self.rngs.device, **scalars))
+        """Rank 0 saves, with every rank's dropout generator state."""
+        rank_rngs = all_gather_rows(self.rngs.device.get_state(), self.axis, self.device)
+        if self.axis.rank == 0:
+            store.save(step, training_state(self.model, self.opt, self.rngs.device,
+                                            rank_rngs=rank_rngs, **scalars))
+
+    def _load(self, state: dict[str, Any]) -> None:
+        load_training_state(state, self.model, self.opt, self.rngs.device,
+                            self._train_steps.values())
+        self.rngs.device.set_state(state["rank_rngs"][self.axis.rank].clone())
 
     def fit(self, *, resume: bool = False) -> dict[str, Any]:
         """Train with early stopping, restore the best parameters and
@@ -669,8 +695,7 @@ class SampledTrainer:
         if resume:
             restored = store.load()
             if restored is not None:
-                load_training_state(restored, self.model, self.opt, self.rngs.device,
-                                    self._train_steps.values())
+                self._load(restored)
                 es = EarlyStopState(restored["best_val_loss"], restored["best_val_acc"],
                                     restored["bad_epochs"])
                 start_cursor = restored["cursor"]
@@ -779,6 +804,58 @@ class SampledTrainer:
 
     def _snapshot(self) -> dict[str, torch.Tensor]:
         return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+
+
+class DPSampledTrainer(SampledTrainer):
+    """Sampled training data-parallel over the mesh's graph axis (port of
+    han_tpu/train/sampled.py:820-944), one process a rank.
+
+    The seed batch splits into S shards of ``batch_size / S`` seeds; rank r
+    samples shard r's block on the host, with sample seed ``sample_seed·S +
+    r`` and block size ``per_shard·(fanout+1)**hops``, and runs the step on
+    it. Every rank builds the same parameters from ``cfg.train.seed``. Loss
+    and accuracy are exact global masked means (:meth:`SampledTrainer.
+    _train_step` over the axis), so an S-way step equals the one-device
+    step on the same seeds. Each rank draws its dropout from a generator of
+    its own (``cfg.train.seed + 1 + rank·1,000,003``: rank 0 draws the
+    one-device trainer's stream). Evaluation sums over the axis. Rank 0
+    logs and saves (with every rank's generator state), every rank loads.
+    ``sampled_edge_count`` counts this rank's blocks.
+
+    Refused as in han_tpu: the device sampler (NotImplementedError) and a
+    batch that does not split into S shards (ValueError). The steps run
+    eagerly: ``capture=True`` raises NotImplementedError, as the host
+    sampler's step does."""
+
+    def __init__(self, ds: HeteroDataset, cfg: Config, *, mesh: Mesh,
+                 batch_size: int = 512, fanout: int = 16,
+                 hops: int | None = None, block_size: int | None = None, **kw):
+        if kw.get("sampler", "host") == "device":
+            raise NotImplementedError(
+                "DPSampledTrainer shards host-built blocks; the device sampler is "
+                "single-device (han_tpu has no data-parallel device sampler)")
+        self.mesh = mesh
+        self.n_shards = mesh.graph.size
+        if batch_size % self.n_shards:
+            raise ValueError(f"batch_size {batch_size} not divisible by {self.n_shards} shards")
+        per_shard = batch_size // self.n_shards
+        h = hops if hops is not None else len(cfg.model.hid_units)
+        block_size = block_size or int(per_shard * (fanout + 1) ** h)
+        coordinator = mesh.rank == 0
+        kw.setdefault("logger", MetricLogger(cfg.train.log_file if coordinator else "",
+                                             echo=coordinator))
+        kw.pop("device", None)
+        super().__init__(ds, cfg, batch_size=batch_size, fanout=fanout, hops=hops,
+                         block_size=block_size, device=mesh.device, **kw)
+        self.axis = mesh.graph
+        self.rngs = DropoutGenerators(device=torch.Generator(self.device).manual_seed(
+            cfg.train.seed + 1 + self.axis.rank * 1_000_003))
+
+    def _prepare(self, seeds, valid, sample_seed, *, fanout=None, block_size=None):
+        """This rank's shard of the batch, sampled on the host."""
+        s, r = self.n_shards, self.axis.rank
+        return super()._prepare(seeds.reshape(s, -1)[r], valid.reshape(s, -1)[r],
+                                sample_seed * s + r, fanout=fanout, block_size=block_size)
 
 
 def step_breakdown(trainer: SampledTrainer, idx: np.ndarray, *,

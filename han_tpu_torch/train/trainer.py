@@ -42,9 +42,12 @@ axis too only on a stacked ``partitioned_bcsr``). Every rank builds the
 same model from ``cfg.train.seed``, draws the same dropout streams and
 runs the model outside attention replicated, so the collectives leave
 every rank with the same gradients and parameters. Only rank 0 logs,
-saves and scores the embedding. The partitioned formats are also accepted
-on one device (a 1-shard partition, with or without a process group). Not
-ported yet: data-parallel sampled and inductive training.
+saves and scores the embedding; every rank loads the checkpoint rank 0
+saved. The partitioned formats are also accepted on one device (a 1-shard
+partition, with or without a process group). ``run()`` sends a sampled run
+with a graph axis to the data-parallel sampled trainer
+(train/sampled.DPSampledTrainer) and a MultiGraphDataset with one to the
+inductive trainer's data-parallel batches.
 
 ``vmap_towers`` (``arch="han"`` only) stacks the meta-paths' graphs
 (graph/stack.py) and features, and the towers run together: one launch of
@@ -526,40 +529,53 @@ def run(cfg: Config, ds: HeteroDataset | MultiGraphDataset | None = None, *,
         device: torch.device | str | None = None) -> dict[str, Any]:
     """One-call train+eval entry point (the ex_acm3025.py equivalent), on
     the card unless ``device="cpu"``. A MultiGraphDataset (the ``ppi``
-    name) trains inductively (train/inductive.py); ``cfg.train.sampled``
-    selects mini-batch neighbor-sampled training over ELL blocks, sampled
-    on the host or (``train.sampler=device``) on the device."""
+    name) trains inductively (train/inductive.py), data-parallel over
+    ``mesh.graph_axis``; ``cfg.train.sampled`` selects mini-batch
+    neighbor-sampled training over ELL blocks, sampled on the host or
+    (``train.sampler=device``) on the device, data-parallel over
+    ``mesh.graph_axis`` (host sampler only). With a graph axis every rank
+    of the process group calls ``run()``."""
     device = resolve_device(device)
     if ds is None:
         ds = load_dataset(cfg.data.dataset)
     if isinstance(ds, MultiGraphDataset):
-        if cfg.mesh.graph_axis > 1:
-            raise NotImplementedError(
-                "data-parallel inductive training (mesh.graph_axis > 1) is not ported yet")
         from han_tpu_torch.train.inductive import InductiveTrainer
 
+        # data-parallel graph batches over the graph axis (han_tpu/train/
+        # trainer.py:479-500): a global batch of max(2, S) graphs
+        mesh = (make_mesh(graph=cfg.mesh.graph_axis, device=device)
+                if cfg.mesh.graph_axis > 1 else None)
+        coordinator = mesh is None or mesh.rank == 0
         trainer = InductiveTrainer(
             ds, hid_units=tuple(cfg.model.hid_units), n_heads=tuple(cfg.model.n_heads),
             lr=cfg.train.lr, l2_coef=cfg.train.l2_coef, residual=cfg.model.residual,
             attn_drop=cfg.model.attn_drop, ffd_drop=cfg.model.ffd_drop,
             patience=cfg.train.patience, impl=cfg.model.impl,
-            batch_size=max(2, cfg.mesh.graph_axis), seed=cfg.train.seed, device=device,
+            batch_size=max(2, cfg.mesh.graph_axis), mesh=mesh, seed=cfg.train.seed,
+            device=device,
             # the inductive trainer shares the other trainers' resilience
             # contract
             checkpoint_dir=cfg.train.checkpoint_dir,
             checkpoint_every=cfg.train.checkpoint_every,
-            logger=MetricLogger(cfg.train.log_file))
+            logger=MetricLogger(cfg.train.log_file if coordinator else "", echo=coordinator))
         result = trainer.fit(epochs=cfg.train.epochs)
         return {k: v for k, v in result.items() if k != "history"}
     if cfg.train.sampled:
-        from han_tpu_torch.train.sampled import SampledTrainer
+        from han_tpu_torch.train.sampled import DPSampledTrainer, SampledTrainer
 
         if cfg.model.impl not in ("auto", "ell", "ell_fused"):
             cfg.model.impl = "auto"
-        if on_mesh(cfg):
+        m = cfg.mesh
+        if m.head_axis * m.mp_axis > 1 or cfg.data.graph_format in PARTITIONED_FORMATS:
             raise NotImplementedError(
-                "data-parallel sampled training (DPSampledTrainer) is not ported yet")
-        return SampledTrainer(ds, cfg, batch_size=cfg.train.batch_size,
-                              fanout=cfg.train.fanout, sampler=cfg.train.sampler,
-                              device=device).fit()
+                "sampled training runs on one device or data-parallel over mesh.graph_axis; "
+                "han_tpu has no sampled path on a heads or mp axis or a partitioned format")
+        # the sampler passes through, so DPSampledTrainer refuses the device
+        # sampler (han_tpu's run() drops it: trainer.py:510-513)
+        kw = dict(batch_size=cfg.train.batch_size, fanout=cfg.train.fanout,
+                  sampler=cfg.train.sampler)
+        if m.graph_axis > 1:
+            return DPSampledTrainer(ds, cfg, mesh=make_mesh(graph=m.graph_axis, device=device),
+                                    **kw).fit()
+        return SampledTrainer(ds, cfg, device=device, **kw).fit()
     return Trainer(ds, cfg, device=device).fit()

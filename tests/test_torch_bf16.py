@@ -1,6 +1,7 @@
 """bf16 features through the port against han_tpu: the flash path's plain
 versions with bf16 features against han_tpu's flash_gat_attention in
-interpret mode (output and the three gradients), HAN(dtype=bf16) against
+interpret mode (output and the three gradients), ell_fused's plain version
+against han_tpu's ell_fused_attention in interpret mode, HAN(dtype=bf16) against
 flax's HAN(dtype=bfloat16) with converted weights, the dense, csr and ell
 backends' bf16 aggregates, and the trainer on model.dtype=bfloat16."""
 
@@ -18,6 +19,7 @@ from han_tpu.graph.bcsr import bcsr_from_dense as j_bcsr  # noqa: E402
 from han_tpu.graph.containers import ell_from_csr as j_ell  # noqa: E402
 from han_tpu.nn.models import HAN as JHAN  # noqa: E402
 from han_tpu.ops import attention as jatt  # noqa: E402
+from han_tpu.ops.pallas.ell_fused import ell_fused_attention as j_ell_fused  # noqa: E402
 from han_tpu.ops.pallas.flash_gat import flash_gat_attention as j_flash  # noqa: E402
 from han_tpu_torch.graph import build as tbuild  # noqa: E402
 from han_tpu_torch.graph.bcsr import bcsr_from_dense as t_bcsr  # noqa: E402
@@ -27,6 +29,7 @@ from han_tpu_torch.graph.containers import ell_from_csr as t_ell  # noqa: E402
 from han_tpu_torch.nn.convert import params_from_flax  # noqa: E402
 from han_tpu_torch.nn.models import HAN as THAN  # noqa: E402
 from han_tpu_torch.ops import attention as tatt  # noqa: E402
+from han_tpu_torch.ops import ell_fused as tef  # noqa: E402
 from han_tpu_torch.ops import flash_gat as tfg  # noqa: E402
 from han_tpu_torch.train import trainer as ttrainer  # noqa: E402
 from han_tpu_torch.train.config import preset as tpreset  # noqa: E402
@@ -100,6 +103,28 @@ def test_dense_csr_ell_bf16_match_jax(impl):
             jfn, tfn = jatt.ell_attention, tatt.ell_attention
     assert_bf16_close(run_torch(lambda *x: tfn(tg, *x), fts, ld, ls, w),
                       run_jax(lambda *x: jfn(jg, *x), fts, ld, ls, w))
+
+
+def test_ell_fused_bf16_matches_jax_interpreted():
+    """ell_fused with bf16 features (the plain version the CPU runs, f32
+    inside, the output rounded once to bf16) against han_tpu's
+    ell_fused_attention (its Pallas kernel interpreted, f32 inside, cast
+    back), dropout 0: out and d_fts within two bf16 steps, as above. The
+    logits' gradients within 2^-7 of the largest one: han_tpu's backward
+    takes g·v as an einsum of two bf16 arrays, rounded to bf16
+    (ell_fused.py:141), where the port sums it in f32, and the row sums of
+    dz cancel down to well below the terms that carry that rounding."""
+    a, fts, ld, ls, w = make_case(n=64, k=3)
+    jg = j_ell(jbuild.metapath_to_csr(sp.csr_matrix(a), add_self_loops=False))
+    tg = t_ell(t_csr(sp.csr_matrix(a)))
+    assert tef.kernel_takes(torch.bfloat16)
+    got = run_torch(lambda *x: tef.ell_fused_attention(tg, *x), fts, ld, ls, w)
+    want = run_jax(lambda *x: j_ell_fused(jg, *x, interpret=True), fts, ld, ls, w)
+    np.testing.assert_array_equal(got[0][5], 0.0)
+    for name, g, wt in zip(("out", "d_fts"), got, want):
+        np.testing.assert_allclose(g, wt, rtol=BF16_RTOL, atol=1e-4, err_msg=name)
+    for name, g, wt in zip(("d_logit_dst", "d_logit_src"), got[2:], want[2:]):
+        np.testing.assert_allclose(g, wt, atol=2.0 ** -7 * np.abs(wt).max(), err_msg=name)
 
 
 def test_han_bf16_matches_flax(tiny_ds):

@@ -113,8 +113,8 @@ def test_port_imports_no_jax():
     """The port (every module, the sampled path's, the multi-device and
     the calibration ones, entry() and the preemption guard included), its
     entry scripts, the benchmark, the
-    calibration script and the chip smoke test load neither jax, han_tpu
-    nor scikit-learn."""
+    calibration script, the flash-vs-csr sweep and the chip smoke test
+    load neither jax, han_tpu nor scikit-learn."""
     code = (
         "import importlib, pathlib, pkgutil, runpy, sys\n"
         "import han_tpu_torch\n"
@@ -126,6 +126,7 @@ def test_port_imports_no_jax():
         "runpy.run_path('scripts/prof_mesh_torch.py', run_name='not_main')\n"
         "runpy.run_path('scripts/prof_gat_torch.py', run_name='not_main')\n"
         "runpy.run_path('scripts/cal_vpu_torch.py', run_name='not_main')\n"
+        "runpy.run_path('scripts/flash_scale_demo_torch.py', run_name='not_main')\n"
         "runpy.run_path('bench_torch.py', run_name='not_main')\n"
         "import han_tpu_torch.ops.calibrate, han_tpu_torch.graph.reorder\n"
         "import han_tpu_torch.utils.prof, han_tpu_torch.utils.device\n"

@@ -7,6 +7,7 @@ import runpy
 
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 
@@ -90,14 +91,28 @@ def test_entry_script_trains_ppi(capsys, tmp_path, monkeypatch):
     assert "test_micro_f1" in capsys.readouterr().out
 
 
-def test_graph_axis_and_impl():
-    """mesh.graph_axis > 1 (data-parallel batches) is not ported and
-    raises; an impl other than auto/dense warns and stays dense."""
+def test_graph_axis_and_impl(monkeypatch):
+    """mesh.graph_axis = S > 1 routes run() to data-parallel batches, as
+    han_tpu's run() does: the mesh's graph axis and a global batch of
+    max(2, S) graphs (here a stand-in for the mesh of S ranks, recorded
+    instead of trained); a batch that does not split over the axis raises
+    ValueError; an impl other than auto/dense warns and stays dense."""
+    from torch_parallel_ranks import stand_in_mesh
+
+    built = []
+    monkeypatch.setattr(ttrainer, "make_mesh", stand_in_mesh)
+    monkeypatch.setattr(InductiveTrainer, "fit",
+                        lambda self, epochs: built.append(self) or {"history": []})
     ds = ppi_synthetic(**DS)
     cfg = preset("ppi")
-    cfg.mesh.graph_axis = 2
-    with pytest.raises(NotImplementedError, match="data-parallel inductive"):
-        ttrainer.run(cfg, ds, device="cpu")
+    for s_n in (2, 3):
+        cfg.mesh.graph_axis = s_n
+        assert ttrainer.run(cfg, ds, device="cpu") == {}
+        t = built[-1]
+        assert t.mesh.graph.size == s_n and t.batch_size == max(2, s_n)
+        assert t.device == torch.device("cpu")
+    with pytest.raises(ValueError, match="not divisible by the graph axis"):
+        InductiveTrainer(ds, batch_size=3, mesh=stand_in_mesh(2), **MODEL)
     with pytest.warns(UserWarning, match="dense by design"):
         t = InductiveTrainer(ds, impl="csr", device="cpu", **MODEL)
     assert all(layer.impl == "dense" for layer in t.model.layers)

@@ -294,6 +294,55 @@ def test_dropout_replays_single_device_masks(request, backend, s_n):
                            ["attention"][backend][0])
 
 
+@pytest.fixture(scope="module")
+def jax_ref_bf16(case):
+    """JAX's one-device flash on bf16 features (Pallas in interpret mode,
+    f32 inside, the output cast back): out and the gradients of
+    sum(out·w), as float32."""
+    g = j_bcsr(case["adj"], bm=case["bm"], bn=case["bn"])
+    fn = lambda *x: jfg.flash_gat_attention(g, *x, interpret=True)
+    args = (jnp.asarray(case["fts"]).astype(jnp.bfloat16), jnp.asarray(case["ld"]),
+            jnp.asarray(case["ls"]))
+    loss = lambda *x: jnp.sum(fn(*x).astype(jnp.float32) * case["w"])
+    grads = jax.grad(loss, argnums=(0, 1, 2))(*args)
+    return [np.asarray(fn(*args).astype(jnp.float32))] + [
+        np.asarray(x.astype(jnp.float32)) for x in grads]
+
+
+# bf16 features: both sides round f32 sums that agree to about 1e-6 to bf16
+# once, so an output lands at most one bf16 step (2^-7 relative) apart. The
+# features' gradient of S strips is S partial sums, each rounded to bf16 at
+# its kernel's autograd boundary, summed and rounded again: (S + 1) roundings
+# of at most half a step each, bounded by (S + 1)·2^-8 of the largest
+# gradient. The logits' gradients stay f32 (the f32 tolerance).
+BF16_OUT_TOL = dict(atol=1e-5, rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("s_n", [2, 4])
+@pytest.mark.parametrize("backend", ["sharded", "ring"])
+def test_bf16_features_match_one_device(request, jax_ref_bf16, backend, s_n):
+    """bf16 features on both partitioned backends, dropout off and 0.4: the
+    output and the features' gradient come in bf16; against the port's
+    one-device flash on the same features and generator and, dropout off,
+    against JAX's (BF16_OUT_TOL); the ranks agree bit for bit."""
+    world = request.getfixturevalue(f"world{s_n}")
+    for key in ("bf16", "bf16_dropout"):
+        res = world[0][key]
+        assert set(res["dtypes"]) == {("torch.bfloat16", "torch.bfloat16")}
+        got = res[backend]
+        np.testing.assert_array_equal(got[0][EMPTY_ROW], 0.0)
+        for want in [res["single"]] + ([jax_ref_bf16] if key == "bf16" else []):
+            np.testing.assert_allclose(got[0], want[0], **BF16_OUT_TOL)
+            scale = float(np.abs(want[1]).max())
+            np.testing.assert_allclose(got[1], want[1], atol=(s_n + 1) * 2.0 ** -8 * scale,
+                                       err_msg="d_fts")
+            for name, g, w in zip(("d_logit_dst", "d_logit_src"), got[2:], want[2:]):
+                np.testing.assert_allclose(g, w, atol=5e-4, rtol=5e-4, err_msg=name)
+        for r in range(1, s_n):
+            for a, b in zip(world[r][key][backend], got):
+                np.testing.assert_array_equal(a, b)
+
+
 @pytest.mark.parametrize("backend", ["sharded", "ring"])
 def test_han_logits_match_jax_mesh(world4, han_case, backend):
     """HAN with flax weights converted by nn/convert.py: the port in 4 gloo
@@ -444,15 +493,26 @@ def _refusal_csr_formats():
 
 
 def _refusal_trainer():
-    """The trainer's mesh needs the world (ValueError); data-parallel
-    sampled training is not ported (NotImplementedError)."""
+    """The trainer's mesh needs the world (ValueError). DPSampledTrainer
+    refuses what han_tpu's refuses: the device sampler
+    (NotImplementedError) and a batch that does not split over the graph
+    axis (ValueError), checked before any collective (a stand-in mesh of 2
+    ranks); a sampled run on a partitioned format, which han_tpu has no
+    path for, stays refused."""
+    from han_tpu_torch.train.sampled import DPSampledTrainer
+
     ds = ranks.trainer_ds()
     cfg = ranks.trainer_cfg("bcsr", 2, 1)
     with pytest.raises(ValueError, match="exceeds"):
         ttrainer.Trainer(ds, cfg, device="cpu")
+    mesh, scfg = ranks.stand_in_mesh(2), ranks.sampled_cfg(4, 1)
+    with pytest.raises(NotImplementedError, match="device sampler"):
+        DPSampledTrainer(ds, scfg, mesh=mesh, batch_size=16, sampler="device")
+    with pytest.raises(ValueError, match="batch_size 15 not divisible by 2 shards"):
+        DPSampledTrainer(ds, scfg, mesh=mesh, batch_size=15)
     cfg = ranks.trainer_cfg("ring_bcsr", 1, 1)
     cfg.train.sampled = True
-    with pytest.raises(NotImplementedError, match="DPSampledTrainer"):
+    with pytest.raises(NotImplementedError, match="partitioned format"):
         ttrainer.run(cfg, ds, device="cpu")
 
 

@@ -269,11 +269,11 @@ def test_device_sampler_fit_learns_and_flushes_edge_counts(small_ds):
     assert result["edges_heads_per_s"] > 0
 
 
-@pytest.mark.parametrize("dtype,impl", [("float32", "ell_fused"), ("bfloat16", "ell")])
+@pytest.mark.parametrize("dtype,impl", [("float32", "ell_fused"), ("bfloat16", "ell_fused")])
 def test_auto_takes_ell_fused_only_where_the_kernel_takes_the_dtype(small_ds, dtype, impl):
     """impl="auto" asks ops/ell_fused.kernel_takes (the feature dtype,
-    never the device): float32 trains on ell_fused, bf16 features on ell,
-    as han_tpu's auto always does; either fit() runs."""
+    never the device): float32 and bf16 features train on ell_fused (han_tpu's
+    auto takes ell, for a TPU compile reason); either fit() runs."""
     from han_tpu_torch.ops.ell_fused import kernel_takes
 
     cfg = small_cfg(tpreset, "auto", epochs=2)
@@ -287,12 +287,14 @@ def test_auto_takes_ell_fused_only_where_the_kernel_takes_the_dtype(small_ds, dt
     assert np.isfinite(result["test_loss"])
 
 
-def test_run_routes_sampled_training_and_rejects_unported(tmp_path):
+def test_run_routes_sampled_training_and_rejects_unported(tmp_path, monkeypatch):
     """scripts/train_torch.py --set train.sampled=true reaches the sampled
     trainer through run(); guard= and fit(resume=True) are ported (with no
-    checkpoint the run starts fresh); unported options raise, and
-    steps_per_call > 1 with the host sampler raises ValueError, as in
-    han_tpu."""
+    checkpoint the run starts fresh); steps_per_call > 1 with the host
+    sampler raises ValueError, as in han_tpu. mesh.graph_axis = 2 routes to
+    DPSampledTrainer on the graph axis' mesh (a stand-in of 2 ranks here)
+    with the sampler passed through, so the device sampler raises
+    NotImplementedError there (han_tpu's run() drops it)."""
     main = runpy.run_path("scripts/train_torch.py", run_name="not_main")["main"]
     result = main(["--device", "cpu", "--dataset", "acm_synthetic", "--set", "train.sampled=true",
                    "--set", "train.batch_size=64", "--set", "train.epochs=1",
@@ -308,8 +310,19 @@ def test_run_routes_sampled_training_and_rejects_unported(tmp_path):
     with pytest.raises(ValueError, match="steps_per_call > 1 needs sampler='device'"):
         tsampled.SampledTrainer(ds, cfg, batch_size=8, fanout=3, steps_per_call=2,
                                 device="cpu")
-    cfg.train.sampled, cfg.mesh.graph_axis = True, 2
-    with pytest.raises(NotImplementedError, match="DPSampledTrainer"):
+    from torch_parallel_ranks import stand_in_mesh
+
+    from han_tpu_torch.train import trainer as ttrainer
+
+    built = []
+    monkeypatch.setattr(ttrainer, "make_mesh", stand_in_mesh)
+    monkeypatch.setattr(tsampled.DPSampledTrainer, "fit", lambda self: built.append(self) or {})
+    cfg.train.sampled, cfg.mesh.graph_axis, cfg.train.batch_size = True, 2, 8
+    assert run(cfg, ds, device="cpu") == {}
+    assert isinstance(built[0], tsampled.DPSampledTrainer) and built[0].n_shards == 2
+    assert built[0].block_size == 4 * (cfg.train.fanout + 1) ** 1
+    cfg.train.sampler = "device"
+    with pytest.raises(NotImplementedError, match="device sampler"):
         run(cfg, ds, device="cpu")
 
 

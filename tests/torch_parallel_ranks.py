@@ -1,5 +1,6 @@
-"""Rank bodies of tests/test_torch_parallel.py, test_torch_mesh_grid.py and
-test_torch_mp.py: each runs inside one process of a spawned gloo world
+"""Rank bodies of tests/test_torch_parallel.py, test_torch_mesh_grid.py,
+test_torch_mp.py, test_torch_dp_sampled.py and test_torch_dp_inductive.py:
+each runs inside one process of a spawned gloo world
 (han_tpu_torch.parallel.launch.spawn) and returns numpy results for the
 test process, which holds them against han_tpu. This module imports torch
 and the port only, so the ranks never load jax."""
@@ -14,12 +15,14 @@ from han_tpu_torch.ops import flash_gat as fg
 from han_tpu_torch.parallel import dryrun
 from han_tpu_torch.parallel.edge_partition import partition_csr
 from han_tpu_torch.parallel.flash_shard import partition_bcsr, sharded_flash_attention
-from han_tpu_torch.parallel.mesh import make_mesh
+from han_tpu_torch.parallel.mesh import Axis, Mesh, make_mesh
 from han_tpu_torch.parallel.ring_attn import partition_csr_2d, ring_attention
 from han_tpu_torch.parallel.ring_bcsr import ring_flash_attention, ring_partition_bcsr
 from han_tpu_torch.parallel.shard_attn import partitioned_attention
 from han_tpu_torch.train import trainer as ttrainer
 from han_tpu_torch.train.config import preset
+from han_tpu_torch.train.inductive import InductiveTrainer
+from han_tpu_torch.train.sampled import DPSampledTrainer
 
 BACKENDS = {"sharded": (partition_bcsr, sharded_flash_attention),
             "ring": (ring_partition_bcsr, ring_flash_attention)}
@@ -42,31 +45,40 @@ GRID_BACKENDS = {
 }
 
 
-def out_and_grads(fn, fts, ld, ls, w):
-    """fn's output and d(sum(out·w))/d(fts, ld, ls), as numpy."""
-    args = [torch.tensor(x, requires_grad=True) for x in (fts, ld, ls)]
+def out_and_grads(fn, fts, ld, ls, w, dtype=torch.float32, dtypes=None):
+    """fn's output and d(sum(out·w))/d(fts, ld, ls), as float32 numpy; the
+    features in ``dtype``. ``dtypes`` (a list) gets the output's and the
+    features' gradient's dtype names."""
+    args = ([torch.tensor(fts, dtype=dtype, requires_grad=True)]
+            + [torch.tensor(x, requires_grad=True) for x in (ld, ls)])
     out = fn(*args)
-    grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(), args)
-    return [out.detach().numpy()] + [g.numpy() for g in grads]
+    grads = torch.autograd.grad((out.float() * torch.from_numpy(w)).sum(), args)
+    if dtypes is not None:
+        dtypes.append((str(out.dtype), str(grads[0].dtype)))
+    return [out.detach().float().numpy()] + [g.float().numpy() for g in grads]
 
 
-def attention(case, p):
-    """Both backends on case's inputs, at coefficient dropout p (seed drawn
-    from a generator seeded 11); for p > 0 also the port's one-device flash
-    with the same generator."""
+def attention(case, p, dtype=torch.float32):
+    """Both backends on case's inputs (the features in ``dtype``), at
+    coefficient dropout p (seed drawn from a generator seeded 11); for p > 0
+    or bf16 features also the port's one-device flash with the same
+    generator; "dtypes" lists each run's output and feature-gradient
+    dtypes."""
     adj, bm, bn = case["adj"], case["bm"], case["bn"]
     x = (case["fts"], case["ld"], case["ls"], case["w"])
     gen = lambda: torch.Generator().manual_seed(11)
-    res = {}
+    res = {"dtypes": []}
     s_n = make_mesh(graph=0).size
     for name, (part, attn) in BACKENDS.items():
         graph = part(adj, s_n, bm=bm, bn=bn)
         res[name] = out_and_grads(
-            lambda *a: attn(graph, *a, coef_dropout=p, generator=gen()), *x)
-    if p:
+            lambda *a: attn(graph, *a, coef_dropout=p, generator=gen()), *x, dtype=dtype,
+            dtypes=res["dtypes"])
+    if p or dtype != torch.float32:
         single = bcsr_from_scipy(adj, bm=bm, bn=bn)
         res["single"] = out_and_grads(lambda *a: fg.flash_gat_attention(
-            single, *a, coef_dropout=p, generator=gen()), *x)
+            single, *a, coef_dropout=p, generator=gen()), *x, dtype=dtype,
+            dtypes=res["dtypes"])
     return res
 
 
@@ -149,6 +161,8 @@ def world_checks(case, han, epochs):
     """Everything one world checks; ``han`` and ``epochs`` are None in the
     worlds that skip the HAN and trainer checks."""
     res = {"attention": attention(case, 0.0), "dropout": attention(case, 0.4),
+           "bf16": attention(case, 0.0, torch.bfloat16),
+           "bf16_dropout": attention(case, 0.4, torch.bfloat16),
            "dryrun": dryrun.dryrun_step()}
     if han is not None:
         res["han"] = han_logits(han)
@@ -157,6 +171,107 @@ def world_checks(case, han, epochs):
                         for fmt in ("partitioned_bcsr", "ring_bcsr")}
     return res
 
+
+
+def stand_in_mesh(graph: int, device="cpu") -> Mesh:
+    """A mesh whose graph axis claims ``graph`` ranks with no process group
+    (rank 0): for the checks a trainer makes before its first collective."""
+    one = Axis(None, (0,), 0, 1)
+    return Mesh(graph=Axis(None, tuple(range(graph)), 0, graph), heads=one, mp=one, rank=0,
+                size=graph, device=torch.device(device))
+
+
+def sampled_cfg(fanout, epochs, dropout=0.0):
+    """The acm preset (L2 1e-3) at hid 8, heads (4, 1), through ell, seed
+    batches of 16 sampled at ``fanout``."""
+    cfg = preset("acm")
+    cfg.model.impl = "ell"
+    cfg.model.hid_units, cfg.model.n_heads = (8,), (4, 1)
+    cfg.model.attn_drop = cfg.model.ffd_drop = dropout
+    cfg.train.epochs, cfg.train.patience, cfg.train.log_file = epochs, 50, ""
+    cfg.train.batch_size, cfg.train.fanout = 16, fanout
+    return cfg
+
+
+def _state(model):
+    return {k: v.numpy().copy() for k, v in model.state_dict().items()}
+
+
+def dp_sampled_checks(ds, state, batches, fanout, root):
+    """DPSampledTrainer on this world's graph axis: train steps on
+    ``batches`` ((seeds, valid, sample seed) each, block 8·(fanout+1) a
+    shard) from the parameters ``state``, with their global loss and
+    accuracy and the parameters after; run() with mesh.graph_axis = the
+    world (2 epochs, dropout 0), with the device sampler (the message it
+    raises), and a 3-epoch run at dropout 0.6 uninterrupted and again as 2
+    epochs saved every epoch under ``root`` then resumed in a fresh
+    trainer."""
+    mesh = make_mesh(graph=0)
+    quiet = ttrainer.MetricLogger(echo=False)
+    t = DPSampledTrainer(ds, sampled_cfg(fanout, 1), mesh=mesh, batch_size=16, fanout=fanout,
+                         block_size=8 * (fanout + 1), logger=quiet)
+    t.model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    steps = []
+    for seeds, valid, sample_seed in batches:
+        loss, acc, _ = t._train_step(*t._make_batch(seeds, valid, sample_seed))
+        steps.append((float(loss), float(acc)))
+    res = {"steps": steps, "state": _state(t.model)}
+    cfg = sampled_cfg(fanout, 2)
+    cfg.train.sampled, cfg.mesh.graph_axis = True, mesh.size
+    cfg.train.checkpoint_dir = f"{root}/run"
+    r = ttrainer.run(cfg, ds, device="cpu")
+    res["run"] = {"losses": r["epoch_train_loss"], "test": (r["test_loss"], r["test_acc"])}
+    cfg.train.sampler = "device"
+    try:
+        ttrainer.run(cfg, ds, device="cpu")
+    except NotImplementedError as e:
+        res["device_sampler"] = str(e)
+    runs = {}
+    for name, epochs, resume in (("uninterrupted", 3, False), ("first", 2, False),
+                                 ("resumed", 3, True)):
+        cfg = sampled_cfg(fanout, epochs, dropout=0.6)
+        cfg.train.checkpoint_every = 1
+        cfg.train.checkpoint_dir = f"{root}/{'a' if name == 'uninterrupted' else 'b'}"
+        t = DPSampledTrainer(ds, cfg, mesh=mesh, batch_size=16, fanout=fanout, logger=quiet)
+        r = t.fit(resume=resume)
+        runs[name] = {"losses": r["epoch_train_loss"], "state": _state(t.model)}
+    res["resume"] = runs
+    return res
+
+
+# the inductive checks' model: han_tpu's test_inductive_mesh_dp_matches_single_device
+# widths, with L2 on
+INDUCTIVE = dict(hid_units=(8,), n_heads=(2, 2), lr=0.02, l2_coef=1e-3, seed=0)
+
+
+def dp_inductive_checks(ds, state, root):
+    """The inductive trainer's data-parallel batches over this world's graph
+    axis: 3 epochs of batches of 4 graphs from the parameters ``state``
+    (their train losses, test micro-F1 and final parameters); run() on the
+    ppi preset with mesh.graph_axis = the world (1 epoch); and a 3-epoch
+    run at dropouts 0.3 uninterrupted and again as 2 epochs saved every
+    epoch under ``root`` then resumed in a fresh trainer."""
+    mesh = make_mesh(graph=0)
+    t = InductiveTrainer(ds, batch_size=4, mesh=mesh, **INDUCTIVE)
+    t.model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    r = t.fit(epochs=3, log=lambda rec: None)
+    res = {"losses": r["epoch_train_loss"], "test_f1": r["test_micro_f1"],
+           "state": _state(t.model)}
+    cfg = preset("ppi")
+    cfg.mesh.graph_axis, cfg.train.epochs = mesh.size, 1
+    cfg.train.checkpoint_dir = f"{root}/run"
+    r = ttrainer.run(cfg, ds, device="cpu")
+    res["run"] = {"losses": r["epoch_train_loss"], "test_f1": r["test_micro_f1"]}
+    runs = {}
+    for name, epochs, resume in (("uninterrupted", 3, False), ("first", 2, False),
+                                 ("resumed", 3, True)):
+        t = InductiveTrainer(ds, batch_size=2, mesh=mesh, attn_drop=0.3, ffd_drop=0.3,
+                             checkpoint_dir=f"{root}/{'a' if name == 'uninterrupted' else 'b'}",
+                             checkpoint_every=1, **INDUCTIVE)
+        r = t.fit(epochs=epochs, log=lambda rec: None, resume=resume)
+        runs[name] = {"losses": r["epoch_train_loss"], "state": _state(t.model)}
+    res["resume"] = runs
+    return res
 
 
 def _fail_on_load():
