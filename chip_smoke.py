@@ -54,10 +54,11 @@ together, and the C++ sampler), then drives the ported paths:
   through flash, through csr and with model.impl=auto (phase 4k: csr on
   the BCSR graph's edge view, no flash launch; at dropout 0 its losses
   against csr's), captured, and profiles the flash and csr steps captured
-  and eager; then trains the ppi preset (the inductive trainer, eager;
+  and eager; then trains the ppi preset (the inductive trainer, captured;
   dense attention) 3 epochs at full width on 24 synthetic graphs of PPI's
-  size, and one epoch of its data-parallel batches on a one-rank NCCL
-  world against the one-device trainer (phase 4e', DP_TOL);
+  size, held to an eager run (CAPTURE_TOL), and one epoch of its
+  data-parallel batches on a one-rank NCCL world (captured) against the
+  one-device trainer (phase 4e', DP_TOL);
 - multi-device: in a world of torch.cuda.device_count() NCCL ranks (one
   process per card, spawned), trains the dblp preset 10 epochs with
   graph_format partitioned_bcsr, then ring_bcsr under
@@ -65,31 +66,34 @@ together, and the C++ sampler), then drives the ported paths:
   (PartitionedCSR, shard_attn.py) and ring (PartitionedCSR2D,
   ring_attn.py) at dropout 0, and partitioned_bcsr with vmap_towers (the
   stacked PartitionedBCSR, batched split backward), and holds each loss
-  trajectory against its one-device run (the mesh runs eagerly; on one
-  card every mesh axis has one rank: the heads and mp grids are held on
-  gloo worlds by the CPU tests); then, on one card under deterministic
-  mode at dropout 0, the
-  captured split-backward step twice (is it bitwise repeatable?) and
-  eagerly, and the dblp resume above under deterministic mode (losses
-  within rtol 1e-6, DETERMINISTIC_RESUME_TOL);
+  trajectory against its one-device run (on one card every mesh axis has
+  one rank and no process group, so every run is captured, each median
+  step printed beside its eager one before capture; the heads and mp grids are
+  held on gloo worlds by the CPU tests); then, on one card under
+  deterministic mode at dropout 0, the captured split-backward step twice
+  (is it bitwise repeatable?) and eagerly, and the dblp resume above
+  under deterministic mode (losses within rtol 1e-6,
+  DETERMINISTIC_RESUME_TOL);
 - sampled: holds the ell_fused kernel against its plain version at the
   sampled block's shape (and at a large odd fanout, at D = 3 and at K·D =
   256), trains the 100M-edge
   sampled configuration (500,000 nodes, 2 meta-paths of degree 100, acm
   preset widths, batch 512, fanout 16, the host sampler, impl ell_fused)
-  for 2 epochs through run(), runs 10 steps of the device sampler
-  (captured), and holds the device sampler with steps_per_call 4 (one
-  graph of 4 steps) against 1 at dropout 0 over 2 epochs of 16 steps
-  (SAMPLED_CHUNK_TOL), with both median steps; then preempts the
-  configuration mid-epoch (2 epochs of 8 steps, dropouts 0.6; the device
-  sampler at steps_per_call 4, and the host sampler) and resumes it in a
-  fresh trainer, its per-step losses held to the uninterrupted run's
-  (SAMPLED_CHUNK_TOL); holds ell_fused on bf16 features to its plain
-  version at the same shapes (phase 3g, ELL_BF16_TOL); and runs
-  DPSampledTrainer on a one-rank NCCL world at the configuration's widths
-  (100,000 nodes, 10 steps, dropout 0) against SampledTrainer (DP_TOL),
-  a bf16 run of it through ell_fused and its device-sampler refusal
-  (phase 7d).
+  for 2 epochs through run(), captured (one graph launch a step), holds
+  its captured steps at dropout 0 to eager ones over 16 batches
+  (SAMPLED_CHUNK_TOL, with both peaks of memory), runs 10 steps of the
+  device sampler (captured), and holds the device sampler with
+  steps_per_call 4 (one graph of 4 steps) against 1 at dropout 0 over 2
+  epochs of 16 steps (SAMPLED_CHUNK_TOL), with both median steps; then
+  preempts the configuration mid-epoch (2 epochs of 8 steps, dropouts
+  0.6; the device sampler at steps_per_call 4, and the host sampler) and
+  resumes it in a fresh trainer, every run captured, its per-step losses
+  held to the uninterrupted run's (SAMPLED_CHUNK_TOL); holds ell_fused on
+  bf16 features to its plain version at the same shapes (phase 3g,
+  ELL_BF16_TOL); and runs DPSampledTrainer on a one-rank NCCL world at
+  the configuration's widths (100,000 nodes, 10 steps, dropout 0) against
+  SampledTrainer (DP_TOL), both captured, a bf16 run of it through
+  ell_fused (captured) and its device-sampler refusal (phase 7d).
 
 - bf16 features: the flash kernels with bf16 v against their plain
   versions at the DBLP shape (dropout 0 and 0.6), and 3 epochs of the dblp
@@ -433,7 +437,7 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
 
     # -- phase 4e: the ppi preset at full width (dense attention) -----------
-    train_ppi(dev)
+    train_ppi(dev, card)
     torch.cuda.empty_cache()
 
     # -- phase 4b: multi-device training through the partitioned backends ----
@@ -1432,8 +1436,9 @@ def mesh_train_rank(epochs: int) -> dict:
     (PartitionedCSR) and ring (PartitionedCSR2D) at dropout 0, and
     partitioned_bcsr with vmap_towers under deterministic mode (the stacked
     PartitionedBCSR: its strips in one batched launch of the forward and of
-    each sweep; mp axis 1); each run's losses, step time,
-    memory and launch counts (MESH_RUNS). Then, on this
+    each sweep; mp axis 1); each run's losses, whether it was captured
+    (it is where the mesh's axes hold no process group: one rank), step
+    time, memory and launch counts (MESH_RUNS). Then, on this
     rank's card alone (bcsr), deterministic mode at dropout 0: the split
     backward captured twice and run eagerly once, for whether the captured
     step repeats bitwise; and dblp_resume (phase 4g) in deterministic
@@ -1468,9 +1473,10 @@ def mesh_train_rank(epochs: int) -> dict:
         finally:
             torch.use_deterministic_algorithms(False)
         out[label] = {"losses": result["epoch_train_loss"], "test_loss": result["test_loss"],
-                    "median_step_ms": statistics.median(result["epoch_step_time_s"][1:]) * 1e3,
-                    "max_memory_allocated": result["max_memory_allocated"],
-                    "launches": {k: getattr(fg, v) for k, v in counters.items()}}
+                      "captured": result["captured"],
+                      "median_step_ms": statistics.median(result["epoch_step_time_s"][1:]) * 1e3,
+                      "max_memory_allocated": result["max_memory_allocated"],
+                      "launches": {k: getattr(fg, v) for k, v in counters.items()}}
     from han_tpu_torch.train.trainer import MetricLogger, Trainer
 
     for name, capture in (("captured", None), ("captured again", None), ("eager", False)):
@@ -1499,6 +1505,12 @@ def mesh_train_rank(epochs: int) -> dict:
     return out
 
 
+# phase 4b's median eager steps on one NCCL rank, measured by this script
+# before the mesh steps were captured (NVIDIA H100 80GB HBM3, 700.00 W)
+MESH_EAGER_MS = {"partitioned_bcsr": 13.210, "ring_bcsr": 14.653, "csr": 52.826,
+                 "ring": 78.774, "partitioned_bcsr stacked": 7.752}
+
+
 def train_multi_device(want_losses, want_dropout0, want_stacked, epochs: int,
                        n_mp: int) -> dict:
     """Phase 4b: mesh_train_rank in a world of one NCCL rank per card. Each
@@ -1510,7 +1522,11 @@ def train_multi_device(want_losses, want_dropout0, want_stacked, epochs: int,
     rank and epoch, the forward on every train and eval pass (S steps a
     pass on the ring; one batched launch a pass when stacked), the fused
     backward on the partitioned run, the split pair and no fused backward
-    on the deterministic runs, no flash kernel on the csr runs.
+    on the deterministic runs, no flash kernel on the csr runs (a replay
+    adds its capture's launches). On one card the world has one rank, its
+    axes no process group, and every run must be captured; each captured
+    median step is printed beside its eager one before capture
+    (MESH_EAGER_MS).
     CUBLAS_WORKSPACE_CONFIG, which deterministic mode needs, is set in the
     ranks only, so the phases in this process keep their numbers."""
     import numpy as np
@@ -1544,12 +1560,16 @@ def train_multi_device(want_losses, want_dropout0, want_stacked, epochs: int,
             fail(f"{fmt}: losses {got} do not match the one-device run {ref}")
         if run["launches"] != want[fmt]:
             fail(f"{fmt}: launches {run['launches']}, want {want[fmt]}")
+        if run["captured"] != (world == 1):
+            fail(f"{fmt}: captured {run['captured']} on a world of {world} rank(s) (a mesh "
+                 "captures where its axes hold no process group)")
         dev = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
         det_mode = any(r[0] == fmt and r[2] for r in MESH_RUNS)
         print(f"{fmt} (graph axis {world}{', deterministic' if det_mode else ''}): "
               f"losses {got[0]:.5f} -> {got[-1]:.5f}, largest relative difference from the "
               f"one-device run {dev:.3e}; launches {run['launches']}; median step "
-              f"{run['median_step_ms']:.3f} ms, max_memory_allocated "
+              f"{run['median_step_ms']:.3f} ms {'captured' if run['captured'] else 'eager'} "
+              f"(eager {MESH_EAGER_MS[fmt]} ms before capture), max_memory_allocated "
               f"{run['max_memory_allocated']} B", flush=True)
     split = {"fwd": passes, "bwd": 0, "row": n_mp * epochs, "col": n_mp * epochs}
     for name, run in det.items():
@@ -1710,13 +1730,17 @@ def check_ell_fused(dev, shapes=ELL_SHAPES, dtype: str = "float32") -> dict:
 
 def train_sampled(dev, native, card: str) -> int:
     """Phase 7: the 100M-edge sampled configuration through run() for 2
-    epochs with the host sampler and impl ell_fused; then the host/device
-    split of its step; then 10 steps of the device sampler through run()
-    (captured). Phase 7b: the device sampler with steps_per_call 4
+    epochs with the host sampler and impl ell_fused, its train and eval
+    steps captured; then the host/device split of its step (one graph
+    launch a step); then its captured and eager (capture=False) runs at
+    dropout 0 over the same 16 batches, whose per-step losses agree within
+    SAMPLED_CHUNK_TOL, with their peak memory; then 10 steps of the device
+    sampler through run() (captured). Phase 7b: the device sampler with steps_per_call 4
     against 1 at dropout 0, 2 epochs of 16 steps each (cut from the
     configuration's 30), whose per-step losses agree within
     SAMPLED_CHUNK_TOL; both median steps, their device split and launches.
-    Returns the ell_fused launches of the 2-epoch run."""
+    Returns the ell_fused launches of the host sampler's runs (the 2-epoch
+    run, the dropout-0 pair and phase 7c's)."""
     import numpy as np
     import torch
 
@@ -1751,6 +1775,8 @@ def train_sampled(dev, native, card: str) -> int:
     torch.cuda.synchronize()
     launches = ef.ell_fused_launches
     losses = result["epoch_train_loss"]
+    if not result["captured"]:
+        fail("the host sampler's steps were not captured")
     if len(losses) != 2 or not all(np.isfinite(losses)) or not np.isfinite(result["test_loss"]):
         fail(f"sampled train losses not finite or short: {losses}, test {result['test_loss']}")
     if not losses[-1] < losses[0]:
@@ -1764,18 +1790,54 @@ def train_sampled(dev, native, card: str) -> int:
     print(f"sampled train: losses {losses[0]:.5f} -> {losses[-1]:.5f}, test_acc "
           f"{result['test_acc']:.4f}; ell_fused launches {launches} = {n_mp} per "
           f"train step ({steps}) and eval batch ({eval_batches})", flush=True)
-    print(f"sampled train: median step {step_ms:.3f} ms, host block (prefetch thread) "
-          f"{result['median_host_block_ms']:.3f} ms, sampled edges·heads/s "
-          f"{result['edges_heads_per_s']:.1f}, max_memory_allocated "
-          f"{result.get('max_memory_allocated')} B", flush=True)
+    print(f"sampled train (captured): median step {step_ms:.3f} ms (eager 13.827 ms before "
+          f"capture), host block (prefetch thread) {result['median_host_block_ms']:.3f} ms, "
+          f"sampled edges·heads/s {result['edges_heads_per_s']:.1f}, max_memory_allocated "
+          f"{result.get('max_memory_allocated')} B; {card}", flush=True)
 
     split = step_breakdown(SampledTrainer(ds, cfg_for("host", 1), device=dev),
                            np.where(ds.train_mask)[0])
     dev_ms = split["device_ms"]
-    print(f"sampled step split: host block {split['host_block_ms']:.3f} ms, device "
+    if split["graph_launches"] != 1:
+        fail(f"host sampler: {split['graph_launches']} graph launches a train step, want 1")
+    print(f"sampled step split (captured): host block {split['host_block_ms']:.3f} ms, device "
           + (f"{dev_ms:.3f} ms (share {dev_ms / step_ms:.3f} of the median step)"
-             if dev_ms else "not measured (the profiler recorded no device events)"),
+             if dev_ms else "not measured (the profiler recorded no device events)")
+          + f", launches a step {split['kernel_launches']:g} kernels + "
+          f"{split['graph_launches']:g} graphs; {card}", flush=True)
+
+    # -- the captured host-sampler step against the eager one, dropout 0
+    ds16 = dataclasses.replace(ds, train_mask=np.arange(ds.n_nodes) < 16 * 512)
+    runs = {}
+    for name, capture in (("captured", None), ("eager", False)):
+        cfg = cfg_for("host", 1)
+        cfg.model.attn_drop = cfg.model.ffd_drop = 0.0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ef.ell_fused_launches = 0
+        r = SampledTrainer(ds16, cfg, batch_size=512, fanout=16, capture=capture, device=dev,
+                           logger=MetricLogger(echo=False)).fit()
+        torch.cuda.synchronize()
+        runs[name] = dict(r, ell=ef.ell_fused_launches)
+        launches += ef.ell_fused_launches
+    cap, eager = runs["captured"], runs["eager"]
+    want = n_mp * (16 + 1 + 2_048 // 512)
+    if (not cap["captured"] or eager["captured"] or cap["ell"] != want or eager["ell"] != want
+            or not np.allclose(cap["step_train_loss"], eager["step_train_loss"],
+                               **SAMPLED_CHUNK_TOL)):
+        fail(f"host sampler at dropout 0: captured {cap['captured']} / {eager['captured']}, "
+             f"ell_fused launches {cap['ell']} / {eager['ell']} (want {want}), per-step losses "
+             f"{cap['step_train_loss']} against {eager['step_train_loss']}")
+    peak = cap["max_memory_allocated"] / eager["max_memory_allocated"]
+    diff = max(abs(a - b) for a, b in zip(cap["step_train_loss"], eager["step_train_loss"]))
+    print(f"host sampler at dropout 0, 16 steps: captured per-step losses within "
+          f"{SAMPLED_CHUNK_TOL} of eager (largest difference {diff:.3e}); median step captured {cap['median_step_time_s'] * 1e3:.3f} ms, eager "
+          f"{eager['median_step_time_s'] * 1e3:.3f} ms; host block "
+          f"{cap['median_host_block_ms']:.3f} / {eager['median_host_block_ms']:.3f} ms; "
+          f"max_memory_allocated {cap['max_memory_allocated']} / "
+          f"{eager['max_memory_allocated']} B (captured / eager {peak:.3f}); {card}",
           flush=True)
+    del ds16
 
     # device sampler: 10 train steps, one val and four test batches
     ds10 = dataclasses.replace(ds, train_mask=np.arange(ds.n_nodes) < 10 * 512)
@@ -1860,12 +1922,14 @@ def train_dp_sampled(dev, card: str, steps: int = 10) -> dict:
     configuration's widths (acm preset: hid 8, heads (8, 1), semantic 128;
     batch 512, fanout 16, the host sampler, ell_fused) on the
     configuration's generator cut to 100,000 nodes (2 meta-paths of degree
-    100, 20 M edges; time), one epoch of ``steps`` steps at dropout 0:
-    its per-step losses and test metrics against SampledTrainer's on the
-    same seeds (DP_TOL), ell_fused launches exact (2 a train step and an
-    eval batch, one val and four test batches); a bf16 run
-    (model.dtype=bfloat16, impl=auto: ell_fused takes bf16) of 3 steps,
-    launches exact; the device sampler refused (NotImplementedError).
+    100, 20 M edges; time), one epoch of ``steps`` steps at dropout 0,
+    both captured (the axis of one rank holds no process group): its
+    per-step losses and test metrics against SampledTrainer's on the
+    same seeds (DP_TOL, which is SAMPLED_CHUNK_TOL), ell_fused launches
+    exact (2 a train step and an eval batch, one val and four test
+    batches); a bf16 run (model.dtype=bfloat16, impl=auto: ell_fused takes
+    bf16) of 3 steps, captured, launches exact; the device sampler refused
+    (NotImplementedError).
     Returns the ell_fused launches of the f32 and bf16 DP runs."""
     import numpy as np
     import torch
@@ -1906,6 +1970,9 @@ def train_dp_sampled(dev, card: str, steps: int = 10) -> dict:
             runs[label] = dict(r, ell=ef.ell_fused_launches, build_s=build_s)
             del t
         one, dp = runs["SampledTrainer"], runs["DPSampledTrainer"]
+        if not (one["captured"] and dp["captured"]):
+            fail(f"phase 7d: captured {one['captured']} (SampledTrainer), {dp['captured']} "
+                 "(DPSampledTrainer on one NCCL rank)")
         want = n_mp * (steps + 1 + 4)
         if dp["ell"] != want or one["ell"] != want:
             fail(f"phase 7d: ell_fused launches {dp['ell']} / {one['ell']}, want {want}")
@@ -1917,9 +1984,10 @@ def train_dp_sampled(dev, card: str, steps: int = 10) -> dict:
         print(f"DPSampledTrainer (one NCCL rank) against SampledTrainer, dropout 0, {steps} "
               f"steps: per-step losses within {DP_TOL} (largest difference "
               f"{max(abs(a - b) for a, b in zip(dp['step_train_loss'], one['step_train_loss'])):.3e}"
-              f"), ell_fused launches {dp['ell']}; median step {dp['median_step_time_s'] * 1e3:.3f}"
-              f" ms against {one['median_step_time_s'] * 1e3:.3f} ms, host block "
-              f"{dp['median_host_block_ms']:.3f} / {one['median_host_block_ms']:.3f} ms; trainer "
+              f"), ell_fused launches {dp['ell']}; both captured, median step "
+              f"{dp['median_step_time_s'] * 1e3:.3f} ms against "
+              f"{one['median_step_time_s'] * 1e3:.3f} ms (eager 14.781 / 14.673 ms before "
+              f"capture), host block {dp['median_host_block_ms']:.3f} / {one['median_host_block_ms']:.3f} ms; trainer "
               f"built in {dp['build_s']:.2f} / {one['build_s']:.2f} s; {card}", flush=True)
 
         ds3 = dataclasses.replace(ds, train_mask=np.arange(ds.n_nodes) < 3 * 512)
@@ -1930,10 +1998,11 @@ def train_dp_sampled(dev, card: str, steps: int = 10) -> dict:
         torch.cuda.synchronize()
         bf16_n = ef.ell_fused_launches
         if (cfg.model.impl != "ell_fused" or bf16_n != n_mp * (3 + 1 + 4)
-                or not np.isfinite(r16["step_train_loss"]).all()):
+                or not np.isfinite(r16["step_train_loss"]).all() or not r16["captured"]):
             fail(f"phase 7d bf16: impl {cfg.model.impl}, ell_fused launches {bf16_n} (want "
-                 f"{n_mp * 8}), losses {r16['step_train_loss']}")
-        print(f"DPSampledTrainer, bf16 features (impl=auto -> ell_fused), 3 steps: losses "
+                 f"{n_mp * 8}), losses {r16['step_train_loss']}, captured {r16['captured']}")
+        print(f"DPSampledTrainer, bf16 features (impl=auto -> ell_fused), 3 steps, captured: "
+              f"losses "
               f"{', '.join(f'{x:.5f}' for x in r16['step_train_loss'])}, ell_fused launches "
               f"{bf16_n}; median step {r16['median_step_time_s'] * 1e3:.3f} ms; {card}",
               flush=True)
@@ -1951,7 +2020,9 @@ def sampled_resume(ds, dev, cfg_for, card: str, steps: int = 8, epochs: int = 2)
     (the guard polled once a dispatch: with the device sampler at
     steps_per_call 4 after the third dispatch, epoch 1 cursor 4; with the
     host sampler after the eleventh, epoch 1 cursor 3, the batch its
-    prefetch thread holds dropped); then resumed in a fresh trainer. The
+    prefetch thread holds dropped); then resumed in a fresh trainer. Every
+    run of both samplers is captured (the resumed run's first step eager,
+    where the uninterrupted run replays). The
     per-step losses of the preempted and resumed runs agree with the
     uninterrupted run's within SAMPLED_CHUNK_TOL, and so do the test
     metrics; launch and call counts exact. Returns the ell_fused launches
@@ -2015,7 +2086,7 @@ def sampled_resume(ds, dev, cfg_for, card: str, steps: int = 8, epochs: int = 2)
         blocks = n_mp * (2 * epochs * steps + 2 * epochs + 2 * 4)
         got_n = tree_ell.tree_ell_calls if sampler == "device" else ef.ell_fused_launches
         other = ef.ell_fused_launches if sampler == "device" else tree_ell.tree_ell_calls
-        if got_n != blocks or other or not (a["captured"] == c["captured"] == (sampler == "device")):
+        if got_n != blocks or other or not (a["captured"] and c["captured"]):
             fail(f"{label}: {got_n} blocks through its attention (want {blocks}), {other} "
                  f"through the other; captured {a['captured']} / {c['captured']}")
         ell_n += ef.ell_fused_launches
@@ -2418,15 +2489,19 @@ def train_pubmed(dev, card: str, epochs: int = 10) -> dict:
     return {"launches": launches, "err": err, "kernels": kernels}
 
 
-def train_ppi(dev, epochs: int = 3) -> None:
+def train_ppi(dev, card: str, epochs: int = 3) -> None:
     """Phase 4e: the ppi preset (GAT, hid (256, 256), heads (4, 4, 6),
     residual, no dropout; batches of 2 graphs, dense attention) through
     run() at full width on ppi_synthetic with PPI's shape: 24 graphs of
-    1,600-3,200 nodes (about 2,400 a graph), 50 features, 121 labels.
-    Losses finite, the train loss falling, micro-F1 in [0, 1]. Phase 4e':
-    the inductive trainer's data-parallel batches on a one-rank NCCL world
-    (the preset's widths, batches of 2, one epoch) against the one-device
-    trainer: train loss, test loss and micro-F1 within DP_TOL."""
+    1,600-3,200 nodes (about 2,400 a graph), 50 features, 121 labels;
+    its train step and evaluation batches captured as CUDA graphs. Losses
+    finite, the train loss falling, micro-F1 in [0, 1], the losses within
+    CAPTURE_TOL of an eager run of the same trainer (capture=False; the
+    preset has no dropout), both median steps printed. Phase 4e': the
+    inductive trainer's data-parallel batches on a one-rank NCCL world
+    (the preset's widths, batches of 2, one epoch; captured, its axis
+    holding no process group) against the one-device trainer (captured):
+    train loss, test loss and micro-F1 within DP_TOL."""
     import numpy as np
     import torch
 
@@ -2449,6 +2524,8 @@ def train_ppi(dev, epochs: int = 3) -> None:
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     result = run(cfg, ds, device=dev)
+    if not result["captured"]:
+        fail("ppi: the inductive trainer's steps were not captured")
     losses = result["epoch_train_loss"]
     if len(losses) != epochs or not all(np.isfinite(losses)) or not np.isfinite(result["test_loss"]):
         fail(f"ppi: losses {losses}, test loss {result['test_loss']}")
@@ -2461,12 +2538,25 @@ def train_ppi(dev, epochs: int = 3) -> None:
           f"{result['test_micro_f1']:.4f}; median step {result['median_step_time_s'] * 1e3:.3f} "
           f"ms, max_memory_allocated {result['max_memory_allocated']} B; "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-
-    # -- phase 4e': the data-parallel batches on a one-rank NCCL world
     m = cfg.model
     kw = dict(hid_units=tuple(m.hid_units), n_heads=tuple(m.n_heads), lr=cfg.train.lr,
               l2_coef=cfg.train.l2_coef, residual=m.residual, attn_drop=m.attn_drop,
               ffd_drop=m.ffd_drop, batch_size=2, seed=cfg.train.seed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eager = InductiveTrainer(ds, **kw, device=dev, capture=False).fit(
+        epochs=epochs, log=lambda rec: None)
+    if eager["captured"] or not np.allclose(losses, eager["epoch_train_loss"], **CAPTURE_TOL):
+        fail(f"ppi: captured losses {losses} against eager {eager['epoch_train_loss']} "
+             f"(captured {eager['captured']})")
+    print(f"ppi preset, captured against eager ({epochs} epochs): losses within {CAPTURE_TOL} "
+          f"(largest relative difference "
+          f"{max(abs(a - b) / abs(b) for a, b in zip(losses, eager['epoch_train_loss'])):.3e}); "
+          f"median step captured {result['median_step_time_s'] * 1e3:.3f} ms, eager "
+          f"{eager['median_step_time_s'] * 1e3:.3f} ms (eager 27.647 ms before capture), "
+          f"max_memory_allocated {result['max_memory_allocated']} / "
+          f"{eager['max_memory_allocated']} B; {card}", flush=True)
+
+    # -- phase 4e': the data-parallel batches on a one-rank NCCL world
     with OneRankNCCL(dev):
         runs = {}
         for label, extra in (("one device", dict(device=dev)),
@@ -2476,16 +2566,20 @@ def train_ppi(dev, epochs: int = 3) -> None:
             torch.cuda.synchronize()
             runs[label] = dict(r, s=time.perf_counter() - t0)
     one, dp = runs["one device"], runs["data-parallel"]
+    if not (one["captured"] and dp["captured"]):
+        fail(f"phase 4e': captured {one['captured']} (one device), {dp['captured']} "
+             "(data-parallel, one NCCL rank)")
     if not np.allclose(dp["epoch_train_loss"] + [dp["test_loss"], dp["test_micro_f1"]],
                        one["epoch_train_loss"] + [one["test_loss"], one["test_micro_f1"]],
                        **DP_TOL):
         fail(f"phase 4e': the data-parallel inductive trainer {dp['epoch_train_loss']} / "
              f"{dp['test_loss']} against {one['epoch_train_loss']} / {one['test_loss']}")
-    print(f"ppi, data-parallel batches on one NCCL rank (phase 4e'), 1 epoch: train loss "
-          f"{dp['epoch_train_loss'][0]:.6f} against {one['epoch_train_loss'][0]:.6f}, test "
-          f"micro-F1 {dp['test_micro_f1']:.4f} ({DP_TOL}); median step "
-          f"{dp['median_step_time_s'] * 1e3:.3f} / {one['median_step_time_s'] * 1e3:.3f} ms; "
-          f"{dp['s']:.2f} / {one['s']:.2f} s", flush=True)
+    print(f"ppi, data-parallel batches on one NCCL rank (phase 4e'), 1 epoch, both "
+          f"captured: train loss {dp['epoch_train_loss'][0]:.6f} against "
+          f"{one['epoch_train_loss'][0]:.6f}, test micro-F1 {dp['test_micro_f1']:.4f} "
+          f"({DP_TOL}); median step {dp['median_step_time_s'] * 1e3:.3f} / "
+          f"{one['median_step_time_s'] * 1e3:.3f} ms (eager 27.680 / 27.588 ms before capture); "
+          f"{dp['s']:.2f} / {one['s']:.2f} s; {card}", flush=True)
 
 
 CAL_COUNTERS = {"prim": "prim_launches", "fwd_strip": "fwd_strip_launches",

@@ -15,7 +15,8 @@ never changes a result:
 - PartitionedBCSR: per-shard arrays gain the P axis, (P, S, ...); each
   meta-path's strips are edge-balanced on their own, so the row strips
   widen to the largest ``n_loc`` (zero-count row blocks) and ``perm`` is
-  remapped into the widened slots.
+  remapped into the widened slots; the strips' row-block offsets are kept
+  on the stack's device too, as the kernels read them.
 - CSRGraph: edge arrays padded with the sentinel ``n_nodes`` to the
   longest; ``n_edges`` becomes the largest (the pads beyond a graph's own
   count point at the sentinel row, which every consumer drops).
@@ -117,7 +118,9 @@ def stack_graphs(graphs: Sequence):
             row_block_off=tuple(g.row_block_off for g in graphs),
             perm=stack([fixed_perm(g) for g in graphs]),
             n_nodes=g0.n_nodes, n_pad=g0.n_pad, n_loc=n_loc, bm=g0.bm, bn=g0.bn,
-            n_edges=max(g.n_edges for g in graphs), n_shards=g0.n_shards, mesh=g0.mesh)
+            n_edges=max(g.n_edges for g in graphs), n_shards=g0.n_shards, mesh=g0.mesh,
+            path_row_block_off=torch.tensor([g.row_block_off for g in graphs],
+                                            dtype=torch.int32, device=g0.perm.device))
 
     if isinstance(g0, CSRGraph):
         e_pad = max(g.e_pad for g in graphs)

@@ -55,7 +55,9 @@ class PartitionedBCSR:
                rank of the default process group
 
     A stack of P partitions (graph/stack.py) has a leading P axis on every
-    array and P tuples of offsets.
+    array and P tuples of offsets, and ``path_row_block_off``: the offsets
+    as int32[P, S] on the stack's device, which the kernels read (made when
+    the stack is, so that a captured step copies nothing from the host).
     """
 
     tiles: torch.Tensor
@@ -75,6 +77,7 @@ class PartitionedBCSR:
     n_edges: int
     n_shards: int
     mesh: Mesh | None = None
+    path_row_block_off: torch.Tensor | None = None
 
     @property
     def n_paths(self) -> int | None:
@@ -97,13 +100,13 @@ class PartitionedBCSR:
             bwd_tile=pick(self.bwd_tile), n_nodes=self.n_loc, n_pad=self.n_loc,
             bm=self.bm, bn=self.bn, n_edges=0, n_tiles=int(self.tiles.shape[-3]))
 
-    def strip_row_block_off(self, s: int, device) -> int | torch.Tensor:
+    def strip_row_block_off(self, s: int) -> int | torch.Tensor:
         """Shard s's first global row block: an int, or of a stack, an int32
-        tensor of one a path on ``device`` (the kernels read it there)."""
+        tensor of one a path on the stack's device (the kernels read it
+        there)."""
         if self.n_paths is None:
             return self.row_block_off[s]
-        return torch.tensor([off[s] for off in self.row_block_off], dtype=torch.int32,
-                            device=device)
+        return self.path_row_block_off[:, s].contiguous()
 
     def to(self, device) -> "PartitionedBCSR":
         return _to(self, device)
@@ -215,8 +218,9 @@ def sharded_flash_attention(
     instantiations; logits, lse and the strips' partial sums stay f32 (the
     partial gradients of the features are summed over the graph axis in
     f32), and the output comes in ``fts.dtype`` (han_tpu computes in f32
-    and casts back, flash_shard.py:189-192,241). Runs eagerly: a captured
-    step with NCCL collectives inside is not ported."""
+    and casts back, flash_shard.py:189-192,241). Captured in a step where
+    the mesh's axes hold no process group (train/graphed.py); eager with one
+    (NCCL collectives inside a captured step are not ported)."""
     fg.check_args(slope, coef_dropout, generator, fts)
     mesh = mesh or graph.mesh or make_mesh(device=fts.device)
     ax_g, ax_h = mesh.graph, mesh.heads
@@ -251,7 +255,7 @@ def sharded_flash_attention(
     ld = local_heads(local_rows(ld_all, ax_g, dim=-2), ax_h, dim=-1)  # ([P,] n_loc, k_loc)
     meta = fg.FlashMeta(slope=float(slope), dropout_p=float(coef_dropout),
                         seed=fg.draw_path_seeds(coef_dropout, generator, n_paths or 1, towers),
-                        row_block_offset=graph.strip_row_block_off(s, fts.device),
+                        row_block_offset=graph.strip_row_block_off(s),
                         head_offset=ax_h.rank * k_loc)
     out = fg._FlashGAT.apply(ld.transpose(-1, -2).contiguous(), ls, v, graph.strip(s), meta)
     out = gather_heads(out.view(*lead, graph.n_loc, k_loc, d), ax_h)

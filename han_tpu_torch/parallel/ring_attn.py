@@ -16,8 +16,8 @@ first, over every bucket (han_tpu l.103-139), and the coefficients are
 exact. On a heads axis each rank runs its K / heads heads. Coefficient
 dropout draws one stream per (destination shard, source shard, heads
 rank), as han_tpu folds the three into its key (l.154-161), through the
-counter hash of shard_attn.py. It runs eagerly, as the other ring does; the
-last rotation, which han_tpu's uniform loop makes and never reads, is
+counter hash of shard_attn.py. Its S steps are a Python loop, as the other
+ring's are; the last rotation, which han_tpu's uniform loop makes and never reads, is
 skipped.
 """
 
@@ -163,8 +163,9 @@ def ring_attention(
         for b in range(s_n):
             le, _ = bucket_logits(b)
             m = m.scatter_reduce(0, rl_all[b][:, None].expand(-1, k_loc), le, reduce="amax")
-        m = torch.maximum(torch.where(torch.isfinite(m), m, 0.0),
-                          torch.tensor(MASK_VALUE * 0.5, device=m.device))
+        # a scalar bound, not a tensor made from a host value: no copy to
+        # the card inside a captured step
+        m = torch.where(torch.isfinite(m), m, 0.0).clamp_min(MASK_VALUE * 0.5)
     denom = ld.new_zeros((n_seg, k_loc))
     for b in range(s_n):
         le, valid = bucket_logits(b)

@@ -284,8 +284,9 @@ def ring_flash_attention(
     the kernels' bf16 instantiations; logits, lse, delta, the merge of the
     steps' partial outputs and the rotating gradients stay f32, and the
     output comes in ``fts.dtype`` (han_tpu computes in f32 and casts back,
-    ring_bcsr.py:360-362,408). Runs eagerly: a captured step with NCCL
-    collectives inside is not ported."""
+    ring_bcsr.py:360-362,408). Captured in a step where the mesh's axes
+    hold no process group (train/graphed.py); eager with one (NCCL
+    collectives inside a captured step are not ported)."""
     fg.check_args(slope, coef_dropout, generator, fts)
     mesh = mesh or graph.mesh or make_mesh(device=fts.device)
     ax_g, ax_h = mesh.graph, mesh.heads

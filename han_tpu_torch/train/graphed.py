@@ -2,7 +2,9 @@
 port's counterpart of han_tpu's jitted steps (han_tpu/train/trainer.py
 :236-294, one program a full-graph step or evaluation;
 han_tpu/train/sampled.py:401-416, ``lax.scan`` over C seed descriptors in
-one dispatch).
+one dispatch; han_tpu/train/sampled.py:297-350, the host-sampled block's
+step, compiled once for its static shapes; han_tpu/train/inductive.py
+:114-121, the step over a padded graph batch).
 
 :class:`GraphedStep` runs ``body(*inputs)`` eagerly for its first
 ``warmup`` calls (the first call of a trainer builds the kernels, creates
@@ -30,15 +32,20 @@ There is no fallback: a capture or replay that fails raises. With
 ``capture=False`` (the CPU, or a caller that asks for eager steps) every
 call runs the body eagerly.
 
-Not captured: the graph-axis mesh (NCCL collectives inside the step), the
-host sampler's step, and the inductive trainer; ``want_capture`` raises
-when such a run asks for capture.
+What captures (``want_capture``): every step of a run on one CUDA device
+whose mesh axes hold no process group (``Axis.group is None``): one card,
+or a mesh whose every axis has one rank, where each collective is the
+identity. That is the full-graph step and evaluation on every format the
+mesh runs, the host and device samplers' steps and evaluations (one graph
+a block shape), and the inductive step over its padded graph batch. A run
+with a process group on an axis runs eagerly: NCCL collectives inside a
+captured graph are not ported, and ``capture=True`` raises there.
 """
 
 from __future__ import annotations
 
 import weakref
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Iterable, Sequence
 
 import torch
 
@@ -53,16 +60,20 @@ COUNTERS = tuple((mod, name) for mod, names in (
     (tree_ell, ("tree_ell_calls",))) for name in names)
 
 
-def want_capture(capture: bool | None, device: torch.device,
-                 not_ported: str | None = None) -> bool:
-    """Whether a trainer captures its steps. None: on for a CUDA device
-    unless ``not_ported`` names why this run cannot be captured, off on the
-    CPU. True where ``not_ported`` is given raises NotImplementedError with
-    that reason, True on the CPU ValueError."""
+def want_capture(capture: bool | None, device: torch.device, axes: Iterable = ()) -> bool:
+    """Whether a trainer captures its steps. ``axes``: the mesh axes of the
+    run (``parallel/mesh.Axis``; none on one device). None: on for a CUDA
+    device when no axis holds a process group, else off. True where an
+    axis holds a group raises NotImplementedError, True on the CPU
+    ValueError."""
+    grouped = any(ax.group is not None for ax in axes)
     if capture is None:
-        return device.type == "cuda" and not_ported is None
-    if capture and not_ported is not None:
-        raise NotImplementedError(f"capture=True: {not_ported}")
+        return device.type == "cuda" and not grouped
+    if capture and grouped:
+        raise NotImplementedError(
+            "capture=True: a mesh axis of this run holds a process group, and NCCL "
+            "collectives inside a captured CUDA graph are not ported (the run's steps run "
+            "eagerly with capture=None)")
     if capture and device.type != "cuda":
         raise ValueError(f"capture=True needs a CUDA device, got {device} (steps on the "
                          "CPU run eagerly: pass capture=None or False)")

@@ -4,9 +4,16 @@ multi-label sigmoid loss and micro-F1 (reference base_gattn.py:50-59,71-94;
 batching semantics from utils/process_ppi.py).
 
 The B graphs of a batch run as a loop over ``DenseGraph``s (han_tpu vmaps
-them); the logits are stacked and the per-graph losses averaged. Its
-steps run eagerly on the card: capturing them as a CUDA graph (han_tpu
-jits them) is not ported.
+them); the logits are stacked and the per-graph losses averaged. On a CUDA
+device the train step and each evaluation batch are captured as CUDA
+graphs over the static (B, N_max, N_max) batch (train/graphed.py; han_tpu
+jits them, inductive.py:114-121): the first train step runs eagerly (it
+creates Adam's state, ``capturable``), the second captures, and each
+evaluation step captures at its second call; one step a batch shape. The
+batch is copied into the step's static buffers, and the graph replays the
+per-graph loop without its launches. A run whose graph axis holds a
+process group runs eagerly (NCCL collectives inside a captured graph are
+not ported), and so does the CPU.
 
 Data parallelism (``mesh``, one process a rank; han_tpu shards the batch
 axis over the mesh's graph axis): every rank draws the same shuffled order
@@ -47,6 +54,7 @@ from han_tpu_torch.nn.losses import l2_regularizer, masked_sigmoid_cross_entropy
 from han_tpu_torch.nn.models import GAT
 from han_tpu_torch.parallel.mesh import (Axis, Mesh, all_gather_rows, all_reduce_grads,
                                          all_sum, gather_rows)
+from han_tpu_torch.train.graphed import GraphedStep, want_capture
 from han_tpu_torch.train.trainer import CheckpointStore, load_training_state, training_state
 from han_tpu_torch.utils.device import resolve_device
 
@@ -56,7 +64,10 @@ class InductiveTrainer:
     batches of ``batch_size`` train graphs, early stopping on validation
     micro-F1 and loss, restore-best-then-test; data-parallel over
     ``mesh``'s graph axis when given (the module docstring; the device is
-    the mesh's)."""
+    the mesh's). ``capture``: None captures the steps on a CUDA device
+    whose graph axis holds no process group and runs them eagerly
+    elsewhere; True on the CPU raises ValueError, with a process group
+    NotImplementedError; False runs them eagerly on the card."""
 
     def __init__(self, ds: MultiGraphDataset, *, hid_units=(256, 256),
                  n_heads=(4, 4, 6), lr=0.005, l2_coef=0.0, residual=True,
@@ -65,7 +76,7 @@ class InductiveTrainer:
                  batch_size: int = 2, mesh: Mesh | None = None, seed: int = 0,
                  device: torch.device | str | None = None,
                  checkpoint_dir: str = "", checkpoint_every: int = 0,
-                 logger=None, guard=None):
+                 logger=None, guard=None, capture: bool | None = None):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.ds = ds
@@ -76,6 +87,7 @@ class InductiveTrainer:
             raise ValueError(f"batch_size {batch_size} not divisible by the graph axis "
                              f"({self.axis.size} ranks)")
         self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.capture = want_capture(capture, self.device, (self.axis,))
         self.batch_size = batch_size
         self.l2_coef = l2_coef
         self.patience = patience
@@ -98,8 +110,14 @@ class InductiveTrainer:
                          n_heads=n_heads, residual=residual, impl="dense",
                          attn_drop=attn_drop, ffd_drop=ffd_drop,
                          generator=torch.Generator().manual_seed(seed)).to(self.device)
-        self.opt = torch.optim.Adam(self.model.parameters(), lr=lr)
+        # capturable: the step counts and the bias correction stay on the
+        # card, so the update can be replayed
+        self.opt = torch.optim.Adam(self.model.parameters(), lr=lr, capturable=self.capture)
         self._splits: dict[str, tuple[torch.Tensor, ...]] = {}
+        # one train and one evaluation step a batch shape (graphs once
+        # captured)
+        self._train_steps: dict[tuple, GraphedStep] = {}
+        self._eval_steps: dict[tuple, GraphedStep] = {}
 
     def _snapshot(self) -> dict[str, torch.Tensor]:
         return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
@@ -145,9 +163,25 @@ class InductiveTrainer:
                                  for lg, y, m in zip(logits, y_b, m_b)])
         return per_graph.sum() / self.batch_size
 
+    def _step(self, steps: dict, body, batch, **kw) -> GraphedStep:
+        """The step of ``batch``'s shapes in ``steps``, made at its first use."""
+        key = tuple(tuple(t.shape) for t in batch)
+        if key not in steps:
+            steps[key] = GraphedStep(body, capture=self.capture, device=self.device, **kw)
+        return steps[key]
+
     def train_step(self, adj_b, x_b, y_b, m_b) -> torch.Tensor:
         """One Adam step on a batch (this rank's share of it on a mesh);
-        returns the batch loss (device tensor)."""
+        returns the batch loss (device tensor). Captured: the first call
+        runs eagerly, the second captures and every later call replays,
+        rewriting the returned tensor: read it before the next call."""
+        batch = (adj_b, x_b, y_b, m_b)
+        step = self._step(self._train_steps, self._train_body, batch,
+                          generators=(self.rngs.device,),
+                          warmup=0 if self._train_steps else 1)
+        return step(*batch)
+
+    def _train_body(self, adj_b, x_b, y_b, m_b) -> torch.Tensor:
         self.opt.zero_grad(set_to_none=True)
         loss = self._loss(self._apply(adj_b, x_b, train=True), y_b, m_b)
         loss.backward()
@@ -158,17 +192,24 @@ class InductiveTrainer:
         return (all_sum(loss, self.axis) + l2).detach()
 
     @torch.no_grad()
+    def _eval_body(self, adj_b, x_b, y_b, m_b) -> torch.Tensor:
+        """(loss, micro-F1) of a batch as one (2,) tensor (on a mesh, of
+        the whole batch, gathered)."""
+        logits = self._apply(adj_b, x_b, train=False)
+        logits, y_b, m_b = (gather_rows(t.float(), self.axis) for t in (logits, y_b, m_b))
+        c = logits.shape[-1]
+        return torch.stack([self._loss(logits, y_b, m_b),
+                            micro_f1(logits.reshape(-1, c), y_b.reshape(-1, c),
+                                     m_b.reshape(-1))])
+
     def evaluate(self, which: str) -> dict[str, float]:
         """Mean over the split's batches of the loss and the micro-F1 (on a
         mesh, of the whole batches, gathered)."""
         losses, f1s = [], []
-        for adj_b, x_b, y_b, m_b in self._batches(which):
-            logits = self._apply(adj_b, x_b, train=False)
-            logits, y_b, m_b = (gather_rows(t.float(), self.axis) for t in (logits, y_b, m_b))
-            losses.append(float(self._loss(logits, y_b, m_b)))
-            c = logits.shape[-1]
-            f1s.append(float(micro_f1(logits.reshape(-1, c), y_b.reshape(-1, c),
-                                      m_b.reshape(-1))))
+        for batch in self._batches(which):
+            loss, f1 = self._step(self._eval_steps, self._eval_body, batch)(*batch).tolist()
+            losses.append(loss)
+            f1s.append(f1)
         return {"loss": float(np.mean(losses)), "micro_f1": float(np.mean(f1s))}
 
     def _order_rng(self, epoch: int) -> np.random.Generator:
@@ -206,7 +247,8 @@ class InductiveTrainer:
             if restored is not None:
                 # the per-epoch batch order and the dropout stream continue
                 # as in the uninterrupted run
-                load_training_state(restored, self.model, self.opt, self.rngs.device)
+                load_training_state(restored, self.model, self.opt, self.rngs.device,
+                                    self._train_steps.values())
                 self.rngs.device.set_state(restored["rank_rngs"][self.axis.rank].clone())
                 order_rng = np.random.default_rng()
                 order_rng.bit_generator.state = restored["order_rng"]
@@ -262,7 +304,8 @@ class InductiveTrainer:
         result = {"history": history, "best_epoch": best["epoch"],
                   **{f"test_{k}": v for k, v in test.items()},
                   "epoch_train_loss": [h["train_loss"] for h in history],
-                  "median_step_time_s": statistics.median(step_times) if step_times else None}
+                  "median_step_time_s": statistics.median(step_times) if step_times else None,
+                  "captured": self.capture}
         if self.device.type == "cuda":
             result["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.device)
         return result

@@ -59,16 +59,31 @@ The guard is polled once a dispatch, so with ``steps_per_call`` C the
 cursor lands at the end of a chunk; the resumed epoch groups its remaining
 batches into chunks from the cursor on, as han_tpu's ``_chunked`` does.
 
-With the device sampler on a CUDA device, every train dispatch and every
-sampled evaluation batch is a CUDA graph (train/graphed.py), han_tpu's
-jitted ``dev_train_step``, ``dev_train_chunk`` and ``dev_eval_step``: the
-trainer's first train dispatch runs eagerly (it creates Adam's state, which
-is ``capturable``), and each shape of dispatch is captured at its next use.
-``steps_per_call`` = C > 1 groups C descriptors into one dispatch
-(:meth:`SampledTrainer._chunked`), one graph of C steps over a (C, 2B+1)
-descriptor buffer; the tail of an epoch runs as single steps. The host
-sampler's step, the exact evaluation (host-sampled) and the CPU run
-eagerly.
+On a CUDA device, with no process group on the trainer's axis, every
+train dispatch and every evaluation batch is a CUDA graph
+(train/graphed.py), han_tpu's jitted steps: the trainer's first train
+dispatch runs eagerly (it creates Adam's state, which is ``capturable``),
+each shape of dispatch is captured at its next use, and each evaluation
+step at its second call.
+
+- The device sampler (han_tpu's ``dev_train_step``, ``dev_train_chunk``
+  and ``dev_eval_step``): ``steps_per_call`` = C > 1 groups C descriptors
+  into one dispatch (:meth:`SampledTrainer._chunked`), one graph of C
+  steps over a (C, 2B+1) descriptor buffer; the tail of an epoch runs as
+  single steps.
+- The host sampler (han_tpu's train and eval steps over blocks of
+  "globally static shapes", sampled.py:12-15,276-279): one train graph a
+  (block_size, fanout, resident) key and one evaluation graph a key, so an
+  exact evaluation's block shape (:meth:`SampledTrainer.exact_eval_plan`)
+  is captured once too. The step takes the batch as flat tensors
+  (:meth:`_HostBatch.flat`) and builds its EllGraphs from them, so
+  each replay reads the batch that was copied into its static buffers:
+  the pinned host tensors go straight into those buffers (the replay's
+  input copy is the host-to-device copy; there is no second copy on the
+  device).
+
+A data-parallel run with a process group on its axis, and the CPU, run
+every step eagerly.
 """
 
 from __future__ import annotations
@@ -209,6 +224,12 @@ class _HostBatch:
     fanout: int
     n_edges: int      # real sampled edges, all meta-paths
 
+    def flat(self) -> list[torch.Tensor]:
+        """The step's inputs: per meta-path nbr, deg and xs, then labels
+        (absent in resident mode) and mask."""
+        per_path = [t for ts in zip(self.nbrs, self.degs, self.xs) for t in ts]
+        return per_path + ([] if self.labels is None else [self.labels]) + [self.mask]
+
 
 @dataclasses.dataclass
 class _Descriptor:
@@ -223,10 +244,13 @@ class SampledTrainer:
     """HAN training over seed-node batches of a huge heterogeneous graph.
 
     ``steps_per_call`` > 1 needs ``sampler="device"`` (ValueError
-    otherwise, as in han_tpu). ``capture``: None captures the device
-    sampler's dispatches as CUDA graphs on a CUDA device and runs every
-    other step eagerly; True on the CPU raises ValueError, with the host
-    sampler NotImplementedError; False runs eagerly on the card."""
+    otherwise, as in han_tpu). ``capture``: None captures the train and
+    evaluation steps of both samplers as CUDA graphs on a CUDA device
+    (the module docstring) and runs them eagerly on the CPU and where
+    ``axis`` holds a process group; True on the CPU raises ValueError,
+    with a process group NotImplementedError; False runs eagerly on the
+    card. ``axis``: the mesh axis the batch is data-parallel over
+    (:class:`DPSampledTrainer`); None: one device."""
 
     def __init__(self, ds: HeteroDataset, cfg: Config, *,
                  batch_size: int = 512, fanout: int = 16,
@@ -236,7 +260,7 @@ class SampledTrainer:
                  guard=None, resident_features: bool | None = None,
                  sampler: str = "host", steps_per_call: int = 1,
                  capture: bool | None = None,
-                 device: torch.device | str | None = None):
+                 device: torch.device | str | None = None, axis: Axis | None = None):
         if sampler not in ("host", "device"):
             raise ValueError("sampler must be 'host' or 'device'")
         if steps_per_call < 1:
@@ -257,11 +281,9 @@ class SampledTrainer:
         # preemption flag polled after every train dispatch (train/preempt.py)
         self.guard = guard
         self.device = resolve_device(device)
-        self.capture = want_capture(
-            capture, self.device,
-            "the host sampler's step runs eagerly (its blocks arrive as new "
-            "tensors every step; static block buffers are not ported)"
-            if sampler == "host" else None)
+        # one device: an axis of one rank, whose collectives are the identity
+        self.axis = axis if axis is not None else Axis(None, (0,), 0, 1)
+        self.capture = want_capture(capture, self.device, (self.axis,))
         self.sampler = sampler
         self.steps_per_call = int(steps_per_call)
         self.batch_size = batch_size
@@ -278,16 +300,16 @@ class SampledTrainer:
         ).to(self.device)
         self.opt = torch.optim.Adam(self.model.parameters(), lr=cfg.train.lr,
                                     capturable=self.capture)
-        # one device: an axis of one rank, whose collectives are the
-        # identity (DPSampledTrainer takes its mesh's graph axis)
-        self.axis = Axis(None, (0,), 0, 1)
-        self.rngs = DropoutGenerators(
-            device=torch.Generator(self.device).manual_seed(cfg.train.seed + 1))
-        # the device sampler's dispatches: one step per number of
-        # descriptors C (graphs once captured), and the evaluation batch
-        self._train_steps: dict[int, GraphedStep] = {}
-        self._dev_eval = GraphedStep(self._dev_eval_body, capture=self.capture,
-                                     device=self.device)
+        # each rank draws its own dropout stream; rank 0 (one device) the
+        # run's seed + 1
+        self.rngs = DropoutGenerators(device=torch.Generator(self.device).manual_seed(
+            cfg.train.seed + 1 + self.axis.rank * 1_000_003))
+        # the train steps (graphs once captured): the device sampler's one a
+        # number of descriptors C, the host sampler's one a (block_size,
+        # fanout, resident) key; the evaluation steps: the device sampler's
+        # one (key "device"), the host sampler's one a key
+        self._train_steps: dict[Any, GraphedStep] = {}
+        self._eval_steps: dict[Any, GraphedStep] = {}
         # self-loops match the full-graph path; one host CSR view per
         # meta-path, index dtypes converted once
         self.csrs = [_ScipyCSRView(with_self_loops(a)) for a in ds.metapath_adjs]
@@ -378,25 +400,22 @@ class SampledTrainer:
                           self._pinned(mask), block_size, fanout, n_edges)
 
     def _upload(self, batch):
-        """Host half → the step's (graphs, xs, labels, mask) on the device
-        (non-blocking copies from pinned memory, on the main thread, which
-        also counts the batch's sampled edges)."""
-        h2d = lambda t: t.to(self.device, non_blocking=True)
+        """Host half → the step's batch, ``(batch, None, None, None)``: a
+        descriptor copied to the device (non-blocking, from pinned memory),
+        or host-sampled blocks left in pinned memory, which the step copies
+        to the device (into its static buffers once captured). Runs on the
+        main thread, which also counts the host blocks' sampled edges."""
         if isinstance(batch, _Descriptor):
-            return dataclasses.replace(batch, packed=h2d(batch.packed)), None, None, None
-        self.sampled_edge_count += batch.n_edges
-        graphs = [EllGraph(nbr=h2d(nb).int(), deg=h2d(dg).int(),
-                           n_nodes=batch.block_size,
-                           n_edges=batch.block_size * batch.fanout)
-                  for nb, dg in zip(batch.nbrs, batch.degs)]
-        return (graphs, [h2d(x) for x in batch.xs],
-                None if batch.labels is None else h2d(batch.labels),
-                h2d(batch.mask))
+            batch = dataclasses.replace(
+                batch, packed=batch.packed.to(self.device, non_blocking=True))
+        else:
+            self.sampled_edge_count += batch.n_edges
+        return batch, None, None, None
 
     def _make_batch(self, seeds: np.ndarray, valid: np.ndarray,
                     sample_seed: int, *, fanout: int | None = None,
                     block_size: int | None = None):
-        """One seed batch → the step's batch arguments on the device."""
+        """One seed batch → the step's batch arguments (:meth:`_upload`)."""
         return self._upload(self._prepare(seeds, valid, sample_seed,
                                           fanout=fanout, block_size=block_size))
 
@@ -421,15 +440,32 @@ class SampledTrainer:
         mask[:b] = valid.float()
         return graphs, xs, mask, n_edges
 
+    def _host_blocks(self, flat):
+        """A host-sampled batch's step inputs (:meth:`_HostBatch.flat`) →
+        (graphs, xs, labels, mask) on the device. In a captured step the
+        inputs are its static buffers; eagerly they are the pinned tensors,
+        copied here. The int16 indices widen to int32 here, and every
+        EllGraph has the block's static capacity (block_size nodes,
+        block_size·fanout edges), as han_tpu pins them."""
+        flat = [t.to(self.device, non_blocking=True) for t in flat]
+        p = len(self.csrs)
+        graphs = [EllGraph(nbr=nb.int(), deg=dg.int(), n_nodes=nb.shape[0],
+                           n_edges=nb.numel())
+                  for nb, dg in zip(flat[0:3 * p:3], flat[1:3 * p:3])]
+        return graphs, flat[2:3 * p:3], None if self.resident else flat[3 * p], flat[-1]
+
     def _materialize(self, graphs, xs, labels, mask):
-        """Device batch → (graphs, feature rows, labels, mask, real sampled
-        edges): a single descriptor gets its blocks sampled (the edge count
-        a 0-d device tensor; None for host blocks, counted at upload);
+        """Batch → (graphs, feature rows, labels, mask, real sampled edges)
+        on the device: a single descriptor gets its blocks sampled (the
+        edge count a 0-d device tensor; None for host blocks, counted at
+        upload), host blocks (a _HostBatch) are built from their tensors;
         resident mode gathers the block's rows from the device tables (xs
         carries global node ids, pad = -1)."""
         n_edges = None
         if isinstance(graphs, _Descriptor):
             graphs, xs, mask, n_edges = self._device_blocks(graphs.packed)
+        elif isinstance(graphs, _HostBatch):
+            graphs, xs, labels, mask = self._host_blocks(graphs.flat())
         if self.resident:
             labels = _resident_gather(self._lbl_dev, xs[0])
             xs = [_resident_gather(self._fts_dev, nd) for nd in xs]
@@ -469,23 +505,37 @@ class SampledTrainer:
                                       for packed in packs))
         return torch.stack(losses), torch.stack(accs), sum(n_edges)
 
+    def _host_train_body(self, *flat):
+        """One step on a host-sampled batch given as its flat tensors
+        (han_tpu's jitted train step at the block's static shapes): (loss
+        (1,), acc (1,)). The body of a captured step, which reads the batch
+        through its arguments only."""
+        loss, acc, _ = self._train_step(*self._host_blocks(flat))
+        return loss[None], acc[None]
+
+    def _train_graph(self, key, body) -> GraphedStep:
+        """The train step of ``key`` (a device-sampler dispatch's C, or a
+        host block's (block_size, fanout, resident)), made at its first
+        use: eager on the CPU; on the card the trainer's first dispatch
+        runs eagerly, and each step is captured at its next call."""
+        step = self._train_steps.get(key)
+        if step is None:
+            step = self._train_steps[key] = GraphedStep(
+                body, capture=self.capture, device=self.device,
+                generators=(self.rngs.device,), warmup=0 if self._train_steps else 1)
+        return step
+
     def _train_call(self, batch):
         """One train dispatch: host-sampled blocks, a descriptor, or C
         stacked descriptors (:meth:`_chunked`); returns (losses, accs) as
-        (steps,) device tensors. Descriptors go through a GraphedStep per
-        C: eager on the CPU, captured on the card after the trainer's
-        first dispatch, which runs eagerly."""
-        if not isinstance(batch[0], _Descriptor):
-            loss, acc, _ = self._train_step(*batch)
-            return loss[None], acc[None]
-        packs = batch[0].packed
-        packs = packs if packs.dim() == 2 else packs[None]
-        step = self._train_steps.get(packs.shape[0])
-        if step is None:
-            step = self._train_steps[packs.shape[0]] = GraphedStep(
-                self._dev_train_body, capture=self.capture, device=self.device,
-                generators=(self.rngs.device,), warmup=0 if self._train_steps else 1)
-        losses, accs, n_edges = step(packs)
+        (steps,) device tensors (a captured step's outputs, rewritten by
+        its next replay)."""
+        head = batch[0]
+        if isinstance(head, _HostBatch):
+            key = (head.block_size, head.fanout, self.resident)
+            return self._train_graph(key, self._host_train_body)(*head.flat())
+        packs = head.packed if head.packed.dim() == 2 else head.packed[None]
+        losses, accs, n_edges = self._train_graph(packs.shape[0], self._dev_train_body)(packs)
         self._pending_edge_counts.append(n_edges.clone())  # a replay rewrites it
         return losses, accs
 
@@ -504,13 +554,28 @@ class SampledTrainer:
         the body of the captured evaluation."""
         return self._eval_step(_Descriptor(packed), None, None, None)
 
+    def _host_eval_body(self, *flat) -> torch.Tensor:
+        """A host-sampled evaluation batch given as its flat tensors: the
+        body of a captured evaluation step."""
+        return self._eval_step(*self._host_blocks(flat))[0]
+
+    def _eval_graph(self, key, body) -> GraphedStep:
+        """The evaluation step of ``key``, made at its first use (captured
+        on the card from its second call)."""
+        if key not in self._eval_steps:
+            self._eval_steps[key] = GraphedStep(body, capture=self.capture, device=self.device)
+        return self._eval_steps[key]
+
     def _eval_call(self, batch) -> torch.Tensor:
         """One evaluation batch → (loss sum, correct sum, mask sum) on the
-        device, summed over ``self.axis``; a descriptor goes through the
-        eval GraphedStep (captured on the card from its second call)."""
-        if not isinstance(batch[0], _Descriptor):
-            return all_sum(self._eval_step(*batch)[0], self.axis)
-        sums, n_edges = self._dev_eval(batch[0].packed)
+        device, summed over ``self.axis``: a descriptor through the device
+        sampler's evaluation step, host blocks through their (block_size,
+        fanout, resident) key's."""
+        head = batch[0]
+        if isinstance(head, _HostBatch):
+            key = (head.block_size, head.fanout, self.resident)
+            return all_sum(self._eval_graph(key, self._host_eval_body)(*head.flat()), self.axis)
+        sums, n_edges = self._eval_graph("device", self._dev_eval_body)(head.packed)
         self._pending_edge_counts.append(n_edges.clone())  # a replay rewrites it
         return sums
 
@@ -823,9 +888,11 @@ class DPSampledTrainer(SampledTrainer):
     ``sampled_edge_count`` counts this rank's blocks.
 
     Refused as in han_tpu: the device sampler (NotImplementedError) and a
-    batch that does not split into S shards (ValueError). The steps run
-    eagerly: ``capture=True`` raises NotImplementedError, as the host
-    sampler's step does."""
+    batch that does not split into S shards (ValueError). At S = 1 the axis
+    holds no process group and the steps are captured as
+    :class:`SampledTrainer`'s; with a group (S > 1) they run eagerly, and
+    ``capture=True`` raises NotImplementedError (NCCL collectives inside a
+    captured graph are not ported)."""
 
     def __init__(self, ds: HeteroDataset, cfg: Config, *, mesh: Mesh,
                  batch_size: int = 512, fanout: int = 16,
@@ -846,10 +913,7 @@ class DPSampledTrainer(SampledTrainer):
                                              echo=coordinator))
         kw.pop("device", None)
         super().__init__(ds, cfg, batch_size=batch_size, fanout=fanout, hops=hops,
-                         block_size=block_size, device=mesh.device, **kw)
-        self.axis = mesh.graph
-        self.rngs = DropoutGenerators(device=torch.Generator(self.device).manual_seed(
-            cfg.train.seed + 1 + self.axis.rank * 1_000_003))
+                         block_size=block_size, device=mesh.device, axis=mesh.graph, **kw)
 
     def _prepare(self, seeds, valid, sample_seed, *, fanout=None, block_size=None):
         """This rank's shard of the batch, sampled on the host."""
@@ -870,8 +934,10 @@ def step_breakdown(trainer: SampledTrainer, idx: np.ndarray, *,
     ``steps_per_call``, captured where the trainer captures), or None when
     the profiler records no device events; launches: kernel launches
     (``cudaLaunchKernel``) and graph launches (``cudaGraphLaunch``) per
-    step. The steps run twice before the profiled pass (so that every
-    dispatch is captured by then) and train the model further."""
+    step. Host-sampled batches go through the host sampler's step,
+    captured where the trainer captures. The steps run twice before the
+    profiled pass (so that every dispatch is captured by then) and train
+    the model further."""
     from torch.profiler import ProfilerActivity, profile
 
     from han_tpu_torch.utils.prof import device_events

@@ -57,8 +57,10 @@ On one CUDA device the train step and the evaluation are each captured as
 a CUDA graph and replayed every epoch (train/graphed.py), han_tpu's one
 jitted program a step: epoch 0 runs them eagerly (a real step), epoch 1
 captures them, and Adam is ``capturable`` (its step counts on the card).
-The mesh runs eagerly (NCCL collectives inside a captured step are not
-ported), and so does the CPU. A resume loads its state before the first
+So is a mesh whose axes all have one rank (each collective the identity),
+on every partitioned format. A mesh with a process group on an axis runs
+eagerly (NCCL collectives inside a captured step are not ported), and so
+does the CPU. A resume loads its state before the first
 step, which runs eagerly, and the capture follows as in a fresh run: the
 optimizer's load makes new state tensors, which a graph captured earlier
 would not read (the train step's GraphedStep raises on such a load).
@@ -290,9 +292,10 @@ class Trainer:
     logits are its embedding, and it logs zero semantic alphas.
 
     ``capture``: None captures the train and eval steps as CUDA graphs on
-    one CUDA device and runs them eagerly on the CPU and on a mesh; True
-    on the CPU raises ValueError, on a mesh NotImplementedError; False runs
-    them eagerly on the card."""
+    a CUDA device, alone or on a mesh whose axes hold no process group
+    (every axis one rank), and runs them eagerly on the CPU and where an
+    axis holds a group; True on the CPU raises ValueError, with a process
+    group NotImplementedError; False runs them eagerly on the card."""
 
     def __init__(self, ds: HeteroDataset, cfg: Config, *,
                  device: torch.device | str | None = None,
@@ -307,10 +310,6 @@ class Trainer:
         # preemption flag polled at epoch boundaries (train/preempt.py)
         self.guard = guard
         self.device = resolve_device(device)
-        self.capture = want_capture(
-            capture, self.device,
-            "the mesh runs eagerly (NCCL collectives inside a "
-            "captured step are not ported)" if on_mesh(cfg) else None)
         # han_tpu's rules (han_tpu/train/trainer.py:181-193): an mp axis runs
         # the towers stacked, with a graph axis only over stacked
         # PartitionedBCSR
@@ -330,6 +329,8 @@ class Trainer:
             self.mesh = make_mesh(graph=cfg.mesh.graph_axis, heads=cfg.mesh.head_axis,
                                   mp=cfg.mesh.mp_axis, device=self.device)
             self.device = self.mesh.device
+        self.capture = want_capture(capture, self.device, () if self.mesh is None else (
+            self.mesh.mp, self.mesh.graph, self.mesh.heads))
         self.coordinator = self.mesh is None or self.mesh.rank == 0
         self.logger = logger or MetricLogger(
             cfg.train.log_file if self.coordinator else "", echo=self.coordinator)

@@ -197,11 +197,12 @@ def test_train_steps_match_jax(small_ds):
         np.testing.assert_array_equal(tv, jv)
         jb = jt._make_batch(js, jv, sample_seed=bi)
         tb = tt._make_batch(ts, tv, sample_seed=bi)
-        for jg, tg, jx, tx in zip(jb[0], tb[0], jb[1], tb[1]):
+        tgraphs, txs, _, tmask = tt._host_blocks(tb[0].flat())
+        for jg, tg, jx, tx in zip(jb[0], tgraphs, jb[1], txs):
             np.testing.assert_array_equal(tg.nbr.numpy(), np.asarray(jg.nbr))
             np.testing.assert_array_equal(tg.deg.numpy(), np.asarray(jg.deg))
             np.testing.assert_array_equal(tx.numpy(), np.asarray(jx))
-        np.testing.assert_array_equal(tb[3].numpy(), np.asarray(jb[3]))
+        np.testing.assert_array_equal(tmask.numpy(), np.asarray(jb[3]))
         if params is None:
             params = jt._init_params_from(jax.random.PRNGKey(0), jb[0], jb[1])
             opt_state = jt.tx.init(params)
