@@ -102,9 +102,13 @@ together, and the C++ sampler), then drives the ported paths:
 - calibration: builds csrc/calibrate.cu with the other sources, holds each
   of its four kernels against its plain version (all 14 primitive (op,
   dtype) pairs and the three strip bodies, R = 64; the bf16 strip's
-  tolerance must reject the body computed in f32), then runs
+  tolerance must reject the body computed in f32; the f32 strips' error
+  must be 10x below their plain versions' with one TF32 product), then runs
   scripts/cal_vpu_torch.py at its full R (every rate at most 105 % of its
-  ceiling, every R -> 2R time ratio in [1.9, 2.1]) and prints the JSON;
+  ceiling, every R -> 2R time ratio in [1.9, 2.1]), prints the JSON and
+  each f32 strip's time a tile-head beside the flash kernel it tracks
+  (fwd_kernel, the fused bwd_col_kernel) at DBLP's largest meta-path,
+  dropout 0, from this run;
 - benchmark: the flash kernels against their plain versions at the
   benchmark's shapes (N = n_pad = 8192, both meta-paths, v f32 and bf16,
   dropout 0), then bench_torch.py's f32 and bf16 arms (its roofline
@@ -119,18 +123,28 @@ outlast the queueing (``timed``); the plain versions wait on the card
 inside, so their times include the host's. Each kernel's ``bound_ms`` is
 the larger of the bytes it must move (inputs read once, outputs written
 once; of ell_fused's inputs only the rows its valid slots reach) over
-3.35e12 B/s and its operations over the published peaks: 67e12 f32
-FLOP/s outside the tensor cores, 2 x that for bf16 elementwise
-work (packed bf16x2 on the same lanes), and 132 SMs x 16 SFU results a
-clock x 1.98 GHz = 4.18e12 exp/s; the work is counted on the edges (or
-valid ELL slots) of this run's inputs, per edge and head: forward and row
-sweep 2D + 9 FLOPs and one exp, fused backward 4D + 10, column sweep
-4D + 9 (lower bounds: dropout hashing and the adjacency tests are not
-counted).
+3.35e12 B/s and its operations over the published peaks, each unit's
+time apart and the slowest taken: 67e12 f32 FLOP/s outside the tensor
+cores, 2 x that for bf16 elementwise work (packed bf16x2 on the same
+lanes), 495e12 / 3 FLOP/s for the D-wide products the kernels take as
+3xTF32 on the tensor cores (three TF32 products each), and 132 SMs x 16
+SFU results a clock x 1.98 GHz = 4.18e12 exp/s; the work is counted on
+the edges (or valid ELL slots) of this run's inputs, per edge and head:
+forward and row sweep 2D product FLOPs, 9 more and one exp, fused
+backward 4D and 10, column sweep 4D and 9 (lower bounds: dropout hashing
+and the adjacency tests are not counted); the strip bodies likewise on
+their edges (the bf16 forward strip's products are scalar FMAs), and the
+f32 strips' log line adds the time their swept elements (one ex2 each)
+take at 4.18e12/s. The primitive passes
+count instructions, not FLOPs: one a lane-op, at the rates of
+ops/calibrate.py:ceilings (128 FP32 lanes a clock per SM, twice that for
+packed bf16, the SFU rate for exp).
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only flash_gat   # the flash kernels at the DBLP shape
     python3 chip_smoke.py --only ell_fused   # the ell_fused kernel at the block shape
+    python3 chip_smoke.py --only calibrate   # the calibration kernels, and the strips
+                                             # against the flash kernels they track
 
 Exits non-zero, printing no result, when CUDA is unavailable or any phase
 fails. The last line is ``{"ok": true, "device": {...}}``; the line before
@@ -236,13 +250,16 @@ HBM_BW = 3.35e12                # B/s, H100 SXM (published)
 F32_PEAK = 67e12                # f32 FLOP/s outside the tensor cores (published)
 BF16_EW_PEAK = 2 * F32_PEAK     # bf16 elementwise: packed bf16x2 on the same lanes
 EXP_PEAK = 132 * 16 * 1.98e9    # 16 SFU results a clock per SM at the 1.98 GHz boost
+TF32X3_PEAK = 495e12 / 3        # 3xTF32 products: three dense TF32 products (published)
 
 
-def bound(bytes_, flops=0.0, exps=0.0, bf16_flops=0.0):
+def bound(bytes_, flops=0.0, exps=0.0, bf16_flops=0.0, mma_flops=0.0):
     """(bound_ms, bound_by): the larger of bytes over HBM_BW and the
-    operations over their peaks (the slowest unit)."""
+    operations over their peaks (the slowest unit); mma_flops are the
+    products taken as 3xTF32 on the tensor cores."""
     t_bytes = bytes_ / HBM_BW
-    t_ops = max(flops / F32_PEAK, bf16_flops / BF16_EW_PEAK, exps / EXP_PEAK)
+    t_ops = max(flops / F32_PEAK, bf16_flops / BF16_EW_PEAK, exps / EXP_PEAK,
+                mma_flops / TF32X3_PEAK)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -257,20 +274,22 @@ def flash_bounds(graph, k, d, v_bytes=4) -> dict:
     bmap = 4 * sum(t.numel() for t in (graph.bwd_count, graph.bwd_row, graph.bwd_tile))
     vec, v, feat = 4 * k * n_rows, n_cols * k * d * v_bytes, n_rows * k * d * 4
     dv = n_cols * k * d * 4
-    return {"fwd": bound(tiles + fmap + 3 * vec + v + feat, e * (2 * d + 9), e),
-            "bwd": bound(tiles + bmap + 6 * vec + v + feat + dv, e * (4 * d + 10), e),
-            "row": bound(tiles + fmap + 5 * vec + v + feat, e * (2 * d + 9), e),
-            "col": bound(tiles + bmap + 5 * vec + v + feat + dv, e * (4 * d + 9), e)}
+    return {"fwd": bound(tiles + fmap + 3 * vec + v + feat, e * 9, e, mma_flops=e * 2 * d),
+            "bwd": bound(tiles + bmap + 6 * vec + v + feat + dv, e * 10, e, mma_flops=e * 4 * d),
+            "row": bound(tiles + fmap + 5 * vec + v + feat, e * 9, e, mma_flops=e * 2 * d),
+            "col": bound(tiles + bmap + 5 * vec + v + feat + dv, e * 9, e, mma_flops=e * 4 * d)}
 
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("flash_gat", "ell_fused"),
+        "--only", choices=("flash_gat", "ell_fused", "calibrate"),
         help="build only csrc/ONLY.cu, hold its kernels to their plain versions (the flash "
              "kernels at the DBLP shape, ell_fused at the sampled block's), print their "
              "device times at dropout 0 and 0.6 as one JSON line and stop; a copy of this "
-             "file run so in another checkout times that checkout's kernels the same way")
+             "file run so in another checkout times that checkout's kernels the same way. "
+             "calibrate builds calibrate.cu and flash_gat.cu, runs phases 8a and 8b and "
+             "prints each f32 strip's time a tile-head beside its flash kernel's")
     args = parser.parse_args(argv)
     import torch
 
@@ -296,7 +315,8 @@ def main(argv=None) -> None:
 
     # -- phase 2: build (nvcc per kernel source and g++ for the sampler, all
     # at once) ----------------------------------------------------------------
-    names = (args.only,) if args.only else ("flash_gat", "ell_fused", "calibrate")
+    names = {None: ("flash_gat", "ell_fused", "calibrate"),
+             "calibrate": ("flash_gat", "calibrate")}.get(args.only, (args.only,))
     cached = [n for n in names if _build.library_path(n).exists()]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
@@ -336,6 +356,16 @@ def main(argv=None) -> None:
     gen = torch.Generator(dev).manual_seed(0)
     ld, ls, v, g = dblp_inputs(gen, n, ds.n_nodes, k, d)
 
+    if args.only == "calibrate":
+        stats = check_dblp(graph, ld, ls, v, g, ps=(0.0,))
+        cal_stats = check_calibration(dev)
+        _, cal_result = run_calibration(root)
+        print(json.dumps({"card": card, "strips_vs_flash": compare_strips(
+            cal_result, stats, graph.n_tiles * k), "calibration": {
+                key: {"ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound"][0]}
+                for key, st in cal_stats.items()}}),
+              flush=True)
+        return
     stats = check_dblp(graph, ld, ls, v, g)
     # -- phase 3e: the batched kernels, one launch for the meta-paths --------
     batched = check_batched(dev, ds, card)
@@ -366,6 +396,7 @@ def main(argv=None) -> None:
     # -- phase 3f: the kernels under the heads axis (head_offset 4) ---------
     for name, err in check_head_offset(dev, ds.metapath_adjs[big]).items():
         stats[name]["err"] = max(stats[name]["err"], err)
+    tile_heads = graph.n_tiles * k  # of the DBLP check, for the strips' comparison
 
     # -- phase 3b: a small HAN through the kernels vs the dense path ---------
     check_small_han(dev)
@@ -453,7 +484,8 @@ def main(argv=None) -> None:
 
     # -- phase 8: the calibration kernels, then the calibration run ---------
     cal_stats = check_calibration(dev)
-    cal_n = run_calibration(root)
+    cal_n, cal_result = run_calibration(root)
+    compare_strips(cal_result, stats, tile_heads)
 
     # -- phase 9: the benchmark's kernels vs plain, then its f32 and bf16 arms
     for name, err in check_bench_shape(root, dev).items():
@@ -2599,13 +2631,17 @@ def check_calibration(dev) -> dict:
     primitives atol 1e-5, rtol 1e-4 (the same ops; the row sums in another
     order); bf16 primitives rtol 2e-2 (bf16 steps); f32 strips rtol 1e-4
     and atol 1e-5 of the largest |value| (sums of exps in another order
-    over 64 chained passes; the backward's output adds dv, dls and dld
-    terms whose sum may be near 0, and sums dld with atomics); the bf16
+    over 64 chained passes, ex2 on log2e-scaled logits; the backward's
+    output adds dv, dls and dld terms whose sum may be near 0); the bf16
     strip BF16_STRIP_TOL (kernel and plain round the same f32 raw to bf16,
     so only the f32 sums differ in order), and the same body computed in
-    f32 must fall outside it on most elements. Per kernel: the largest
-    error, device ms of the kernel and of its plain version (summed over
-    the launches of the check), and the bound."""
+    f32 must fall outside it on most elements. The f32 strips with p·v
+    (forward) and g·v, c·g (backward) take their products as 3xTF32 on the
+    tensor cores: strip_tf32_control holds them to f32 accuracy. Per
+    kernel: the largest error, device ms of the kernel and of its plain
+    version (summed over the launches of the check) and the bound; the log
+    line of each f32 strip, whose body runs one ex2 on every swept
+    element, adds the time of those elements at the SFU rate."""
     import torch
 
     from han_tpu_torch.ops import calibrate as cal
@@ -2616,6 +2652,10 @@ def check_calibration(dev) -> dict:
     v16, g = inp["v"].to(torch.bfloat16), inp["g"]
     elems, edges = inp["x"].numel(), int((inp["adj"] != 0).sum())
     strip_bytes = sum(t.numel() * t.element_size() for t in a)
+    card = cal.card_info()
+    ceil = cal.ceilings(card["sms"], card["max_sm_clock_hz"])
+    swept = reps * elems / EXP_PEAK * 1e3  # ms of one launch's swept elements, one ex2 each
+    swept_ms = {"fwd_strip": 0.0, "bwd_strip": 0.0}  # the f32 strips' swept elements
     out = {key: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound": (0.0, "operations")}
            for key in CAL_COUNTERS}
 
@@ -2627,23 +2667,29 @@ def check_calibration(dev) -> dict:
         st["ms"] += timed(kernel, reps=5)
         st["plain_ms"] += timed(plain, reps=5, host_waits=True)
         st["bound"] = (st["bound"][0] + bnd[0], bnd[1])
+        if key in swept_ms:
+            swept_ms[key] += swept
 
+    # a primitive pass is instructions, one a lane-op, at the card's rates
+    # (ops/calibrate.py:ceilings): ops an element in f32 or bf16, and exp's
+    # one ex2 on the SFUs
     ops = {"add": 1, "mul": 1, "lrelu": 2, "select": 2, "exp": 1, "rowmax": 2, "rowsum": 3}
     for op in cal.OPS:
-        for x, bf16 in ((inp["x"], False), (inp["x"].to(torch.bfloat16), True)):
-            work = reps * elems * ops[op]
-            bnd = bound(2 * x.numel() * x.element_size(), 0 if bf16 else work,
-                        reps * elems if op == "exp" else 0, work if bf16 else 0)
+        for x, dt in ((inp["x"], "f32"), (inp["x"].to(torch.bfloat16), "bf16")):
+            t_bytes = 2 * x.numel() * x.element_size() / HBM_BW
+            t_ops = max(reps * elems * ops[op] / ceil[dt],
+                        (reps * elems if op == "exp" else 0) / ceil["exp"])
+            bnd = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
             add("prim", f"{op} {x.dtype}", lambda x=x, op=op: cal.prim_cuda(x, op, reps),
                 lambda x=x, op=op: cal.prim_plain(x, op, reps),
-                1e-5, 2e-2 if bf16 else 1e-4, bnd)
+                1e-5, 2e-2 if dt == "bf16" else 1e-4, bnd)
     scaled = lambda want, f: f * float(want.abs().max())
     for mxu in (False, True):
         want = cal.fwd_strip_plain(*a, reps, mxu)
         add("fwd_strip", f"fwd strip f32 mxu={mxu}", lambda mxu=mxu: cal.fwd_strip_cuda(*a, reps, mxu),
             lambda mxu=mxu: cal.fwd_strip_plain(*a, reps, mxu), scaled(want, 1e-5), 1e-4,
-            bound(strip_bytes + n_strips * 128 * 64 * 4,
-                  reps * edges * ((2 * 8 + 9) if mxu else 9), reps * edges))
+            bound(strip_bytes + n_strips * 128 * 64 * 4, reps * edges * 9, reps * edges,
+                  mma_flops=reps * edges * 2 * 8 if mxu else 0))
     atol, rtol = BF16_STRIP_TOL
     add("fwd_strip_bf16", "fwd strip bf16", lambda: cal.fwd_strip_bf16_cuda(*a[:3], v16, reps),
         lambda: cal.fwd_strip_bf16_plain(*a[:3], v16, reps), atol, rtol,
@@ -2660,23 +2706,77 @@ def check_calibration(dev) -> dict:
     want = cal.bwd_strip_plain(*a, g, reps)
     add("bwd_strip", "bwd strip", lambda: cal.bwd_strip_cuda(*a, g, reps),
         lambda: cal.bwd_strip_plain(*a, g, reps), scaled(want, 1e-5), 1e-4,
-        bound(strip_bytes + g.numel() * 4 + n_strips * 128 * 64 * 4,
-              reps * edges * (4 * 8 + 10), reps * edges))
+        bound(strip_bytes + g.numel() * 4 + n_strips * 128 * 64 * 4, reps * edges * 10,
+              reps * edges, mma_flops=reps * edges * 4 * 8))
+    strip_tf32_control("fwd strip f32 mxu=True", lambda: cal.fwd_strip_cuda(*a, reps, True),
+                       lambda mm: cal.fwd_strip_plain(*a, reps, True, mm=mm))
+    strip_tf32_control("bwd strip", lambda: cal.bwd_strip_cuda(*a, g, reps),
+                       lambda mm: cal.bwd_strip_plain(*a, g, reps, mm=mm))
     for key, st in out.items():
+        floor = (f", swept elements at the SFU rate {swept_ms[key]:.4f} ms"
+                 if key in swept_ms else "")
         print(f"cal {key}: max_abs_err {st['err']:.3e}, kernel {st['ms']:.4f} ms, plain "
-              f"{st['plain_ms']:.4f} ms, bound {st['bound'][0]:.4f} ms ({st['bound'][1]}) "
-              f"at R = {reps}", flush=True)
+              f"{st['plain_ms']:.4f} ms, bound {st['bound'][0]:.4f} ms ({st['bound'][1]})"
+              f"{floor} at R = {reps}", flush=True)
     del inp, a, v16, g
     torch.cuda.empty_cache()
     return out
 
 
-def run_calibration(root) -> dict:
+def strip_tf32_control(name, kernel, plain) -> None:
+    """Control of an f32 strip's 3xTF32 products, as tf32_control for the
+    flash kernels: the kernel's output and the plain version's with its
+    products taken by fg.mm_3xtf32 (the kernels' split) each against the
+    plain version with f32 products must be TF32_MARGIN times closer than
+    the plain version with one TF32 product (fg.mm_1xtf32)."""
+    import torch
+
+    from han_tpu_torch.ops import flash_gat as fg
+
+    want = plain(torch.matmul)
+    got = {"kernel": kernel(), "3xTF32": plain(fg.mm_3xtf32), "1xTF32": plain(fg.mm_1xtf32)}
+    torch.cuda.synchronize()
+    err = {key: float((x - want).abs().max()) for key, x in got.items()}
+    print(f"cal {name}, products: max_abs_err kernel {err['kernel']:.3e}, 3xTF32 mirror "
+          f"{err['3xTF32']:.3e}, 1xTF32 {err['1xTF32']:.3e}", flush=True)
+    for key in ("kernel", "3xTF32"):
+        if not err[key] * TF32_MARGIN <= err["1xTF32"]:
+            fail(f"cal {name}: the {key} error {err[key]:.3e} is not {TF32_MARGIN}x below one "
+                 f"TF32 product's ({err['1xTF32']:.3e})")
+
+
+def compare_strips(cal_result: dict, stats: dict, tile_heads: int) -> dict:
+    """Each redesigned f32 strip's time a tile-head (the calibration run's
+    ``tile_s``: one 128x128 tile and one head on a full card) beside the
+    flash kernel it tracks at DBLP's largest meta-path, dropout 0, from this
+    run: fwd_strip_s_mxu against fwd_kernel, bwd_strip_s_mxu against the
+    fused bwd_col_kernel, each kernel's device ms over its tiles x heads.
+    The strips stage nothing and walk no map, so each must take no longer
+    than its kernel: bench_torch.py reads their times as a bound on the
+    kernels' (tile_sol_frac)."""
+    out = {}
+    for key, flash in (("fwd_strip_s", "fwd"), ("fwd_strip_s_mxu", "fwd"),
+                       ("bwd_strip_s_mxu", "bwd")):
+        strip_ns = cal_result["tile_s"][key] * 1e9
+        flash_ns = stats[flash]["ms_by_dropout"]["0.0"] * 1e6 / tile_heads
+        out[key] = {"strip_ns": strip_ns, "flash": flash, "flash_ns": flash_ns,
+                    "ratio": strip_ns / flash_ns}
+        print(f"{key}: {strip_ns:.3f} ns a tile-head; flash {flash} at DBLP's largest meta-path, "
+              f"dropout 0: {flash_ns:.3f} ns ({tile_heads} tile-heads); strip / flash "
+              f"{strip_ns / flash_ns:.3f}", flush=True)
+        if key != "fwd_strip_s" and strip_ns > flash_ns:
+            fail(f"{key}: {strip_ns:.3f} ns a tile-head is above its flash kernel's "
+                 f"{flash_ns:.3f} ns, so tile_sol_frac is no bound")
+    return out
+
+
+def run_calibration(root) -> tuple[dict, dict]:
     """Phase 8b: scripts/cal_vpu_torch.py at its full R (16,384 primitive
     passes, 2,048 strip passes) on the card-wide strip; prints its JSON and
     returns the launches (each timing: ops/calibrate.py's
     LAUNCHES_PER_TIMING, two warm-up launches and seven timed pairs; the
-    strip bodies: f32 with and without p·v, bf16, backward)."""
+    strip bodies: f32 with and without p·v, bf16, backward) and the
+    calibration."""
     import runpy
 
     import torch
@@ -2699,7 +2799,7 @@ def run_calibration(root) -> dict:
     print(f"calibration: {time.perf_counter() - t0:.2f} s, launches {n} (repeated behind a "
           f"longer spin: {dict(cal.relaunches)})", flush=True)
     print(json.dumps(result), flush=True)
-    return n
+    return n, result
 
 
 def check_bench_shape(root, dev) -> dict:

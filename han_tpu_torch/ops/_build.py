@@ -1,8 +1,9 @@
 """Build ``csrc/<name>.cu`` with nvcc into ``build/kernels/`` on first use and
 load it with ctypes.
 
-The library name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded. There is no
+The library name carries a hash of the source, the headers under ``csrc/``
+(``*.cuh``, which the sources include) and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded. There is no
 fallback: a missing nvcc or a failed build raises.
 """
 
@@ -36,8 +37,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    parts = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
+    data = b"".join(p.read_bytes() for p in parts) + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(data)
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -10,10 +10,13 @@ pass, free of device-memory traffic:
 - ``prim_cuda`` ← ``_prim_kernel``: one primitive (``OPS``) over every
   element, in float32 or bfloat16;
 - ``fwd_strip_cuda`` ← ``_fwd_strip_kernel``: the flash forward's
-  per-(head, tile) body, with (``mxu``) or without p·v;
+  per-(head, tile) body, with (``mxu``) or without p·v: ``fwd_kernel``'s
+  tile body, its products 3xTF32 on the tensor cores;
 - ``fwd_strip_bf16_cuda`` ← ``_fwd_strip_kernel_bf16``: the same with
-  bf16 strip math and f32 reductions;
-- ``bwd_strip_cuda`` ← ``_bwd_strip_kernel``: the fused backward's body.
+  bf16 strip math and f32 reductions (still the first port's scalar
+  body);
+- ``bwd_strip_cuda`` ← ``_bwd_strip_kernel``: the fused backward's body,
+  ``bwd_col_kernel``'s.
 
 Shapes. The plain versions take cal_vpu.py's arrays with any leading batch
 dimensions: x (..., bm, sub); ld (..., 8, bm) and ls (..., 8, sub), of
@@ -29,6 +32,10 @@ The plain versions (``*_plain``) compute the chain step by step as
 cal_vpu.py's bodies do, with chain constants in the data's type, so a
 bf16 pass rounds where the JAX body rounds; the CPU tests hold them to
 cal_vpu.py and ``chip_smoke.py`` holds each kernel to them on the card.
+The f32 strips take their products through ``mm`` (default f32):
+``ops/flash_gat.py:mm_3xtf32`` mirrors the kernels' products and
+``mm_1xtf32`` is one TF32 product, the control that shows the card's
+tolerances tell the two apart.
 The calibration times the card only, so each wrapper launches its kernel
 or raises (on CPU tensors too) and never falls back. ``prim_launches``,
 ``fwd_strip_launches``, ``fwd_strip_bf16_launches`` and
@@ -99,10 +106,11 @@ def prim_plain(x: torch.Tensor, op: str, reps: int) -> torch.Tensor:
 
 
 def fwd_strip_plain(ld, ls, adj, v, reps: int, mxu: bool = True,
-                    slope: float = SLOPE) -> torch.Tensor:
+                    slope: float = SLOPE, mm=torch.matmul) -> torch.Tensor:
     """_fwd_strip_kernel: reps // 8 × 8 passes of the forward body; one (m,
-    l) carry, the p·v of pass p into head slot p % 8. Returns (..., bm, 8·d)
-    = acc + m + l (every slot; cal_vpu.py outputs slot 0)."""
+    l) carry, the p·v of pass p (``mm(p, v)``) into head slot p % 8.
+    Returns (..., bm, 8·d) = acc + m + l (every slot; cal_vpu.py outputs
+    slot 0)."""
     on_edge = adj != 0
     ld0, ls0 = ld[..., 0, :], ls[..., 0, :]
     m = torch.full_like(ld0, -1e9)
@@ -117,7 +125,7 @@ def fwd_strip_plain(ld, ls, adj, v, reps: int, mxu: bool = True,
         l = l * scale + pe.sum(dim=-1)
         if mxu:
             h = p % HEADS
-            acc[..., h, :] = acc[..., h, :] * scale[..., None] + pe @ v
+            acc[..., h, :] = acc[..., h, :] * scale[..., None] + mm(pe, v)
         m = m_new
     return acc.flatten(-2) + (m + l)[..., None]
 
@@ -148,18 +156,20 @@ def fwd_strip_bf16_plain(ld, ls, adj, v, reps: int, slope: float = SLOPE,
     return acc + (m + l)[..., None]
 
 
-def bwd_strip_plain(ld, ls, adj, v, g, reps: int, slope: float = SLOPE) -> torch.Tensor:
+def bwd_strip_plain(ld, ls, adj, v, g, reps: int, slope: float = SLOPE,
+                    mm=torch.matmul) -> torch.Tensor:
     """_bwd_strip_kernel: reps // 8 × 8 passes of the fused backward body
     with cal_vpu.py's carries (dls, dld and the pass's dv slot decay by
-    0.5; ld + dld·1e-9 feeds the next pass). Returns (..., sub, 8·d) =
-    dv + dls + dld[:d] (every slot)."""
+    0.5; ld + dld·1e-9 feeds the next pass), its two products g·v and c·g
+    taken by ``mm``. Returns (..., sub, 8·d) = dv + dls + dld[:d] (every
+    slot)."""
     on_edge = adj != 0
     ld0, ls0 = ld[..., 0, :], ls[..., 0, :]
     d = v.shape[-1]
     dls = ls0.new_zeros(ls0.shape)
     dld = ld0.new_zeros(ld0.shape)
     dv = ls0.new_zeros((*ls0.shape, HEADS, d))
-    gv = g @ v.transpose(-1, -2)  # (..., bm, sub): the same every pass
+    gv = mm(g, v.transpose(-1, -2))  # (..., bm, sub): the same every pass
     for p in range(reps // HEADS * HEADS):
         ldp = ld0 + dld * 1e-9
         lse, delta = ldp * 0.5, ldp * 0.25
@@ -169,7 +179,7 @@ def bwd_strip_plain(ld, ls, adj, v, g, reps: int, slope: float = SLOPE) -> torch
         dzs = torch.where(raw >= 0, dz, slope * dz)
         dls = dls * 0.5 + dzs.sum(dim=-2)
         h = p % HEADS
-        dv[..., h, :] = dv[..., h, :] * 0.5 + c.transpose(-1, -2) @ g
+        dv[..., h, :] = dv[..., h, :] * 0.5 + mm(c.transpose(-1, -2), g)
         dld = dld * 0.5 + dzs.sum(dim=-1)
     return (dv + dls[..., None, None] + dld[..., None, None, :d]).flatten(-2)
 
@@ -377,7 +387,7 @@ def time_marginal(fn, r_lo: int, r_hi: int, kernel: str,
 FOLD_LIMIT = 1.05  # a rate above this share of its ceiling is a folded chain
 SCALING = (1.9, 2.1)  # t(2R)/t(R) of a chain that runs all its passes
 STRIP_CEILING = {"fwd_strip_s": "fwd_strip", "fwd_strip_s_mxu": "fwd_strip",
-                 "fwd_strip_s_bf16_mxu": "fwd_strip", "bwd_strip_s_mxu": "bwd_strip"}
+                 "fwd_strip_s_bf16_mxu": "fwd_strip_bf16", "bwd_strip_s_mxu": "bwd_strip"}
 
 
 def card_info() -> dict:
@@ -393,12 +403,14 @@ def card_info() -> dict:
 def ceilings(sms: int, clock_hz: float) -> dict:
     """Elements/s ceilings of csrc/calibrate.cu's header: 128 FP32 lanes
     (and thread-instructions) a clock per SM, twice that for packed bf16,
-    16 MUFU.EX2 a clock per SM; the forward strip body needs at least one
-    instruction per 4 swept elements of a thread's slice (a word test), the
-    backward one per element (a byte test)."""
+    16 MUFU.EX2 a clock per SM. The f32 strip bodies issue one ex2 on every
+    swept element, so their ceiling is the SFU rate; the bf16 forward strip
+    body (the first port's scalar body) needs at least one instruction per
+    4 swept elements of a thread's slice (a word test)."""
     lanes = sms * 128 * clock_hz
-    return {"f32": lanes, "bf16": 2 * lanes, "exp": sms * 16 * clock_hz,
-            "fwd_strip": 4 * lanes, "bwd_strip": lanes}
+    exp = sms * 16 * clock_hz
+    return {"f32": lanes, "bf16": 2 * lanes, "exp": exp, "fwd_strip": exp, "bwd_strip": exp,
+            "fwd_strip_bf16": 4 * lanes}
 
 
 def prim_ceiling(op: str, dtype: str, ceil: dict) -> float:
@@ -412,9 +424,9 @@ def _inputs(n_strips: int) -> dict[str, torch.Tensor]:
 # Seconds a pass of each strip body on a card of 1,056 strips (132 SMs x 8),
 # the last calibration (results/CALIBRATION_H100.json, NVIDIA H100 80GB
 # HBM3, 700.00 W): what :func:`strip_reps` sizes R by.
-STRIP_PASS_S = {"fwd_strip_s": 1.7100857570767402e-05, "fwd_strip_s_mxu": 3.695463761687279e-05,
-                "fwd_strip_s_bf16_mxu": 3.057432919740677e-05,
-                "bwd_strip_s_mxu": 7.622887194156648e-05}
+STRIP_PASS_S = {"fwd_strip_s": 6.394428866250176e-06, "fwd_strip_s_mxu": 1.274140551686287e-05,
+                "fwd_strip_s_bf16_mxu": 3.048887476325035e-05,
+                "bwd_strip_s_mxu": 2.168190479278564e-05}
 STRIP_PASS_STRIPS = 1056
 STRIP_MIN_S = 0.02  # the shortest t(R) of a strip timing (see strip_reps)
 
@@ -424,11 +436,12 @@ def strip_reps(key: str, n_strips: int, base: int) -> int:
     the backward body, as cal_vpu.py:335 times it) or more, a multiple of
     the HEADS passes the f32 bodies unroll, with t(R) at least STRIP_MIN_S
     at the last measured time a pass (scaled to ``n_strips``). A launch
-    costs a fixed time besides its passes (on the H100 up to about 0.25
-    ms for the MXU body, measured with time_marginal's spin), which pulls
-    t(2R)/t(R) below 2 by that time over t(R): at t(R) = 20 ms about 1 %,
-    far inside SCALING. Timed at R = 256 (4.4 ms) and with the host's time
-    before the launch counted, fwd_strip_s once measured 1.8939."""
+    costs a fixed time besides its passes (t(R) less R passes: on the H100
+    about 0.02 ms for the f32 bodies, up to about 0.5 ms for the scalar
+    bf16 one, measured with time_marginal's spin), which pulls t(2R)/t(R)
+    below 2 by that time over t(R): at t(R) = 20 ms at most 2.5 %, inside
+    SCALING. Timed at R = 256 (4.4 ms) and with the host's time before the
+    launch counted, the scalar forward body once measured 1.8939."""
     if key == "bwd_strip_s_mxu":
         base //= 2
     pass_s = STRIP_PASS_S[key] * n_strips / STRIP_PASS_STRIPS
@@ -486,9 +499,9 @@ def calibrate_prims(n_strips: int, reps: int) -> dict:
 
 def check_ceilings(result: dict) -> list[str]:
     """Rates above FOLD_LIMIT × their ceiling, and R → 2R time ratios
-    outside SCALING (each a folded or hoisted chain). The strip ceilings
-    sit far above the strip rates, so for the strip bodies the ratio is
-    the test that can fire."""
+    outside SCALING (each a folded or hoisted chain). The bf16 strip's
+    ceiling sits far above its rate, so for that body the ratio is the
+    test that can fire."""
     ceil = result["ceilings_eps"]
     bad = []
     for key, rate in result.get("prim_rates_eps", {}).items():

@@ -2,7 +2,9 @@
 of csrc/calibrate.cu's kernels) against the Pallas kernel bodies of
 scripts/cal_vpu.py, loaded with importlib and run through
 ``pl.pallas_call(..., interpret=True)`` on the CPU at bm=8, sub=128, d=8,
-R=16; and the wrappers' refusals."""
+R=16; the f32 strips' products taken as the kernels take them (3xTF32)
+against f32 and one TF32 product; the wrappers' refusals; the fold check's
+ceilings and the strip timings' R."""
 
 import functools
 import importlib.util
@@ -19,6 +21,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from han_tpu_torch.ops import calibrate as cal  # noqa: E402
+from han_tpu_torch.ops import flash_gat as fg  # noqa: E402
 
 BM, SUB, D, R = 8, 128, 8, 16
 
@@ -97,6 +100,31 @@ def test_bwd_strip_plain_matches_cal_vpu():
     np.testing.assert_allclose(got[:, :D].numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("body", ["fwd_strip", "bwd_strip"])
+def test_strip_products_in_3xtf32_keep_f32_accuracy(body):
+    """The f32 strips with their products taken as the redesigned kernels
+    take them (fg.mm_3xtf32: hi·hi + hi·lo + lo·hi of a TF32 split) stay
+    within 1e-6 of the largest |value| of the same strips with exact
+    products, on float64 inputs (the plain versions in float64, so only the
+    products differ) at the kernels' 128×128 tile, R = 16; with one TF32
+    product (fg.mm_1xtf32) they fall outside that, as chip_smoke.py's TF32
+    control requires of the card's tolerances."""
+    i = {k: torch.from_numpy(v.astype(np.float64) if v.dtype != np.int8 else v)
+         for k, v in cal.make_inputs(2, seed=5).items()}
+    a = [i[k] for k in ("ld", "ls", "adj", "v")]
+    if body == "fwd_strip":
+        strip = lambda mm: cal.fwd_strip_plain(*a, R, mxu=True, mm=mm)
+    else:
+        strip = lambda mm: cal.bwd_strip_plain(*a, i["g"], R, mm=mm)
+    want = strip(torch.matmul)
+    assert want.dtype == torch.float64 and want.shape == (2, cal.TILE, cal.HEADS * D)
+    bound = 1e-6 * float(want.abs().max())
+    err3 = float((strip(fg.mm_3xtf32) - want).abs().max())
+    err1 = float((strip(fg.mm_1xtf32) - want).abs().max())
+    assert err3 <= bound, (err3, bound)
+    assert err1 > 10 * bound, (err1, bound)
+
+
 def test_wrappers_refuse_what_they_cannot_launch():
     """The calibration times the card only: each wrapper raises on CPU
     tensors, on a pass count its kernel cannot unroll and on an unknown op,
@@ -121,13 +149,18 @@ def test_wrappers_refuse_what_they_cannot_launch():
 def test_fold_check_flags_rates_above_the_ceiling():
     """check_ceilings names every rate above 105 % of its ceiling and every
     R -> 2R time ratio outside [1.9, 2.1] (a hoisted chain takes about as
-    long for 2R passes as for R)."""
+    long for 2R passes as for R). The f32 strip bodies issue one ex2 an
+    element, so their ceiling is the SFU rate; the scalar bf16 strip keeps
+    its word-test ceiling."""
     ceil = cal.ceilings(132, 1.98e9)
     assert ceil["f32"] == pytest.approx(3.345e13, rel=1e-3)
     assert ceil["exp"] == pytest.approx(4.18e12, rel=1e-3)
+    assert ceil["fwd_strip"] == ceil["bwd_strip"] == ceil["exp"]
+    assert ceil["fwd_strip_bf16"] == 4 * ceil["f32"]
     result = {"ceilings_eps": ceil,
               "prim_rates_eps": {"add_f32": 1.04 * ceil["f32"], "exp_bf16": 1.1 * ceil["exp"]},
-              "card_elems_per_s": {"fwd_strip_s": 3 * ceil["f32"],
+              "card_elems_per_s": {"fwd_strip_s": 1.04 * ceil["fwd_strip"],
+                                   "fwd_strip_s_bf16_mxu": 3 * ceil["f32"],
                                    "bwd_strip_s_mxu": 2 * ceil["bwd_strip"]},
               "prim_scaling": {"add_f32": 1.99, "mul_bf16": 2.2},
               "scaling": {"fwd_strip_s": 1.02, "bwd_strip_s_mxu": 1.95}}
@@ -142,8 +175,10 @@ def test_strip_reps_keep_each_timing_long(n_strips, base):
     calibration run: base 2,048) is a multiple of the 8 heads the f32
     bodies unroll, never below the base (halved for the backward body), and
     long enough that t(R) is at least STRIP_MIN_S at the last measured time
-    a pass; at the bench's shape the short forward body gets more than 256
-    passes (R = 256 ran 4.4 ms and once measured t(2R)/t(R) = 1.8939)."""
+    a pass; at the bench's shape every body gets more than its base (the
+    scalar forward body's R = 256 ran 4.4 ms and once measured t(2R)/t(R) =
+    1.8939; the redesigned f32 bodies take 6-22 us a pass on 1,056
+    strips)."""
     for key, pass_s in cal.STRIP_PASS_S.items():
         r = cal.strip_reps(key, n_strips, base)
         floor = base // 2 if key == "bwd_strip_s_mxu" else base
@@ -154,3 +189,4 @@ def test_strip_reps_keep_each_timing_long(n_strips, base):
         assert r == floor or (r - cal.HEADS) * pass_s * n_strips / cal.STRIP_PASS_STRIPS \
             < cal.STRIP_MIN_S, key
     assert cal.strip_reps("fwd_strip_s", 1056, 256) > 256
+    assert cal.strip_reps("bwd_strip_s_mxu", 1056, 256) > 128
