@@ -19,18 +19,16 @@ Prints ONE JSON line: {"metric": ..., "value": ..., "unit": ...,
   (han_tpu_torch/ops/calibrate.py), measured in this process on this card
   (two calls may land on two cards) and held to the fold checks of
   scripts/cal_vpu_torch.py; device memory is 3.35e12 B/s, the published
-  H100 SXM figure, stated at the card's power limit. The f32 strips run
-  the flash kernels' own tile bodies (the code of ``fwd_kernel``'s and the
-  fused ``bwd_col_kernel``'s sweeps, csrc/tile_mma.cuh, on one tile held
-  on chip: nothing staged, no map walked), so on the f32 arm
-  ``tile_sol_frac`` is a bound: the share of t_main that sweeping the
-  occupied tiles takes with the kernels' body and no overhead. It rests on
-  each strip taking no longer a tile-head than its kernel, which
-  chip_smoke.py (``compare_strips``) checks on every run. The bf16 arm's forward strip is still the scalar
-  body (``fwd_strip_bf16_kernel``: a branch an adjacency byte, FMAs for
-  the D-wide products), slower than the kernel it models, so its
-  ``tile_sol_frac`` is not yet a bound. ``edge_sol_frac`` takes the same
-  per-element strip time over the real edges only.
+  H100 SXM figure, stated at the card's power limit. The strips run the
+  flash kernels' own tile bodies (the code of ``fwd_kernel``'s sweep, with
+  f32 v or, on the bf16 arm, bf16 v, and of the fused ``bwd_col_kernel``'s,
+  csrc/tile_mma.cuh, on one tile held on chip: nothing staged, no map
+  walked), so on both arms ``tile_sol_frac`` is a bound: the share of
+  t_main that sweeping the occupied tiles takes with the kernels' body and
+  no overhead. It rests on each strip taking no longer a tile-head than
+  its kernel, which chip_smoke.py (``compare_strips``) checks on every
+  run. ``edge_sol_frac`` takes the same per-element strip time over the
+  real edges only.
 - detail.device: the card's name and power limit; detail.device_count.
 - detail.t_main_device_ms and detail.device_share: the card's own time
   per iteration of the timed backend (the self device time of every CUDA

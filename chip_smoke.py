@@ -96,18 +96,19 @@ together, and the C++ sampler), then drives the ported paths:
   ell_fused (captured) and its device-sampler refusal (phase 7d).
 
 - bf16 features: the flash kernels with bf16 v against their plain
-  versions at the DBLP shape (dropout 0 and 0.6), and 3 epochs of the dblp
+  versions at the DBLP shape (dropout 0 and 0.6; the forward timed at
+  both), and 3 epochs of the dblp
   preset with model.dtype=bfloat16, captured, and its step profiled
   captured and eager;
 - calibration: builds csrc/calibrate.cu with the other sources, holds each
   of its four kernels against its plain version (all 14 primitive (op,
-  dtype) pairs and the three strip bodies, R = 64; the bf16 strip's
-  tolerance must reject the body computed in f32; the f32 strips' error
-  must be 10x below their plain versions' with one TF32 product), then runs
+  dtype) pairs and the three strip bodies, R = 64; the strips' error must
+  be 10x below their plain versions' with one TF32 product), then runs
   scripts/cal_vpu_torch.py at its full R (every rate at most 105 % of its
-  ceiling, every R -> 2R time ratio in [1.9, 2.1]), prints the JSON and
-  each f32 strip's time a tile-head beside the flash kernel it tracks
-  (fwd_kernel, the fused bwd_col_kernel) at DBLP's largest meta-path,
+  ceiling, every R -> 2R time ratio in [1.9, 2.1]), prints the JSON, each
+  primitive's rate beside its ceiling and its bound, and each strip's
+  time a tile-head beside the flash kernel it tracks (fwd_kernel with f32
+  and with bf16 v, the fused bwd_col_kernel) at DBLP's largest meta-path,
   dropout 0, from this run;
 - benchmark: the flash kernels against their plain versions at the
   benchmark's shapes (N = n_pad = 8192, both meta-paths, v f32 and bf16,
@@ -133,9 +134,8 @@ the edges (or valid ELL slots) of this run's inputs, per edge and head:
 forward and row sweep 2D product FLOPs, 9 more and one exp, fused
 backward 4D and 10, column sweep 4D and 9 (lower bounds: dropout hashing
 and the adjacency tests are not counted); the strip bodies likewise on
-their edges (the bf16 forward strip's products are scalar FMAs), and the
-f32 strips' log line adds the time their swept elements (one ex2 each)
-take at 4.18e12/s. The primitive passes
+their edges, and the strips' log line adds the time their swept
+elements (one ex2 each) take at 4.18e12/s. The primitive passes
 count instructions, not FLOPs: one a lane-op, at the rates of
 ops/calibrate.py:ceilings (128 FP32 lanes a clock per SM, twice that for
 packed bf16, the SFU rate for exp).
@@ -155,6 +155,7 @@ also carry ``ms_by_dropout``, their times at dropout 0 and 0.6).
 import argparse
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -289,7 +290,7 @@ def main(argv=None) -> None:
              "device times at dropout 0 and 0.6 as one JSON line and stop; a copy of this "
              "file run so in another checkout times that checkout's kernels the same way. "
              "calibrate builds calibrate.cu and flash_gat.cu, runs phases 8a and 8b and "
-             "prints each f32 strip's time a tile-head beside its flash kernel's")
+             "prints each strip's time a tile-head beside its flash kernel's")
     args = parser.parse_args(argv)
     import torch
 
@@ -358,13 +359,14 @@ def main(argv=None) -> None:
 
     if args.only == "calibrate":
         stats = check_dblp(graph, ld, ls, v, g, ps=(0.0,))
+        bf16 = check_flash_bf16(graph, ld, ls, v, g, k, d)
         cal_stats = check_calibration(dev)
         _, cal_result = run_calibration(root)
-        print(json.dumps({"card": card, "strips_vs_flash": compare_strips(
-            cal_result, stats, graph.n_tiles * k), "calibration": {
-                key: {"ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound"][0]}
-                for key, st in cal_stats.items()}}),
-              flush=True)
+        prims = report_prims(cal_result)
+        strips = compare_strips(cal_result, stats, bf16, graph.n_tiles * k)
+        print(json.dumps({"card": card, "prims": prims, "strips_vs_flash": strips, "calibration": {
+            key: {"ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound"][0]}
+            for key, st in cal_stats.items()}}), flush=True)
         return
     stats = check_dblp(graph, ld, ls, v, g)
     # -- phase 3e: the batched kernels, one launch for the meta-paths --------
@@ -485,7 +487,8 @@ def main(argv=None) -> None:
     # -- phase 8: the calibration kernels, then the calibration run ---------
     cal_stats = check_calibration(dev)
     cal_n, cal_result = run_calibration(root)
-    compare_strips(cal_result, stats, tile_heads)
+    report_prims(cal_result)
+    compare_strips(cal_result, stats, bf16, tile_heads)
 
     # -- phase 9: the benchmark's kernels vs plain, then its f32 and bf16 arms
     for name, err in check_bench_shape(root, dev).items():
@@ -2185,7 +2188,9 @@ def check_flash_bf16(graph, ld, ls, v, g, k, d) -> dict:
     """The flash kernels with bf16 v at the DBLP shape, dropout 0 and 0.6,
     against their plain versions, which widen the same bf16 values: the
     f32 tolerances (forward atol 1e-5, rtol 1e-4; backward atol 1e-4, rtol
-    1e-3, dld summed with atomics). Device ms at dropout 0.6."""
+    1e-3, dld summed with atomics). Device ms at dropout 0.6, and the
+    forward's at each dropout (``ms_by_dropout``: compare_strips holds the
+    bf16 strip to it at 0)."""
     import torch
 
     from han_tpu_torch.ops import flash_gat as fg
@@ -2193,6 +2198,7 @@ def check_flash_bf16(graph, ld, ls, v, g, k, d) -> dict:
     n = v.shape[0]
     v16 = v.to(torch.bfloat16)
     out = {key: {"err": 0.0} for key in ("fwd", "bwd", "row", "col")}
+    out["fwd"]["ms_by_dropout"] = {}
     for p in (0.0, 0.6):
         meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=fg.seed_tensor(1234567, ld.device))
         print(f"bf16 v, dropout {p}:", flush=True)
@@ -2210,12 +2216,14 @@ def check_flash_bf16(graph, ld, ls, v, g, k, d) -> dict:
             ("dls", "dv"), fg.flash_bwd_col_cuda(*args), fg.flash_bwd_col_plain(*args)))
         for key, err in (("fwd", e), ("bwd", eb), ("row", er), ("col", ec)):
             out[key]["err"] = max(out[key]["err"], err)
-    t = {"fwd_ms": timed(lambda: fg.flash_fwd_cuda(graph, ld, ls, v16, meta)),
+        out["fwd"]["ms_by_dropout"][str(p)] = timed(
+            lambda: fg.flash_fwd_cuda(graph, ld, ls, v16, meta))
+    t = {"fwd_ms": out["fwd"]["ms_by_dropout"]["0.6"],
          "bwd_ms": timed(lambda: fg.flash_bwd_cuda(*args)),
          "row_ms": timed(lambda: fg.flash_bwd_row_cuda(*args)),
          "col_ms": timed(lambda: fg.flash_bwd_col_cuda(*args))}
-    print("  bf16 v device ms (dropout 0.6): " + ", ".join(f"{a} {b:.4f}" for a, b in t.items()),
-          flush=True)
+    print("  bf16 v device ms (dropout 0.6): " + ", ".join(f"{a} {b:.4f}" for a, b in t.items())
+          + f"; fwd_ms at dropout 0 {out['fwd']['ms_by_dropout']['0.0']:.4f}", flush=True)
     return out
 
 
@@ -2616,32 +2624,30 @@ def train_ppi(dev, card: str, epochs: int = 3) -> None:
 
 CAL_COUNTERS = {"prim": "prim_launches", "fwd_strip": "fwd_strip_launches",
                 "fwd_strip_bf16": "fwd_strip_bf16_launches", "bwd_strip": "bwd_strip_launches"}
-# (atol, rtol) of the bf16 forward strip against its plain version at R =
-# 64: outputs reach about 2,800 and the kernel's largest error was 5.9e-3
-# (NVIDIA H100 80GB HBM3, 700 W); the plain body in f32 differs from the
-# bf16 one by up to 4.4, median 0.12 (96 strips)
-BF16_STRIP_TOL = (2e-2, 1e-5)
+# instructions an element of each primitive pass, one a lane-op (the bound
+# of phase 8a and the share printed by report_prims): add, mul and exp one
+# op, lrelu and select a multiply and a max or select, rowmax an add and a
+# max, rowsum a multiply and two adds
+PRIM_OPS = {"add": 1, "mul": 1, "lrelu": 2, "select": 2, "exp": 1, "rowmax": 2, "rowsum": 3}
 
 
 def check_calibration(dev) -> dict:
     """Phase 8a: each calibration kernel against its plain version at R =
     64 on the card-wide strip (132 x 8 tiles of 128 x 128): all 14
     primitive (op, dtype) pairs, the f32 forward body with and without
-    p·v, the bf16 forward body and the backward body. Tolerances: f32
-    primitives atol 1e-5, rtol 1e-4 (the same ops; the row sums in another
-    order); bf16 primitives rtol 2e-2 (bf16 steps); f32 strips rtol 1e-4
-    and atol 1e-5 of the largest |value| (sums of exps in another order
-    over 64 chained passes, ex2 on log2e-scaled logits; the backward's
-    output adds dv, dls and dld terms whose sum may be near 0); the bf16
-    strip BF16_STRIP_TOL (kernel and plain round the same f32 raw to bf16,
-    so only the f32 sums differ in order), and the same body computed in
-    f32 must fall outside it on most elements. The f32 strips with p·v
-    (forward) and g·v, c·g (backward) take their products as 3xTF32 on the
-    tensor cores: strip_tf32_control holds them to f32 accuracy. Per
-    kernel: the largest error, device ms of the kernel and of its plain
-    version (summed over the launches of the check) and the bound; the log
-    line of each f32 strip, whose body runs one ex2 on every swept
-    element, adds the time of those elements at the SFU rate."""
+    p·v, the forward body with bf16 v and the backward body. Tolerances:
+    f32 primitives atol 1e-5, rtol 1e-4 (the same ops; the row sums in
+    another order); bf16 primitives rtol 2e-2 (bf16 steps); strips rtol
+    1e-4 and atol 1e-5 of the largest |value| (sums of exps in another
+    order over 64 chained passes, ex2 on log2e-scaled logits; the
+    backward's output adds dv, dls and dld terms whose sum may be near 0).
+    The strips take their products (p·v; g·v and c·g) as 3xTF32 on the
+    tensor cores (two products a k step with bf16 v, exact in TF32):
+    strip_tf32_control holds them to f32 accuracy. Per kernel: the largest
+    error, device ms of the kernel and of its plain version (summed over
+    the launches of the check) and the bound; the log line of each strip,
+    whose body runs one ex2 on every swept element, adds the time of those
+    elements at the SFU rate."""
     import torch
 
     from han_tpu_torch.ops import calibrate as cal
@@ -2655,7 +2661,7 @@ def check_calibration(dev) -> dict:
     card = cal.card_info()
     ceil = cal.ceilings(card["sms"], card["max_sm_clock_hz"])
     swept = reps * elems / EXP_PEAK * 1e3  # ms of one launch's swept elements, one ex2 each
-    swept_ms = {"fwd_strip": 0.0, "bwd_strip": 0.0}  # the f32 strips' swept elements
+    swept_ms = {"fwd_strip": 0.0, "fwd_strip_bf16": 0.0, "bwd_strip": 0.0}
     out = {key: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound": (0.0, "operations")}
            for key in CAL_COUNTERS}
 
@@ -2671,45 +2677,39 @@ def check_calibration(dev) -> dict:
             swept_ms[key] += swept
 
     # a primitive pass is instructions, one a lane-op, at the card's rates
-    # (ops/calibrate.py:ceilings): ops an element in f32 or bf16, and exp's
-    # one ex2 on the SFUs
-    ops = {"add": 1, "mul": 1, "lrelu": 2, "select": 2, "exp": 1, "rowmax": 2, "rowsum": 3}
+    # (ops/calibrate.py:ceilings): PRIM_OPS an element in f32 or bf16, and
+    # exp's one ex2 on the SFUs
     for op in cal.OPS:
         for x, dt in ((inp["x"], "f32"), (inp["x"].to(torch.bfloat16), "bf16")):
             t_bytes = 2 * x.numel() * x.element_size() / HBM_BW
-            t_ops = max(reps * elems * ops[op] / ceil[dt],
+            t_ops = max(reps * elems * PRIM_OPS[op] / ceil[dt],
                         (reps * elems if op == "exp" else 0) / ceil["exp"])
             bnd = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
             add("prim", f"{op} {x.dtype}", lambda x=x, op=op: cal.prim_cuda(x, op, reps),
                 lambda x=x, op=op: cal.prim_plain(x, op, reps),
                 1e-5, 2e-2 if dt == "bf16" else 1e-4, bnd)
     scaled = lambda want, f: f * float(want.abs().max())
+    out_bytes = n_strips * 128 * 64 * 4
     for mxu in (False, True):
         want = cal.fwd_strip_plain(*a, reps, mxu)
         add("fwd_strip", f"fwd strip f32 mxu={mxu}", lambda mxu=mxu: cal.fwd_strip_cuda(*a, reps, mxu),
             lambda mxu=mxu: cal.fwd_strip_plain(*a, reps, mxu), scaled(want, 1e-5), 1e-4,
-            bound(strip_bytes + n_strips * 128 * 64 * 4, reps * edges * 9, reps * edges,
+            bound(strip_bytes + out_bytes, reps * edges * 9, reps * edges,
                   mma_flops=reps * edges * 2 * 8 if mxu else 0))
-    atol, rtol = BF16_STRIP_TOL
-    add("fwd_strip_bf16", "fwd strip bf16", lambda: cal.fwd_strip_bf16_cuda(*a[:3], v16, reps),
-        lambda: cal.fwd_strip_bf16_plain(*a[:3], v16, reps), atol, rtol,
-        bound(strip_bytes + n_strips * 128 * 8 * 4, reps * edges * (2 * 8 + 9), reps * edges))
-    # control: the same body in f32 must fall outside that tolerance
     want = cal.fwd_strip_bf16_plain(*a[:3], v16, reps)
-    ctl = cal.fwd_strip_bf16_plain(*a[:3], v16, reps, strip_dtype=torch.float32)
-    outside = int(((ctl - want).abs() > atol + rtol * want.abs()).sum())
-    print(f"cal fwd strip bf16 control (the body in f32): {outside} of {want.numel()} "
-          f"elements outside the tolerance, max_abs_err {float((ctl - want).abs().max()):.3e}",
-          flush=True)
-    if outside < want.numel() // 2:
-        fail("the bf16 strip tolerance does not reject the body computed in f32")
+    add("fwd_strip_bf16", "fwd strip bf16 v", lambda: cal.fwd_strip_bf16_cuda(*a[:3], v16, reps),
+        lambda: cal.fwd_strip_bf16_plain(*a[:3], v16, reps), scaled(want, 1e-5), 1e-4,
+        bound(strip_bytes - a[3].numel() * 2 + out_bytes, reps * edges * 9, reps * edges,
+              mma_flops=reps * edges * 2 * 8))
     want = cal.bwd_strip_plain(*a, g, reps)
     add("bwd_strip", "bwd strip", lambda: cal.bwd_strip_cuda(*a, g, reps),
         lambda: cal.bwd_strip_plain(*a, g, reps), scaled(want, 1e-5), 1e-4,
-        bound(strip_bytes + g.numel() * 4 + n_strips * 128 * 64 * 4, reps * edges * 10,
+        bound(strip_bytes + g.numel() * 4 + out_bytes, reps * edges * 10,
               reps * edges, mma_flops=reps * edges * 4 * 8))
     strip_tf32_control("fwd strip f32 mxu=True", lambda: cal.fwd_strip_cuda(*a, reps, True),
                        lambda mm: cal.fwd_strip_plain(*a, reps, True, mm=mm))
+    strip_tf32_control("fwd strip bf16 v", lambda: cal.fwd_strip_bf16_cuda(*a[:3], v16, reps),
+                       lambda mm: cal.fwd_strip_bf16_plain(*a[:3], v16, reps, mm=mm))
     strip_tf32_control("bwd strip", lambda: cal.bwd_strip_cuda(*a, g, reps),
                        lambda mm: cal.bwd_strip_plain(*a, g, reps, mm=mm))
     for key, st in out.items():
@@ -2724,7 +2724,7 @@ def check_calibration(dev) -> dict:
 
 
 def strip_tf32_control(name, kernel, plain) -> None:
-    """Control of an f32 strip's 3xTF32 products, as tf32_control for the
+    """Control of a strip's 3xTF32 products, as tf32_control for the
     flash kernels: the kernel's output and the plain version's with its
     products taken by fg.mm_3xtf32 (the kernels' split) each against the
     plain version with f32 products must be TF32_MARGIN times closer than
@@ -2745,20 +2745,23 @@ def strip_tf32_control(name, kernel, plain) -> None:
                  f"TF32 product's ({err['1xTF32']:.3e})")
 
 
-def compare_strips(cal_result: dict, stats: dict, tile_heads: int) -> dict:
-    """Each redesigned f32 strip's time a tile-head (the calibration run's
-    ``tile_s``: one 128x128 tile and one head on a full card) beside the
-    flash kernel it tracks at DBLP's largest meta-path, dropout 0, from this
-    run: fwd_strip_s_mxu against fwd_kernel, bwd_strip_s_mxu against the
-    fused bwd_col_kernel, each kernel's device ms over its tiles x heads.
-    The strips stage nothing and walk no map, so each must take no longer
-    than its kernel: bench_torch.py reads their times as a bound on the
-    kernels' (tile_sol_frac)."""
+def compare_strips(cal_result: dict, stats: dict, bf16: dict, tile_heads: int) -> dict:
+    """Each strip's time a tile-head (the calibration run's ``tile_s``: one
+    128x128 tile and one head on a full card) beside the flash kernel it
+    tracks at DBLP's largest meta-path, dropout 0, from this run:
+    fwd_strip_s_mxu against fwd_kernel, fwd_strip_s_bf16_mxu against
+    fwd_kernel with bf16 v (``bf16``: check_flash_bf16), bwd_strip_s_mxu
+    against the fused bwd_col_kernel, each kernel's device ms over its
+    tiles x heads. The strips stage nothing and walk no map, so each must
+    take no longer than its kernel: bench_torch.py reads their times as a
+    bound on the kernels' (tile_sol_frac)."""
     out = {}
-    for key, flash in (("fwd_strip_s", "fwd"), ("fwd_strip_s_mxu", "fwd"),
-                       ("bwd_strip_s_mxu", "bwd")):
+    for key, flash, st in (("fwd_strip_s", "fwd", stats["fwd"]),
+                           ("fwd_strip_s_mxu", "fwd", stats["fwd"]),
+                           ("fwd_strip_s_bf16_mxu", "fwd bf16 v", bf16["fwd"]),
+                           ("bwd_strip_s_mxu", "bwd", stats["bwd"])):
         strip_ns = cal_result["tile_s"][key] * 1e9
-        flash_ns = stats[flash]["ms_by_dropout"]["0.0"] * 1e6 / tile_heads
+        flash_ns = st["ms_by_dropout"]["0.0"] * 1e6 / tile_heads
         out[key] = {"strip_ns": strip_ns, "flash": flash, "flash_ns": flash_ns,
                     "ratio": strip_ns / flash_ns}
         print(f"{key}: {strip_ns:.3f} ns a tile-head; flash {flash} at DBLP's largest meta-path, "
@@ -2767,6 +2770,26 @@ def compare_strips(cal_result: dict, stats: dict, tile_heads: int) -> dict:
         if key != "fwd_strip_s" and strip_ns > flash_ns:
             fail(f"{key}: {strip_ns:.3f} ns a tile-head is above its flash kernel's "
                  f"{flash_ns:.3f} ns, so tile_sol_frac is no bound")
+    return out
+
+
+def report_prims(cal_result: dict) -> dict:
+    """Each (op, dtype) primitive's rate from the calibration run, its share
+    of its ceiling (ops/calibrate.py:ceilings) and of its bound rate: the
+    PRIM_OPS instructions an element at the lane rate of its type (exp: at
+    most the SFU rate), so that the passes still short of their bound
+    show."""
+    from han_tpu_torch.ops import calibrate as cal
+
+    ceil, out = cal_result["ceilings_eps"], {}
+    for key, rate in cal_result["prim_rates_eps"].items():
+        op, dt = key.rsplit("_", 1)
+        bound_eps = min(ceil[dt] / PRIM_OPS[op], ceil["exp"] if op == "exp" else math.inf)
+        out[key] = {"eps": rate, "of_ceiling": rate / cal.prim_ceiling(op, dt, ceil),
+                    "of_bound": rate / bound_eps}
+        print(f"prim {key:11s}: {rate:.4e} elements/s, {out[key]['of_ceiling']:.3f} of its "
+              f"ceiling, {out[key]['of_bound']:.3f} of its bound ({PRIM_OPS[op]} op(s) an "
+              f"element: {bound_eps:.4e}/s)", flush=True)
     return out
 
 

@@ -8,173 +8,239 @@
 //
 // Replaces (scripts/cal_vpu.py, which timed one TPU core's VPU on a
 // (512, 2048) strip in VMEM):
-//   prim_kernel<OP, T>      <- _prim_kernel (l.63) with _prim_body (l.35-60)
-//   fwd_strip_kernel<MXU>   <- _fwd_strip_kernel (l.74)
-//   fwd_strip_bf16_kernel   <- _fwd_strip_kernel_bf16 (l.112)
-//   bwd_strip_kernel        <- _bwd_strip_kernel (l.144)
+//   prim_kernel<OP, U>            <- _prim_kernel (l.63) with _prim_body (l.35-60)
+//   fwd_strip_kernel<MXU, float>  <- _fwd_strip_kernel (l.74)
+//   fwd_strip_kernel<true, bf16>  <- _fwd_strip_kernel_bf16 (l.112), as the
+//                                    body of the bf16 flash forward (below)
+//   bwd_strip_kernel              <- _bwd_strip_kernel (l.144)
 //
 // The unit of work is the whole card: n_strips independent 128x128 strips
 // (the port's flash tile, graph/bcsr.py), one thread block each for the
-// strip bodies, or rows of 128 elements, 4 rows a warp, for the primitives;
+// strip bodies, or rows of 128 elements, 8 rows a warp, for the primitives;
 // a launch fills all 132 SMs. Each block loads its slice once and keeps it
 // in registers (primitives, carries, accumulators) and shared memory (the
 // adjacency, ls, v, g, the head slots) for all R passes. Inputs per strip
 // s: ld, ls f32 [8][128] (row 0 used, as cal_vpu.py uses ld_ref[0]), adj
 // int8 [128][128] (every row holds an edge: see ops/calibrate.py), v
-// [128][8], g f32 [128][8].
+// [128][8] (f32, or bf16 for the bf16 strip), g f32 [128][8].
 //
-// The primitives read a unit's rate; the f32 strip bodies run the flash
+// The primitives read a unit's rate; the strip bodies run the flash
 // kernels' tile bodies (csrc/flash_gat.cu) with the same code (fwd_chunk,
 // bwd_col_patch in csrc/tile_mma.cuh), so that a strip's time is the time
 // of one tile and head of the flash kernels with nothing staged and no map
-// walked.
+// walked. The bf16 strip is the bf16 flash forward's body (fwd_kernel<8,
+// bf16, false>: v bf16, widened in registers, everything else in f32, as
+// han_tpu's bf16 flash kernel computes), not cal_vpu.py's bf16 roundings of
+// raw, z and p, which no flash kernel of either package makes.
 //
 // What bounds each on the H100 (the ceilings cal_vpu_torch.py holds every
 // rate to, from the card's SM count and maximum SM clock; at 132 SMs and
 // 1.98 GHz):
 // - prim add, mul, lrelu, select, rowmax, rowsum: the FP32 lanes, 128 per
 //   SM: 132 x 128 x clock = 3.35e13 simple f32 ops/s, and so at most
-//   3.35e13 elements/s for a pass that needs one instruction an element
-//   (scalar bf16 instructions issue on the same lanes; packed bf16x2 could
-//   reach twice that, the bf16 ceiling). The __f*_rn intrinsics keep each
-//   f32 op one instruction (no contraction into FMAs).
+//   3.35e13 elements/s in f32 for a pass that needs one instruction an
+//   element. bf16 data is held as __nv_bfloat162 pairs, one packed
+//   instruction for two elements, so the bf16 ceiling is twice that. On
+//   the H100 a chain of packed multiplies comes near it (ptxas splits them
+//   between HMUL2 on the FMA pipe and HFMA2.MMA); a chain of packed adds
+//   issues as HADD2 (or HFMA2) on the FMA pipe alone, at the f32 rate. The
+//   __f*_rn and __h*2_rn intrinsics keep each op one instruction (no
+//   contraction into FMAs). A row's max or sum is an in-thread tree over
+//   the lane's 32 elements and two quad shuffles.
 // - prim exp: the SFUs, 16 MUFU.EX2 results a clock per SM: 4.2e12/s.
-// - the f32 strip bodies (fwd_strip_kernel, bwd_strip_kernel): branch-free
+// - the strip bodies (fwd_strip_kernel, bwd_strip_kernel): branch-free
 //   sweeps that issue one ex2 on every swept element, edge or not, so at
 //   most the SFU rate, 4.2e12 swept elements/s. Besides it they issue about
 //   a dozen (forward) and twenty (backward) FP32 and integer instructions an
 //   element, and the products on the tensor cores: like the flash kernels
 //   they are bound by instruction issue.
-// - the bf16 forward strip body (fwd_strip_bf16_kernel, still the scalar
-//   body): the issue rate of its sparse-skipping loops (a word test of
-//   the adjacency per 4 elements of a thread's slice, then per edge an exp
-//   and 8 FMAs), so at most 4 x 3.35e13 swept elements/s.
 // A rate above 105 % of its ceiling means the compiler folded the chain.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tile_mma.cuh"
 
 namespace {
 
 constexpr int T = 128;          // strip side = the port's flash tile
-constexpr int TPR = 4;          // threads per strip row (bf16 fwd), adjacent lanes
-constexpr int WORDS = T / 4;    // int32 words of a strip row
-constexpr int WPITCH = WORDS + 1;
-constexpr int CW = WORDS / TPR;  // words in one thread's column slice
 constexpr int D = 8;            // head dim (cal_vpu.py --d 8)
-constexpr int HEADS = 8;        // head slots of the f32 strip bodies
-constexpr int RW = 4;           // rows a warp holds in the primitive kernel
+constexpr int HEADS = 8;        // head slots of the strip bodies
 constexpr int APITCH = T + APAD;  // bytes of a staged adjacency row, as the flash kernels'
 
 enum Op { ADD = 0, MUL, LRELU, SELECT, EXP, ROWMAX, ROWSUM, N_OPS };
 
-// one instruction per op, in f32 or bf16
+// ---------------------------------------------------------------------------
+// primitives: lane q of a quad holds elements 32 q .. 32 q + 31 of one row
+// in registers, a warp 8 rows; each pass applies cal_vpu.py's chain to all
+// of them. The unit U of the registers is an f32 element, or a pair of
+// bf16 elements (__nv_bfloat162) on which each op is one packed
+// instruction. The chain constants are exact in bf16 (1 +- 2^-7), so no
+// pass folds to x1 (cal_vpu.py:37-41). A block of 1,024 threads holds 256
+// rows: at one or two blocks an SM, the calibration's 135,168 rows make
+// whole waves.
+// ---------------------------------------------------------------------------
+
+constexpr int PRIM_THREADS = 1024;
+constexpr int LPR = 4;           // lanes of a row: a quad
+constexpr int RPW = 32 / LPR;    // rows a warp
+constexpr int RUN = T / LPR;     // a lane's contiguous elements of its row
+
+using bf2 = __nv_bfloat162;
+
+// a unit's 32 bits and back
+__device__ __forceinline__ uint32_t bits(float a) { return __float_as_uint(a); }
+__device__ __forceinline__ uint32_t bits(bf2 a) { return reinterpret_cast<const uint32_t&>(a); }
+template <typename U>
+__device__ __forceinline__ U from_bits(uint32_t u);
+template <>
+__device__ __forceinline__ float from_bits<float>(uint32_t u) { return __uint_as_float(u); }
+template <>
+__device__ __forceinline__ bf2 from_bits<bf2>(uint32_t u) {
+  return reinterpret_cast<const bf2&>(u);
+}
+
+template <typename U>
+__device__ __forceinline__ U splat(float x);
+template <>
+__device__ __forceinline__ float splat<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf2 splat<bf2>(float x) { return __float2bfloat162_rn(x); }
+
 __device__ __forceinline__ float op_add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float op_mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float op_max(float a, float b) { return fmaxf(a, b); }
-__device__ __forceinline__ bool op_ge0(float a) { return a >= 0.f; }
+__device__ __forceinline__ float op_select(float a, float c_mul) {
+  return a >= 0.f ? a : op_mul(a, c_mul);
+}
 __device__ __forceinline__ float op_exp(float a) { return expf(a); }
-__device__ __forceinline__ float to_f(float a) { return a; }
 
-__device__ __forceinline__ __nv_bfloat16 op_add(__nv_bfloat16 a, __nv_bfloat16 b) { return __hadd(a, b); }
-__device__ __forceinline__ __nv_bfloat16 op_mul(__nv_bfloat16 a, __nv_bfloat16 b) { return __hmul(a, b); }
-__device__ __forceinline__ __nv_bfloat16 op_max(__nv_bfloat16 a, __nv_bfloat16 b) { return __hmax(a, b); }
-__device__ __forceinline__ bool op_ge0(__nv_bfloat16 a) { return __hge(a, __float2bfloat16_rn(0.f)); }
-__device__ __forceinline__ __nv_bfloat16 op_exp(__nv_bfloat16 a) { return hexp(a); }
-__device__ __forceinline__ float to_f(__nv_bfloat16 a) { return __bfloat162float(a); }
+__device__ __forceinline__ bf2 op_add(bf2 a, bf2 b) { return __hadd2_rn(a, b); }
+__device__ __forceinline__ bf2 op_mul(bf2 a, bf2 b) { return __hmul2_rn(a, b); }
+__device__ __forceinline__ bf2 op_max(bf2 a, bf2 b) { return __hmax2(a, b); }
+// a >= 0 ? a : a c_mul on both halves: a packed compare gives each half's
+// mask, one bitwise select merges
+__device__ __forceinline__ bf2 op_select(bf2 a, bf2 c_mul) {
+  const uint32_t keep = __hge2_mask(a, splat<bf2>(0.f));
+  return from_bits<bf2>((bits(a) & keep) | (bits(op_mul(a, c_mul)) & ~keep));
+}
+__device__ __forceinline__ bf2 op_exp(bf2 a) { return h2exp(a); }
 
-template <typename TT>
-__device__ __forceinline__ TT from_f(float a);
-template <>
-__device__ __forceinline__ float from_f<float>(float a) { return a; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float a) {
-  return __float2bfloat16_rn(a);
+// a unit's sum in f32, for the row sums (summed in f32, as the plain
+// version's bf16 .sum is). A bf16 value widens to the f32 of its bits
+// shifted up by 16. Written as a multiply and a mask, the two widenings
+// take fewer integer-pipe instructions than __low2float and __high2float
+// (PRMT and shifts): 8.7e12 against 7.9e12 elements/s on the H100
+__device__ __forceinline__ float sum_f32(float a) { return a; }
+__device__ __forceinline__ float sum_f32(bf2 a) {
+  const uint32_t u = bits(a);
+  return __uint_as_float(u * 65536u) + __uint_as_float(u & 0xffff0000u);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL_MASK, x, o));
-  return x;
+// a unit whose halves are the row's max: the halves' max (bf16), then the
+// quad's
+__device__ __forceinline__ float halves_max(float a) { return a; }
+__device__ __forceinline__ bf2 halves_max(bf2 a) { return __hmax2(a, __lowhigh2highlow(a)); }
+
+template <typename U>
+__device__ __forceinline__ U quad_max(U a) {
+  a = op_max(a, __shfl_xor_sync(FULL_MASK, a, 1));
+  return op_max(a, __shfl_xor_sync(FULL_MASK, a, 2));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL_MASK, x, o);
-  return x;
+__device__ __forceinline__ float quad_sum(float a) {
+  a += __shfl_xor_sync(FULL_MASK, a, 1);
+  return a + __shfl_xor_sync(FULL_MASK, a, 2);
 }
 
-// ---------------------------------------------------------------------------
-// primitives: a warp holds RW rows of 128 elements, 4 a lane, in registers;
-// each pass applies cal_vpu.py's chain to all of them. The chain constants
-// are exact in bf16 (1 +- 2^-7), so no pass folds to x1 (cal_vpu.py:37-41).
-// ---------------------------------------------------------------------------
+// f over leaf(LO) .. leaf(LO + N - 1): a pairwise tree, built depth first
+// so that few values are live at once
+template <int LO, int N, typename G, typename F>
+__device__ __forceinline__ auto tree(const G& leaf, const F& f) {
+  if constexpr (N == 1)
+    return leaf(LO);
+  else
+    return f(tree<LO, N / 2>(leaf, f), tree<LO + N / 2, N / 2>(leaf, f));
+}
 
-template <int OP, typename TT>
-__global__ void __launch_bounds__(256) prim_kernel(const TT* __restrict__ x,
-                                                   TT* __restrict__ out,
-                                                   int n_rows, int reps) {
+// x, unknown to the compiler at each pass: rowsum's acc x 1e-9 is the same
+// every pass, and the chain computes it every pass, as the bound counts it
+template <typename U>
+__device__ __forceinline__ void opaque(U& x) {
+  uint32_t u = bits(x);
+  asm volatile("" : "+r"(u));
+  x = from_bits<U>(u);
+}
+
+template <int OP, typename U>
+__global__ void __launch_bounds__(PRIM_THREADS) prim_kernel(const U* __restrict__ x,
+                                                            U* __restrict__ out,
+                                                            int n_rows, int reps) {
+  constexpr int EPU = std::is_same<U, float>::value ? 1 : 2;  // elements a unit
+  constexpr int N = RUN / EPU;                                // units a lane
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
-  const int row0 = warp * RW;
-  if (row0 >= n_rows) return;  // whole warps only: n_rows % RW == 0
-  const TT c_add = from_f<TT>(0.0078125f), c_mul = from_f<TT>(0.9921875f);
-  const TT c_slope = from_f<TT>(0.2f), c_tiny = from_f<TT>(1e-9f);
-  const TT c_half = from_f<TT>(0.5f);
-  TT acc[RW][4], aux[RW];
+  if (warp * RPW >= n_rows) return;  // whole warps only: n_rows % RPW == 0
+  const size_t at = ((size_t)(warp * RPW + lane / LPR) * T + (lane % LPR) * RUN) / EPU;
+  const U c_add = splat<U>(0.0078125f), c_mul = splat<U>(0.9921875f);
+  const U c_slope = splat<U>(0.2f), c_half = splat<U>(0.5f);
+  U c_tiny = splat<U>(1e-9f);
+  U acc[N], aux = splat<U>(1.f);  // aux: the row's, in every unit
 #pragma unroll
-  for (int rr = 0; rr < RW; ++rr) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[rr][e] = x[(size_t)(row0 + rr) * T + lane * 4 + e];
-    aux[rr] = from_f<TT>(1.f);
+  for (int i = 0; i < N / 4; ++i) {
+    const uint4 w = reinterpret_cast<const uint4*>(x + at)[i];
+    acc[4 * i] = from_bits<U>(w.x);
+    acc[4 * i + 1] = from_bits<U>(w.y);
+    acc[4 * i + 2] = from_bits<U>(w.z);
+    acc[4 * i + 3] = from_bits<U>(w.w);
   }
   for (int p = 0; p < reps; ++p) {
+    if constexpr (OP == ROWMAX) {
+      const U t = op_mul(aux, c_tiny);
+      const U mx = tree<0, N>([&](int e) { return op_add(acc[e], t); },
+                              [](U a, U b) { return op_max(a, b); });
+      aux = op_add(op_mul(aux, c_half), quad_max(halves_max(mx)));
+    } else if constexpr (OP == ROWSUM) {
+      opaque(c_tiny);
+      const U t = op_mul(aux, c_tiny);
+      const float sm =
+          tree<0, N>([&](int e) { return sum_f32(op_add(op_mul(acc[e], c_tiny), t)); },
+                     [](float a, float b) { return a + b; });
+      aux = op_add(op_mul(aux, c_half), splat<U>(quad_sum(sm)));
+    } else {
 #pragma unroll
-    for (int rr = 0; rr < RW; ++rr) {
-      if constexpr (OP == ROWMAX) {
-        const TT t = op_mul(aux[rr], c_tiny);
-        float mx = to_f(op_add(acc[rr][0], t));
-#pragma unroll
-        for (int e = 1; e < 4; ++e) mx = fmaxf(mx, to_f(op_add(acc[rr][e], t)));
-        aux[rr] = op_add(op_mul(aux[rr], c_half), from_f<TT>(warp_max(mx)));
-      } else if constexpr (OP == ROWSUM) {
-        const TT t = op_mul(aux[rr], c_tiny);
-        float sm = 0.f;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sm += to_f(op_add(op_mul(acc[rr][e], c_tiny), t));
-        aux[rr] = op_add(op_mul(aux[rr], c_half), from_f<TT>(warp_sum(sm)));
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          TT& a = acc[rr][e];
-          if constexpr (OP == ADD) a = op_add(a, c_add);
-          if constexpr (OP == MUL) a = op_mul(a, c_mul);
-          if constexpr (OP == LRELU) a = op_max(a, op_mul(c_slope, a));
-          if constexpr (OP == SELECT) a = op_ge0(a) ? a : op_mul(a, c_mul);
-          if constexpr (OP == EXP) a = op_exp(op_mul(a, c_tiny));
-        }
+      for (int e = 0; e < N; ++e) {
+        U& a = acc[e];
+        if constexpr (OP == ADD) a = op_add(a, c_add);
+        if constexpr (OP == MUL) a = op_mul(a, c_mul);
+        if constexpr (OP == LRELU) a = op_max(a, op_mul(c_slope, a));
+        if constexpr (OP == SELECT) a = op_select(a, c_mul);
+        if constexpr (OP == EXP) a = op_exp(op_mul(a, c_tiny));
       }
     }
   }
 #pragma unroll
-  for (int rr = 0; rr < RW; ++rr)
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      out[(size_t)(row0 + rr) * T + lane * 4 + e] = op_add(acc[rr][e], aux[rr]);
+  for (int i = 0; i < N / 4; ++i)
+    reinterpret_cast<uint4*>(out + at)[i] =
+        make_uint4(bits(op_add(acc[4 * i], aux)), bits(op_add(acc[4 * i + 1], aux)),
+                   bits(op_add(acc[4 * i + 2], aux)), bits(op_add(acc[4 * i + 3], aux)));
 }
 
 // ---------------------------------------------------------------------------
-// f32 forward strip body: fwd_kernel's tile body (csrc/flash_gat.cu) on one
-// 128x128 tile held in shared memory, D = 8, f32 v, swept R times. Block =
-// one strip, 8 warps laid out as fwd_kernel's at bm = 128: warp w owns rows
-// 16 w .. 16 w + 15, thread (g, t) rows r_lo = 16 w + g and r_lo + 8 (the
-// m16 side of P.V). A pass sweeps the tile as fwd_kernel sweeps one, with
-// the same code: fwd_chunk (csrc/tile_mma.cuh) on each 32-column chunk,
-// P.V as 3xTF32 on the tensor cores. MXU = false is the same sweep without
-// the product. The carries are cal_vpu.py's (l.74-110): the row
+// forward strip body: fwd_kernel's tile body (csrc/flash_gat.cu) on one
+// 128x128 tile held in shared memory, D = 8, v f32 or bf16 (VT), swept R
+// times. Block = one strip, 8 warps laid out as fwd_kernel's at bm = 128:
+// warp w owns rows 16 w .. 16 w + 15, thread (g, t) rows r_lo = 16 w + g
+// and r_lo + 8 (the m16 side of P.V). A pass sweeps the tile as fwd_kernel
+// sweeps one, with the same code: fwd_chunk (csrc/tile_mma.cuh) on each
+// 32-column chunk, P.V as 3xTF32 on the tensor cores (two products a k
+// step with bf16 v, whose widened values are exact in TF32, as
+// fwd_kernel<8, bf16, false> takes them). v is staged as VT, 2 bytes an
+// element for bf16. MXU = false is the same sweep without the product.
+// The carries are cal_vpu.py's (l.74-110): the row
 // max m feeds the next pass's logits (ld + m 1e-9), and the P.V of pass p
 // goes into head slot p % 8, which is rescaled by that pass's scale. The
 // eight slots live in shared memory, one float4 a thread and slot, loaded
@@ -184,9 +250,9 @@ __global__ void __launch_bounds__(256) prim_kernel(const TT* __restrict__ x,
 
 constexpr int FWD_THREADS = T / 16 * 32;
 
-constexpr size_t fwd_smem_bytes(bool mxu) {
-  return (size_t)T * APITCH + (size_t)T * 4 + (size_t)T * D * 4  // adjacency, ls, v
-         + (mxu ? (size_t)HEADS * FWD_THREADS * 16 : 0);         // the head slots
+constexpr size_t fwd_smem_bytes(bool mxu, size_t v_bytes) {
+  return (size_t)T * APITCH + (size_t)T * 4 + (size_t)T * D * v_bytes  // adjacency, ls, v
+         + (mxu ? (size_t)HEADS * FWD_THREADS * 16 : 0);               // the head slots
 }
 
 // the strip's adjacency, rows padded to APITCH bytes as the flash kernels
@@ -199,15 +265,15 @@ __device__ __forceinline__ void stage_adj_rows(unsigned char* adj_s, const int8_
   }
 }
 
-template <bool MXU>
+template <bool MXU, typename VT>
 __global__ void __launch_bounds__(FWD_THREADS, 2) fwd_strip_kernel(
     const float* __restrict__ ld, const float* __restrict__ ls,
-    const int8_t* __restrict__ adj, const float* __restrict__ v,
+    const int8_t* __restrict__ adj, const VT* __restrict__ v,
     float* __restrict__ out, int reps, float slope) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* adj_s = smem;                                // [T][APITCH]
   float* ls_s = reinterpret_cast<float*>(smem + T * APITCH);  // [T]
-  float* v_s = ls_s + T;                                      // [T][D], column c at vslot(c)
+  VT* v_s = reinterpret_cast<VT*>(ls_s + T);                  // [T][D], column c at vslot(c)
   float4* slot_s = reinterpret_cast<float4*>(v_s + T * D);    // [HEADS][FWD_THREADS]
   const int s = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
@@ -253,8 +319,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 2) fwd_strip_kernel(
     }
 #pragma unroll 2
     for (int c0 = 0; c0 < T; c0 += 32)
-      fwd_chunk<D, float, false, MXU>(adj_s, APITCH, ls_s, nullptr, v_s, vo, c0, r_lo, gq, tq,
-                                      ldp, slope, no_key, 0u, m, l, acc, [] {});
+      fwd_chunk<D, VT, false, MXU>(adj_s, APITCH, ls_s, nullptr, v_s, vo, c0, r_lo, gq, tq, ldp,
+                                   slope, no_key, 0u, m, l, acc, [] {});
     if constexpr (MXU)
       *slot = make_float4(acc[1][0][0] + acc[2][0][0] + acc[0][0][0],
                           acc[1][0][1] + acc[2][0][1] + acc[0][0][1],
@@ -280,109 +346,6 @@ __global__ void __launch_bounds__(FWD_THREADS, 2) fwd_strip_kernel(
       }
       *reinterpret_cast<float2*>(o + h * D) = make_float2(a.x + ml, a.y + ml);
     }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16 forward strip body (the first port's scalar body): block = one
-// strip; thread (r, q) = row r, column slice q (32 columns), the TPR threads
-// of a row on adjacent lanes. Each pass: a max over the slice's edges, an online
-// rescale, then per edge an exp and D FMAs, skipping empty words and bytes.
-// The row's max is shared by its TPR lanes every pass (two shuffles), so
-// the carry (m, l) is the row's, as in cal_vpu.py, and feeds the next pass
-// (ld + m * 1e-9, cal_vpu.py:118).
-// ---------------------------------------------------------------------------
-
-// stage the strip's adjacency (padded rows: row r starts at bank r)
-__device__ __forceinline__ void stage_adj_words(uint32_t* adj_s, const int8_t* adj, int s) {
-  const uint32_t* src = reinterpret_cast<const uint32_t*>(adj + (size_t)s * T * T);
-  for (int i = threadIdx.x; i < T * WORDS; i += blockDim.x) {
-    const int rr = i / WORDS;
-    adj_s[rr * WPITCH + (i - rr * WORDS)] = src[i];
-  }
-}
-
-__device__ __forceinline__ float row_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(FULL_MASK, x, 1));
-  return fmaxf(x, __shfl_xor_sync(FULL_MASK, x, 2));
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-  x += __shfl_xor_sync(FULL_MASK, x, 1);
-  return x + __shfl_xor_sync(FULL_MASK, x, 2);
-}
-
-// bf16 strip math (raw and z rounded to bf16, as cal_vpu.py:121-123), max,
-// exp, sums and the accumulator in f32, p rounded to bf16 for p.v; one
-// accumulator, no head slots (cal_vpu.py:112-141).
-__global__ void __launch_bounds__(T * TPR) fwd_strip_bf16_kernel(
-    const float* __restrict__ ld, const float* __restrict__ ls,
-    const int8_t* __restrict__ adj, const __nv_bfloat16* __restrict__ v,
-    float* __restrict__ out, int reps, float slope) {
-  __shared__ uint32_t adj_s[T * WPITCH];
-  __shared__ float ls_s[T];
-  __shared__ __nv_bfloat16 v_s[T * D];
-  const int s = blockIdx.x, tid = threadIdx.x;
-  const int r = tid / TPR, q = tid % TPR;
-  const int j0 = q * CW * 4;
-  stage_adj_words(adj_s, adj, s);
-  for (int j = tid; j < T; j += blockDim.x) ls_s[j] = ls[(size_t)s * HEADS * T + j];
-  for (int i = tid; i < T * D; i += blockDim.x) v_s[i] = v[(size_t)s * T * D + i];
-  __syncthreads();
-  const float ld0 = ld[(size_t)s * HEADS * T + r];
-  const uint32_t* my = adj_s + r * WPITCH + q * CW;
-  const __nv_bfloat16 slope16 = __float2bfloat16_rn(slope);
-
-  float m = NEG_INIT, l = 0.f, acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  for (int p_i = 0; p_i < reps; ++p_i) {
-    const float ld_r = ld0 + m * 1e-9f;
-    float cmax = NEG_INIT;
-    for (int w = 0; w < CW; ++w) {
-      const uint32_t bits = my[w];
-      if (!bits) continue;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        if ((bits >> (8 * b)) & 0xffu) {
-          const __nv_bfloat16 raw = __float2bfloat16_rn(ld_r + ls_s[j0 + 4 * w + b]);
-          cmax = fmaxf(cmax, __bfloat162float(__hmax(raw, __hmul(slope16, raw))));
-        }
-      }
-    }
-    cmax = row_max(cmax);
-    if (cmax == NEG_INIT) continue;
-    const float m_new = fmaxf(m, cmax);
-    const float scale = expf(m - m_new);
-    l *= scale;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= scale;
-    for (int w = 0; w < CW; ++w) {
-      const uint32_t bits = my[w];
-      if (!bits) continue;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        if ((bits >> (8 * b)) & 0xffu) {
-          const int j = j0 + 4 * w + b;
-          const __nv_bfloat16 raw = __float2bfloat16_rn(ld_r + ls_s[j]);
-          const float z = __bfloat162float(__hmax(raw, __hmul(slope16, raw)));
-          const float p = expf(z - m_new);
-          l += p;
-          const float pb = __bfloat162float(__float2bfloat16_rn(p));
-#pragma unroll
-          for (int d = 0; d < D; ++d)
-            acc[d] = fmaf(pb, __bfloat162float(v_s[j * D + d]), acc[d]);
-        }
-      }
-    }
-    m = m_new;
-  }
-  l = row_sum(l);
-  float* o = out + ((size_t)s * T + r) * D;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const float a = row_sum(acc[d]);
-    if (q == 0) o[d] = a + m + l;
   }
 }
 
@@ -574,14 +537,27 @@ __global__ void __launch_bounds__(BWD_THREADS, 2) bwd_strip_kernel(
 template <int OP>
 int launch_prim(int bf16, const void* x, void* out, int n_rows, int reps,
                 cudaStream_t stream) {
-  const int threads = 256, rows_per_block = threads / 32 * RW;
+  const int rows_per_block = PRIM_THREADS / 32 * RPW;
   const int blocks = (n_rows + rows_per_block - 1) / rows_per_block;
   if (bf16)
-    prim_kernel<OP, __nv_bfloat16><<<blocks, threads, 0, stream>>>(
-        (const __nv_bfloat16*)x, (__nv_bfloat16*)out, n_rows, reps);
+    prim_kernel<OP, bf2><<<blocks, PRIM_THREADS, 0, stream>>>((const bf2*)x, (bf2*)out, n_rows,
+                                                              reps);
   else
-    prim_kernel<OP, float><<<blocks, threads, 0, stream>>>(
-        (const float*)x, (float*)out, n_rows, reps);
+    prim_kernel<OP, float><<<blocks, PRIM_THREADS, 0, stream>>>((const float*)x, (float*)out,
+                                                                n_rows, reps);
+  return (int)cudaGetLastError();
+}
+
+template <bool MXU, typename VT>
+int launch_fwd_strip(const void* ld, const void* ls, const void* adj, const void* v, void* out,
+                     int n_strips, int reps, float slope, cudaStream_t stream) {
+  if (n_strips <= 0 || reps < 0 || reps % HEADS) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem_bytes(MXU, sizeof(VT));
+  const cudaError_t err = set_smem(fwd_strip_kernel<MXU, VT>, smem);
+  if (err != cudaSuccess) return (int)err;
+  fwd_strip_kernel<MXU, VT><<<n_strips, FWD_THREADS, smem, stream>>>(
+      (const float*)ld, (const float*)ls, (const int8_t*)adj, (const VT*)v, (float*)out, reps,
+      slope);
   return (int)cudaGetLastError();
 }
 
@@ -590,11 +566,11 @@ int launch_prim(int bf16, const void* x, void* out, int n_rows, int reps,
 extern "C" {
 
 // Primitive passes. op 0..6 = add, mul, lrelu, select, exp, rowmax, rowsum;
-// x, out f32 (or bf16 when bf16) [n_rows][128], n_rows % 4 == 0.
+// x, out f32 (or bf16 when bf16) [n_rows][128], n_rows % 8 == 0.
 // Returns a cudaError_t code (0 = launched).
 int han_cal_prim(int op, int bf16, const void* x, void* out, int n_rows,
                  int reps, void* stream) {
-  if (n_rows <= 0 || n_rows % RW || reps < 0) return (int)cudaErrorInvalidValue;
+  if (n_rows <= 0 || n_rows % RPW || reps < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (op) {
     case ADD: return launch_prim<ADD>(bf16, x, out, n_rows, reps, st);
@@ -614,28 +590,18 @@ int han_cal_prim(int op, int bf16, const void* x, void* out, int n_rows,
 int han_cal_fwd_strip(int mxu, const void* ld, const void* ls,
                       const void* adj, const void* v, void* out,
                       int n_strips, int reps, float slope, void* stream) {
-  if (n_strips <= 0 || reps < 0 || reps % HEADS) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = fwd_smem_bytes(mxu);
-  auto kernel = mxu ? fwd_strip_kernel<true> : fwd_strip_kernel<false>;
-  const cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<n_strips, FWD_THREADS, smem, st>>>((const float*)ld, (const float*)ls,
-                                              (const int8_t*)adj, (const float*)v,
-                                              (float*)out, reps, slope);
-  return (int)cudaGetLastError();
+  return mxu ? launch_fwd_strip<true, float>(ld, ls, adj, v, out, n_strips, reps, slope, st)
+             : launch_fwd_strip<false, float>(ld, ls, adj, v, out, n_strips, reps, slope, st);
 }
 
-// Forward strip body, bf16 strip math. As han_cal_fwd_strip with v bf16
-// -> out f32 [n_strips][128][8].
+// Forward strip body with p.v, v bf16: the bf16 flash forward's body. As
+// han_cal_fwd_strip otherwise (out f32 [n_strips][128][64], reps % 8 == 0).
 int han_cal_fwd_strip_bf16(const void* ld, const void* ls, const void* adj,
                            const void* v, void* out, int n_strips, int reps,
                            float slope, void* stream) {
-  if (n_strips <= 0 || reps < 0) return (int)cudaErrorInvalidValue;
-  fwd_strip_bf16_kernel<<<n_strips, T * TPR, 0, (cudaStream_t)stream>>>(
-      (const float*)ld, (const float*)ls, (const int8_t*)adj,
-      (const __nv_bfloat16*)v, (float*)out, reps, slope);
-  return (int)cudaGetLastError();
+  return launch_fwd_strip<true, __nv_bfloat16>(ld, ls, adj, v, out, n_strips, reps, slope,
+                                               (cudaStream_t)stream);
 }
 
 // Backward strip body. Adds g f32 [n_strips][128][8] -> out f32

@@ -8,13 +8,17 @@ between R and 2R in-kernel passes — is the card's compute rate for one
 pass, free of device-memory traffic:
 
 - ``prim_cuda`` ← ``_prim_kernel``: one primitive (``OPS``) over every
-  element, in float32 or bfloat16;
+  element, in float32 or bfloat16 (packed pairs, two elements an
+  instruction), with the row reductions in-thread trees;
 - ``fwd_strip_cuda`` ← ``_fwd_strip_kernel``: the flash forward's
   per-(head, tile) body, with (``mxu``) or without p·v: ``fwd_kernel``'s
   tile body, its products 3xTF32 on the tensor cores;
-- ``fwd_strip_bf16_cuda`` ← ``_fwd_strip_kernel_bf16``: the same with
-  bf16 strip math and f32 reductions (still the first port's scalar
-  body);
+- ``fwd_strip_bf16_cuda`` ← ``_fwd_strip_kernel_bf16``: the same body
+  with p·v and v in bf16, as the bf16 flash forward
+  (``fwd_kernel<8, bf16>``) takes it: v widened in registers, everything
+  else in f32, the products 3xTF32 with v exact. cal_vpu.py's bf16 body
+  rounds raw, z and p to bf16 besides, which no flash kernel does, so the
+  port holds this strip to ``_fwd_strip_kernel`` on bf16-valued v;
 - ``bwd_strip_cuda`` ← ``_bwd_strip_kernel``: the fused backward's body,
   ``bwd_col_kernel``'s.
 
@@ -32,7 +36,7 @@ The plain versions (``*_plain``) compute the chain step by step as
 cal_vpu.py's bodies do, with chain constants in the data's type, so a
 bf16 pass rounds where the JAX body rounds; the CPU tests hold them to
 cal_vpu.py and ``chip_smoke.py`` holds each kernel to them on the card.
-The f32 strips take their products through ``mm`` (default f32):
+The strips take their products through ``mm`` (default f32):
 ``ops/flash_gat.py:mm_3xtf32`` mirrors the kernels' products and
 ``mm_1xtf32`` is one TF32 product, the control that shows the card's
 tolerances tell the two apart.
@@ -55,7 +59,7 @@ import torch
 
 OPS = ("add", "mul", "lrelu", "select", "exp", "rowmax", "rowsum")
 TILE = 128   # strip side of the kernels: the port's flash tile
-HEADS = 8    # head slots; the f32 strip bodies unroll passes by 8
+HEADS = 8    # head slots; the strip bodies unroll passes by 8
 D = 8        # head dim of the kernels
 SLOPE = 0.2
 
@@ -131,29 +135,12 @@ def fwd_strip_plain(ld, ls, adj, v, reps: int, mxu: bool = True,
 
 
 def fwd_strip_bf16_plain(ld, ls, adj, v, reps: int, slope: float = SLOPE,
-                         strip_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """_fwd_strip_kernel_bf16 (mxu): raw and z in bf16, max, exp, sums and
-    the accumulator in f32, p rounded to bf16 for p·v; one accumulator.
-    v is bf16. Returns (..., bm, d) = acc + m + l. ``strip_dtype=float32``
-    skips the bf16 roundings: the f32 body that chip_smoke.py shows its
-    tolerance for this kernel rejects."""
-    on_edge = adj != 0
-    ld0, ls0 = ld[..., 0, :], ls[..., 0, :]
-    m = torch.full_like(ld0, -1e9)
-    l = torch.zeros_like(ld0)
-    acc = ld0.new_zeros((*ld0.shape, v.shape[-1]))
-    slope16 = torch.tensor(slope, dtype=strip_dtype, device=ld.device)
-    masked = torch.tensor(-3e38, dtype=strip_dtype, device=ld.device)
-    for _ in range(reps):
-        raw = ((ld0 + m * 1e-9)[..., :, None] + ls0[..., None, :]).to(strip_dtype)
-        z = torch.where(on_edge, torch.maximum(raw, slope16 * raw), masked)
-        m_new = torch.maximum(m, z.amax(dim=-1).float())
-        scale = torch.exp(m - m_new)
-        pe = torch.exp(z.float() - m_new[..., None])
-        l = l * scale + pe.sum(dim=-1)
-        acc = acc * scale[..., None] + pe.to(strip_dtype).float() @ v.float()
-        m = m_new
-    return acc + (m + l)[..., None]
+                         mm=torch.matmul) -> torch.Tensor:
+    """The bf16 flash forward's body: :func:`fwd_strip_plain` with p·v on
+    the bf16 v's values widened to ld's type (everything else in that
+    type, as ``fwd_kernel<8, bf16>``). Returns (..., bm, 8·d), every head
+    slot."""
+    return fwd_strip_plain(ld, ls, adj, v.to(ld.dtype), reps, True, slope, mm)
 
 
 def bwd_strip_plain(ld, ls, adj, v, g, reps: int, slope: float = SLOPE,
@@ -281,11 +268,12 @@ def fwd_strip_cuda(ld, ls, adj, v, reps: int, mxu: bool = True,
 
 def fwd_strip_bf16_cuda(ld, ls, adj, v, reps: int, slope: float = SLOPE) -> torch.Tensor:
     """The bf16 forward strip kernel; same contract as
-    :func:`fwd_strip_bf16_plain` at bm = sub = 128, d = 8 (v bf16)."""
+    :func:`fwd_strip_bf16_plain` at bm = sub = 128, d = 8 (v bf16), reps %
+    8 == 0."""
     global fwd_strip_bf16_launches
-    _check_reps(reps)
+    _check_reps(reps, HEADS)
     n_strips = _check(**_strip_args(ld, ls, adj, v, torch.bfloat16))
-    out = torch.empty((n_strips, TILE, D), dtype=torch.float32, device=ld.device)
+    out = torch.empty((n_strips, TILE, HEADS * D), dtype=torch.float32, device=ld.device)
     _launch("han_cal_fwd_strip_bf16", ld.data_ptr(), ls.data_ptr(), adj.data_ptr(),
             v.data_ptr(), out.data_ptr(), n_strips, reps, slope, _stream(ld))
     fwd_strip_bf16_launches += 1
@@ -402,15 +390,14 @@ def card_info() -> dict:
 
 def ceilings(sms: int, clock_hz: float) -> dict:
     """Elements/s ceilings of csrc/calibrate.cu's header: 128 FP32 lanes
-    (and thread-instructions) a clock per SM, twice that for packed bf16,
-    16 MUFU.EX2 a clock per SM. The f32 strip bodies issue one ex2 on every
-    swept element, so their ceiling is the SFU rate; the bf16 forward strip
-    body (the first port's scalar body) needs at least one instruction per
-    4 swept elements of a thread's slice (a word test)."""
+    (and thread-instructions) a clock per SM, twice that for the packed
+    bf16 pairs the bf16 primitives run on, 16 MUFU.EX2 a clock per SM. The
+    strip bodies, f32 and bf16 alike, issue one ex2 on every swept element,
+    so their ceiling is the SFU rate."""
     lanes = sms * 128 * clock_hz
     exp = sms * 16 * clock_hz
     return {"f32": lanes, "bf16": 2 * lanes, "exp": exp, "fwd_strip": exp, "bwd_strip": exp,
-            "fwd_strip_bf16": 4 * lanes}
+            "fwd_strip_bf16": exp}
 
 
 def prim_ceiling(op: str, dtype: str, ceil: dict) -> float:
@@ -424,9 +411,9 @@ def _inputs(n_strips: int) -> dict[str, torch.Tensor]:
 # Seconds a pass of each strip body on a card of 1,056 strips (132 SMs x 8),
 # the last calibration (results/CALIBRATION_H100.json, NVIDIA H100 80GB
 # HBM3, 700.00 W): what :func:`strip_reps` sizes R by.
-STRIP_PASS_S = {"fwd_strip_s": 6.394428866250176e-06, "fwd_strip_s_mxu": 1.274140551686287e-05,
-                "fwd_strip_s_bf16_mxu": 3.048887476325035e-05,
-                "bwd_strip_s_mxu": 2.168190479278564e-05}
+STRIP_PASS_S = {"fwd_strip_s": 6.524481127024306e-06, "fwd_strip_s_mxu": 1.2725766748189926e-05,
+                "fwd_strip_s_bf16_mxu": 1.1494922451674938e-05,
+                "bwd_strip_s_mxu": 2.164293639361858e-05}
 STRIP_PASS_STRIPS = 1056
 STRIP_MIN_S = 0.02  # the shortest t(R) of a strip timing (see strip_reps)
 
@@ -434,14 +421,14 @@ STRIP_MIN_S = 0.02  # the shortest t(R) of a strip timing (see strip_reps)
 def strip_reps(key: str, n_strips: int, base: int) -> int:
     """The R of strip body ``key``'s R → 2R timing: ``base`` (halved for
     the backward body, as cal_vpu.py:335 times it) or more, a multiple of
-    the HEADS passes the f32 bodies unroll, with t(R) at least STRIP_MIN_S
-    at the last measured time a pass (scaled to ``n_strips``). A launch
-    costs a fixed time besides its passes (t(R) less R passes: on the H100
-    about 0.02 ms for the f32 bodies, up to about 0.5 ms for the scalar
-    bf16 one, measured with time_marginal's spin), which pulls t(2R)/t(R)
+    the HEADS passes the bodies unroll, with t(R) at least STRIP_MIN_S at
+    the last measured time a pass (scaled to ``n_strips``). A launch costs
+    a fixed time besides its passes (t(R) less R passes: on the H100 about
+    0.02 ms, measured with time_marginal's spin), which pulls t(2R)/t(R)
     below 2 by that time over t(R): at t(R) = 20 ms at most 2.5 %, inside
-    SCALING. Timed at R = 256 (4.4 ms) and with the host's time before the
-    launch counted, the scalar forward body once measured 1.8939."""
+    SCALING. Timed at R = 256 (4.4 ms) and with the host's
+    time before the launch counted, a scalar forward body once measured
+    1.8939."""
     if key == "bwd_strip_s_mxu":
         base //= 2
     pass_s = STRIP_PASS_S[key] * n_strips / STRIP_PASS_STRIPS
@@ -499,9 +486,7 @@ def calibrate_prims(n_strips: int, reps: int) -> dict:
 
 def check_ceilings(result: dict) -> list[str]:
     """Rates above FOLD_LIMIT × their ceiling, and R → 2R time ratios
-    outside SCALING (each a folded or hoisted chain). The bf16 strip's
-    ceiling sits far above its rate, so for that body the ratio is the
-    test that can fire."""
+    outside SCALING (each a folded or hoisted chain)."""
     ceil = result["ceilings_eps"]
     bad = []
     for key, rate in result.get("prim_rates_eps", {}).items():

@@ -3,14 +3,16 @@ the PyTorch + CUDA counterpart of scripts/cal_vpu.py:main.
 
 Times the hand-written calibration kernels (han_tpu_torch/csrc/calibrate.cu)
 as the marginal time between R and 2R in-kernel passes over data held on
-chip (CUDA events, a warm-up call, the minimum of 5 runs):
+chip (ops/calibrate.py:time_marginal: CUDA events behind a spin, a warm-up
+call of each length, the median of 7 interleaved pairs):
 
 - the primitive passes (add, mul, lrelu, select, exp, rowmax, rowsum) in
   float32 and bfloat16 → elements/s of one pass, ``prim_rates_eps``;
-- the flash forward's per-(head, tile) body without and with p·v, in f32
-  and with bf16 strip math, and the fused backward's → seconds per pass
-  over the card-wide strip, ``fwd_strip_s``, ``fwd_strip_s_mxu``,
-  ``fwd_strip_s_bf16_mxu``, ``bwd_strip_s_mxu``.
+- the flash forward's per-(head, tile) body without and with p·v, with
+  f32 v and with bf16 v (the bf16 flash forward's body), and the fused
+  backward's → seconds per pass over the card-wide strip,
+  ``fwd_strip_s``, ``fwd_strip_s_mxu``, ``fwd_strip_s_bf16_mxu``,
+  ``bwd_strip_s_mxu``.
 
 The card-wide strip is ``--bm`` × ``--sub`` elements cut into the port's
 128×128 flash tiles, one thread block each; ``elems_per_strip`` is its
