@@ -6,21 +6,27 @@ together, and the C++ sampler), then drives the ported paths:
   split backward's row and column sweeps) against their plain PyTorch
   versions at the DBLP shape (times at dropout 0 and 0.6; a control shows
   that their products, the row sweep's included, are more accurate than one
-  TF32 product), at D = 32 there (times), at D = 3, 4, 16 and 32 on a small
+  TF32 product; the split backward twice, bitwise), at D = 32 there
+  (times), at D = 64, 128 and 256 there (and 64 with bf16 v: each head in
+  chunks of 32 columns on the kernels' grid; times beside their bounds
+  and, for the forward, SDPA's), at D = 3, 4, 16, 32, 33, 40, 64 and 121 on a small
   graph with a single-edge tile and rows without edges (D = 3 zero-padded
   to 4 by the wrappers), and on the strips of a 4-way partition of DBLP's
   largest meta-path (every shard of partition_bcsr, and ring cells with a
-  non-zero column offset; v f32 and bf16); holds the batched kernels (one launch for
+  non-zero column offset; v f32 and bf16; D = 8 and 64); holds the batched
+  kernels (D = 8 and 64; one launch for
   DBLP's three meta-paths stacked, graph/stack.py) to their plain versions
   and, path by path, to single-path launches with the path's seed
   (forward and sweeps bitwise), with one batched launch timed against
   three single ones; holds the per-rank body of the heads axis (heads 4-7
   of 8 at head_offset 4, on the strips and ring cells of a 2-way
   partition, dropout 0.6, v f32 and bf16) to heads 4-7 of the 8-head
-  launch (forward bitwise); checks a small HAN against the dense path;
-  trains the dblp preset for 10 epochs on the DBLP-shaped dataset with its
-  train and eval steps captured as CUDA graphs (train/graphed.py: epoch 0
-  eager, then replays), checks that the flash kernels' seed buffers hold a
+  launch (forward bitwise; D = 8 and 64); checks a small HAN against the
+  dense path; trains the dblp preset for 10 epochs on the DBLP-shaped
+  dataset with its train and eval steps captured as CUDA graphs
+  (train/graphed.py: epoch 0 eager, then replays), and again at
+  hid_units=(64,) (phase 4l: heads in chunks; captured against eager at
+  dropout 0, its step profiled), checks that the flash kernels' seed buffers hold a
   new seed at every replay, profiles the step captured and eager, and
   holds 10 captured epochs at dropout 0 to 10 eager ones (CAPTURE_TOL);
   runs the dblp preset (dropout 0.6, captured) 10 epochs with a checkpoint
@@ -64,8 +70,9 @@ together, and the C++ sampler), then drives the ported paths:
   graph_format partitioned_bcsr, then ring_bcsr under
   torch.use_deterministic_algorithms(True) (the split backward), csr
   (PartitionedCSR, shard_attn.py) and ring (PartitionedCSR2D,
-  ring_attn.py) at dropout 0, and partitioned_bcsr with vmap_towers (the
-  stacked PartitionedBCSR, batched split backward), and holds each loss
+  ring_attn.py) at dropout 0, partitioned_bcsr with vmap_towers (the
+  stacked PartitionedBCSR, batched split backward), and partitioned_bcsr
+  and ring_bcsr at hid_units=(64,), and holds each loss
   trajectory against its one-device run (on one card every mesh axis has
   one rank and no process group, so every run is captured, each median
   step printed beside its eager one before capture; the heads and mp grids are
@@ -112,8 +119,9 @@ together, and the C++ sampler), then drives the ported paths:
   dropout 0, from this run;
 - benchmark: the flash kernels against their plain versions at the
   benchmark's shapes (N = n_pad = 8192, both meta-paths, v f32 and bf16,
-  dropout 0), then bench_torch.py's f32 and bf16 arms (its roofline
-  calibrated in the same process), each printing its JSON line.
+  dropout 0), then bench_torch.py's f32 and bf16 arms and its f32 arm at
+  --dim 64 (its roofline calibrated in the same process), each printing
+  its JSON line.
 
 The launch counters, set to 0 before each path and read after it, show
 that every step went through the kernels; a replayed graph adds the
@@ -149,7 +157,9 @@ packed bf16, the SFU rate for exp).
 Exits non-zero, printing no result, when CUDA is unavailable or any phase
 fails. The last line is ``{"ok": true, "device": {...}}``; the line before
 it holds the per-kernel measurements as one JSON object (the flash rows
-also carry ``ms_by_dropout``, their times at dropout 0 and 0.6).
+also carry ``ms_by_dropout``, their times at dropout 0 and 0.6; the
+``_d64`` rows, the kernels at D = 64, also their times at D = 128 and
+256).
 """
 
 import argparse
@@ -157,6 +167,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -359,7 +370,7 @@ def main(argv=None) -> None:
 
     if args.only == "calibrate":
         stats = check_dblp(graph, ld, ls, v, g, ps=(0.0,))
-        bf16 = check_flash_bf16(graph, ld, ls, v, g, k, d)
+        bf16 = check_dblp(graph, ld, ls, v.to(torch.bfloat16), g)  # bf16 v
         cal_stats = check_calibration(dev)
         _, cal_result = run_calibration(root)
         prims = report_prims(cal_result)
@@ -371,33 +382,43 @@ def main(argv=None) -> None:
     stats = check_dblp(graph, ld, ls, v, g)
     # -- phase 3e: the batched kernels, one launch for the meta-paths --------
     batched = check_batched(dev, ds, card)
+    # -- phase 3w: head dims above 32, in chunks on the kernels' grid --------
+    wide = check_wide_heads(graph, gen, ds.n_nodes, card)
     if args.only == "flash_gat":
         print(json.dumps({"card": card, "flash": {
             key: {"ms_by_dropout": st["ms_by_dropout"], "plain_ms": st["plain_ms"]}
-            for key, st in stats.items()}, "batched": batched}), flush=True)
+            for key, st in stats.items()}, "batched": batched,
+            "wide": {tag: {key: {"ms_by_dropout": x["ms_by_dropout"], "plain_ms": x["plain_ms"],
+                                 "bound_ms": x["bound"][0], "library_ms": x.get("library_ms")}
+                           for key, x in st.items()} for tag, st in wide.items()}}),
+              flush=True)
         return
     for p in (0.0, 0.6):
         tf32_control(f"DBLP, dropout {p}", graph, ld, ls, v, g,
                      fg.FlashMeta(slope=0.2, dropout_p=p, seed=fg.seed_tensor(1234567, dev)))
     torch.cuda.empty_cache()
     library_fwd_ms = sdpa_yardstick(graph, ld, ls, v, k, d)
-    bf16 = check_flash_bf16(graph, ld, ls, v, g, k, d)
+    bf16 = check_dblp(graph, ld, ls, v.to(torch.bfloat16), g)  # bf16 v
     bounds = flash_bounds(graph, k, d)
     # D = 32: the dblp preset with model.hid_units=32
     for name, st in check_dblp(graph, *dblp_inputs(gen, n, ds.n_nodes, k, 32), ps=(0.6,)).items():
         stats[name]["err"] = max(stats[name]["err"], st["err"])
 
     # -- phase 3d: the other head dims on a small graph with edge cases -----
-    for name, err in check_head_dims(dev).items():
-        stats[name]["err"] = max(stats[name]["err"], err)
+    for dims, into in ((HEAD_DIMS, stats), (WIDE_HEAD_DIMS, wide["64"])):
+        for name, err in check_head_dims(dev, dims).items():
+            into[name]["err"] = max(into[name]["err"], err)
 
-    # -- phase 3c: the kernels on the strips of a 4-way partition ------------
-    for name, err in check_strips(dev, ds.metapath_adjs[big]).items():
-        stats[name]["err"] = max(stats[name]["err"], err)
+    # -- phase 3e at D = 64: the batched kernels in chunks -------------------
+    for name, st in check_batched(dev, ds, card, d=64, timing=False).items():
+        wide["64"][name]["err"] = max(wide["64"][name]["err"], st["err"])
 
-    # -- phase 3f: the kernels under the heads axis (head_offset 4) ---------
-    for name, err in check_head_offset(dev, ds.metapath_adjs[big]).items():
-        stats[name]["err"] = max(stats[name]["err"], err)
+    # -- phase 3c: the kernels on the strips of a 4-way partition (D = 8, 64)
+    # -- phase 3f: the kernels under the heads axis (head_offset 4; D = 8, 64)
+    for d_strip, into in ((8, stats), (64, wide["64"])):
+        for check_fn in (check_strips, check_head_offset):
+            for name, err in check_fn(dev, ds.metapath_adjs[big], d_strip).items():
+                into[name]["err"] = max(into[name]["err"], err)
     tile_heads = graph.n_tiles * k  # of the DBLP check, for the strips' comparison
 
     # -- phase 3b: a small HAN through the kernels vs the dense path ---------
@@ -409,6 +430,7 @@ def main(argv=None) -> None:
 
     cfg = preset("dblp")
     cfg.train.epochs = 10
+    n_mp = len(ds.metapath_adjs)
     torch.cuda.reset_peak_memory_stats(dev)
     fg.flash_fwd_launches = 0
     fg.flash_bwd_launches = 0
@@ -424,7 +446,6 @@ def main(argv=None) -> None:
         fail(f"train loss did not fall: {losses[0]} -> {losses[-1]}")
     if not np.isfinite(result["test_loss"]):
         fail(f"test loss {result['test_loss']}")
-    n_mp = len(ds.metapath_adjs)
     # per epoch: a train step (forward + backward) and a val eval; then a
     # test eval
     want_fwd = n_mp * (2 * cfg.train.epochs + 1)
@@ -437,6 +458,9 @@ def main(argv=None) -> None:
     print(f"train (captured): median step time epochs 2-10 "
           f"{statistics.median(result['epoch_step_time_s'][1:]) * 1e3:.4f} ms, "
           f"max_memory_allocated {result['max_memory_allocated']} B; {card}", flush=True)
+
+    # -- phase 4l: the dblp preset at hid_units=(64,), heads in chunks ------
+    hid64 = train_dblp_hid64(ds, dev, card, n_mp)
 
     # -- phase 4f: the captured step against the eager one ------------------
     losses_dropout0 = check_dblp_capture(ds, dev, card)
@@ -474,7 +498,8 @@ def main(argv=None) -> None:
     torch.cuda.empty_cache()
 
     # -- phase 4b: multi-device training through the partitioned backends ----
-    mesh = train_multi_device(losses, losses_dropout0, vmap["losses"], cfg.train.epochs, n_mp)
+    mesh = train_multi_device(losses, losses_dropout0, vmap["losses"], hid64["losses"],
+                              cfg.train.epochs, n_mp)
 
     # -- phases 5-7: the sampled path ------------------------------------------
     ell = check_ell_fused(dev)
@@ -499,17 +524,23 @@ def main(argv=None) -> None:
 
     # launches: the dblp runs (phases 4, 4a, 4g, 4h, 4k), the pubmed run
     # (phase 4d), the multi-device runs (phase 4b, with the deterministic
-    # resume) and the benchmark (phase 9)
+    # resume) and the benchmark (phase 9); at D = 64 the hid-64 runs
+    # (phases 4l and 4b) and the benchmark's D = 64 arm
     part, ring = mesh["partitioned_bcsr"]["launches"], mesh["ring_bcsr"]["launches"]
     stacked = mesh["partitioned_bcsr stacked"]["launches"]
     det = mesh["resume deterministic"]
     launches = {"fwd": (fwd_n + bf16_train["fwd"] + resume["launches"]["fwd"] + shared["fwd"]
                         + dispatch["fwd"] + pubmed["launches"]["fwd"] + part["fwd"]
-                        + ring["fwd"] + det["fwd"] + bench["fwd"]),
+                        + ring["fwd"] + det["fwd"] + bench["d8"]["fwd"]),
                 "bwd": (bwd_n + bf16_train["bwd"] + resume["launches"]["bwd"] + shared["bwd"]
                         + dispatch["bwd"] + pubmed["launches"]["bwd"] + part["bwd"]
-                        + bench["bwd"]),
+                        + bench["d8"]["bwd"]),
                 "row": ring["row"] + det["row"], "col": ring["col"] + det["col"]}
+    part64, ring64 = mesh["partitioned_bcsr hid 64"]["launches"], mesh["ring_bcsr hid 64"]["launches"]
+    launches64 = {"fwd": hid64["launches"]["fwd"] + part64["fwd"] + ring64["fwd"]
+                  + bench["d64"]["fwd"],
+                  "bwd": hid64["launches"]["bwd"] + part64["bwd"] + bench["d64"]["bwd"],
+                  "row": ring64["row"], "col": ring64["col"]}
     src = "han_tpu_torch/csrc/flash_gat.cu"
     tpu = "han_tpu/ops/pallas/flash_gat.py"
     kernels = [
@@ -553,6 +584,20 @@ def main(argv=None) -> None:
          "bound_by": batched[key]["bound_by"], "library_ms": batched[key].get("library_ms"),
          "single_launches_ms": batched[key]["single_sum_ms"]}
         for name, key, line in (("fwd", "fwd", 187), ("bwd", "bwd", 395),
+                                ("bwd_row", "row", 354), ("bwd_col", "col", 395))] + [
+        # the same kernels at D = 64, two chunks a head (phase 3w at APTPA;
+        # errors also of phases 3c, 3e and 3f at D = 64 and 3d at D > 32);
+        # launches: the hid-64 runs and the benchmark's D = 64 arm
+        {"name": f"flash_gat_{name}_d64", "route": "cuda", "source": src,
+         "replaces": f"{tpu}:{line} (D = 64)", "launches": launches64[key],
+         "max_abs_err": max(wide["64"][key]["err"], wide["64 bf16"][key]["err"]),
+         "ms": wide["64"][key]["ms"], "plain_ms": wide["64"][key]["plain_ms"],
+         "bound_ms": wide["64"][key]["bound"][0], "bound_by": wide["64"][key]["bound"][1],
+         "library_ms": wide["64"][key].get("library_ms"),
+         "ms_by_dropout": wide["64"][key]["ms_by_dropout"],
+         **{f"d{d}": {"ms": wide[str(d)][key]["ms"], "bound_ms": wide[str(d)][key]["bound"][0],
+                      "library_ms": wide[str(d)][key].get("library_ms")} for d in WIDE_DIMS[1:]}}
+        for name, key, line in (("fwd", "fwd", "97,187"), ("bwd", "bwd", 395),
                                 ("bwd_row", "row", 354), ("bwd_col", "col", 395))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -575,63 +620,105 @@ def dblp_inputs(gen, n: int, n_nodes: int, k: int, d: int):
 
 
 def check_dblp(graph, ld, ls, v, g, ps=(0.0, 0.6)) -> dict:
-    """Phase 3: the flash kernels at the DBLP shape (K from ld, D from v),
-    at each dropout of ``ps``: the forward (atol 1e-5, rtol 1e-4), the
-    fused backward and the split backward's row and column sweeps (atol
-    1e-4, rtol 1e-3: dld is summed with atomicAdd in a varying order)
-    against their plain versions, and the device time of each kernel and
-    plain version. Returns, per kernel, the largest error, ``ms`` and
-    ``plain_ms`` at the last dropout (0.6, the training shape) and
-    ``ms_by_dropout``, so that the hash's share shows."""
+    """Phase 3: the flash kernels at the DBLP shape (K from ld, D from v;
+    above 32 each head in chunks of ops/flash_gat.py:HEAD_CHUNK columns on
+    the kernels' grid), at each dropout of ``ps``: the forward (atol 1e-5,
+    rtol 1e-4), the fused backward and the split backward's row and column
+    sweeps (atol 1e-4, rtol 1e-3: dld is summed with atomicAdd in a varying
+    order) against their full-D plain versions, delta from head_delta; the
+    split backward run twice, bitwise equal; the device time of each kernel
+    at each dropout, and of each plain version at the last. Returns, per
+    kernel, the largest error, ``ms`` and ``plain_ms`` at the last dropout
+    (0.6, the training shape) and ``ms_by_dropout``, so that the hash's
+    share shows."""
     import torch
 
     from han_tpu_torch.ops import flash_gat as fg
 
-    n, k = graph.n_pad, ld.shape[0]
+    k = ld.shape[0]
     d = v.shape[1] // k
+    tag = f"D = {d}{' (bf16 v)' if v.dtype == torch.bfloat16 else ''}"
     stats = {name: {"err": 0.0, "ms_by_dropout": {}} for name in ("fwd", "bwd", "row", "col")}
     for p in ps:
         meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=fg.seed_tensor(1234567, ld.device))
-        print(f"D = {d}, dropout {p}:", flush=True)
+        print(f"{tag}, dropout {p} ((width, chunks) {fg.head_plan(d)}):", flush=True)
         out_k, lse_k = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
         out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
         torch.cuda.synchronize()
-        e = max(check("out", out_k, out_p, 1e-5, 1e-4),
-                check("lse", lse_k, lse_p, 1e-5, 1e-4))
-        delta = (g * out_k).view(n, k, d).sum(-1).T.contiguous()
-        args = (graph, ld, ls, v, g, lse_k, delta, meta)
-        eb = max(check(name, a, b, 1e-4, 1e-3) for name, a, b in
-                 zip(("dld", "dls", "dv"), fg.flash_bwd_cuda(*args), fg.flash_bwd_plain(*args)))
-        t = {"fwd_ms": timed(lambda: fg.flash_fwd_cuda(graph, ld, ls, v, meta)),
-             "fwd_plain_ms": timed(lambda: fg.flash_fwd_plain(graph, ld, ls, v, meta),
-                                   host_waits=True),
-             "bwd_ms": timed(lambda: fg.flash_bwd_cuda(*args)),
-             "bwd_plain_ms": timed(lambda: fg.flash_bwd_plain(*args), host_waits=True)}
-        print("  device ms: " + ", ".join(f"{a} {b:.4f}" for a, b in t.items()), flush=True)
-        # the split backward: each sweep against its plain version
-        er = check("dld (row sweep)", fg.flash_bwd_row_cuda(*args), fg.flash_bwd_row_plain(*args),
-                   1e-4, 1e-3)
-        ec = max(check(f"{name} (column sweep)", a, b, 1e-4, 1e-3) for name, a, b in zip(
-            ("dls", "dv"), fg.flash_bwd_col_cuda(*args), fg.flash_bwd_col_plain(*args)))
-        ts = {"row_ms": timed(lambda: fg.flash_bwd_row_cuda(*args)),
-              "row_plain_ms": timed(lambda: fg.flash_bwd_row_plain(*args), host_waits=True),
-              "col_ms": timed(lambda: fg.flash_bwd_col_cuda(*args)),
-              "col_plain_ms": timed(lambda: fg.flash_bwd_col_plain(*args), host_waits=True),
-              "split_ms": timed(lambda: (fg.flash_bwd_row_cuda(*args),
-                                         fg.flash_bwd_col_cuda(*args))),
-              "fused_ms": timed(lambda: fg.flash_bwd_cuda(*args))}
-        print("  split backward device ms: " + ", ".join(f"{a} {b:.4f}" for a, b in ts.items())
-              + f"; split / fused {ts['split_ms'] / ts['fused_ms']:.3f}", flush=True)
-        for key, err, ms, plain_ms in (("fwd", e, t["fwd_ms"], t["fwd_plain_ms"]),
-                                       ("bwd", eb, t["bwd_ms"], t["bwd_plain_ms"]),
-                                       ("row", er, ts["row_ms"], ts["row_plain_ms"]),
-                                       ("col", ec, ts["col_ms"], ts["col_plain_ms"])):
-            st = stats[key]
-            st.update(err=max(st["err"], err), ms=ms, plain_ms=plain_ms)
-            st["ms_by_dropout"][str(p)] = ms
+        errs = {"fwd": max(check("out", out_k, out_p, 1e-5, 1e-4),
+                           check("lse", lse_k, lse_p, 1e-5, 1e-4))}
         del out_p, lse_p
+        args = (graph, ld, ls, v, g, lse_k, fg.head_delta(g, out_k, k), meta)
+        errs["bwd"] = max(check(name, a, b, 1e-4, 1e-3) for name, a, b in
+                          zip(("dld", "dls", "dv"), fg.flash_bwd_cuda(*args),
+                              fg.flash_bwd_plain(*args)))
+        # the split backward: each sweep against its plain version, and twice
+        split = (fg.flash_bwd_row_cuda(*args), *fg.flash_bwd_col_cuda(*args))
+        again = (fg.flash_bwd_row_cuda(*args), *fg.flash_bwd_col_cuda(*args))
+        errs["row"] = check("dld (row sweep)", split[0], fg.flash_bwd_row_plain(*args),
+                            1e-4, 1e-3)
+        errs["col"] = max(check(f"{name} (column sweep)", a, b, 1e-4, 1e-3) for name, a, b
+                          in zip(("dls", "dv"), split[1:], fg.flash_bwd_col_plain(*args)))
+        if not all(torch.equal(a, b) for a, b in zip(split, again)):
+            fail(f"{tag}, dropout {p}: the split backward differs between two runs")
+        del split, again
+        t = {"fwd": timed(lambda: fg.flash_fwd_cuda(graph, ld, ls, v, meta)),
+             "bwd": timed(lambda: fg.flash_bwd_cuda(*args)),
+             "row": timed(lambda: fg.flash_bwd_row_cuda(*args)),
+             "col": timed(lambda: fg.flash_bwd_col_cuda(*args)),
+             "split": timed(lambda: (fg.flash_bwd_row_cuda(*args), fg.flash_bwd_col_cuda(*args)))}
+        print("  device ms: " + ", ".join(f"{a} {b:.4f}" for a, b in t.items())
+              + f"; split / fused {t['split'] / t['bwd']:.3f}", flush=True)
+        for key, st in stats.items():
+            st.update(err=max(st["err"], errs[key]), ms=t[key])
+            st["ms_by_dropout"][str(p)] = t[key]
         torch.cuda.empty_cache()
+    plain = {"fwd": lambda: fg.flash_fwd_plain(graph, ld, ls, v, meta),
+             "bwd": lambda: fg.flash_bwd_plain(*args),
+             "row": lambda: fg.flash_bwd_row_plain(*args),
+             "col": lambda: fg.flash_bwd_col_plain(*args)}
+    for key, fn in plain.items():
+        stats[key]["plain_ms"] = timed(fn, reps=3, host_waits=True)
+    print("  plain versions' ms (host time included): "
+          + ", ".join(f"{key} {st['plain_ms']:.4f}" for key, st in stats.items()), flush=True)
+    torch.cuda.empty_cache()
     return stats
+
+
+WIDE_DIMS = (64, 128, 256)  # phase 3w's head dims above the largest instantiation
+
+
+def check_wide_heads(graph, gen, n_nodes: int, card: str) -> dict:
+    """Phase 3w: phase 3 (check_dblp) at head dims above the largest
+    instantiation, on DBLP's largest meta-path with K = 8: D = 64, 128 and
+    256 with f32 v and D = 64 with bf16 v, dropout 0 and 0.6. Adds each
+    kernel's bound (flash_bounds) and, for the f32 forward, sdpa_yardstick
+    at the same D. Returns check_dblp's stats with ``bound`` (and the
+    forward's ``library_ms``) per tag ("64", "128", "256", "64 bf16")."""
+    import torch
+
+    k, res = 8, {}
+    for d, bf16 in [(d, False) for d in WIDE_DIMS] + [(64, True)]:
+        tag = f"{d}{' bf16' if bf16 else ''}"
+        ld, ls, v, g = dblp_inputs(gen, graph.n_pad, n_nodes, k, d)
+        if bf16:
+            v = v.to(torch.bfloat16)
+        st = check_dblp(graph, ld, ls, v, g)
+        bounds = flash_bounds(graph, k, d, v_bytes=v.element_size())
+        for key, s in st.items():
+            s["bound"] = bounds[key]
+        st["fwd"]["library_ms"] = None if bf16 else sdpa_yardstick(graph, ld, ls, v, k, d)
+        for key, s in st.items():
+            print(f"  D = {tag} {key}: device ms {s['ms_by_dropout']['0.0']:.4f} / "
+                  f"{s['ms_by_dropout']['0.6']:.4f} (dropout 0 / 0.6), bound "
+                  f"{s['bound'][0]:.4f} ms ({s['bound'][1]}), {s['ms'] / s['bound'][0]:.1f}x; "
+                  f"plain {s['plain_ms']:.4f} ms"
+                  + (f"; SDPA {s['library_ms']:.4f} ms" if s.get("library_ms") else "")
+                  + f"; {card}", flush=True)
+        res[tag] = st
+        del ld, ls, v, g
+        torch.cuda.empty_cache()
+    return res
 
 
 TF32_MARGIN = 10  # the kernels' errors stay this far below a single TF32 product's
@@ -649,10 +736,9 @@ def tf32_control(tag, graph, ld, ls, v, g, meta) -> None:
 
     from han_tpu_torch.ops import flash_gat as fg
 
-    n, k = graph.n_pad, ld.shape[0]
+    k = ld.shape[0]
     out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
-    delta = (g * out_p).view(n, k, -1).sum(-1).T.contiguous()
-    args = (graph, ld, ls, v, g, lse_p, delta, meta)
+    args = (graph, ld, ls, v, g, lse_p, fg.head_delta(g, out_p, k), meta)
     want = (out_p, fg.flash_bwd_plain(*args), fg.flash_bwd_row_plain(*args))
     got = {"kernel": (fg.flash_fwd_cuda(graph, ld, ls, v, meta)[0], fg.flash_bwd_cuda(*args),
                       fg.flash_bwd_row_cuda(*args))}
@@ -675,8 +761,9 @@ def tf32_control(tag, graph, ld, ls, v, g, meta) -> None:
                      f"{TF32_MARGIN}x below one TF32 product's ({err['1xTF32'][i]:.3e})")
 
 
-def check_strips(dev, adj) -> dict:
-    """Phase 3c: the flash kernels on rectangles, at dropout 0 and 0.6.
+def check_strips(dev, adj, d: int = 8) -> dict:
+    """Phase 3c: the flash kernels on rectangles, at dropout 0 and 0.6, K =
+    8 heads of ``d`` (64: two chunks a head, delta per chunk).
     DBLP's largest meta-path (with self-loops) cut four ways with 128x128
     tiles: every shard of partition_bcsr (1,024 local rows x 4,096 global
     columns, a non-zero row-block offset) and the ring cells (s, 1 + s mod
@@ -705,9 +792,10 @@ def check_strips(dev, adj) -> dict:
                for s in range(4) for t in (1 + s % 3,)]
     gen = torch.Generator(dev).manual_seed(2)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    k, d = 8, 8
+    k = 8
     errs = {"fwd": 0.0, "row": 0.0, "col": 0.0, "bwd": 0.0}
     for label, graph, off in strips:
+        label = f"{label}, D = {d}"
         n_rows, n_cols = graph.nb_r * graph.bm, graph.nb_c * graph.bn
         ld, ls, v32, g = rnd(k, n_rows), rnd(k, n_cols), rnd(n_cols, k * d), rnd(n_rows, k * d)
         print(f"{label}: {n_rows} x {n_cols}, {int(graph.fwd_count.sum())} tiles, "
@@ -719,8 +807,7 @@ def check_strips(dev, adj) -> dict:
             out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
             errs["fwd"] = max(errs["fwd"], check(f"{p_tag} out", out, out_p, 1e-5, 1e-4),
                               check(f"{p_tag} lse", lse, lse_p, 1e-5, 1e-4))
-            delta = (g * out).view(n_rows, k, d).sum(-1).T.contiguous()
-            args = (graph, ld, ls, v, g, lse, delta, meta)
+            args = (graph, ld, ls, v, g, lse, fg.head_delta(g, out, k), meta)
             split = (fg.flash_bwd_row_cuda(*args), *fg.flash_bwd_col_cuda(*args))
             plain = (fg.flash_bwd_row_plain(*args), *fg.flash_bwd_col_plain(*args))
             fused = fg.flash_bwd_cuda(*args)
@@ -738,15 +825,17 @@ def check_strips(dev, adj) -> dict:
     return errs
 
 
-def check_batched(dev, ds, card: str) -> dict:
+def check_batched(dev, ds, card: str, d: int = 8, timing: bool = True) -> dict:
     """Phase 3e: the batched flash kernels, one launch for HAN's meta-paths.
     DBLP's meta-paths (with self-loops, 128x128 tiles, n_pad 4096) stacked
-    (graph/stack.py: tiles and maps padded to the largest), K = D = 8, at
+    (graph/stack.py: tiles and maps padded to the largest), K = 8 heads of
+    ``d`` (8; 64: two chunks a head, delta per chunk), at
     dropout 0 and 0.6 (one seed a path): the batched forward, fused
     backward and both sweeps against their plain versions (the phase 3
     tolerances), and path p against a launch of graph p alone with seed p:
     forward and sweeps bitwise (torch.equal), fused backward within atol
-    1e-4, rtol 1e-3 (dld's atomics). Then the device time of one batched
+    1e-4, rtol 1e-3 (dld's atomics). Then, with ``timing``, the device
+    time of one batched
     launch of each kernel against the sum of the single-path launches, the
     batched plain versions' (a loop over the paths; host time included),
     one scaled_dot_product_attention call over the three paths as the
@@ -761,8 +850,8 @@ def check_batched(dev, ds, card: str) -> dict:
 
     graphs = [metapath_to_bcsr(a).to(dev) for a in ds.metapath_adjs]
     st = stack_graphs(graphs)
-    n_p, n, k, d = len(graphs), st.n_pad, 8, 8
-    print(f"batched: {n_p} meta-paths stacked, tiles {tuple(st.tiles.shape)} "
+    n_p, n, k = len(graphs), st.n_pad, 8
+    print(f"batched, D = {d}: {n_p} meta-paths stacked, tiles {tuple(st.tiles.shape)} "
           f"(occupied {[g.n_tiles for g in graphs]}), map widths "
           f"{st.c_max} / {st.r_max}", flush=True)
     gen = torch.Generator(dev).manual_seed(3)
@@ -778,7 +867,7 @@ def check_batched(dev, ds, card: str) -> dict:
         torch.cuda.synchronize()
         e = max(check("out", out, out_p, 1e-5, 1e-4), check("lse", lse, lse_p, 1e-5, 1e-4))
         stats["fwd"]["err"] = max(stats["fwd"]["err"], e)
-        delta = (g * out).view(n_p, n, k, d).sum(-1).transpose(1, 2).contiguous()
+        delta = fg.head_delta(g, out, k)  # (P, [nc,] K, n)
         args = (st, ld, ls, v, g, lse, delta, meta)
         fused = fg.flash_bwd_cuda(*args)
         row = fg.flash_bwd_row_cuda(*args)
@@ -805,6 +894,8 @@ def check_batched(dev, ds, card: str) -> dict:
             singles.append(a1)
         print(f"  batched forward and sweeps bitwise equal to the {n_p} single-path "
               f"launches", flush=True)
+    if not timing:
+        return stats
     t = {"fwd": (timed(lambda: fg.flash_fwd_cuda(st, ld, ls, v, meta)),
                  timed(lambda: [fg.flash_fwd_cuda(*a[:4], a[-1]) for a in singles])),
          "bwd": (timed(lambda: fg.flash_bwd_cuda(*args)),
@@ -833,8 +924,9 @@ def check_batched(dev, ds, card: str) -> dict:
     return stats
 
 
-def check_head_offset(dev, adj) -> dict:
-    """Phase 3f: the kernels under the heads axis. DBLP's largest meta-path
+def check_head_offset(dev, adj, d: int = 8) -> dict:
+    """Phase 3f: the kernels under the heads axis, heads of ``d`` (64: two
+    chunks a head, delta per chunk). DBLP's largest meta-path
     (with self-loops) cut two ways with 128x128 tiles: on each strip of
     partition_bcsr and each ring cell (s, (s - 1) mod 2) of
     ring_partition_bcsr (its column-block offset not 0), at dropout 0.6,
@@ -863,13 +955,14 @@ def check_head_offset(dev, adj) -> dict:
                     col_block_offset=rg.cs_of_step[s][1] * rg.nb_c_loc)) for s in range(2)]
     gen = torch.Generator(dev).manual_seed(4)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
-    k, d, h0 = 8, 8, 4
+    k, h0 = 8, 4
     hi = lambda x: x.view(x.shape[0], k, d)[:, h0:].reshape(x.shape[0], -1).contiguous()
     errs = {"fwd": 0.0, "bwd": 0.0, "row": 0.0, "col": 0.0}
     seed = fg.seed_tensor(97531, dev)
     for (label, graph, off), bf16 in ((c, b) for c in cells for b in (False, True)):
         n_rows, n_cols = graph.nb_r * graph.bm, graph.nb_c * graph.bn
         ld, ls, v, g = rnd(k, n_rows), rnd(k, n_cols), rnd(n_cols, k * d), rnd(n_rows, k * d)
+        label = f"{label}, D = {d}"
         if bf16:
             v, label = v.to(torch.bfloat16), f"{label}, bf16 v"
         full = fg.FlashMeta(dropout_p=0.6, seed=seed, **off)
@@ -884,10 +977,10 @@ def check_head_offset(dev, adj) -> dict:
             out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, full)
             errs["fwd"] = max(errs["fwd"], check(f"{label} out vs plain", out, out_p, 1e-5, 1e-4),
                               check(f"{label} lse vs plain", lse, lse_p, 1e-5, 1e-4))
-        delta = (g * out).view(n_rows, k, d).sum(-1).T.contiguous()
+        delta = fg.head_delta(g, out, k)  # ([nc,] K, n)
         args = (graph, ld, ls, v, g, lse, delta, full)
         args4 = (graph, ld[h0:].contiguous(), ls[h0:].contiguous(), hi(v), hi(g),
-                 lse[h0:].contiguous(), delta[h0:].contiguous(), part)
+                 lse[h0:].contiguous(), delta[..., h0:, :].contiguous(), part)
         for key, f in (("bwd", fg.flash_bwd_cuda), ("row", fg.flash_bwd_row_cuda),
                        ("col", fg.flash_bwd_col_cuda)):
             got, want = f(*args4), f(*args)
@@ -933,10 +1026,16 @@ def head_dim_graph(n: int = 600, seed: int = 4):
     return graph, has_edge
 
 
-def check_head_dims(dev) -> dict:
+HEAD_DIMS = (3, 4, 16, 32)  # phase 3d's head dims of one chunk
+WIDE_HEAD_DIMS = (33, 40, 64, 121)  # and of several (121: ppi's output width)
+
+
+def check_head_dims(dev, dims=HEAD_DIMS) -> dict:
     """Phase 3d: the forward, the fused backward and the row and column
-    sweeps at D = 3, 4, 16 and 32 (K = 2, head offset 3; D = 3 goes through
-    the wrappers' zero padding to 4) on head_dim_graph, v f32 and bf16,
+    sweeps at each D of ``dims`` (HEAD_DIMS; WIDE_HEAD_DIMS, in chunks of
+    an instantiation) (K = 2, head offset 3; D = 3 goes through the
+    wrappers' zero padding to 4, D = 33, 40 and 121 pad each head to whole
+    chunks) on head_dim_graph, v f32 and bf16,
     dropout 0 and 0.6, against their plain versions with the DBLP check's
     tolerances (forward atol 1e-5, rtol 1e-4; backward atol 1e-4, rtol
     1e-3); rows without an edge must give out = 0 and lse = -1e9 exactly,
@@ -955,7 +1054,7 @@ def check_head_dims(dev) -> dict:
     gen = torch.Generator(dev).manual_seed(5)
     rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
     errs = {"fwd": 0.0, "bwd": 0.0, "row": 0.0, "col": 0.0}
-    for d in (3, 4, 16, 32):
+    for d in dims:
         ld, ls, v32, g = rnd(k, n), rnd(k, n), rnd(n, k * d), rnd(n, k * d)
         for v in (v32, v32.to(torch.bfloat16)):
             for p in (0.0, 0.6):
@@ -969,8 +1068,7 @@ def check_head_dims(dev) -> dict:
                 if not (bool((out[edgeless] == 0).all())
                         and bool((lse[:, edgeless] == -1e9).all())):
                     fail(f"{tag}: a row without an edge does not give out = 0, lse = -1e9")
-                delta = (g * out).view(n, k, d).sum(-1).T.contiguous()
-                args = (graph, ld, ls, v, g, lse, delta, meta)
+                args = (graph, ld, ls, v, g, lse, fg.head_delta(g, out, k), meta)
                 errs["bwd"] = max(errs["bwd"], *(
                     check(f"{tag} {name}", a, b, 1e-4, 1e-3) for name, a, b in
                     zip(("dld", "dls", "dv"), fg.flash_bwd_cuda(*args), fg.flash_bwd_plain(*args))))
@@ -1020,6 +1118,73 @@ def profile_trainer(label: str, make, card: str) -> dict:
     del t
     return st
 
+
+def train_dblp_hid64(ds, dev, card: str, n_mp: int, epochs: int = 10) -> dict:
+    """Phase 4l: the dblp preset with model.hid_units=(64,) on
+    dblp_synthetic: K = 8 heads of D = 64 (a 512-wide hidden layer), so
+    every flash launch runs each head as chunks of an instantiation. run()
+    for ``epochs`` epochs, captured: losses finite and falling, launch
+    counts exact (as phase 4's). Then ``epochs`` epochs at dropout 0 eager
+    and captured, whose losses agree within CAPTURE_TOL, and the step at
+    the preset's dropouts profiled captured (median step, device share).
+    Returns the run's losses (phase 4b's one-device reference) and
+    launches."""
+    import numpy as np
+    import torch
+
+    from han_tpu_torch.ops import flash_gat as fg
+    from han_tpu_torch.train.config import preset
+    from han_tpu_torch.train.trainer import MetricLogger, Trainer, run
+
+    def config(dropout=None):
+        cfg = preset("dblp")
+        cfg.train.epochs, cfg.train.log_file = epochs, ""
+        cfg.model.hid_units = (64,)
+        if dropout is not None:
+            cfg.model.attn_drop = cfg.model.ffd_drop = dropout
+        return cfg
+
+    fg.flash_fwd_launches = fg.flash_bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    result = run(config(), ds, device=dev)
+    torch.cuda.synchronize()
+    n = {"fwd": fg.flash_fwd_launches, "bwd": fg.flash_bwd_launches}
+    losses = result["epoch_train_loss"]
+    if not result["captured"] or len(losses) != epochs or not all(np.isfinite(losses)):
+        fail(f"dblp hid 64: captured {result['captured']}, losses {losses}")
+    if not (losses[-1] < losses[0] and np.isfinite(result["test_loss"])):
+        fail(f"dblp hid 64: losses {losses[0]} -> {losses[-1]}, test {result['test_loss']}")
+    want = {"fwd": n_mp * (2 * epochs + 1), "bwd": n_mp * epochs}
+    if n != want:
+        fail(f"dblp hid 64: launches {n}, want {want}")
+    print(f"dblp hid 64 (captured): losses {losses[0]:.5f} -> {losses[-1]:.5f}, test_acc "
+          f"{result['test_acc']:.4f}; launches {n}; median step epochs 2-{epochs} "
+          f"{statistics.median(result['epoch_step_time_s'][1:]) * 1e3:.4f} ms, "
+          f"max_memory_allocated {result['max_memory_allocated']} B; {card}", flush=True)
+    fits = {name: Trainer(ds, config(0.0), device=dev, logger=MetricLogger(echo=False),
+                          capture=capture).fit()
+            for name, capture in (("eager", False), ("captured", None))}
+    eager, cap = (fits[k]["epoch_train_loss"] for k in ("eager", "captured"))
+    if not fits["captured"]["captured"] or not np.allclose(cap, eager, **CAPTURE_TOL):
+        fail(f"dblp hid 64 at dropout 0: captured {cap}, eager {eager}")
+    print(f"dblp hid 64 at dropout 0, {epochs} epochs: captured losses within {CAPTURE_TOL} "
+          f"of eager (largest relative difference "
+          f"{max(abs(a - b) / abs(b) for a, b in zip(cap, eager)):.3e})", flush=True)
+    st = profile_trainer("dblp hid 64 step (dropout 0.6)", lambda: Trainer(
+        ds, config(), device=dev, logger=MetricLogger(echo=False)), card)
+    flash = [op for op in st["top_device_ops"] if FLASH_KERNEL.search(op[0])]
+    flash_ms = sum(ms for _, ms, _ in flash)
+    print(f"dblp hid 64 step: the flash kernels {flash_ms:.4f} ms of {st['device_ms']:.4f} ms "
+          f"of device time a step (share {flash_ms / st['device_ms']:.3f}); top device ops "
+          f"(ms, calls a step): " + "; ".join(f"{key} {ms:.4f} x{calls:g}" for key, ms, calls
+                                              in st["top_device_ops"]) + f"; {card}", flush=True)
+    if not flash:
+        fail("dblp hid 64 step: no flash kernel among the profile's top device ops")
+    return {"losses": losses, "launches": n}
+
+
+# a flash kernel's name in a profile (not ell_fused_fwd_kernel)
+FLASH_KERNEL = re.compile(r"(?<![A-Za-z_])(fwd|bwd_col|bwd_row)_kernel")
 
 VMAP_TOL = dict(rtol=1e-5)  # stacked against sequential towers at dropout 0
 
@@ -1457,21 +1622,25 @@ def check_entry(dev, card: str) -> None:
 
 
 # phase 4b's runs: (label, graph_format, deterministic mode, dropout (None:
-# the preset's 0.6), vmap_towers)
-MESH_RUNS = (("partitioned_bcsr", "partitioned_bcsr", False, None, False),
-             ("ring_bcsr", "ring_bcsr", True, None, False),
-             ("csr", "partitioned", False, 0.0, False),
-             ("ring", "ring", False, 0.0, False),
-             ("partitioned_bcsr stacked", "partitioned_bcsr", True, None, True))
+# the preset's 0.6), vmap_towers, hid_units)
+MESH_RUNS = (("partitioned_bcsr", "partitioned_bcsr", False, None, False, (8,)),
+             ("ring_bcsr", "ring_bcsr", True, None, False, (8,)),
+             ("csr", "partitioned", False, 0.0, False, (8,)),
+             ("ring", "ring", False, 0.0, False, (8,)),
+             ("partitioned_bcsr stacked", "partitioned_bcsr", True, None, True, (8,)),
+             ("partitioned_bcsr hid 64", "partitioned_bcsr", False, None, False, (64,)),
+             ("ring_bcsr hid 64", "ring_bcsr", True, None, False, (64,)))
 
 
 def mesh_train_rank(epochs: int) -> dict:
     """One rank of phase 4b: the dblp preset through run() with
     graph_format partitioned_bcsr, ring_bcsr under deterministic mode, csr
-    (PartitionedCSR) and ring (PartitionedCSR2D) at dropout 0, and
+    (PartitionedCSR) and ring (PartitionedCSR2D) at dropout 0,
     partitioned_bcsr with vmap_towers under deterministic mode (the stacked
     PartitionedBCSR: its strips in one batched launch of the forward and of
-    each sweep; mp axis 1); each run's losses, whether it was captured
+    each sweep; mp axis 1), and partitioned_bcsr and ring_bcsr
+    (deterministic) again at hid_units=(64,) (heads in chunks); each run's
+    losses, whether it was captured
     (it is where the mesh's axes hold no process group: one rank), step
     time, memory and launch counts (MESH_RUNS). Then, on this
     rank's card alone (bcsr), deterministic mode at dropout 0: the split
@@ -1490,12 +1659,13 @@ def mesh_train_rank(epochs: int) -> dict:
                 "row": "flash_bwd_row_launches", "col": "flash_bwd_col_launches"}
     ds = dblp_synthetic(seed=0)
     out = {}
-    for label, fmt, deterministic, dropout, vmap in MESH_RUNS:
+    for label, fmt, deterministic, dropout, vmap, hid in MESH_RUNS:
         cfg = preset("dblp")
         cfg.train.epochs = epochs
         cfg.data.graph_format = fmt
         cfg.mesh.graph_axis = dist.get_world_size()
         cfg.model.vmap_towers = vmap
+        cfg.model.hid_units = hid
         if dropout is not None:
             cfg.model.attn_drop = cfg.model.ffd_drop = dropout
         torch.cuda.reset_peak_memory_stats()
@@ -1546,12 +1716,13 @@ MESH_EAGER_MS = {"partitioned_bcsr": 13.210, "ring_bcsr": 14.653, "csr": 52.826,
                  "ring": 78.774, "partitioned_bcsr stacked": 7.752}
 
 
-def train_multi_device(want_losses, want_dropout0, want_stacked, epochs: int,
+def train_multi_device(want_losses, want_dropout0, want_stacked, want_hid64, epochs: int,
                        n_mp: int) -> dict:
     """Phase 4b: mesh_train_rank in a world of one NCCL rank per card. Each
     run's losses must match its one-device run's (rtol 2e-4, atol 2e-5):
     the flash runs the dblp preset's (dropout 0.6: the dropout keys are
-    global, so the masks replay), the stacked one the vmap_towers run's
+    global, so the masks replay), the hid-64 ones phase 4l's, the stacked
+    one the vmap_towers run's
     (phase 4j), the csr and ring runs the eager dropout-0 run's (phase 4f:
     their dropout streams are their own). The launch counts are exact: per
     rank and epoch, the forward on every train and eval pass (S steps a
@@ -1583,9 +1754,12 @@ def train_multi_device(want_losses, want_dropout0, want_stacked, epochs: int,
             "csr": none, "ring": none,
             "partitioned_bcsr stacked": {"fwd": 2 * epochs + 1, "bwd": 0, "row": epochs,
                                          "col": epochs}}
+    want["partitioned_bcsr hid 64"] = want["partitioned_bcsr"]
+    want["ring_bcsr hid 64"] = want["ring_bcsr"]
     reference = {"partitioned_bcsr": want_losses, "ring_bcsr": want_losses,
                  "csr": want_dropout0, "ring": want_dropout0,
-                 "partitioned_bcsr stacked": want_stacked}
+                 "partitioned_bcsr stacked": want_stacked,
+                 "partitioned_bcsr hid 64": want_hid64, "ring_bcsr hid 64": want_hid64}
     det = {name: res.pop(f"deterministic {name}")
            for name in ("captured", "captured again", "eager")}
     det_resume = res.pop("resume deterministic")
@@ -1604,8 +1778,8 @@ def train_multi_device(want_losses, want_dropout0, want_stacked, epochs: int,
               f"losses {got[0]:.5f} -> {got[-1]:.5f}, largest relative difference from the "
               f"one-device run {dev:.3e}; launches {run['launches']}; median step "
               f"{run['median_step_ms']:.3f} ms {'captured' if run['captured'] else 'eager'} "
-              f"(eager {MESH_EAGER_MS[fmt]} ms before capture), max_memory_allocated "
-              f"{run['max_memory_allocated']} B", flush=True)
+              f"(eager {MESH_EAGER_MS.get(fmt, 'not measured')} ms before capture), "
+              f"max_memory_allocated {run['max_memory_allocated']} B", flush=True)
     split = {"fwd": passes, "bwd": 0, "row": n_mp * epochs, "col": n_mp * epochs}
     for name, run in det.items():
         if run["captured"] != (name != "eager") or run["launches"] != split:
@@ -2184,49 +2358,6 @@ def sdpa_yardstick(graph, ld, ls, v, k, d) -> float:
     return ms
 
 
-def check_flash_bf16(graph, ld, ls, v, g, k, d) -> dict:
-    """The flash kernels with bf16 v at the DBLP shape, dropout 0 and 0.6,
-    against their plain versions, which widen the same bf16 values: the
-    f32 tolerances (forward atol 1e-5, rtol 1e-4; backward atol 1e-4, rtol
-    1e-3, dld summed with atomics). Device ms at dropout 0.6, and the
-    forward's at each dropout (``ms_by_dropout``: compare_strips holds the
-    bf16 strip to it at 0)."""
-    import torch
-
-    from han_tpu_torch.ops import flash_gat as fg
-
-    n = v.shape[0]
-    v16 = v.to(torch.bfloat16)
-    out = {key: {"err": 0.0} for key in ("fwd", "bwd", "row", "col")}
-    out["fwd"]["ms_by_dropout"] = {}
-    for p in (0.0, 0.6):
-        meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=fg.seed_tensor(1234567, ld.device))
-        print(f"bf16 v, dropout {p}:", flush=True)
-        out_k, lse_k = fg.flash_fwd_cuda(graph, ld, ls, v16, meta)
-        out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v16, meta)
-        torch.cuda.synchronize()
-        e = max(check("out", out_k, out_p, 1e-5, 1e-4), check("lse", lse_k, lse_p, 1e-5, 1e-4))
-        delta = (g * out_k).view(n, k, d).sum(-1).T.contiguous()
-        args = (graph, ld, ls, v16, g, lse_k, delta, meta)
-        eb = max(check(name, a, b, 1e-4, 1e-3) for name, a, b in
-                 zip(("dld", "dls", "dv"), fg.flash_bwd_cuda(*args), fg.flash_bwd_plain(*args)))
-        er = check("dld (row sweep)", fg.flash_bwd_row_cuda(*args), fg.flash_bwd_row_plain(*args),
-                   1e-4, 1e-3)
-        ec = max(check(f"{name} (column sweep)", a, b, 1e-4, 1e-3) for name, a, b in zip(
-            ("dls", "dv"), fg.flash_bwd_col_cuda(*args), fg.flash_bwd_col_plain(*args)))
-        for key, err in (("fwd", e), ("bwd", eb), ("row", er), ("col", ec)):
-            out[key]["err"] = max(out[key]["err"], err)
-        out["fwd"]["ms_by_dropout"][str(p)] = timed(
-            lambda: fg.flash_fwd_cuda(graph, ld, ls, v16, meta))
-    t = {"fwd_ms": out["fwd"]["ms_by_dropout"]["0.6"],
-         "bwd_ms": timed(lambda: fg.flash_bwd_cuda(*args)),
-         "row_ms": timed(lambda: fg.flash_bwd_row_cuda(*args)),
-         "col_ms": timed(lambda: fg.flash_bwd_col_cuda(*args))}
-    print("  bf16 v device ms (dropout 0.6): " + ", ".join(f"{a} {b:.4f}" for a, b in t.items())
-          + f"; fwd_ms at dropout 0 {out['fwd']['ms_by_dropout']['0.0']:.4f}", flush=True)
-    return out
-
-
 def train_bf16(ds, dev, n_mp: int, card: str) -> dict:
     """Phase 4a: the dblp preset with model.dtype=bfloat16 for 3 epochs
     through run(), captured from epoch 1: losses finite and falling, launch
@@ -2429,7 +2560,7 @@ def train_pubmed(dev, card: str, epochs: int = 10) -> dict:
             t_fwd = time.perf_counter() - t1
             shape_err["fwd"] = max(shape_err["fwd"], check("out", out_k, out_p, 1e-5, 1e-4),
                                    check("lse", lse_k, lse_p, 1e-5, 1e-4))
-            delta = (g * out_k).view(n, k, d).sum(-1).T.contiguous()
+            delta = fg.head_delta(g, out_k, k)
             args = (graph, ld, ls, v, g, lse_k, delta, meta)
             got = fg.flash_bwd_cuda(*args)
             t1 = time.perf_counter()
@@ -2750,7 +2881,7 @@ def compare_strips(cal_result: dict, stats: dict, bf16: dict, tile_heads: int) -
     128x128 tile and one head on a full card) beside the flash kernel it
     tracks at DBLP's largest meta-path, dropout 0, from this run:
     fwd_strip_s_mxu against fwd_kernel, fwd_strip_s_bf16_mxu against
-    fwd_kernel with bf16 v (``bf16``: check_flash_bf16), bwd_strip_s_mxu
+    fwd_kernel with bf16 v (``bf16``: check_dblp on bf16 v), bwd_strip_s_mxu
     against the fused bwd_col_kernel, each kernel's device ms over its
     tiles x heads. The strips stage nothing and walk no map, so each must
     take no longer than its kernel: bench_torch.py reads their times as a
@@ -2863,7 +2994,7 @@ def check_bench_shape(root, dev) -> dict:
             errs["fwd"] = max(errs["fwd"], check("out", out_k, out_p, 1e-5, 1e-4),
                               check("lse", lse_k, lse_p, 1e-5, 1e-4))
             del out_p, lse_p
-            delta = (g * out_k).view(n, k, d).sum(-1).T.contiguous()
+            delta = fg.head_delta(g, out_k, k)
             args = (graph, ld, ls, v, g, lse_k, delta, meta)
             errs["bwd"] = max(errs["bwd"], *(check(f"{t}", a, b, 1e-4, 1e-3) for t, a, b in zip(
                 ("dld", "dls", "dv"), fg.flash_bwd_cuda(*args), fg.flash_bwd_plain(*args))))
@@ -2882,8 +3013,11 @@ def check_bench_shape(root, dev) -> dict:
 def run_bench(root) -> dict:
     """Phase 9: bench_torch.py's f32 and bf16 arms (defaults: N = 8192, P =
     2, K = D = 8, degree 128, bfs order, 20 iterations; fwd+bwd and its
-    profiled window, the dense baseline, then fwd alone), each printing its
-    JSON line; the flash and in-process calibration launches are exact."""
+    profiled window, the dense baseline, then fwd alone) and its f32 arm at
+    --dim 64 (han_tpu's DIM_SWEEP configuration: heads in chunks; its
+    roofline still prices the D = 8 strips, a loose bound there), each
+    printing its JSON line; the flash and in-process calibration launches
+    are exact. Returns the flash launches at D = 8 ("d8") and 64 ("d64")."""
     import runpy
 
     import torch
@@ -2895,8 +3029,9 @@ def run_bench(root) -> dict:
     main = bench["main"]
     calls, n_mp = 2 + 5 * 20, 2  # warm-up + best of 5 x 20 iterations
     main_calls = calls + bench["PROFILED"]  # fwd+bwd: and the profiled window
-    total = {"fwd": 0, "bwd": 0}
-    for arm, argv in (("f32", []), ("bf16", ["--dtype", "bfloat16"])):
+    total = {"d8": {"fwd": 0, "bwd": 0}, "d64": {"fwd": 0, "bwd": 0}}
+    for arm, argv in (("f32", []), ("bf16", ["--dtype", "bfloat16"]),
+                      ("f32 D = 64", ["--dim", "64"])):
         fg.flash_fwd_launches = fg.flash_bwd_launches = 0
         for attr in CAL_COUNTERS.values():
             setattr(cal, attr, 0)
@@ -2917,8 +3052,9 @@ def run_bench(root) -> dict:
             fail(f"bench {arm}: {res}")
         print(f"bench {arm}: {time.perf_counter() - t0:.2f} s, launches {n} (repeated behind a "
               f"longer spin: {dict(cal.relaunches)})", flush=True)
-        total["fwd"] += n["fwd"]
-        total["bwd"] += n["bwd"]
+        into = total["d64" if "--dim" in argv else "d8"]
+        into["fwd"] += n["fwd"]
+        into["bwd"] += n["bwd"]
     return total
 
 

@@ -111,6 +111,20 @@
 // - D is a template argument (4, 8, 16 or 32; ops/flash_gat.py pads any
 //   smaller D with zero columns). D = 4 pads the products' n8 or k8 side
 //   with zeros, D = 16 and 32 take two and four.
+// - A larger head dim runs as nc chunks of D columns (ops/flash_gat.py:
+//   head_plan zero-pads each head to nc * D), chunk c of head h on block
+//   row blockIdx.y = h * nc + c. The softmax does not depend on v, so each
+//   chunk's forward is the D-wide kernel on its columns of v, and lse, the
+//   same for every chunk, is written by chunk 0. dz is linear in g.v and
+//   delta, so with delta_c = g[c].out[c] (formed in torch, [nc][k][n]) each
+//   chunk's backward is the D-wide kernel on (v[c], g[c], delta_c): it
+//   writes its own columns of dv and its own partial dld and dls
+//   ([nc][k][n], summed over the chunks in torch in a fixed order). The
+//   dropout keys are (seed, row, column, head), not the chunk, so every
+//   chunk replays one mask. v, g, out and dv are rows of k * nc * D
+//   elements, head h's chunk c at column (h * nc + c) * D: the layout of
+//   k * nc heads of D, which is how the tile bodies address them. At
+//   nc = 1 this is the kernel on the whole head.
 // - HAN's meta-path towers sweep P graphs of one geometry (han_tpu runs them
 //   as one nn.vmap, whose pallas_call gains a leading grid axis): every
 //   kernel takes the path on blockIdx.z, so P graphs go in one launch. A
@@ -269,7 +283,7 @@ __global__ void __launch_bounds__(512) fwd_kernel(
     const float* __restrict__ ld, const float* __restrict__ ls,
     const VT* __restrict__ v, float* __restrict__ out,
     float* __restrict__ lse, int n_rows, int n_cols, int bm, int bn, int k,
-    float slope, Drop drop, Offsets off, Batch batch) {
+    int nc, float slope, Drop drop, Offsets off, Batch batch) {
   constexpr int ND = (D + 7) / 8;              // n8 tiles of the head dim
   constexpr int VCOL = D * (int)sizeof(VT);    // bytes of one column of v
   constexpr int VCH = VCOL < 16 ? VCOL : 16;   // cp.async size for v
@@ -277,11 +291,12 @@ __global__ void __launch_bounds__(512) fwd_kernel(
   const int apitch = bn + APAD;
   const int stage_bytes = fwd_stage_bytes(bm, bn, D, sizeof(VT));
 
-  const int rb = blockIdx.x, h = blockIdx.y;
+  // head h's chunk hc - h * nc: its columns of v and out start at hc * D
+  const int rb = blockIdx.x, hc = blockIdx.y, h = hc / nc;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
   const int r_lo = (tid >> 5) * 16 + gq;  // rows r_lo and r_lo + 8
-  const int kd = k * D;
+  const int kd = k * nc * D;
 
   // this block's path of a batched launch (Batch)
   const size_t pr = (size_t)blockIdx.z * n_rows, pc = (size_t)blockIdx.z * n_cols;
@@ -338,7 +353,7 @@ __global__ void __launch_bounds__(512) fwd_kernel(
       const int c = i / VQ, q = i - c * VQ;
       cp_async<VCH>(v_s + vslot(c) * VCOL + q * VCH,
                     reinterpret_cast<const unsigned char*>(
-                        v + ((size_t)cb * bn + c) * kd + h * D) + q * VCH);
+                        v + ((size_t)cb * bn + c) * kd + hc * D) + q * VCH);
     }
   };
 
@@ -393,7 +408,7 @@ __global__ void __launch_bounds__(512) fwd_kernel(
     const float lsum = fmaxf(lt, 1e-30f);
     const float inv = has_edge ? (DROP ? drop.scale : 1.f) / lsum : 0.f;
     const size_t row = (size_t)rb * bm + r_lo + 8 * rr;
-    float* o = out + row * kd + h * D;
+    float* o = out + row * kd + hc * D;
 #pragma unroll
     for (int nt = 0; nt < ND; ++nt) {
       const int d = 8 * nt + 2 * tq;
@@ -403,7 +418,7 @@ __global__ void __launch_bounds__(512) fwd_kernel(
             (acc[1][nt][e] + acc[2][nt][e] + acc[0][nt][e]) * inv,
             (acc[1][nt][e + 1] + acc[2][nt][e + 1] + acc[0][nt][e + 1]) * inv);
     }
-    if (tq == 0)
+    if (tq == 0 && hc == h * nc)  // chunk 0: lse is every chunk's
       lse[(size_t)h * n_rows + row] = has_edge ? (m[rr] + log2f(lsum)) * LN2 : NEG_INIT;
   }
 }
@@ -437,7 +452,7 @@ __global__ void __launch_bounds__(512) bwd_col_kernel(
     const VT* __restrict__ v, const float* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dld, float* __restrict__ dls, float* __restrict__ dv,
-    int n_rows, int n_cols, int bm, int bn, int k, float slope, Drop drop,
+    int n_rows, int n_cols, int bm, int bn, int k, int nc, float slope, Drop drop,
     Offsets off, Batch batch) {
   constexpr int KD = (D + 7) / 8;  // k8 steps (g.v) and n8 tiles (dv) of D
   constexpr int GP = gpitch(D);
@@ -450,17 +465,20 @@ __global__ void __launch_bounds__(512) bwd_col_kernel(
   float* dld_s = reinterpret_cast<float*>(
       smem + (2 * stage_bytes > merge_bytes ? 2 * stage_bytes : merge_bytes));
 
-  const int cb = blockIdx.x, h = blockIdx.y;
+  // head h's chunk hc - h * nc: its columns of v, g and dv start at hc * D
+  const int cb = blockIdx.x, hc = blockIdx.y, h = hc / nc;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
   const int cq = (tid >> 5) % n_cw, rh = (tid >> 5) / n_cw;
   const int half = bm / 2;
   const int j0 = 32 * cq + 4 * gq;
-  const int kd = k * D;
+  const int kd = k * nc * D;
 
   // this block's path of a batched launch (Batch); dld's atomics stay in
-  // the path's own rows
+  // the path's own rows. delta, dld and dls are [P][nc][k][n]: this
+  // block's (path, chunk) slice
   const size_t pr = (size_t)blockIdx.z * n_rows, pc = (size_t)blockIdx.z * n_cols;
+  const size_t pq = (size_t)blockIdx.z * nc + (hc - h * nc);
   tiles += (size_t)blockIdx.z * batch.t_pitch * bm * bn;
   bcount += pc / bn;
   brow += pc / bn * r_pitch;
@@ -470,9 +488,9 @@ __global__ void __launch_bounds__(512) bwd_col_kernel(
   v += pc * kd;
   g += pr * kd;
   lse += pr * k;
-  delta += pr * k;
-  if constexpr (FUSE_DLD) dld += pr * k;
-  dls += pc * k;
+  delta += pq * k * n_rows;
+  if constexpr (FUSE_DLD) dld += pq * k * n_rows;
+  dls += pq * k * n_cols;
   dv += pc * kd;
   const PathKeys pk = path_keys<DROP>(drop, off, batch, blockIdx.z);
 
@@ -496,7 +514,7 @@ __global__ void __launch_bounds__(512) bwd_col_kernel(
         const int col = j0 + 2 * tile + (idx & 1);
         const int d = 8 * kk + tq + 4 * (idx >> 1);
         va[tile][kk][idx] = split_tf32(
-            d < D ? to_f32(v[((size_t)cb * bn + col) * kd + h * D + d]) : 0.f);
+            d < D ? to_f32(v[((size_t)cb * bn + col) * kd + hc * D + d]) : 0.f);
       }
   float dls_j[4] = {0.f, 0.f, 0.f, 0.f};
   float dv_acc[2][KD][4];
@@ -531,7 +549,7 @@ __global__ void __launch_bounds__(512) bwd_col_kernel(
     constexpr int GQ = D / 4;  // 16-byte chunks of a row of g
     for (int i = tid; i < bm * GQ; i += nthr) {
       const int r = i / GQ, q = i - r * GQ;
-      cp_async<16>(g_s + r * GP + 4 * q, g + ((size_t)rb * bm + r) * kd + h * D + 4 * q);
+      cp_async<16>(g_s + r * GP + 4 * q, g + ((size_t)rb * bm + r) * kd + hc * D + 4 * q);
     }
   };
 
@@ -630,7 +648,7 @@ __global__ void __launch_bounds__(512) bwd_col_kernel(
       for (int e = 0; e < 4; ++e) {
         const int col = j0 + 2 * tile + (e >> 1), d = 8 * nt + 2 * tq + (e & 1);
         if (D >= 8 || d < D)
-          dv[((size_t)cb * bn + col) * kd + h * D + d] =
+          dv[((size_t)cb * bn + col) * kd + hc * D + d] =
               dv_acc[tile][nt][e] + dvr_s[col * D + d];
       }
 }
@@ -680,7 +698,7 @@ __global__ void __launch_bounds__(512) bwd_row_kernel(
     const VT* __restrict__ v, const float* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dld, int n_rows, int n_cols, int bm, int bn, int k,
-    float slope, Drop drop, Offsets off, Batch batch) {
+    int nc, float slope, Drop drop, Offsets off, Batch batch) {
   constexpr int KD = (D + 7) / 8;              // k8 steps of g.v
   constexpr int VCOL = D * (int)sizeof(VT);    // bytes of one column of v
   constexpr int VCH = VCOL < 16 ? VCOL : 16;   // cp.async size for v
@@ -690,14 +708,17 @@ __global__ void __launch_bounds__(512) bwd_row_kernel(
   const int apitch = bn + APAD;
   const int stage_bytes = fwd_stage_bytes(bm, bn, D, sizeof(VT));
 
-  const int rb = blockIdx.x, h = blockIdx.y;
+  // head h's chunk hc - h * nc: its columns of v and g start at hc * D
+  const int rb = blockIdx.x, hc = blockIdx.y, h = hc / nc;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, gq = lane >> 2, tq = lane & 3;
   const int r_lo = (tid >> 5) * 16 + gq;  // rows r_lo and r_lo + 8
-  const int kd = k * D;
+  const int kd = k * nc * D;
 
-  // this block's path of a batched launch (Batch)
+  // this block's path of a batched launch (Batch); delta and dld are
+  // [P][nc][k][n]: this block's (path, chunk) slice
   const size_t pr = (size_t)blockIdx.z * n_rows, pc = (size_t)blockIdx.z * n_cols;
+  const size_t pq = (size_t)blockIdx.z * nc + (hc - h * nc);
   tiles += (size_t)blockIdx.z * batch.t_pitch * bm * bn;
   fcount += pr / bm;
   fcol += pr / bm * c_pitch;
@@ -707,8 +728,8 @@ __global__ void __launch_bounds__(512) bwd_row_kernel(
   v += pc * kd;
   g += pr * kd;
   lse += pr * k;
-  delta += pr * k;
-  dld += pr * k;
+  delta += pq * k * n_rows;
+  dld += pq * k * n_rows;
   const PathKeys pk = path_keys<DROP>(drop, off, batch, blockIdx.z);
 
   // per row: ld, lse (log2 domain), delta, the dropout row key
@@ -736,7 +757,7 @@ __global__ void __launch_bounds__(512) bwd_row_kernel(
     for (int idx = 0; idx < 4; ++idx) {
       const int r = r_lo + 8 * (idx & 1), d = 8 * kk + tq + 4 * (idx >> 1);
       ga[kk][idx] = split_tf32(
-          d < D ? g[((size_t)rb * bm + r) * kd + h * D + d] : 0.f);
+          d < D ? g[((size_t)rb * bm + r) * kd + hc * D + d] : 0.f);
     }
   // this thread's B-fragment offsets in a staged window: column
   // 4 (g >> 1) + 2 hh + (g & 1), d = 8 kk + t + 4 j, after the swizzle
@@ -772,7 +793,7 @@ __global__ void __launch_bounds__(512) bwd_row_kernel(
     for (int i = tid; i < bn * VQ; i += nthr) {
       const int c = i / VQ, q = i - c * VQ;
       cp_async<VCH>(v_s + ((c * D + q * VCHE) ^ row_vswz<D, VT>(c)),
-                    v + ((size_t)cb * bn + c) * kd + h * D + q * VCHE);
+                    v + ((size_t)cb * bn + c) * kd + hc * D + q * VCHE);
     }
   };
 
@@ -880,9 +901,9 @@ __global__ void __launch_bounds__(512) bwd_row_kernel(
 // that the 16-row warps of fwd_kernel and bwd_row_kernel and
 // bwd_col_kernel's 32-column warps and 8-row patches tile the blocks
 // (graph/bcsr.py:tile_error says the same in Python).
-bool bad_geometry(int n_rows, int n_cols, int bm, int bn, int k) {
+bool bad_geometry(int n_rows, int n_cols, int bm, int bn, int k, int nc) {
   return bm <= 0 || bn <= 0 || bm % 32 || bn % 32 || bm > 256 || bn > 256 ||
-         n_rows % bm || n_cols % bn || k <= 0;
+         n_rows % bm || n_cols % bn || k <= 0 || nc <= 0 || k * nc > 65535;
 }
 
 size_t fwd_smem(int bm, int bn, int d, int vbytes) {
@@ -899,15 +920,15 @@ template <int D, typename VT, bool DROP>
 int launch_fwd(const void* tiles, const void* fcount, const void* fcol,
                const void* ftile, int c_pitch, const void* ld, const void* ls,
                const void* v, void* out, void* lse, int n_rows, int n_cols,
-               int bm, int bn, int k, float slope, Drop drop, Offsets off,
+               int bm, int bn, int k, int nc, float slope, Drop drop, Offsets off,
                int n_paths, Batch batch, cudaStream_t stream) {
   const size_t smem = fwd_smem(bm, bn, D, sizeof(VT));
   cudaError_t err = set_smem(fwd_kernel<D, VT, DROP>, smem);
   if (err != cudaSuccess) return (int)err;
-  fwd_kernel<D, VT, DROP><<<dim3(n_rows / bm, k, n_paths), 2 * bm, smem, stream>>>(
+  fwd_kernel<D, VT, DROP><<<dim3(n_rows / bm, k * nc, n_paths), 2 * bm, smem, stream>>>(
       (const int8_t*)tiles, (const int*)fcount, (const int*)fcol,
       (const int*)ftile, c_pitch, (const float*)ld, (const float*)ls,
-      (const VT*)v, (float*)out, (float*)lse, n_rows, n_cols, bm, bn, k,
+      (const VT*)v, (float*)out, (float*)lse, n_rows, n_cols, bm, bn, k, nc,
       slope, drop, off, batch);
   return (int)cudaGetLastError();
 }
@@ -917,18 +938,18 @@ int launch_bwd(const void* tiles, const void* bcount, const void* brow,
                const void* btile, int r_pitch, const void* ld, const void* ls,
                const void* v, const void* g, const void* lse,
                const void* delta, void* dld, void* dls, void* dv, int n_rows,
-               int n_cols, int bm, int bn, int k, float slope, Drop drop,
+               int n_cols, int bm, int bn, int k, int nc, float slope, Drop drop,
                Offsets off, int n_paths, Batch batch, cudaStream_t stream) {
   const size_t smem = bwd_smem(bm, bn, D, FUSE_DLD);
   cudaError_t err = set_smem(bwd_col_kernel<D, FUSE_DLD, VT, DROP>, smem);
   if (err != cudaSuccess) return (int)err;
   bwd_col_kernel<D, FUSE_DLD, VT, DROP>
-      <<<dim3(n_cols / bn, k, n_paths), 2 * bn, smem, stream>>>(
+      <<<dim3(n_cols / bn, k * nc, n_paths), 2 * bn, smem, stream>>>(
           (const int8_t*)tiles, (const int*)bcount, (const int*)brow,
           (const int*)btile, r_pitch, (const float*)ld, (const float*)ls,
           (const VT*)v, (const float*)g, (const float*)lse,
           (const float*)delta, (float*)dld, (float*)dls, (float*)dv, n_rows,
-          n_cols, bm, bn, k, slope, drop, off, batch);
+          n_cols, bm, bn, k, nc, slope, drop, off, batch);
   return (int)cudaGetLastError();
 }
 
@@ -937,16 +958,16 @@ int launch_bwd_row(const void* tiles, const void* fcount, const void* fcol,
                    const void* ftile, int c_pitch, const void* ld,
                    const void* ls, const void* v, const void* g,
                    const void* lse, const void* delta, void* dld, int n_rows,
-                   int n_cols, int bm, int bn, int k, float slope, Drop drop,
+                   int n_cols, int bm, int bn, int k, int nc, float slope, Drop drop,
                    Offsets off, int n_paths, Batch batch, cudaStream_t stream) {
   const size_t smem = fwd_smem(bm, bn, D, sizeof(VT));
   cudaError_t err = set_smem(bwd_row_kernel<D, VT, DROP>, smem);
   if (err != cudaSuccess) return (int)err;
-  bwd_row_kernel<D, VT, DROP><<<dim3(n_rows / bm, k, n_paths), 2 * bm, smem, stream>>>(
+  bwd_row_kernel<D, VT, DROP><<<dim3(n_rows / bm, k * nc, n_paths), 2 * bm, smem, stream>>>(
       (const int8_t*)tiles, (const int*)fcount, (const int*)fcol,
       (const int*)ftile, c_pitch, (const float*)ld, (const float*)ls,
       (const VT*)v, (const float*)g, (const float*)lse,
-      (const float*)delta, (float*)dld, n_rows, n_cols, bm, bn, k, slope,
+      (const float*)delta, (float*)dld, n_rows, n_cols, bm, bn, k, nc, slope,
       drop, off, batch);
   return (int)cudaGetLastError();
 }
@@ -986,12 +1007,12 @@ int bwd_entry(const void* tiles, const void* bcount, const void* brow,
               const void* btile, int r_pitch, const void* ld, const void* ls,
               const void* v, const void* g, const void* lse,
               const void* delta, void* dld, void* dls, void* dv, int n_rows,
-              int n_cols, int bm, int bn, int k, int d, int v_bf16,
+              int n_cols, int bm, int bn, int k, int d, int nc, int v_bf16,
               float slope, int drop_on, const void* seed, unsigned thresh,
               float drop_scale, int row_block_off, int head_off,
               int col_block_off, int n_paths, int t_pitch,
               const void* path_row_block, void* stream) {
-  if (bad_geometry(n_rows, n_cols, bm, bn, k) || bad_batch(n_paths, t_pitch))
+  if (bad_geometry(n_rows, n_cols, bm, bn, k, nc) || bad_batch(n_paths, t_pitch))
     return (int)cudaErrorInvalidValue;
   const Drop drop{drop_on, (const uint32_t*)seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
@@ -1000,7 +1021,7 @@ int bwd_entry(const void* tiles, const void* bcount, const void* brow,
     return launch_bwd<decltype(dim)::value, FUSE_DLD, typename decltype(tag)::type,
                       decltype(dropping)::value>(
         tiles, bcount, brow, btile, r_pitch, ld, ls, v, g, lse, delta, dld, dls,
-        dv, n_rows, n_cols, bm, bn, k, slope, drop, off, n_paths, batch,
+        dv, n_rows, n_cols, bm, bn, k, nc, slope, drop, off, n_paths, batch,
         (cudaStream_t)stream);
   });
 }
@@ -1011,7 +1032,9 @@ extern "C" {
 
 // Every entry point sweeps n_paths graphs of one geometry in one launch
 // (Batch: path p's arrays follow path p - 1's, each at the layout below;
-// n_paths = 1 is one graph). seed: n_paths uint32 words in device memory,
+// n_paths = 1 is one graph), each head in nc chunks of d columns (nc = 1:
+// the whole head; the feature rows are k*nc*d wide, head h's chunk c at
+// column (h*nc + c)*d). seed: n_paths uint32 words in device memory,
 // read when drop_on (may be null when not). t_pitch: tile slots a path.
 // path_row_block: n_paths int32 row-block offsets in device memory added to
 // row_block_off, or null. Every array 16-byte aligned. Each returns a
@@ -1019,16 +1042,17 @@ extern "C" {
 
 // Forward. tiles int8 [T, bm, bn]; fcount int32 [nb_r]; fcol, ftile int32
 // [nb_r, c_pitch]; ld f32 [k, n_rows]; ls f32 [k, n_cols]; v f32, or bf16
-// when v_bf16, [n_cols, k*d] -> out f32 [n_rows, k*d], lse f32 [k, n_rows].
+// when v_bf16, [n_cols, k*nc*d] -> out f32 [n_rows, k*nc*d], lse f32 [k,
+// n_rows].
 int han_flash_fwd(const void* tiles, const void* fcount, const void* fcol,
                   const void* ftile, int c_pitch, const void* ld,
                   const void* ls, const void* v, void* out, void* lse,
-                  int n_rows, int n_cols, int bm, int bn, int k, int d,
+                  int n_rows, int n_cols, int bm, int bn, int k, int d, int nc,
                   int v_bf16, float slope, int drop_on, const void* seed,
                   unsigned thresh, float drop_scale, int row_block_off,
                   int head_off, int col_block_off, int n_paths, int t_pitch,
                   const void* path_row_block, void* stream) {
-  if (bad_geometry(n_rows, n_cols, bm, bn, k) || bad_batch(n_paths, t_pitch))
+  if (bad_geometry(n_rows, n_cols, bm, bn, k, nc) || bad_batch(n_paths, t_pitch))
     return (int)cudaErrorInvalidValue;
   const Drop drop{drop_on, (const uint32_t*)seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
@@ -1037,42 +1061,46 @@ int han_flash_fwd(const void* tiles, const void* fcount, const void* fcol,
     return launch_fwd<decltype(dim)::value, typename decltype(tag)::type,
                       decltype(dropping)::value>(
         tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, out, lse, n_rows,
-        n_cols, bm, bn, k, slope, drop, off, n_paths, batch, (cudaStream_t)stream);
+        n_cols, bm, bn, k, nc, slope, drop, off, n_paths, batch, (cudaStream_t)stream);
   });
 }
 
 // Fused backward. Adds bcount int32 [nb_c]; brow, btile int32 [nb_c, r_pitch];
-// g f32 [n_rows, k*d]; lse, delta f32 [k, n_rows] -> dld f32 [k, n_rows]
-// (zeroed by the caller, accumulated with atomicAdd), dls f32 [k, n_cols],
-// dv f32 [n_cols, k*d] (written once; f32 whatever v's type).
+// g f32 [n_rows, k*nc*d]; lse f32 [k, n_rows]; delta f32 [nc, k, n_rows]
+// (chunk c's g.out) -> dld f32 [nc, k, n_rows] (zeroed by the caller,
+// accumulated with atomicAdd), dls f32 [nc, k, n_cols] (each chunk's part
+// of the sum), dv f32 [n_cols, k*nc*d] (written once; f32 whatever v's
+// type).
 int han_flash_bwd(const void* tiles, const void* bcount, const void* brow,
                   const void* btile, int r_pitch, const void* ld,
                   const void* ls, const void* v, const void* g,
                   const void* lse, const void* delta, void* dld, void* dls,
                   void* dv, int n_rows, int n_cols, int bm, int bn, int k,
-                  int d, int v_bf16, float slope, int drop_on, const void* seed,
-                  unsigned thresh, float drop_scale, int row_block_off,
-                  int head_off, int col_block_off, int n_paths, int t_pitch,
-                  const void* path_row_block, void* stream) {
+                  int d, int nc, int v_bf16, float slope, int drop_on,
+                  const void* seed, unsigned thresh, float drop_scale,
+                  int row_block_off, int head_off, int col_block_off,
+                  int n_paths, int t_pitch, const void* path_row_block,
+                  void* stream) {
   return bwd_entry<true>(tiles, bcount, brow, btile, r_pitch, ld, ls, v, g,
                          lse, delta, dld, dls, dv, n_rows, n_cols, bm, bn, k,
-                         d, v_bf16, slope, drop_on, seed, thresh, drop_scale,
+                         d, nc, v_bf16, slope, drop_on, seed, thresh, drop_scale,
                          row_block_off, head_off, col_block_off, n_paths,
                          t_pitch, path_row_block, stream);
 }
 
 // Split backward, row sweep: the forward's map and the fused backward's
-// float inputs -> dld f32 [k, n_rows], each element written once.
+// float inputs -> dld f32 [nc, k, n_rows], each element written once.
 int han_flash_bwd_row(const void* tiles, const void* fcount, const void* fcol,
                       const void* ftile, int c_pitch, const void* ld,
                       const void* ls, const void* v, const void* g,
                       const void* lse, const void* delta, void* dld,
                       int n_rows, int n_cols, int bm, int bn, int k, int d,
-                      int v_bf16, float slope, int drop_on, const void* seed,
-                      unsigned thresh, float drop_scale, int row_block_off,
-                      int head_off, int col_block_off, int n_paths,
-                      int t_pitch, const void* path_row_block, void* stream) {
-  if (bad_geometry(n_rows, n_cols, bm, bn, k) || bad_batch(n_paths, t_pitch))
+                      int nc, int v_bf16, float slope, int drop_on,
+                      const void* seed, unsigned thresh, float drop_scale,
+                      int row_block_off, int head_off, int col_block_off,
+                      int n_paths, int t_pitch, const void* path_row_block,
+                      void* stream) {
+  if (bad_geometry(n_rows, n_cols, bm, bn, k, nc) || bad_batch(n_paths, t_pitch))
     return (int)cudaErrorInvalidValue;
   const Drop drop{drop_on, (const uint32_t*)seed, thresh, drop_scale};
   const Offsets off{row_block_off, head_off, col_block_off};
@@ -1081,25 +1109,27 @@ int han_flash_bwd_row(const void* tiles, const void* fcount, const void* fcol,
     return launch_bwd_row<decltype(dim)::value, typename decltype(tag)::type,
                           decltype(dropping)::value>(
         tiles, fcount, fcol, ftile, c_pitch, ld, ls, v, g, lse, delta, dld,
-        n_rows, n_cols, bm, bn, k, slope, drop, off, n_paths, batch,
+        n_rows, n_cols, bm, bn, k, nc, slope, drop, off, n_paths, batch,
         (cudaStream_t)stream);
   });
 }
 
 // Split backward, column sweep: the backward's map and the same float
-// inputs -> dls f32 [k, n_cols], dv f32 [n_cols, k*d], each written once.
+// inputs -> dls f32 [nc, k, n_cols], dv f32 [n_cols, k*nc*d], each written
+// once.
 int han_flash_bwd_col(const void* tiles, const void* bcount, const void* brow,
                       const void* btile, int r_pitch, const void* ld,
                       const void* ls, const void* v, const void* g,
                       const void* lse, const void* delta, void* dls, void* dv,
                       int n_rows, int n_cols, int bm, int bn, int k, int d,
-                      int v_bf16, float slope, int drop_on, const void* seed,
-                      unsigned thresh, float drop_scale, int row_block_off,
-                      int head_off, int col_block_off, int n_paths,
-                      int t_pitch, const void* path_row_block, void* stream) {
+                      int nc, int v_bf16, float slope, int drop_on,
+                      const void* seed, unsigned thresh, float drop_scale,
+                      int row_block_off, int head_off, int col_block_off,
+                      int n_paths, int t_pitch, const void* path_row_block,
+                      void* stream) {
   return bwd_entry<false>(tiles, bcount, brow, btile, r_pitch, ld, ls, v, g,
                           lse, delta, nullptr, dls, dv, n_rows, n_cols, bm, bn,
-                          k, d, v_bf16, slope, drop_on, seed, thresh,
+                          k, d, nc, v_bf16, slope, drop_on, seed, thresh,
                           drop_scale, row_block_off, head_off, col_block_off,
                           n_paths, t_pitch, path_row_block, stream);
 }

@@ -40,11 +40,23 @@ tile geometry the kernels do not take (graph/bcsr.py:tile_error) and on
 arrays that are not 16-byte aligned.
 
 The kernels are instantiated at D ∈ ``KERNEL_HEAD_DIMS``; the CUDA
-wrappers take any D up to the largest: :func:`fwd_head_padded` and
-:func:`bwd_head_padded` zero-pad v's and g's head dim to the next
-instantiated one and slice out and dv back. Zero columns of v change
-neither the logits nor the softmax, and zero columns of g add nothing to
-g·v or to delta, so the padded call computes the same function.
+wrappers take any D (:func:`head_plan`). Up to the largest instantiation
+they zero-pad v's and g's head dim to the next instantiated one and slice
+out and dv back: zero columns of v change neither the logits nor the
+softmax, and zero columns of g add nothing to g·v or to delta. A wider
+head runs as nc chunks of an instantiated dc (``HEAD_CHUNK``), each head
+zero-padded to nc·dc, chunk c of head h on the kernels' grid beside the
+heads (:func:`fwd_chunked`, :func:`bwd_chunked`).
+The softmax does not depend on v, so a chunk's forward is the dc-wide one
+on its columns (lse written once); dz is linear in g·v and delta, so with
+delta split per chunk each chunk's backward is the dc-wide one on its
+columns, writing its columns of dv and its partial dld and dls, which are
+summed in chunk order (:func:`sum_chunks`). Every backward, kernel or
+plain version, takes delta in one layout, ([P,] nc, K, n) with nc = 1 up
+to the largest instantiation (:func:`head_delta`); the plain versions add
+its chunks. The ``*_chunked_plain`` functions run the decomposition over
+the plain versions, which the CPU tests hold to the full-D plain versions
+and to han_tpu; the card holds each kernel to the full-D plain version.
 
 The row domain (``ld.shape[1]``) and the column domain (``ls.shape[1]``)
 come from the tensors and may differ: a graph-axis shard passes its strip
@@ -307,11 +319,13 @@ def flash_fwd_plain(graph: BCSRGraph, ld: torch.Tensor, ls: torch.Tensor,
 def _bwd_terms(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta, mm):
     """Per head h, the dense (n_rows, n_cols) terms of han_tpu's ``_head_dz``:
     with c = on_edge·exp(z − lse) and c' = c·keep, yields (h, dzs, c', g_h)
-    where dzs = (c'·(g·v) − c·delta)·lrelu′, g·v taken by ``mm``."""
+    where dzs = (c'·(g·v) − c·delta)·lrelu′, g·v taken by ``mm``; delta is
+    :func:`head_delta`'s (nc, K, n), whose chunks add up to the head's."""
     k, n_rows = ld.shape
     n_cols = ls.shape[1]
     d = v.shape[1] // k
     v = v.to(ld.dtype)
+    delta = sum_chunks(delta)
     adj = tile_adjacency(graph)
     for h in range(k):
         raw = ld[h][:, None] + ls[h][None, :]
@@ -340,8 +354,9 @@ def flash_bwd_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta,
                     mm=torch.matmul):
     """The fused backward on dense tensors: dld = Σ_j dz, dls = Σ_i dz,
     dv = c'ᵀ g (see :func:`_bwd_terms`; ``mm`` takes g·v and c'ᵀ g, as in
-    :func:`flash_fwd_plain`). Returns dld (K, n_rows), dls (K, n_cols), dv
-    (n_cols, K·D)."""
+    :func:`flash_fwd_plain`). delta is :func:`head_delta`'s, (nc, K,
+    n_rows), as every backward takes it. Returns dld (K, n_rows), dls (K,
+    n_cols), dv (n_cols, K·D)."""
     if ld.dim() == 3:
         return _per_path(flash_bwd_plain, graph, ld, ls, v, g, lse, delta, meta, mm)
     dld, dls, dv = [], [], []
@@ -374,19 +389,33 @@ def flash_bwd_col_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashM
 
 
 # ---------------------------------------------------------------------------
-# head dims: any D up to the largest instantiation, by zero padding
+# head dims: D up to the largest instantiation by zero padding, a larger D
+# as chunks of an instantiated one on the kernels' grid
 # ---------------------------------------------------------------------------
+
+# the instantiated head dim a chunk of a head wider than KERNEL_HEAD_DIMS[-1]
+# runs at, for all four kernels (one width, so that the fused and the split
+# backward take one delta). scripts/flash_chunk_width_torch.py times chunks
+# of 16 against 32 at D = 64: on an NVIDIA H100 80GB HBM3 at a 700 W limit
+# the forward and the row sweep ran 1.23-1.41x slower in chunks of 16, the
+# fused backward and the column sweep 0.92-0.99x (PERF.md §6).
+HEAD_CHUNK = 32
+
+
+def head_plan(d: int) -> tuple[int, int]:
+    """(dc, nc): the kernels run a head of D columns as nc chunks of an
+    instantiated dc. D up to the largest instantiation is one chunk of the
+    smallest dc that holds it; a wider D is ⌈D / HEAD_CHUNK⌉ chunks of
+    ``HEAD_CHUNK``. The head is zero-padded to nc·dc either way."""
+    if d <= KERNEL_HEAD_DIMS[-1]:
+        return next(dp for dp in KERNEL_HEAD_DIMS if d <= dp), 1
+    return HEAD_CHUNK, -(-d // HEAD_CHUNK)
 
 
 def padded_head_dim(d: int) -> int:
-    """The smallest instantiated head dim (``KERNEL_HEAD_DIMS``) that holds
-    D; NotImplementedError above the largest."""
-    for dp in KERNEL_HEAD_DIMS:
-        if d <= dp:
-            return dp
-    raise NotImplementedError(
-        f"head dim {d}: the flash kernels take D <= {KERNEL_HEAD_DIMS[-1]} "
-        f"(instantiated at {KERNEL_HEAD_DIMS}, smaller D zero-padded)")
+    """The width nc·dc of :func:`head_plan` that a head of D is padded to."""
+    dc, nc = head_plan(d)
+    return dc * nc
 
 
 def pad_heads(x: torch.Tensor, k: int, dp: int) -> torch.Tensor:
@@ -405,33 +434,126 @@ def unpad_heads(x: torch.Tensor, k: int, d: int) -> torch.Tensor:
     return x.view(*lead, k, -1)[..., :d].reshape(*lead, k * d).contiguous()
 
 
-def fwd_head_padded(fwd, graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
-    """fwd (the forward kernel's wrapper, or its plain version) with v's
-    head dim padded to :func:`padded_head_dim`; out sliced back. lse does
+def head_delta(g: torch.Tensor, out: torch.Tensor, k: int) -> torch.Tensor:
+    """The backward's delta from g and out (([P,] n, K·D) each), formed in
+    torch before the launch as han_tpu forms it (_flash_core_flat_bwd), in
+    the one layout every backward takes: ([P,] nc, K, n), chunk c's share
+    g_i[c] · out_i[c] of g_i · out_i for the nc chunks of
+    :func:`head_plan` (nc = 1 up to the largest instantiation), so that
+    each chunk's backward is the dc-wide one on its own columns."""
+    lead, n = g.shape[:-2], g.shape[-2]
+    d = g.shape[-1] // k
+    dc, nc = head_plan(d)
+    # one chunk sums the head's D columns as they are (no zero padding)
+    parts = pad_heads(g * out, k, nc * dc if nc > 1 else d).view(*lead, n, k, nc, -1).sum(-1)
+    return parts.movedim((-3, -2, -1), (-1, -2, -3)).contiguous()
+
+
+def sum_chunks(x: torch.Tensor) -> torch.Tensor:
+    """([P,] nc, K, n) → ([P,] K, n): the chunks' partial sums added in
+    chunk order, so that a sum repeats bitwise."""
+    acc = x[..., 0, :, :]
+    for c in range(1, x.shape[-3]):
+        acc = acc + x[..., c, :, :]
+    return acc
+
+
+def fwd_chunked(launch, graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
+    """The forward as the kernel computes it: each head of v zero-padded to
+    nc·dc (:func:`head_plan`), ``launch(graph, ld, ls, v_padded, meta, nc)``
+    (the kernel, or :func:`_fwd_chunks_plain`), out sliced back. Zero
+    columns of v change neither the logits nor the softmax, and lse does
     not depend on v."""
     k = ld.shape[-2]
     d = v.shape[-1] // k
-    dp = padded_head_dim(d)
-    if dp == d:
-        return fwd(graph, ld, ls, v, meta)
-    out, lse = fwd(graph, ld, ls, pad_heads(v, k, dp), meta)
+    dc, nc = head_plan(d)
+    if dc * nc == d:
+        return launch(graph, ld, ls, v, meta, nc)
+    out, lse = launch(graph, ld, ls, pad_heads(v, k, dc * nc), meta, nc)
     return unpad_heads(out, k, d), lse
 
 
-def bwd_head_padded(bwd, graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
-    """bwd (a backward kernel's wrapper or plain version: dld alone, or a
-    tuple ending in dv) with v's and g's head dims padded; dv sliced back.
-    delta is formed from the unpadded g and out, which the zero columns do
-    not change."""
+def bwd_chunked(launch, graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """A backward as the kernels compute it: v and g padded as in
+    :func:`fwd_chunked`, delta per chunk (:func:`head_delta`),
+    ``launch(..., nc)`` (a kernel, or a chunk loop over a plain version)
+    giving the chunks' partial dld and dls ([P,] nc, K, n) and dv at the
+    padded width; the partials summed in chunk order (:func:`sum_chunks`),
+    dv sliced back. Zero columns of g add nothing to g·v. Returns dld
+    alone, or a tuple ending in dv, as the plain version does."""
     k = ld.shape[-2]
     d = v.shape[-1] // k
-    dp = padded_head_dim(d)
-    if dp == d:
-        return bwd(graph, ld, ls, v, g, lse, delta, meta)
-    res = bwd(graph, ld, ls, pad_heads(v, k, dp), pad_heads(g, k, dp), lse, delta, meta)
-    if isinstance(res, tuple):
-        return (*res[:-1], unpad_heads(res[-1], k, d))
-    return res
+    dc, nc = head_plan(d)
+    if dc * nc != d:
+        v, g = pad_heads(v, k, dc * nc), pad_heads(g, k, dc * nc)
+    res = launch(graph, ld, ls, v, g, lse, delta, meta, nc)
+    if not isinstance(res, tuple):
+        return sum_chunks(res)
+    *parts, dv = res
+    return (*map(sum_chunks, parts), dv if dc * nc == d else unpad_heads(dv, k, d))
+
+
+def _head_chunk(x: torch.Tensor, k: int, nc: int, c: int) -> torch.Tensor:
+    """([P,] rows, K·nc·dc) → chunk c of every head, ([P,] rows, K·dc)."""
+    return x.unflatten(-1, (k, nc, -1))[..., c, :].flatten(-2).contiguous()
+
+
+def _join_chunks(xs, k: int) -> torch.Tensor:
+    """The chunks' ([P,] rows, K·dc) → ([P,] rows, K·nc·dc), chunk c of head
+    h at columns (h·nc + c)·dc."""
+    return torch.stack([x.unflatten(-1, (k, -1)) for x in xs], dim=-2).flatten(-3)
+
+
+def _fwd_chunks_plain(graph: BCSRGraph, ld, ls, v, meta: FlashMeta, nc: int):
+    """What the forward kernel computes on chunked v: the plain forward on
+    each chunk's columns, lse from chunk 0."""
+    if nc == 1:
+        return flash_fwd_plain(graph, ld, ls, v, meta)
+    k = ld.shape[-2]
+    res = [flash_fwd_plain(graph, ld, ls, _head_chunk(v, k, nc, c), meta) for c in range(nc)]
+    return _join_chunks([o for o, _ in res], k), res[0][1]
+
+
+def _bwd_chunks_plain(plain):
+    """What a backward kernel computes on chunked v and g: ``plain`` (a
+    backward plain version) on each chunk's columns with that chunk's share
+    of delta (a delta of one chunk); the partial sums stacked on a chunk
+    axis, dv joined."""
+    def launch(graph: BCSRGraph, ld, ls, v, g, lse, deltas, meta: FlashMeta, nc: int):
+        k = ld.shape[-2]
+        res = [plain(graph, ld, ls, _head_chunk(v, k, nc, c), _head_chunk(g, k, nc, c), lse,
+                     deltas[..., c:c + 1, :, :], meta) for c in range(nc)]
+        if not isinstance(res[0], tuple):
+            return torch.stack(res, dim=-3)
+        *parts, dvs = zip(*res)
+        return (*(torch.stack(p, dim=-3) for p in parts), _join_chunks(dvs, k))
+    return launch
+
+
+def flash_fwd_chunked_plain(graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
+    """The forward kernel's chunk decomposition on the plain version: the
+    padding, the chunks and lse of :func:`fwd_chunked` (the CPU tests hold
+    it to the full-D plain version and to han_tpu)."""
+    return fwd_chunked(_fwd_chunks_plain, graph, ld, ls, v, meta)
+
+
+def flash_bwd_chunked_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """The fused backward's chunk decomposition (:func:`bwd_chunked`) on
+    :func:`flash_bwd_plain`."""
+    return bwd_chunked(_bwd_chunks_plain(flash_bwd_plain), graph, ld, ls, v, g, lse, delta,
+                       meta)
+
+
+def flash_bwd_row_chunked_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """The row sweep's chunk decomposition on :func:`flash_bwd_row_plain`."""
+    return bwd_chunked(_bwd_chunks_plain(flash_bwd_row_plain), graph, ld, ls, v, g, lse, delta,
+                       meta)
+
+
+def flash_bwd_col_chunked_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+    """The column sweep's chunk decomposition on :func:`flash_bwd_col_plain`."""
+    return bwd_chunked(_bwd_chunks_plain(flash_bwd_col_plain), graph, ld, ls, v, g, lse, delta,
+                       meta)
 
 
 # ---------------------------------------------------------------------------
@@ -439,7 +561,7 @@ def bwd_head_padded(bwd, graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: Flash
 # ---------------------------------------------------------------------------
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-_SCALARS = [_I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _U, _F, _I, _I, _I, _I, _I, _P, _P]
+_SCALARS = [_I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _U, _F, _I, _I, _I, _I, _I, _P, _P]
 _ARGTYPES = {
     "han_flash_fwd": [_P, _P, _P, _P, _I] + [_P] * 5 + _SCALARS,
     "han_flash_bwd": [_P, _P, _P, _P, _I] + [_P] * 9 + _SCALARS,
@@ -462,15 +584,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(graph: BCSRGraph, maps: str, floats: dict) -> tuple[int, int, int, int, int]:
+def _check(graph: BCSRGraph, maps: str, floats: dict,
+           nc: int) -> tuple[int, int, int, int, int]:
     """Raise on anything the kernels do not take; returns (k, d, n_rows,
-    n_cols, n_paths). The row domain is ``ld.shape[-1]`` and the column
-    domain ``ls.shape[-1]``; both maps' block counts must match them.
-    ``maps`` is "fwd" or "bwd", the map the kernel walks; ``floats`` maps
-    each float argument's name to (tensor, expected shape as letters: K
-    heads, R rows, C columns, F = K·D flat features), each with a leading P
-    axis when the graph is a stack of P. Every float argument is float32,
-    except ``v``, which may be bfloat16."""
+    n_cols, n_paths), d the instantiated head dim of each of a head's nc
+    chunks. The row domain is ``ld.shape[-1]`` and the column domain
+    ``ls.shape[-1]``; both maps' block counts must match them. ``maps`` is
+    "fwd" or "bwd", the map the kernel walks; ``floats`` maps each float
+    argument's name to (tensor, expected shape as letters: K heads, R rows,
+    C columns, N = nc chunks, F = K·nc·d flat features), each with a
+    leading P axis when the graph is a stack of P. Every float argument is
+    float32, except ``v``, which may be bfloat16."""
     dev = floats["ld"][0].device
     if dev.type != "cuda":
         raise ValueError(f"the flash kernels take CUDA tensors, got {dev}")
@@ -480,15 +604,16 @@ def _check(graph: BCSRGraph, maps: str, floats: dict) -> tuple[int, int, int, in
                          f"{graph.n_paths or 1} path(s), got {tuple(floats['ld'][0].shape)}")
     k, n_rows = floats["ld"][0].shape[-2:]
     n_cols = floats["ls"][0].shape[-1]
-    d = floats["v"][0].shape[-1] // k
-    if d not in KERNEL_HEAD_DIMS:
+    d = floats["v"][0].shape[-1] // (k * nc)
+    if d not in KERNEL_HEAD_DIMS or floats["v"][0].shape[-1] != k * nc * d:
         raise NotImplementedError(
-            f"head dim {d} has no kernel instantiation {KERNEL_HEAD_DIMS}")
+            f"head dim {floats['v'][0].shape[-1] // k} is not {nc} chunk(s) of a kernel "
+            f"instantiation {KERNEL_HEAD_DIMS}")
     if (n_rows != graph.nb_r * graph.bm or n_cols != graph.nb_c * graph.bn):
         raise ValueError(f"the graph's maps cover {graph.nb_r * graph.bm} rows x "
                          f"{graph.nb_c * graph.bn} columns, the tensors "
                          f"{n_rows} x {n_cols}")
-    dims = {"K": k, "F": k * d, "R": n_rows, "C": n_cols}
+    dims = {"K": k, "F": k * nc * d, "R": n_rows, "C": n_cols, "N": nc}
     for name, (t, shape) in floats.items():
         want = lead + tuple(dims[s] for s in shape)
         dtypes = V_DTYPES if name == "v" else (torch.float32,)
@@ -543,11 +668,11 @@ def _seed_ptr(meta: FlashMeta, device, n_paths: int = 1) -> int | None:
     return _path_ints("seed", meta.seed, n_paths, device)
 
 
-def _scalars(graph: BCSRGraph, v, n_rows, n_cols, k, d, n_paths, meta: FlashMeta):
+def _scalars(graph: BCSRGraph, v, n_rows, n_cols, k, d, nc, n_paths, meta: FlashMeta):
     drop = meta.dropout_p > 0.0
     rbo = meta.row_block_offset
     per_path = isinstance(rbo, torch.Tensor)
-    return (n_rows, n_cols, graph.bm, graph.bn, k, d, int(v.dtype == torch.bfloat16),
+    return (n_rows, n_cols, graph.bm, graph.bn, k, d, nc, int(v.dtype == torch.bfloat16),
             meta.slope, int(drop),
             _seed_ptr(meta, v.device, n_paths),
             keep_threshold(meta.dropout_p) if drop else 0,
@@ -563,36 +688,37 @@ def _raise_on(rc: int, lib, name: str) -> None:
                            f"({lib.han_error_string(rc).decode()})")
 
 
-def _fwd_launch(graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
+def _fwd_launch(graph: BCSRGraph, ld, ls, v, meta: FlashMeta, nc: int):
     global flash_fwd_launches
     k, d, n_rows, n_cols, n_paths = _check(graph, "fwd", {
-        "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF")})
+        "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF")}, nc)
     lead = ld.shape[:-2]
-    out = torch.empty((*lead, n_rows, k * d), dtype=torch.float32, device=ld.device)
+    out = torch.empty((*lead, n_rows, k * nc * d), dtype=torch.float32, device=ld.device)
     lse = torch.empty((*lead, k, n_rows), dtype=torch.float32, device=ld.device)
     lib = _lib()
     rc = lib.han_flash_fwd(
         graph.tiles.data_ptr(), graph.fwd_count.data_ptr(),
         graph.fwd_col.data_ptr(), graph.fwd_tile.data_ptr(), graph.c_max,
         ld.data_ptr(), ls.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), *_scalars(graph, v, n_rows, n_cols, k, d, n_paths, meta))
+        lse.data_ptr(), *_scalars(graph, v, n_rows, n_cols, k, d, nc, n_paths, meta))
     _raise_on(rc, lib, "han_flash_fwd")
     flash_fwd_launches += 1
     return out, lse
 
 
-def _bwd_col_sweep(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta,
+def _bwd_col_sweep(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta, nc: int,
                    fuse_dld: bool):
     """Launch the column-sweep kernel: han_flash_bwd (with the atomic dld)
-    or han_flash_bwd_col (dls and dv only). Returns (dld or None, dls, dv)."""
+    or han_flash_bwd_col (dls and dv only). Returns (dld or None, dls, dv),
+    dld and dls the chunks' partial sums ([P,] nc, K, n)."""
     k, d, n_rows, n_cols, n_paths = _check(graph, "bwd", {
         "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF"), "g": (g, "RF"),
-        "lse": (lse, "KR"), "delta": (delta, "KR")})
+        "lse": (lse, "KR"), "delta": (delta, "NKR")}, nc)
     lead = ld.shape[:-2]
-    dld = (torch.zeros((*lead, k, n_rows), dtype=torch.float32, device=ld.device)
+    dld = (torch.zeros((*lead, nc, k, n_rows), dtype=torch.float32, device=ld.device)
            if fuse_dld else None)
-    dls = torch.empty((*lead, k, n_cols), dtype=torch.float32, device=ld.device)
-    dv = torch.empty((*lead, n_cols, k * d), dtype=torch.float32, device=ld.device)
+    dls = torch.empty((*lead, nc, k, n_cols), dtype=torch.float32, device=ld.device)
+    dv = torch.empty((*lead, n_cols, k * nc * d), dtype=torch.float32, device=ld.device)
     lib = _lib()
     name = "han_flash_bwd" if fuse_dld else "han_flash_bwd_col"
     rc = getattr(lib, name)(
@@ -601,62 +727,62 @@ def _bwd_col_sweep(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta,
         ld.data_ptr(), ls.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(),
         *([dld.data_ptr()] if fuse_dld else []), dls.data_ptr(), dv.data_ptr(),
-        *_scalars(graph, v, n_rows, n_cols, k, d, n_paths, meta))
+        *_scalars(graph, v, n_rows, n_cols, k, d, nc, n_paths, meta))
     _raise_on(rc, lib, name)
     return dld, dls, dv
 
 
-def _bwd_launch(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+def _bwd_launch(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta, nc: int):
     global flash_bwd_launches
-    out = _bwd_col_sweep(graph, ld, ls, v, g, lse, delta, meta, fuse_dld=True)
+    out = _bwd_col_sweep(graph, ld, ls, v, g, lse, delta, meta, nc, fuse_dld=True)
     flash_bwd_launches += 1
     return out
 
 
-def _bwd_row_launch(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+def _bwd_row_launch(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta, nc: int):
     global flash_bwd_row_launches
     k, d, n_rows, n_cols, n_paths = _check(graph, "fwd", {
         "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF"), "g": (g, "RF"),
-        "lse": (lse, "KR"), "delta": (delta, "KR")})
-    dld = torch.empty((*ld.shape[:-2], k, n_rows), dtype=torch.float32, device=ld.device)
+        "lse": (lse, "KR"), "delta": (delta, "NKR")}, nc)
+    dld = torch.empty((*ld.shape[:-2], nc, k, n_rows), dtype=torch.float32, device=ld.device)
     lib = _lib()
     rc = lib.han_flash_bwd_row(
         graph.tiles.data_ptr(), graph.fwd_count.data_ptr(),
         graph.fwd_col.data_ptr(), graph.fwd_tile.data_ptr(), graph.c_max,
         ld.data_ptr(), ls.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dld.data_ptr(),
-        *_scalars(graph, v, n_rows, n_cols, k, d, n_paths, meta))
+        *_scalars(graph, v, n_rows, n_cols, k, d, nc, n_paths, meta))
     _raise_on(rc, lib, "han_flash_bwd_row")
     flash_bwd_row_launches += 1
     return dld
 
 
-def _bwd_col_launch(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+def _bwd_col_launch(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta, nc: int):
     global flash_bwd_col_launches
-    _, dls, dv = _bwd_col_sweep(graph, ld, ls, v, g, lse, delta, meta, fuse_dld=False)
+    _, dls, dv = _bwd_col_sweep(graph, ld, ls, v, g, lse, delta, meta, nc, fuse_dld=False)
     flash_bwd_col_launches += 1
     return dls, dv
 
 
 def flash_fwd_cuda(graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
     """The forward kernel; same contract as :func:`flash_fwd_plain`, any D
-    up to the largest instantiation."""
-    return fwd_head_padded(_fwd_launch, graph, ld, ls, v, meta)
+    (:func:`head_plan`)."""
+    return fwd_chunked(_fwd_launch, graph, ld, ls, v, meta)
 
 
 def flash_bwd_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
     """The fused backward kernel; same contract as :func:`flash_bwd_plain`."""
-    return bwd_head_padded(_bwd_launch, graph, ld, ls, v, g, lse, delta, meta)
+    return bwd_chunked(_bwd_launch, graph, ld, ls, v, g, lse, delta, meta)
 
 
 def flash_bwd_row_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
     """The row-sweep kernel; same contract as :func:`flash_bwd_row_plain`."""
-    return bwd_head_padded(_bwd_row_launch, graph, ld, ls, v, g, lse, delta, meta)
+    return bwd_chunked(_bwd_row_launch, graph, ld, ls, v, g, lse, delta, meta)
 
 
 def flash_bwd_col_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
     """The column-sweep kernel; same contract as :func:`flash_bwd_col_plain`."""
-    return bwd_head_padded(_bwd_col_launch, graph, ld, ls, v, g, lse, delta, meta)
+    return bwd_chunked(_bwd_col_launch, graph, ld, ls, v, g, lse, delta, meta)
 
 
 def flash_fwd(graph, ld, ls, v, meta: FlashMeta):
@@ -709,10 +835,8 @@ class _FlashGAT(torch.autograd.Function):
     def backward(ctx, g):
         ld, ls, v, out, lse = ctx.saved_tensors
         g = g.contiguous()
-        # per-head delta_i = g_i · out_i, formed outside the kernel as in
-        # han_tpu (_flash_core_flat_bwd); ([P,] K, n) for a stack
-        delta = (g * out).view(*g.shape[:-1], ld.shape[-2], -1).sum(-1).transpose(-1, -2)
-        delta = delta.contiguous()
+        # delta_i = g_i · out_i, per head-dim chunk (head_delta)
+        delta = head_delta(g, out, ld.shape[-2])
         dld, dls, dv = flash_bwd(ctx.graph, ld, ls, v, g, lse, delta, ctx.meta)
         # dv is f32 from the kernels, cast to v's type outside them as in
         # han_tpu (flash_gat.py:701)

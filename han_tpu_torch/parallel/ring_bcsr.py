@@ -238,7 +238,7 @@ class _RingFlash(torch.autograd.Function):
         s, n_s = ring.rank, ring.size
         k, n_loc = ld.shape
         g = g.contiguous()
-        delta = (g * out).view(n_loc, k, -1).sum(-1).T.contiguous()
+        delta = fg.head_delta(g, out, k)
         dld = torch.zeros_like(ld)
         # rotate with the data, summed in f32 whatever v's type
         dv, dls = torch.zeros_like(v, dtype=ld.dtype), torch.zeros_like(ls)

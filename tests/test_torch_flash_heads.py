@@ -1,9 +1,13 @@
-"""Head dims the flash kernels are not instantiated at: the CUDA wrappers
-zero-pad v's and g's head dim to the next of ``KERNEL_HEAD_DIMS`` and
-slice out and dv back (``fwd_head_padded``, ``bwd_head_padded``). The
-CPU holds that wrapping, around the kernels' plain versions, to the
-unpadded plain versions and to han_tpu's flash attention (interpret mode),
-which takes any D."""
+"""Head dims the flash kernels are not instantiated at. Up to the largest of
+``KERNEL_HEAD_DIMS`` the CUDA wrappers zero-pad v's and g's head dim to the
+next instantiation and slice out and dv back; a wider head runs as chunks
+of 32 columns on the kernels' grid (``head_plan``, ``fwd_chunked``,
+``bwd_chunked``), delta in one layout, ([P,] nc, K, n), for every
+backward (``head_delta``). The CPU holds that decomposition, run
+over the kernels' plain versions (``flash_*_chunked_plain``), to the
+full-D plain versions (float64), to the unchunked call at one chunk
+(bitwise) and to han_tpu's flash attention (interpret mode), which takes
+any D."""
 
 import numpy as np
 import pytest
@@ -16,23 +20,39 @@ import torch  # noqa: E402
 from han_tpu.graph.bcsr import bcsr_from_dense as j_bcsr  # noqa: E402
 from han_tpu.ops.pallas.flash_gat import flash_gat_attention as j_flash  # noqa: E402
 from han_tpu_torch.graph.bcsr import bcsr_from_dense as t_bcsr  # noqa: E402
+from han_tpu_torch.graph.stack import stack_graphs  # noqa: E402
 from han_tpu_torch.ops import flash_gat as fg  # noqa: E402
 
+# (plain version, its chunk decomposition) of each backward kernel
+BACKWARDS = ((fg.flash_bwd_plain, fg.flash_bwd_chunked_plain),
+             (fg.flash_bwd_row_plain, fg.flash_bwd_row_chunked_plain),
+             (fg.flash_bwd_col_plain, fg.flash_bwd_col_chunked_plain))
 
-@pytest.mark.parametrize("d,dp", [(1, 4), (3, 4), (4, 4), (5, 8), (8, 8), (9, 16), (17, 32),
-                                  (32, 32)])
+
+@pytest.mark.parametrize("d,dp", [
+    (1, 4), (3, 4), (4, 4), (5, 8), (8, 8), (9, 16), (17, 32), (32, 32), (33, 64), (40, 64),
+    (64, 64), (65, 96), (96, 96), (97, 128), (121, 128), (128, 128), (256, 256), (300, 320)])
 def test_padded_head_dim(d, dp):
     assert fg.padded_head_dim(d) == dp
 
 
-def test_head_dim_above_the_largest_instantiation_raises():
-    assert fg.KERNEL_HEAD_DIMS[-1] == 32
-    with pytest.raises(NotImplementedError, match="D <= 32"):
-        fg.padded_head_dim(33)
-    x = torch.zeros(4, 2 * 33)
-    with pytest.raises(NotImplementedError, match="D <= 32"):
-        fg.bwd_head_padded(fg.flash_bwd_plain, None, torch.zeros(2, 4), None, x, x, None, None,
-                           fg.FlashMeta())
+def test_head_chunk_plan():
+    """Above the largest instantiation (32) a head runs as ⌈D / 32⌉ chunks
+    of 32: D = 33, 64, 121, 128 and 300 give their chunk counts and padded
+    widths, and nothing raises; delta has that many chunks, which add up to
+    the head's g · out. Up to 32 a head is one chunk, and delta keeps its
+    chunk axis (one layout for every backward)."""
+    assert fg.KERNEL_HEAD_DIMS[-1] == fg.HEAD_CHUNK == 32
+    for d, nc in ((33, 2), (64, 2), (121, 4), (128, 4), (300, 10)):
+        assert fg.head_plan(d) == (32, nc)
+        g, out = torch.ones(5, 2 * d), torch.ones(5, 2 * d)
+        delta = fg.head_delta(g, out, 2)
+        assert delta.shape == (nc, 2, 5) and delta.is_contiguous()
+        assert fg.sum_chunks(delta).tolist() == [[float(d)] * 5] * 2
+    for d, dc in ((3, 4), (8, 8), (32, 32)):
+        assert fg.head_plan(d) == (dc, 1)
+        delta = fg.head_delta(torch.ones(5, 2 * d), torch.ones(5, 2 * d), 2)
+        assert delta.shape == (1, 2, 5) and delta.tolist() == [[[float(d)] * 5] * 2]
 
 
 def test_pad_heads_pads_each_head_and_is_contiguous():
@@ -45,6 +65,16 @@ def test_pad_heads_pads_each_head_and_is_contiguous():
     assert same.is_contiguous() and torch.equal(same, x)
 
 
+def test_chunks_are_laid_out_as_heads():
+    """Chunk c of head h sits at columns (h·nc + c)·dc of the padded rows,
+    as the kernels address it; a chunk's columns and the join invert each
+    other."""
+    x = torch.arange(3 * 2 * 6, dtype=torch.float32).view(3, 12)  # K = 2 heads of 6
+    parts = [fg._head_chunk(x, 2, 3, c) for c in range(3)]
+    assert parts[1].tolist()[0] == [2, 3, 8, 9]
+    assert torch.equal(fg._join_chunks(parts, 2), x)
+
+
 def small_graph(n=200, density=0.15, seed=0):
     rng = np.random.default_rng(seed)
     a = (rng.random((n, n)) < density).astype(np.float32)
@@ -53,18 +83,31 @@ def small_graph(n=200, density=0.15, seed=0):
     return a
 
 
+def _case(d, k=2, seed=None, n_paths=None):
+    """A small graph (or a stack of n_paths), float64 inputs and their
+    delta; 64x64 tiles."""
+    if n_paths is None:
+        graph = t_bcsr(small_graph(), bm=64, bn=64)
+        lead = ()
+    else:
+        graph = stack_graphs([t_bcsr(small_graph(seed=s), bm=64, bn=64)
+                              for s in range(n_paths)])
+        lead = (n_paths,)
+    n = graph.n_pad
+    gen = torch.Generator().manual_seed(d if seed is None else seed)
+    rnd = lambda *s: torch.randn(*lead, *s, generator=gen, dtype=torch.float64)
+    return graph, rnd(k, n), rnd(k, n), rnd(n, k * d), rnd(n, k * d)
+
+
 @pytest.mark.parametrize("d", [3, 32])
 @pytest.mark.parametrize("p", [0.0, 0.6])
-def test_head_padding_gives_the_plain_versions(d, p):
+def test_head_padding_gives_the_plain_versions(d, p, monkeypatch):
     """At D = 3 (padded to 4) and D = 32 (instantiated): out, lse, the fused
     backward's dld, dls and dv, the row sweep's dld and the column sweep's
-    dls and dv through the padding wrappers equal the plain versions on the
-    unpadded tensors (float64 inputs)."""
-    graph = t_bcsr(small_graph(), bm=64, bn=64)
-    n, k = graph.n_pad, 2
-    gen = torch.Generator().manual_seed(d)
-    rnd = lambda *s: torch.randn(*s, generator=gen, dtype=torch.float64)
-    ld, ls, v, g = rnd(k, n), rnd(k, n), rnd(n, k * d), rnd(n, k * d)
+    dls and dv through the padding (the chunk decomposition at one chunk)
+    equal the plain versions on the unpadded tensors (float64 inputs)."""
+    graph, ld, ls, v, g = _case(d)
+    k = 2
     meta = fg.FlashMeta(dropout_p=p, seed=17, head_offset=1)
     seen = []
 
@@ -75,21 +118,106 @@ def test_head_padding_gives_the_plain_versions(d, p):
         return call
 
     out, lse = fg.flash_fwd_plain(graph, ld, ls, v, meta)
-    pout, plse = fg.fwd_head_padded(spy(fg.flash_fwd_plain), graph, ld, ls, v, meta)
+    monkeypatch.setattr(fg, "flash_fwd_plain", spy(fg.flash_fwd_plain))
+    pout, plse = fg.flash_fwd_chunked_plain(graph, ld, ls, v, meta)
     assert pout.shape == out.shape and pout.is_contiguous()
     np.testing.assert_allclose(pout.numpy(), out.numpy(), atol=1e-12)
     np.testing.assert_allclose(plse.numpy(), lse.numpy(), atol=1e-12)
-    delta = (g * out).view(n, k, d).sum(-1).T.contiguous()
+    delta = fg.head_delta(g, out, k)
     args = (graph, ld, ls, v, g, lse, delta, meta)
-    for plain in (fg.flash_bwd_plain, fg.flash_bwd_row_plain, fg.flash_bwd_col_plain):
+    for plain, chunked in BACKWARDS:
         want = plain(*args)
-        got = fg.bwd_head_padded(spy(plain), *args)
+        monkeypatch.setattr(fg, plain.__name__, spy(plain))
+        got = chunked(*args)
         want, got = (want, got) if isinstance(want, tuple) else ((want,), (got,))
         assert len(got) == len(want)
         for a, b in zip(got, want):
             assert a.shape == b.shape and (b != 0).any()
             np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-12)
     assert seen == [fg.padded_head_dim(d)] * 4
+
+
+@pytest.mark.parametrize("d", [3, 8, 32])
+def test_one_chunk_is_the_unchunked_call(d):
+    """At D ≤ 32 the chunk decomposition is the unchunked call, bitwise:
+    the plain versions on v and g padded to the instantiation, out and dv
+    sliced back (dropout 0.6)."""
+    graph, ld, ls, v, g = _case(d)
+    k, dp = 2, fg.padded_head_dim(d)
+    meta = fg.FlashMeta(dropout_p=0.6, seed=5)
+    out, lse = fg.flash_fwd_plain(graph, ld, ls, fg.pad_heads(v, k, dp), meta)
+    cout, clse = fg.flash_fwd_chunked_plain(graph, ld, ls, v, meta)
+    assert torch.equal(cout, fg.unpad_heads(out, k, d)) and torch.equal(clse, lse)
+    delta = fg.head_delta(g, cout, k)
+    padded = (graph, ld, ls, fg.pad_heads(v, k, dp), fg.pad_heads(g, k, dp), lse, delta, meta)
+    for plain, chunked in BACKWARDS:
+        want, got = plain(*padded), chunked(graph, ld, ls, v, g, lse, delta, meta)
+        want, got = (want, got) if isinstance(want, tuple) else ((want,), (got,))
+        want = (*want[:-1], fg.unpad_heads(want[-1], k, d)) if len(want) > 1 else want
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("d", [40, 64, 100, 128])
+@pytest.mark.parametrize("p", [0.0, 0.6])
+def test_chunks_give_the_full_head_plain_versions(d, p):
+    """D = 40 and 64 (two chunks of 32 a head) and 100 and 128 (four)
+    against the full-D plain versions (float64 inputs, atol 1e-12): out and
+    lse, and each backward, both given the same delta per chunk."""
+    graph, ld, ls, v, g = _case(d)
+    k = 2
+    meta = fg.FlashMeta(dropout_p=p, seed=23, head_offset=1)
+    out, lse = fg.flash_fwd_plain(graph, ld, ls, v, meta)
+    cout, clse = fg.flash_fwd_chunked_plain(graph, ld, ls, v, meta)
+    np.testing.assert_allclose(cout.numpy(), out.numpy(), atol=1e-12)
+    assert torch.equal(clse, lse)
+    delta = fg.head_delta(g, out, k)
+    assert delta.shape == (-(-d // 32), k, graph.n_pad)
+    args = (graph, ld, ls, v, g, lse, delta, meta)
+    for plain, chunked in BACKWARDS:
+        want, got = plain(*args), chunked(*args)
+        want, got = (want, got) if isinstance(want, tuple) else ((want,), (got,))
+        for a, b in zip(got, want):
+            assert a.shape == b.shape and a.is_contiguous()
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-12)
+
+
+def test_chunks_of_a_stack_are_per_path():
+    """A stack of 2 graphs at D = 64, dropout 0.6 (a seed a path): the chunk
+    decomposition against the full-D plain versions (atol 1e-12), delta
+    per chunk ([P,] nc, K, n)."""
+    graph, ld, ls, v, g = _case(64, n_paths=2, seed=8)
+    meta = fg.FlashMeta(dropout_p=0.6, seed=torch.tensor([11, 12], dtype=torch.int32))
+    out, lse = fg.flash_fwd_plain(graph, ld, ls, v, meta)
+    cout, clse = fg.flash_fwd_chunked_plain(graph, ld, ls, v, meta)
+    np.testing.assert_allclose(cout.numpy(), out.numpy(), atol=1e-12)
+    assert torch.equal(clse, lse)
+    delta = fg.head_delta(g, out, 2)
+    assert delta.shape == (2, 2, 2, graph.n_pad)
+    for plain, chunked in BACKWARDS:
+        want, got = plain(graph, ld, ls, v, g, lse, delta, meta), chunked(
+            graph, ld, ls, v, g, lse, delta, meta)
+        want, got = (want, got) if isinstance(want, tuple) else ((want,), (got,))
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-12)
+
+
+def test_split_chunks_repeat_bitwise():
+    """The split backward's chunk decomposition (row, then column sweep) at
+    D = 64, dropout 0.6, run twice: bitwise equal (the partial sums added
+    in chunk order)."""
+    graph, ld, ls, v, g = _case(64, seed=9)
+    meta = fg.FlashMeta(dropout_p=0.6, seed=31)
+    out, lse = fg.flash_fwd_chunked_plain(graph, ld, ls, v, meta)
+    args = (graph, ld, ls, v, g, lse, fg.head_delta(g, out, 2), meta)
+    runs = [(fg.flash_bwd_row_chunked_plain(*args), *fg.flash_bwd_col_chunked_plain(*args))
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def _through_chunks(monkeypatch):
+    """Route the autograd function through the chunk decomposition."""
+    monkeypatch.setattr(fg, "flash_fwd", fg.flash_fwd_chunked_plain)
+    monkeypatch.setattr(fg, "flash_bwd", fg.flash_bwd_chunked_plain)
 
 
 def test_head_padding_matches_jax_interpreted(monkeypatch):
@@ -102,10 +230,10 @@ def test_head_padding_matches_jax_interpreted(monkeypatch):
     f32 = lambda *s: rng.standard_normal(s).astype(np.float32)
     fts, ld, ls, w = f32(n, k, d), f32(n, k), f32(n, k), f32(n, k, d)
     seen = []
-    fwd, bwd = fg.flash_fwd_plain, fg.flash_bwd_plain
+    fwd = fg.flash_fwd_chunked_plain
+    _through_chunks(monkeypatch)
     monkeypatch.setattr(fg, "flash_fwd", lambda graph, ld, ls, v, meta: (
-        seen.append(v.shape), fg.fwd_head_padded(fwd, graph, ld, ls, v, meta))[1])
-    monkeypatch.setattr(fg, "flash_bwd", lambda *args: fg.bwd_head_padded(bwd, *args))
+        seen.append(v.shape), fwd(graph, ld, ls, v, meta))[1])
     tg = t_bcsr(a, bm=64, bn=64)
     args = [torch.tensor(x, requires_grad=True) for x in (fts, ld, ls)]
     out = fg.flash_gat_attention(tg, *args)
@@ -120,4 +248,36 @@ def test_head_padding_matches_jax_interpreted(monkeypatch):
     want = [np.asarray(jfn(*jargs))] + [np.asarray(x) for x in jgrads]
     np.testing.assert_array_equal(got[0][7], 0.0)
     for name, x, y in zip(("out", "d_fts", "d_logit_dst", "d_logit_src"), got, want):
+        np.testing.assert_allclose(x, y, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("d", [40, 64])
+def test_head_chunks_match_jax_interpreted(d, monkeypatch):
+    """D = 40 and 64, two chunks a head, through the chunk decomposition at
+    dropout 0: out and the gradients of sum(out · w) in fts, logit_dst and
+    logit_src against han_tpu's flash attention in interpret mode. The
+    port's side runs on float64 inputs (the first f32 exp of a process may
+    be off on the CPU), han_tpu's in float32: atol 1e-5, its f32 error."""
+    n, k = 256, 2  # n = n_pad: no padding rows
+    a = small_graph(n, seed=6)
+    rng = np.random.default_rng(d)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)
+    fts, ld, ls, w = f32(n, k, d), f32(n, k), f32(n, k), f32(n, k, d)
+    _through_chunks(monkeypatch)
+    tg = t_bcsr(a, bm=64, bn=64)
+    assert tg.n_pad == n and fg.head_plan(d)[1] == 2
+    f64 = [torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in (fts, ld, ls)]
+    out = fg._FlashGAT.apply(f64[1].T.contiguous(), f64[2].T.contiguous(),
+                             f64[0].reshape(n, k * d), tg, fg.FlashMeta())
+    grads = torch.autograd.grad((out.view(n, k, d) * torch.from_numpy(w)).sum(), f64)
+    got = [out.detach().view(n, k, d).numpy()] + [x.numpy() for x in grads]
+
+    jg = j_bcsr(a, bm=64, bn=64)
+    jfn = lambda *x: j_flash(jg, *x, interpret=True)
+    jargs = tuple(jnp.asarray(x) for x in (fts, ld, ls))
+    jgrads = jax.grad(lambda *x: jnp.sum(jfn(*x) * w), argnums=(0, 1, 2))(*jargs)
+    want = [np.asarray(jfn(*jargs))] + [np.asarray(x) for x in jgrads]
+    np.testing.assert_array_equal(got[0][7], 0.0)
+    for name, x, y in zip(("out", "d_fts", "d_logit_dst", "d_logit_src"), got, want):
+        assert np.abs(y).max() > 0, name
         np.testing.assert_allclose(x, y, atol=1e-5, err_msg=name)

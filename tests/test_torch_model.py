@@ -70,6 +70,49 @@ def test_han_matches_flax(tiny_ds, impl):
         jax.tree_util.tree_map(np.asarray, dict(params)))
 
 
+@pytest.mark.parametrize("route", ["plain", "chunks"])
+def test_han_flash_at_a_wide_head_matches_flax(tiny_ds, route, monkeypatch):
+    """HAN with hid_units=(64,) through impl="flash" (the first layer's
+    heads are 64 wide: two chunks of the kernels' instantiations) against
+    han_tpu's HAN through its Pallas flash kernels in interpret mode, flax
+    weights carried over by params_from_flax, dropout 0: logits, embedding,
+    alphas and every gradient of the masked loss + L2 at atol 1e-5. The
+    port's flash runs its full-head plain versions, or ("chunks") the
+    chunk decomposition its CUDA wrappers launch (ops/flash_gat.py)."""
+    from han_tpu_torch.ops import flash_gat as fg
+
+    if route == "chunks":
+        monkeypatch.setattr(fg, "flash_fwd", fg.flash_fwd_chunked_plain)
+        monkeypatch.setattr(fg, "flash_bwd", fg.flash_bwd_chunked_plain)
+    ds = tiny_ds
+    kw = dict(hid_units=(64,), n_heads=(2, 1))
+    jgraphs = [jbuild.metapath_to_bcsr(a, bm=128, bn=128) for a in ds.metapath_adjs]
+    tgraphs = [tbuild.metapath_to_bcsr(a, bm=128, bn=128) for a in ds.metapath_adjs]
+    x = jnp.asarray(ds.features)
+    jmodel = JHAN(n_classes=ds.n_classes, impl="flash", **kw)
+    params = jmodel.init(jax.random.PRNGKey(1), jgraphs, [x, x])
+    labels, mask = jnp.asarray(ds.labels), jnp.asarray(ds.train_mask)
+
+    def loss_fn(p):
+        logits, embed, alphas = jmodel.apply(p, jgraphs, [x, x])
+        return _loss_jax(logits, labels, mask, p, 1e-3), (logits, embed, alphas)
+
+    (_, jouts), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+    tmodel = THAN(ds.features.shape[1], ds.n_classes, 2, impl="flash", **kw)
+    tmodel.load_state_dict(params_from_flax(params))
+    tx = torch.from_numpy(ds.features)
+    touts = tmodel(tgraphs, [tx, tx])
+    (tlosses.masked_softmax_cross_entropy(
+        touts[0], torch.from_numpy(ds.labels), torch.from_numpy(ds.train_mask))
+     + tlosses.l2_regularizer(tmodel.parameters(), 1e-3)).backward()
+    assert touts[1].shape[-1] == 2 * 64
+    for name, t, j in zip(("logits", "embedding", "alphas"), touts, jouts):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), atol=1e-5, err_msg=name)
+    jflat = params_from_flax(jgrads)
+    for k, prm in tmodel.named_parameters():
+        np.testing.assert_allclose(prm.grad.numpy(), jflat[k].numpy(), atol=1e-5, err_msg=k)
+
+
 @pytest.mark.parametrize("residual,concat,out_dim", [
     (True, False, 8),    # residual through res_kernel (F != D), head mean
     (True, True, 24),    # identity residual (F == D)

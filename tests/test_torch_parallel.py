@@ -194,13 +194,13 @@ def test_split_backward_matches_jax(part, monkeypatch):
     meta = tfg.FlashMeta(seed=1234, head_offset=3, **off)
     tt = [torch.from_numpy(x) for x in (ld, ls, v, g)]
     out, lse = tfg.flash_fwd_plain(graph, *tt[:3], meta)
-    delta = (tt[3] * out).view(n_rows, k, -1).sum(-1).T.contiguous()
+    delta = tfg.head_delta(tt[3], out, k)
     dld = tfg.flash_bwd_row_plain(graph, *tt, lse, delta, meta)
     dls, dv = tfg.flash_bwd_col_plain(graph, *tt, lse, delta, meta)
     jd = jfg._flash_bwd(*map(jnp.asarray, jm), jax_meta(off), jnp.asarray(jtiles),
                         pad_heads(ld), pad_heads(ls), jnp.asarray(v).reshape(n_cols, k, -1),
                         jnp.asarray(g), pad_heads(lse.numpy(), value=-1e9),
-                        pad_heads(delta.numpy()), slope=0.2, bm=128, bn=128, interpret=True)
+                        pad_heads(delta[0].numpy()), slope=0.2, bm=128, bn=128, interpret=True)
     for name, got, want in (("dld", dld, np.asarray(jd[0])[:k]),
                             ("dls", dls, np.asarray(jd[1])[:k]),
                             ("dv", dv, np.asarray(jd[2]).reshape(n_cols, -1))):
@@ -224,12 +224,12 @@ def test_row_sweep_3xtf32_matches_jax_split_backward(part, monkeypatch):
     meta = tfg.FlashMeta(seed=1234, head_offset=3, **off)
     tt = [torch.from_numpy(x) for x in (ld, ls, v, g)]
     out, lse = tfg.flash_fwd_plain(graph, *tt[:3], meta)
-    delta = (tt[3] * out).view(n_rows, k, -1).sum(-1).T.contiguous()
+    delta = tfg.head_delta(tt[3], out, k)
     dld = tfg.flash_bwd_row_plain(graph, *tt, lse, delta, meta, mm=tfg.mm_3xtf32)
     jd = jfg._flash_bwd(*map(jnp.asarray, jm), jax_meta(off), jnp.asarray(jtiles),
                         pad_heads(ld), pad_heads(ls), jnp.asarray(v).reshape(n_cols, k, -1),
                         jnp.asarray(g), pad_heads(lse.numpy(), value=-1e9),
-                        pad_heads(delta.numpy()), slope=0.2, bm=128, bn=128, interpret=True)
+                        pad_heads(delta[0].numpy()), slope=0.2, bm=128, bn=128, interpret=True)
     assert (dld != 0).any()
     np.testing.assert_allclose(dld.numpy(), np.asarray(jd[0])[:k], atol=1e-5)
     f64 = [t.double() for t in (*tt, lse, delta)]

@@ -139,7 +139,7 @@ def test_batched_plain_flash_is_per_path(dropout):
     meta = fg.FlashMeta(dropout_p=dropout, seed=seeds)
     out, lse = fg.flash_fwd_plain(st, ld, ls, v, meta)
     k = ld.shape[1]
-    delta = (g * out).view(3, st.n_pad, k, -1).sum(-1).transpose(1, 2).contiguous()
+    delta = fg.head_delta(g, out, k)
     bwd = fg.flash_bwd_plain(st, ld, ls, v, g, lse, delta, meta)
     row = fg.flash_bwd_row_plain(st, ld, ls, v, g, lse, delta, meta)
     col = fg.flash_bwd_col_plain(st, ld, ls, v, g, lse, delta, meta)
