@@ -39,8 +39,9 @@ Differences from han_tpu:
   folds the seed into a ``jax.random`` key: a sample seed gives the same
   block whatever the call order, and a captured step samples anew at every
   replay;
-- ``fit()`` folds the device sampler's edge counts in every epoch instead
-  of letting the pending list grow;
+- the device sampler's train and evaluation bodies add their real
+  sampled edges to two device accumulators (so a replay counts in its
+  graph), read in one sync, where han_tpu keeps a pending list of counts;
 - :class:`DPSampledTrainer` runs one process a rank, each sampling only
   its own shard's block, and draws each rank's dropout from a generator
   of its own (seeded from the run's seed and the rank), where han_tpu
@@ -112,6 +113,7 @@ from han_tpu_torch.train.graphed import GraphedStep, want_capture
 from han_tpu_torch.train.trainer import (CheckpointStore, EarlyStopState, MetricLogger,
                                          build_model, load_training_state, training_state)
 from han_tpu_torch.utils.device import resolve_device
+from han_tpu_torch.utils.prof import span
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -315,10 +317,14 @@ class SampledTrainer:
         self.csrs = [_ScipyCSRView(with_self_loops(a)) for a in ds.metapath_adjs]
         self.features = np.ascontiguousarray(ds.features, dtype=np.float32)
         self.labels = np.asarray(ds.labels, dtype=np.float32)
-        # real sampled edges of the uploaded batches (the device sampler's
-        # counts wait on the device in _pending_edge_counts until flushed)
+        # real sampled edges of the uploaded batches: host blocks counted at
+        # upload, the device sampler's folded in by flush_sampled_edges
         self.sampled_edge_count = 0
-        self._pending_edge_counts: list[torch.Tensor] = []
+        # the device sampler's real sampled edges, train and evaluation, which
+        # its bodies add to on the device (a replay adds in its graph), and
+        # their values at the last flush
+        self._edge_sums: torch.Tensor | None = None
+        self._edge_sums_read = (0, 0)
         self.host_block_s: list[float] = []
         # resident mode (default when the tables fit): features and labels
         # live on the device and batches carry node ids only
@@ -342,6 +348,7 @@ class SampledTrainer:
             pr, ps = tree_parent_maps(batch_size, fanout, self.hops, self.block_size)
             self._parent_row = torch.from_numpy(pr).to(self.device)
             self._parent_slot = torch.from_numpy(ps).to(self.device)
+            self._edge_sums = torch.zeros(2, dtype=torch.int64, device=self.device)
 
     # -- batch assembly ----------------------------------------------------
     def _pinned(self, a: np.ndarray) -> torch.Tensor:
@@ -499,11 +506,13 @@ class SampledTrainer:
 
     def _dev_train_body(self, packs: torch.Tensor):
         """C sequential device-sampler steps over the (C, 2B+1) descriptors
-        (han_tpu's ``dev_train_chunk``): (losses (C,), accs (C,), real
-        sampled edges). The body of a captured dispatch."""
+        (han_tpu's ``dev_train_chunk``): (losses (C,), accs (C,)); their real
+        sampled edges go to the train accumulator. The body of a captured
+        dispatch."""
         losses, accs, n_edges = zip(*(self._train_step(_Descriptor(packed), None, None, None)
                                       for packed in packs))
-        return torch.stack(losses), torch.stack(accs), sum(n_edges)
+        self._edge_sums[0].add_(sum(n_edges))
+        return torch.stack(losses), torch.stack(accs)
 
     def _host_train_body(self, *flat):
         """One step on a host-sampled batch given as its flat tensors
@@ -529,15 +538,14 @@ class SampledTrainer:
         """One train dispatch: host-sampled blocks, a descriptor, or C
         stacked descriptors (:meth:`_chunked`); returns (losses, accs) as
         (steps,) device tensors (a captured step's outputs, rewritten by
-        its next replay)."""
+        its next replay). The call is the span ``han.train_step``."""
         head = batch[0]
-        if isinstance(head, _HostBatch):
-            key = (head.block_size, head.fanout, self.resident)
-            return self._train_graph(key, self._host_train_body)(*head.flat())
-        packs = head.packed if head.packed.dim() == 2 else head.packed[None]
-        losses, accs, n_edges = self._train_graph(packs.shape[0], self._dev_train_body)(packs)
-        self._pending_edge_counts.append(n_edges.clone())  # a replay rewrites it
-        return losses, accs
+        with span("han.train_step"):
+            if isinstance(head, _HostBatch):
+                key = (head.block_size, head.fanout, self.resident)
+                return self._train_graph(key, self._host_train_body)(*head.flat())
+            packs = head.packed if head.packed.dim() == 2 else head.packed[None]
+            return self._train_graph(packs.shape[0], self._dev_train_body)(packs)
 
     @torch.no_grad()
     def _eval_step(self, graphs, xs, labels, mask):
@@ -549,10 +557,13 @@ class SampledTrainer:
         correct = (logits.argmax(-1) == labels.argmax(-1)).float()
         return torch.stack([(loss_i * mask).sum(), (correct * mask).sum(), mask.sum()]), n_edges
 
-    def _dev_eval_body(self, packed: torch.Tensor):
-        """One descriptor's evaluation batch (han_tpu's ``dev_eval_step``):
-        the body of the captured evaluation."""
-        return self._eval_step(_Descriptor(packed), None, None, None)
+    def _dev_eval_body(self, packed: torch.Tensor) -> torch.Tensor:
+        """One descriptor's evaluation batch (han_tpu's ``dev_eval_step``),
+        its real sampled edges added to the evaluation accumulator: the
+        body of the captured evaluation."""
+        sums, n_edges = self._eval_step(_Descriptor(packed), None, None, None)
+        self._edge_sums[1].add_(n_edges)
+        return sums
 
     def _host_eval_body(self, *flat) -> torch.Tensor:
         """A host-sampled evaluation batch given as its flat tensors: the
@@ -570,21 +581,31 @@ class SampledTrainer:
         """One evaluation batch → (loss sum, correct sum, mask sum) on the
         device, summed over ``self.axis``: a descriptor through the device
         sampler's evaluation step, host blocks through their (block_size,
-        fanout, resident) key's."""
+        fanout, resident) key's. The call is the span ``han.eval_step``."""
         head = batch[0]
-        if isinstance(head, _HostBatch):
-            key = (head.block_size, head.fanout, self.resident)
-            return all_sum(self._eval_graph(key, self._host_eval_body)(*head.flat()), self.axis)
-        sums, n_edges = self._eval_graph("device", self._dev_eval_body)(head.packed)
-        self._pending_edge_counts.append(n_edges.clone())  # a replay rewrites it
-        return sums
+        with span("han.eval_step"):
+            if isinstance(head, _HostBatch):
+                key = (head.block_size, head.fanout, self.resident)
+                return all_sum(self._eval_graph(key, self._host_eval_body)(*head.flat()),
+                               self.axis)
+            return self._eval_graph("device", self._dev_eval_body)(head.packed)
 
     def flush_sampled_edges(self) -> int:
-        """Fold the device sampler's pending real-edge counts into
-        ``sampled_edge_count`` (one device sync)."""
-        if self._pending_edge_counts:
-            self.sampled_edge_count += int(torch.stack(self._pending_edge_counts).sum())
-            self._pending_edge_counts = []
+        """Fold what the device sampler's accumulators gained since the last
+        flush into ``sampled_edge_count`` (one device sync) and return it."""
+        if self._edge_sums is not None:
+            sums = tuple(self._edge_sums.tolist())
+            self.sampled_edge_count += sum(sums) - sum(self._edge_sums_read)
+            self._edge_sums_read = sums
+        return self.sampled_edge_count
+
+    def _train_edges(self) -> int:
+        """The real sampled edges of the train batches so far: the device
+        sampler's train accumulator (one device sync), or, with host
+        blocks, ``sampled_edge_count``, which an epoch's evaluation raises
+        only after its train batches."""
+        if self._edge_sums is not None:
+            return int(self._edge_sums[0])
         return self.sampled_edge_count
 
     def _timed_prepare(self, *args):
@@ -597,17 +618,23 @@ class SampledTrainer:
         """One-ahead pipelined batch assembly: the next batch's host half is
         built on a worker thread while the device runs the current step;
         the main thread uploads it. ``indexed_iter`` yields (batch_index,
-        (seeds, valid)); the index keys the deterministic sample seed."""
+        (seeds, valid)); the index keys the deterministic sample seed. The
+        wait on the worker and the upload are the span ``han.next_batch``,
+        closed before the batch is yielded."""
+        def ready(fut):
+            with span("han.next_batch"):
+                return fut[0], self._upload(fut[1].result())
+
         with ThreadPoolExecutor(max_workers=1) as pool:
             fut = None
             for bi, (seeds, valid) in indexed_iter:
                 nxt = (bi, pool.submit(self._timed_prepare, seeds, valid,
                                        sample_seed_fn(bi)))
                 if fut is not None:
-                    yield fut[0], self._upload(fut[1].result())
+                    yield ready(fut)
                 fut = nxt
             if fut is not None:
-                yield fut[0], self._upload(fut[1].result())
+                yield ready(fut)
 
     def _chunked(self, indexed_iter):
         """Group uploaded device-sampler descriptors into stacks of
@@ -702,27 +729,30 @@ class SampledTrainer:
         (deterministic in ``epoch``). ``exact=True``: full-neighborhood
         blocks (fanout = max degree), so the metric equals full-graph
         evaluation; falls back to sampled with an
-        ``exact_eval_unavailable`` log line when they exceed capacity."""
-        fanout = block = None
-        if exact:
-            plan = self.exact_eval_plan(np.asarray(idx))
-            if plan is None:
-                self.logger.log({"exact_eval_unavailable":
-                                 "full-neighborhood blocks exceed capacity",
-                                 "fallback": "sampled"})
-            else:
-                fanout, block = plan
-        tot = torch.zeros(3, device=self.device)
-        for bi, (seeds, valid) in enumerate(
-                self._seed_batches(idx, shuffle=False, epoch=0)):
-            if self.eval_batches is not None and bi >= self.eval_batches:
-                break
-            batch = self._make_batch(seeds, valid, sample_seed=10_000_019 + epoch,
-                                     fanout=fanout, block_size=block)
-            tot += self._eval_call(batch)
-        tot_l, tot_c, tot_n = tot.tolist()
-        tot_n = max(tot_n, 1.0)
-        return tot_l / tot_n, tot_c / tot_n
+        ``exact_eval_unavailable`` log line when they exceed capacity. The
+        call is the span ``han.evaluate``, around its batches' ``han.eval_step``
+        spans and the read-back."""
+        with span("han.evaluate"):
+            fanout = block = None
+            if exact:
+                plan = self.exact_eval_plan(np.asarray(idx))
+                if plan is None:
+                    self.logger.log({"exact_eval_unavailable":
+                                     "full-neighborhood blocks exceed capacity",
+                                     "fallback": "sampled"})
+                else:
+                    fanout, block = plan
+            tot = torch.zeros(3, device=self.device)
+            for bi, (seeds, valid) in enumerate(
+                    self._seed_batches(idx, shuffle=False, epoch=0)):
+                if self.eval_batches is not None and bi >= self.eval_batches:
+                    break
+                batch = self._make_batch(seeds, valid, sample_seed=10_000_019 + epoch,
+                                         fanout=fanout, block_size=block)
+                tot += self._eval_call(batch)
+            tot_l, tot_c, tot_n = tot.tolist()
+            tot_n = max(tot_n, 1.0)
+            return tot_l / tot_n, tot_c / tot_n
 
     # -- checkpointing --------------------------------------------------------
     def checkpoints(self) -> CheckpointStore:
@@ -778,7 +808,7 @@ class SampledTrainer:
         preempted = False
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.perf_counter()
-            edges0 = self.flush_sampled_edges()
+            edges0 = self._train_edges()
             resumed = epoch == start_epoch and start_cursor
             loss_sum, acc_sum, n_done = carry_sums if resumed else (0.0, 0.0, 0)
             skip = start_cursor if epoch == start_epoch else 0
@@ -805,18 +835,18 @@ class SampledTrainer:
                     # preemption: the whole resume state, with the batch
                     # cursor; the batch the prefetch thread holds is dropped
                     # and sampled again on resume from its seed
-                    self._save(store, epoch * _EPOCH_STRIDE + bi + 1, epoch=epoch,
-                               cursor=bi + 1, loss_sum=loss_sum, acc_sum=acc_sum,
-                               n_batches=n_done, best_val_loss=es.best_val_loss,
-                               best_val_acc=es.best_val_acc, bad_epochs=es.bad_epochs,
-                               best_step=best_step)
+                    with span("han.save"):
+                        self._save(store, epoch * _EPOCH_STRIDE + bi + 1, epoch=epoch,
+                                   cursor=bi + 1, loss_sum=loss_sum, acc_sum=acc_sum,
+                                   n_batches=n_done, best_val_loss=es.best_val_loss,
+                                   best_val_acc=es.best_val_acc, bad_epochs=es.bad_epochs,
+                                   best_step=best_step)
                     self.logger.log({"preempted_at": [epoch, bi + 1]})
                     preempted = True
                     break
             if preempted:
                 break
-            # fold the device sampler's counts in every epoch
-            train_edges += self.flush_sampled_edges() - edges0
+            train_edges += self._train_edges() - edges0
             train_losses.append(loss_sum / max(n_done, 1))
             vl_loss, vl_acc = self.evaluate(val_idx, epoch=epoch)
             self.logger.log({
@@ -825,14 +855,16 @@ class SampledTrainer:
                 "val_acc": vl_acc, "epoch_time_s": round(time.perf_counter() - t0, 4),
             })
             keep, _ = es.update(vl_loss, vl_acc)
-            if keep:
-                best = {"state": self._snapshot(), "epoch": epoch}
-                best_step = (epoch + 1) * _EPOCH_STRIDE
             if keep or (cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0):
-                self._save(store, (epoch + 1) * _EPOCH_STRIDE, epoch=epoch, cursor=0,
-                           loss_sum=0.0, acc_sum=0.0, n_batches=0,
-                           best_val_loss=es.best_val_loss, best_val_acc=es.best_val_acc,
-                           bad_epochs=es.bad_epochs, best_step=best_step)
+                with span("han.save"):
+                    if keep:
+                        best = {"state": self._snapshot(), "epoch": epoch}
+                        best_step = (epoch + 1) * _EPOCH_STRIDE
+                    self._save(store, (epoch + 1) * _EPOCH_STRIDE, epoch=epoch, cursor=0,
+                               loss_sum=0.0, acc_sum=0.0, n_batches=0,
+                               best_val_loss=es.best_val_loss,
+                               best_val_acc=es.best_val_acc, bad_epochs=es.bad_epochs,
+                               best_step=best_step)
             if es.bad_epochs >= cfg.patience:
                 break
         if preempted:

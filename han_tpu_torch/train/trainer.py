@@ -101,6 +101,7 @@ from han_tpu_torch.train.config import Config
 from han_tpu_torch.train.eval_embed import kmeans_eval, knn_eval
 from han_tpu_torch.train.graphed import GraphedStep, want_capture
 from han_tpu_torch.utils.device import resolve_device
+from han_tpu_torch.utils.prof import span
 
 PARTITIONED_FORMATS = ("partitioned_bcsr", "ring_bcsr", "partitioned", "ring")
 
@@ -381,14 +382,17 @@ class Trainer:
         pre-update forward. Captured: the first call runs eagerly, the
         second captures the step and every later call replays it, which
         rewrites the returned tensors: read or clone them before the next
-        call."""
-        return self._train()
+        call. The call is the span ``han.train_step``."""
+        with span("han.train_step"):
+            return self._train()
 
     def eval_step(self, mask: torch.Tensor):
         """(loss, acc, logits, embedding) at the current parameters over the
         nodes of ``mask`` (bool (N,)). Captured as :meth:`train_step` is,
-        with ``mask`` copied into the graph's static mask buffer."""
-        return self._eval(mask)
+        with ``mask`` copied into the graph's static mask buffer. The call is
+        the span ``han.eval_step``."""
+        with span("han.eval_step"):
+            return self._eval(mask)
 
     def _train_body(self):
         self.opt.zero_grad(set_to_none=True)
@@ -478,13 +482,14 @@ class Trainer:
                                      self.cfg.model.n_heads[0] / t_train, 1),
             })
             keep, _ = es.update(vl_loss, vl_acc)
-            if keep:
-                best = {"state": self._snapshot(), "epoch": epoch}
-                best_step = epoch
             if keep or (cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0):
                 # save-on-best keeps the reference dynamics (ex_acm3025.py:
                 # 226-229); the periodic save is the preemption recovery point
-                self._save(store, epoch, es, best_step)
+                with span("han.save"):
+                    if keep:
+                        best = {"state": self._snapshot(), "epoch": epoch}
+                        best_step = epoch
+                    self._save(store, epoch, es, best_step)
             if es.bad_epochs >= cfg.patience:
                 self.logger.log({"early_stop": epoch,
                                  "best_val_loss": es.best_val_loss,
@@ -493,7 +498,8 @@ class Trainer:
             if self.guard is not None and self.guard.triggered:
                 # preemption: save the whole resume state and stop;
                 # fit(resume=True) continues the trajectory
-                self._save(store, epoch, es, best_step)
+                with span("han.save"):
+                    self._save(store, epoch, es, best_step)
                 self.logger.log({"preempted_at": epoch})
                 self.final_params = self._snapshot()
                 return {"preempted": True, "train_time_s": time.perf_counter() - t_start,

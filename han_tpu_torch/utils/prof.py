@@ -3,8 +3,8 @@ han_tpu/utils/prof.py):
 
 - ``trace(dir)`` — ``torch.profiler`` over CPU and CUDA activities around
   the enclosed block, writing a chrome trace;
-- ``annotate(name)`` — a named range (``record_function``) that groups
-  kernels in the trace;
+- ``span(name)`` — the program's named host range (``record_function``)
+  while the profiler runs, a shared null context otherwise;
 - ``edges_per_sec`` — the throughput counter (nnz × heads / step time);
 - ``checked(fn)`` — raises when an output is not finite;
 - ``device_memory_stats`` — per-card memory snapshot;
@@ -32,6 +32,8 @@ import time
 from typing import Callable
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
 
 
 @contextlib.contextmanager
@@ -50,9 +52,27 @@ def trace(log_dir: str = "traces", name: str = "trace.json"):
     prof.export_chrome_trace(os.path.join(log_dir, name))
 
 
-def annotate(name: str):
-    """Named range for trace readability: ``with annotate('sddmm'): ...``"""
-    return torch.profiler.record_function(name)
+# what span returns while no profiler runs: one shared context that does
+# nothing (a nullcontext may be entered any number of times)
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program's host work, ``with span("han.save"):
+    ...``. While the autograd profiler runs (``torch.profiler.profile``
+    started, by ``with`` or ``.start()``), a ``record_function``: the range
+    lands in the profiler's trace on its clock, above the kernels launched
+    inside it. Otherwise the one shared null context: a flag read and a
+    call, no object made.
+
+    The program's spans are named ``han.*`` and sit at host boundaries of
+    the main thread only: never inside a captured body (a replay runs no
+    Python, so the range would mark the capture alone), never on the
+    prefetch thread, and never open across a ``yield`` or a preemption
+    guard's poll (a caller may start or stop the profiler there)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_SPAN
 
 
 def edges_per_sec(n_edges: int, n_heads: int, step_time_s: float,

@@ -112,16 +112,18 @@ def test_chip_smoke_refuses_to_run_without_a_card(monkeypatch, capsys, argv):
 
 
 def test_prof_utilities(tmp_path):
-    """checked raises on a non-finite output; trace writes a chrome trace;
-    the step timer and the edge counter."""
+    """checked raises on a non-finite output; trace writes a chrome trace
+    that holds a span opened under it; the step timer and the edge
+    counter."""
     f = prof.checked(lambda x: (x, {"y": x / x}))
     f(torch.ones(3))
     with pytest.raises(FloatingPointError):
         f(torch.zeros(3))
-    with prof.trace(str(tmp_path), "t.json") as p, prof.annotate("matmul"):
+    with prof.trace(str(tmp_path), "t.json") as p, prof.span("han.matmul"):
         torch.ones(64, 64) @ torch.ones(64, 64)
-    assert any(e.key == "matmul" for e in p.key_averages())
-    assert "traceEvents" in json.loads((tmp_path / "t.json").read_text())
+    assert any(e.key == "han.matmul" for e in p.key_averages())
+    trace = json.loads((tmp_path / "t.json").read_text())
+    assert any(e.get("name") == "han.matmul" for e in trace["traceEvents"])
     timer = prof.StepTimer()
     for _ in range(3):
         with timer.step():
