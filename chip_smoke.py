@@ -295,11 +295,13 @@ def flash_bounds(graph, k, d, v_bytes=4) -> dict:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("flash_gat", "ell_fused", "calibrate"),
+        "--only", choices=("flash_gat", "ell_fused", "tree_ell", "calibrate"),
         help="build only csrc/ONLY.cu, hold its kernels to their plain versions (the flash "
              "kernels at the DBLP shape, ell_fused at the sampled block's), print their "
              "device times at dropout 0 and 0.6 as one JSON line and stop; a copy of this "
              "file run so in another checkout times that checkout's kernels the same way. "
+             "tree_ell builds ell_fused.cu and holds the tree attention's forward and "
+             "backward kernels at the sampled block and a two-hop block (phase 6t); "
              "calibrate builds calibrate.cu and flash_gat.cu, runs phases 8a and 8b and "
              "prints each strip's time a tile-head beside its flash kernel's")
     args = parser.parse_args(argv)
@@ -327,7 +329,7 @@ def main(argv=None) -> None:
 
     # -- phase 2: build (nvcc per kernel source and g++ for the sampler, all
     # at once) ----------------------------------------------------------------
-    names = {None: ("flash_gat", "ell_fused", "calibrate"),
+    names = {None: ("flash_gat", "ell_fused", "calibrate"), "tree_ell": ("ell_fused",),
              "calibrate": ("flash_gat", "calibrate")}.get(args.only, (args.only,))
     cached = [n for n in names if _build.library_path(n).exists()]
     t0 = time.perf_counter()
@@ -343,6 +345,13 @@ def main(argv=None) -> None:
           f"{'' if args.only else f' and {native.library_path().relative_to(root)}'} "
           f"{f'(already built: {cached}) ' if cached else ''}"
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    if args.only == "tree_ell":
+        print(json.dumps({"card": card, **{
+            f"tree_ell_{key}": {"ms_by_dropout": st["ms_by_dropout"], "plain_ms": st["plain_ms"],
+                                "max_abs_err": st["err"], "bound_ms": st.get("bound", [None])[0]}
+            for key, st in check_tree_ell(dev, card).items()}}), flush=True)
+        return
 
     if args.only == "ell_fused":
         print(json.dumps({"card": card, **{
@@ -505,7 +514,9 @@ def main(argv=None) -> None:
     ell = check_ell_fused(dev)
     # -- phase 3g: the ell_fused kernel on bf16 features
     ell16 = check_ell_fused(dev, ELL_SHAPES, "bfloat16")
-    ell_n = train_sampled(dev, native, card)
+    # -- phase 6t: the tree attention's kernels on device-sampler blocks
+    tree = check_tree_ell(dev, card)
+    ell_n, tree_n = train_sampled(dev, native, card)
     # -- phase 7d: DPSampledTrainer on a one-rank NCCL world
     dp_ell = train_dp_sampled(dev, card)
 
@@ -556,7 +567,16 @@ def main(argv=None) -> None:
         {"name": "ell_fused_fwd", "route": "cuda", "source": "han_tpu_torch/csrc/ell_fused.cu",
          "replaces": "han_tpu/ops/pallas/ell_fused.py:54", "launches": ell_n + dp_ell["f32"],
          "max_abs_err": ell["err"], "ms": ell["ms"], "plain_ms": ell["plain_ms"],
-         "bound_ms": ell["bound"][0], "bound_by": ell["bound"][1], "library_ms": None},
+         "bound_ms": ell["bound"][0], "bound_by": ell["bound"][1], "library_ms": None,
+         "tree_max_abs_err": tree["fwd"]["err"], "tree_ms_by_dropout": tree["fwd"]["ms_by_dropout"]},
+        # the tree attention's backward (phase 6t); launches: the device
+        # sampler's train steps (phases 7, 7b, 7c)
+        {"name": "tree_ell_bwd", "route": "cuda", "source": "han_tpu_torch/csrc/ell_fused.cu",
+         "replaces": "none (han_tpu/ops/tree_ell.py:_tree_core is XLA gathers)",
+         "launches": tree_n, "max_abs_err": tree["bwd"]["err"], "ms": tree["bwd"]["ms"],
+         "plain_ms": tree["bwd"]["plain_ms"], "bound_ms": tree["bwd"]["bound"][0],
+         "bound_by": tree["bwd"]["bound"][1], "library_ms": None,
+         "ms_by_dropout": tree["bwd"]["ms_by_dropout"]},
         # the same kernel on bf16 features (phase 3g); launches: phase 7d's bf16 run
         {"name": "ell_fused_fwd_bf16", "route": "cuda", "source": "han_tpu_torch/csrc/ell_fused.cu",
          "replaces": "han_tpu/ops/pallas/ell_fused.py:54 (bf16 features)",
@@ -1937,7 +1957,115 @@ def check_ell_fused(dev, shapes=ELL_SHAPES, dtype: str = "float32") -> dict:
     return out
 
 
-def train_sampled(dev, native, card: str) -> int:
+# (seeds, fanout F, hops, heads K, head dim D) of the tree attention checks:
+# the sampled block of the 100M-edge configuration (512 x 17 = 8,704 rows,
+# one hop) and a two-hop block (64 + 512 + 4,096 = 4,672 rows)
+TREE_SHAPES = ((512, 16, 1, 8, 8), (64, 8, 2, 8, 8))
+
+
+def check_tree_ell(dev, card: str, shapes=TREE_SHAPES) -> dict:
+    """Phase 6t: the tree attention's two kernels on device-sampler blocks
+    (train/sampled._device_sample_block over a random CSR of 100,000 nodes
+    whose degrees run from 0 to 2F, one seed in eight invalid): the forward
+    (``ell_fused_fwd_kernel``) and ``tree_ell_bwd_kernel`` against their
+    plain versions (f32 atol 1e-5, rtol 1e-4; bf16 d_fts ELL_BF16_TOL),
+    one keep mask for both, at dropout 0 and 0.6, f32 features and, at the
+    first shape, bf16. dv and dls must be exactly 0 on every row no valid
+    slot holds, dld on every row without a valid slot, and two runs of the
+    backward bitwise equal (no atomics). Device times (``timed``) at every
+    shape, the plain versions' (their host time included) and the
+    backward's bound. Returns per kernel the largest error and, at the
+    first shape, the times at dropout 0.6 (the train shape) and by
+    dropout."""
+    import torch
+
+    from han_tpu_torch.ops import ell_fused as ef
+    from han_tpu_torch.ops import tree_ell as te
+    from han_tpu_torch.train.sampled import _device_sample_block, sample_key
+
+    gen = torch.Generator(dev).manual_seed(2)
+    n_nodes = 100_000
+    deg = torch.randint(0, 33, (n_nodes,), generator=gen, device=dev)
+    row_ptr = torch.cat([deg.new_zeros(1), deg.cumsum(0)])
+    col_idx = torch.randint(0, n_nodes, (int(row_ptr[-1]) + 1,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    out = {"fwd": {"err": 0.0, "ms_by_dropout": {}}, "bwd": {"err": 0.0, "ms_by_dropout": {}}}
+    for i, (b, f, hops, k, d) in enumerate(shapes):
+        n = sum(b * f ** h for h in range(hops + 1))
+        seeds = torch.randint(0, n_nodes, (b,), generator=gen, device=dev, dtype=torch.int32)
+        valid = torch.arange(b, device=dev) % 8 != 3
+        nbr, _, _, _ = _device_sample_block(row_ptr, col_idx, seeds, valid,
+                                            sample_key(1234 + i, 0), fanout=f, hops=hops,
+                                            block_size=n)
+        pr, ps = (torch.from_numpy(x).to(dev) for x in te.tree_parent_maps(b, f, hops, n))
+        slot = nbr < n
+        held = torch.zeros(n, dtype=torch.bool, device=dev)
+        held[nbr[slot].long()] = True
+        active = slot.any(1)
+        for dtype in (("float32", "bfloat16") if i == 0 else ("float32",)):
+            dt = getattr(torch, dtype)
+            tol = dict(atol=1e-5, rtol=1e-4)
+            rnd = lambda *s: torch.randn(*s, generator=gen, device=dev)
+            ld, ls, fts, g = rnd(n, k), rnd(n, k), rnd(n, k * d).to(dt), rnd(n, k * d).to(dt)
+            for p in (0.0, 0.6):
+                keep = ef.draw_keep(n, f, k, p, gen, dev) if p else None
+                print(f"tree_ell {n} x F={f}, {hops} hop(s), K={k}, D={d}, {int(active.sum())} "
+                      f"rows with slots, {int(slot.sum())} valid slots, {dtype} features, "
+                      f"dropout {p}:", flush=True)
+                fwd = ef.ell_fused_fwd_cuda(nbr, ld, ls, fts, keep, 0.2, p)
+                want = ef.ell_fused_fwd_plain(nbr, ld, ls, fts, keep, 0.2, p)
+                bwd = te.tree_ell_bwd_cuda(nbr, pr, ps, ld, ls, fts, keep, g, 0.2, p)
+                again = te.tree_ell_bwd_cuda(nbr, pr, ps, ld, ls, fts, keep, g, 0.2, p)
+                ref = te.tree_ell_bwd_plain(nbr, ld, ls, fts, keep, g, 0.2, p)
+                torch.cuda.synchronize()
+                out["fwd"]["err"] = max(out["fwd"]["err"], check(
+                    "forward out", fwd.float(), want.float(),
+                    **(ELL_BF16_TOL if dt == torch.bfloat16 else tol)))
+                for name, a, r in zip(("d_fts", "d_ld", "d_ls"), bwd, ref):
+                    if a.dtype != r.dtype:
+                        fail(f"tree_ell backward {name}: {a.dtype}, plain {r.dtype}")
+                    out["bwd"]["err"] = max(out["bwd"]["err"], check(
+                        f"backward {name}", a.float(), r.float(),
+                        **(ELL_BF16_TOL if name == "d_fts" and dt == torch.bfloat16 else tol)))
+                if not all(torch.equal(a, c) for a, c in zip(bwd, again)):
+                    fail("tree_ell backward: two runs differ")
+                dv, dld, dls = bwd
+                if not bool((dv[~held] == 0).all() and (dls[~held] == 0).all()
+                            and (dld[~active] == 0).all()):
+                    fail("tree_ell backward: a row no valid slot holds (or without a valid "
+                         "slot) is not exactly 0")
+                if dt != torch.float32:
+                    continue
+                ms_f = timed(lambda: ef.ell_fused_fwd_cuda(nbr, ld, ls, fts, keep, 0.2, p))
+                ms_b = timed(lambda: te.tree_ell_bwd_cuda(nbr, pr, ps, ld, ls, fts, keep, g,
+                                                          0.2, p))
+                plain_f = timed(lambda: ef.ell_fused_fwd_plain(nbr, ld, ls, fts, keep, 0.2, p),
+                                host_waits=True)
+                plain_b = timed(lambda: te.tree_ell_bwd_plain(nbr, ld, ls, fts, keep, g, 0.2,
+                                                              p), host_waits=True)
+                print(f"  device ms: forward kernel {ms_f:.4f}, plain {plain_f:.4f}; backward "
+                      f"kernel {ms_b:.4f}, plain {plain_b:.4f}; {card}", flush=True)
+                if i:
+                    continue
+                # the backward must move: nbr and the parent maps read, dv,
+                # dld and dls written in full; ld and g of the rows with a
+                # valid slot, keep of the valid slots, ls and fts of the
+                # rows those slots hold (each once: a tree)
+                valid_n, act = int(slot.sum()), int(active.sum())
+                fb = fts.element_size()
+                bnd = bound(4 * nbr.numel() + 8 * n + n * k * (fb * d + 8)
+                            + act * k * (4 + fb * d) + valid_n * k * (4 + fb * d)
+                            + (valid_n * k if keep is not None else 0),
+                            valid_n * k * (3 * d + 12), valid_n * k)
+                for key, ms, plain in (("fwd", ms_f, plain_f), ("bwd", ms_b, plain_b)):
+                    out[key].update(ms=ms, plain_ms=plain)
+                    out[key]["ms_by_dropout"][str(p)] = ms
+                out["bwd"]["bound"] = bnd
+                print(f"  backward bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    return out
+
+
+def train_sampled(dev, native, card: str) -> tuple[int, int]:
     """Phase 7: the 100M-edge sampled configuration through run() for 2
     epochs with the host sampler and impl ell_fused, its train and eval
     steps captured; then the host/device split of its step (one graph
@@ -1948,8 +2076,11 @@ def train_sampled(dev, native, card: str) -> int:
     against 1 at dropout 0, 2 epochs of 16 steps each (cut from the
     configuration's 30), whose per-step losses agree within
     SAMPLED_CHUNK_TOL; both median steps, their device split and launches.
-    Returns the ell_fused launches of the host sampler's runs (the 2-epoch
-    run, the dropout-0 pair and phase 7c's)."""
+    Every device-sampler block runs the tree attention's kernels: one
+    forward (``ell_fused_launches``) a block, one backward
+    (``tree_ell_bwd_launches``) a train block. Returns the ell_fused
+    launches of every run here and in phase 7c (the host sampler's, and
+    the device sampler's forwards) and the tree backward's launches."""
     import numpy as np
     import torch
 
@@ -2048,23 +2179,30 @@ def train_sampled(dev, native, card: str) -> int:
           flush=True)
     del ds16
 
-    # device sampler: 10 train steps, one val and four test batches
+    # device sampler: 10 train steps, one val and four test batches; every
+    # block launches the tree forward (an ell_fused launch), every train
+    # block the tree backward
     ds10 = dataclasses.replace(ds, train_mask=np.arange(ds.n_nodes) < 10 * 512)
-    tree_ell.tree_ell_calls = 0
+    tree_ell.tree_ell_calls = tree_ell.tree_ell_bwd_launches = 0
     ef.ell_fused_launches = 0
     res = run(cfg_for("device", 1), ds10, device=dev)
     torch.cuda.synchronize()
     want_calls = n_mp * (10 + 1 + 2_048 // 512)
     if not np.isfinite(res["epoch_train_loss"]).all() or not np.isfinite(res["test_loss"]):
         fail(f"device-sampler losses not finite: {res['epoch_train_loss']}")
-    if tree_ell.tree_ell_calls != want_calls or ef.ell_fused_launches or not res["captured"]:
-        fail(f"device sampler: {tree_ell.tree_ell_calls} tree attention calls (want "
-             f"{want_calls}), {ef.ell_fused_launches} ell_fused launches (want 0), "
+    if (tree_ell.tree_ell_calls != want_calls or ef.ell_fused_launches != want_calls
+            or tree_ell.tree_ell_bwd_launches != n_mp * 10 or not res["captured"]):
+        fail(f"device sampler: {tree_ell.tree_ell_calls} tree attention calls and "
+             f"{ef.ell_fused_launches} forward (ell_fused) launches (want {want_calls} each), "
+             f"{tree_ell.tree_ell_bwd_launches} tree backward launches (want {n_mp * 10}), "
              f"captured {res['captured']}")
+    launches += ef.ell_fused_launches
+    tree_n = tree_ell.tree_ell_bwd_launches
     print(f"device sampler (captured): train loss {res['epoch_train_loss'][0]:.5f}, test_acc "
           f"{res['test_acc']:.4f}, median step {res['median_step_time_s'] * 1e3:.3f} ms, "
           f"sampled edges·heads/s {res['edges_heads_per_s']:.1f}; every block through "
-          f"tree attention ({tree_ell.tree_ell_calls} calls)", flush=True)
+          f"tree attention ({tree_ell.tree_ell_calls} calls, {ef.ell_fused_launches} forward "
+          f"and {tree_n} backward launches)", flush=True)
 
     # -- phase 7b: steps_per_call 4 against 1 -------------------------------
     steps, epochs = 16, 2
@@ -2076,7 +2214,8 @@ def train_sampled(dev, native, card: str) -> int:
         cfg = cfg_for("device", epochs)
         cfg.model.attn_drop = cfg.model.ffd_drop = 0.0
         torch.cuda.reset_peak_memory_stats(dev)
-        tree_ell.tree_ell_calls = 0
+        tree_ell.tree_ell_calls = tree_ell.tree_ell_bwd_launches = 0
+        ef.ell_fused_launches = 0
         t0 = time.perf_counter()
         t = SampledTrainer(ds16, cfg, batch_size=512, fanout=16, sampler="device",
                            steps_per_call=spc, device=dev, logger=MetricLogger(echo=False))
@@ -2084,6 +2223,7 @@ def train_sampled(dev, native, card: str) -> int:
         r = t.fit()
         torch.cuda.synchronize()
         r["tree_calls"] = tree_ell.tree_ell_calls
+        r["launches"] = (ef.ell_fused_launches, tree_ell.tree_ell_bwd_launches)
         r["replays"] = {c: step.replays for c, step in t._train_steps.items()}
         r["split"] = step_breakdown(t, np.where(ds16.train_mask)[0])
         r["build_s"] = t_build
@@ -2094,9 +2234,14 @@ def train_sampled(dev, native, card: str) -> int:
     one, four = runs[1]["step_train_loss"], runs[4]["step_train_loss"]
     for spc, r in runs.items():
         if (r["tree_calls"] != want_calls or not r["captured"] or len(r["step_train_loss"])
-                != epochs * steps or not np.isfinite(r["step_train_loss"]).all()):
+                != epochs * steps or not np.isfinite(r["step_train_loss"]).all()
+                or r["launches"] != (want_calls, n_mp * epochs * steps)):
             fail(f"steps_per_call {spc}: {r['tree_calls']} tree attention calls (want "
-                 f"{want_calls}), captured {r['captured']}, losses {r['step_train_loss']}")
+                 f"{want_calls}), forward and backward launches {r['launches']} (want "
+                 f"{(want_calls, n_mp * epochs * steps)}), captured {r['captured']}, "
+                 f"losses {r['step_train_loss']}")
+        launches += r["launches"][0]
+        tree_n += r["launches"][1]
     if sorted(runs[4]["replays"]) != [4] or not runs[4]["replays"][4]:
         fail(f"steps_per_call 4: dispatch replays {runs[4]['replays']} (want only 4-step graphs)")
     if not np.allclose(four, one, **SAMPLED_CHUNK_TOL):
@@ -2115,7 +2260,8 @@ def train_sampled(dev, native, card: str) -> int:
               f"max_memory_allocated {r['max_memory_allocated']} B; {card}", flush=True)
     del ds16
     torch.cuda.empty_cache()
-    return launches + sampled_resume(ds8, dev, cfg_for, card)
+    resume_ell, resume_tree = sampled_resume(ds8, dev, cfg_for, card)
+    return launches + resume_ell, tree_n + resume_tree
 
 
 # the data-parallel trainers at S = 1 against their one-device trainers: the
@@ -2223,7 +2369,8 @@ def train_dp_sampled(dev, card: str, steps: int = 10) -> dict:
     return {"f32": dp["ell"], "bf16": bf16_n}
 
 
-def sampled_resume(ds, dev, cfg_for, card: str, steps: int = 8, epochs: int = 2) -> int:
+def sampled_resume(ds, dev, cfg_for, card: str, steps: int = 8,
+                   epochs: int = 2) -> tuple[int, int]:
     """Phase 7c: the sampled configuration (dropouts 0.6) for ``epochs``
     epochs of ``steps`` steps, uninterrupted; again, preempted mid-epoch
     (the guard polled once a dispatch: with the device sampler at
@@ -2235,7 +2382,8 @@ def sampled_resume(ds, dev, cfg_for, card: str, steps: int = 8, epochs: int = 2)
     per-step losses of the preempted and resumed runs agree with the
     uninterrupted run's within SAMPLED_CHUNK_TOL, and so do the test
     metrics; launch and call counts exact. Returns the ell_fused launches
-    (the host sampler's runs)."""
+    (the host sampler's blocks and the device sampler's tree forwards) and
+    the tree backward's launches."""
     import tempfile
 
     import numpy as np
@@ -2247,10 +2395,10 @@ def sampled_resume(ds, dev, cfg_for, card: str, steps: int = 8, epochs: int = 2)
     from han_tpu_torch.train.trainer import MetricLogger
 
     n_mp = len(ds.metapath_adjs)
-    ell_n = 0
+    ell_n = tree_n = 0
     for sampler, spc, trip in (("device", 4, 3), ("host", 1, 11)):
         runs = {}
-        tree_ell.tree_ell_calls = 0
+        tree_ell.tree_ell_calls = tree_ell.tree_ell_bwd_launches = 0
         ef.ell_fused_launches = 0
         with tempfile.TemporaryDirectory() as root:
             for name, tag, guard in (("uninterrupted", "a", None), ("preempted", "b", TripAt(trip)),
@@ -2292,13 +2440,21 @@ def sampled_resume(ds, dev, cfg_for, card: str, steps: int = 8, epochs: int = 2)
                  f"({a['best_epoch']})")
         # train steps, val batches (one an epoch; the preempted run evaluates
         # epoch 0 only) and test batches (2,048 / 512, not in the preempted run)
+        # (the device sampler's blocks launch the tree forward, an ell_fused
+        # launch, and its train blocks the tree backward)
         blocks = n_mp * (2 * epochs * steps + 2 * epochs + 2 * 4)
         got_n = tree_ell.tree_ell_calls if sampler == "device" else ef.ell_fused_launches
-        other = ef.ell_fused_launches if sampler == "device" else tree_ell.tree_ell_calls
-        if got_n != blocks or other or not (a["captured"] and c["captured"]):
+        other = 0 if sampler == "device" else tree_ell.tree_ell_calls
+        want_bwd = n_mp * 2 * epochs * steps if sampler == "device" else 0
+        if (got_n != blocks or other or ef.ell_fused_launches != blocks
+                or tree_ell.tree_ell_bwd_launches != want_bwd
+                or not (a["captured"] and c["captured"])):
             fail(f"{label}: {got_n} blocks through its attention (want {blocks}), {other} "
-                 f"through the other; captured {a['captured']} / {c['captured']}")
+                 f"through the other, {ef.ell_fused_launches} forward (ell_fused) launches "
+                 f"(want {blocks}), {tree_ell.tree_ell_bwd_launches} tree backward launches "
+                 f"(want {want_bwd}); captured {a['captured']} / {c['captured']}")
         ell_n += ef.ell_fused_launches
+        tree_n += tree_ell.tree_ell_bwd_launches
         rest = c["step_train_loss"]
         print(f"{label}: preempted at epoch {epoch}, cursor {cursor} (step id {step_id}), "
               f"resumed in a fresh trainer: {len(rest)} resumed steps, per-step losses "
@@ -2312,12 +2468,12 @@ def sampled_resume(ds, dev, cfg_for, card: str, steps: int = 8, epochs: int = 2)
               f"{a['median_step_time_s'] * 1e3:.4f} / {c['median_step_time_s'] * 1e3:.4f} ms; "
               f"max_memory_allocated {a['max_memory_allocated']} / "
               f"{b['max_memory_allocated']} / {c['max_memory_allocated']} B; {card}", flush=True)
-    return ell_n
+    return ell_n, tree_n
 
 
 # steps_per_call 4 against 1: the same steps, kernels and order (the tree
-# attention's backward gathers, no atomics), one graph of 4 steps against
-# 4 of one
+# attention's backward kernel writes each row once, no atomics), one graph
+# of 4 steps against 4 of one
 SAMPLED_CHUNK_TOL = dict(rtol=1e-5, atol=1e-6)
 
 

@@ -1,11 +1,20 @@
 // Fused ELL (fixed-fanout) attention forward for Hopper (sm_90a): neighbor
 // gather + masked leaky-relu softmax over the F slots + coefficient dropout +
-// weighted aggregation, one warp per destination row. Plain C interface,
-// bound with ctypes by han_tpu_torch/ops/ell_fused.py, which also holds the
-// plain PyTorch version of the kernel and the (plain torch) backward.
+// weighted aggregation, one warp per destination row; and the backward of
+// that forward on a tree block (tree_ell_bwd_kernel, below). Plain C
+// interface, bound with ctypes by han_tpu_torch/ops/ell_fused.py (which
+// also holds the plain PyTorch version of the forward and the general
+// graph's plain torch backward) and han_tpu_torch/ops/tree_ell.py (the tree
+// backward's plain version).
 //
-// Replaces han_tpu/ops/pallas/ell_fused.py:_kernel (l.54), launched there by
-// _ell_fused_fwd_call (pallas_call at l.228).
+// The forward replaces han_tpu/ops/pallas/ell_fused.py:_kernel (l.54),
+// launched there by _ell_fused_fwd_call (pallas_call at l.228). The tree
+// backward replaces no TPU kernel: han_tpu's _tree_core (ops/tree_ell.py)
+// is XLA gathers. It is added because on the card those gathers and the
+// products over every padded slot of the block took about half of the
+// device-sampled train step's device time; it shares the forward's
+// helpers and row dealing, and like the forward it is bound by the
+// latency of its dependent gathers (below).
 //
 // Math, per destination row i and head h (ld = logit_dst (N, K), ls =
 // logit_src (N, K), fts = features (N, K*D), nbr (N, F) with sentinel >= N):
@@ -244,10 +253,194 @@ int launch(const void* nbr, const void* ld, const void* ls, const void* fts,
   return (int)cudaGetLastError();
 }
 
+// floats of one warp's shared buffers in the tree backward: exps (then
+// c~) [f][k], g.v [f][k], leaky_relu' [f][k], neighbor ids [f]
+__host__ __device__ inline int bwd_warp_floats(int f, int k) { return 3 * f * k + f; }
+
+// The backward of the forward above on a TREE block (every row is held by
+// at most one valid slot of nbr, and parent_row / parent_slot name it:
+// graph/containers.TreeEllGraph), parent by parent: one warp a row, dealt
+// as the forward deals them. The warp recomputes its row's softmax as the
+// forward does (the same logits, max, ex2 and sum), then, per valid slot f
+// and head h, gv_f = g_i[h,:] . v_nbr[f][h,:] (a lane a (slot, head)
+// pair, as the logits), dz_f = c_f (mk_f gv_f - sum_f' c~_f' gv_f') times
+// leaky_relu' at the raw logit, with c~ = c mk and mk = keep / (1 - p).
+// It writes dld[i, h] = sum_f dz_f and, to each valid child j = nbr[i, f],
+// dls[j, h] = dz_f and dv[j, h*D:(h+1)*D] = c~_f g_i[h,:]. A row no valid
+// slot holds (a root, a pad, a child of an empty slot) zeroes its own dv
+// and dls rows. Each output row is written by one warp: no atomics, and
+// the result does not depend on the order the warps run in.
+template <int V, typename FT>
+__global__ void __launch_bounds__(WARPS * 32) tree_ell_bwd_kernel(
+    const int* __restrict__ nbr, const int* __restrict__ parent_row,
+    const int* __restrict__ parent_slot, const float* __restrict__ ld,
+    const float* __restrict__ ls, const FT* __restrict__ fts,
+    const uint8_t* __restrict__ keep, const FT* __restrict__ g,
+    FT* __restrict__ dv, float* __restrict__ dld, float* __restrict__ dls, int n,
+    int f, int k, int d, float slope, float drop_scale) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = warp * gridDim.x + blockIdx.x;
+  if (row >= n) return;  // warp-uniform
+  const int kd = k * d;
+  float* e_s = smem + (size_t)warp * bwd_warp_floats(f, k);
+  float* gv_s = e_s + f * k;
+  float* lk_s = gv_s + f * k;
+  int* j_s = reinterpret_cast<int*>(lk_s + f * k);
+  const int* nbr_r = nbr + (size_t)row * f;
+  const FT* g_r = g + (size_t)row * kd;
+
+  // this row's own dv and dls are 0 unless its parent's valid slot holds it
+  const int pr = parent_row[row];
+  if (pr < 0 || pr >= n || nbr[(size_t)pr * f + parent_slot[row]] != row) {
+    const float zero[1] = {0.f};
+    for (int c = lane; c < kd; c += 32) store_vec<1>(dv + (size_t)row * kd + c, zero, 0.f);
+    for (int h = lane; h < k; h += 32) dls[(size_t)row * k + h] = 0.f;
+  }
+
+  for (int h0 = 0; h0 < k; h0 += 32) {
+    const int kg = min(32, k - h0);
+    const int kp = kg == 1 ? 1 : 1 << (32 - __clz(kg - 1));  // power of two >= kg
+    const int sp = 32 / kp;  // slots a pass
+    const int hl = lane & (kp - 1), sub = lane / kp;
+    const bool hv = hl < kg;
+    const int h = h0 + hl;
+    // the forward's logits and softmax
+    const float ldh = hv ? ld[(size_t)row * k + h] : 0.f;
+    float m = -INFINITY;
+    bool any = false;
+#pragma unroll 4
+    for (int s = sub; s < f; s += sp) {
+      const int j = nbr_r[s];
+      const bool valid = j >= 0 && j < n;
+      float z = -INFINITY, lk = 0.f;
+      if (hv && valid) {
+        const float raw = ldh + ls[(size_t)j * k + h];
+        z = fmaxf(raw, slope * raw) * LOG2E;
+        lk = raw >= 0.f ? 1.f : slope;
+      }
+      if (hv) {
+        e_s[s * k + h] = z;
+        lk_s[s * k + h] = lk;
+      }
+      if (h0 == 0 && hl == 0) j_s[s] = valid ? j : -1;
+      m = fmaxf(m, z);
+      any |= valid;
+    }
+    if (h0 == 0 && !__any_sync(FULL_MASK, any)) {
+      // no valid slot: dz is empty, dld exactly 0, no child to write
+      for (int hh = lane; hh < k; hh += 32) dld[(size_t)row * k + hh] = 0.f;
+      return;
+    }
+    for (int o = kp; o < 32; o <<= 1) m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, o));
+    float l = 0.f;
+    if (hv) {
+#pragma unroll 4
+      for (int s = sub; s < f; s += sp) {
+        const float e = ex2(e_s[s * k + h] - m);
+        l += e;
+        e_s[s * k + h] = e;
+      }
+    }
+    for (int o = kp; o < 32; o <<= 1) l += __shfl_xor_sync(FULL_MASK, l, o);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    __syncwarp();  // j_s of every slot
+
+    // gv over the valid slots, and t = sum_f c~_f gv_f
+    float t = 0.f;
+    if (hv) {
+      const FT* g_h = g_r + (size_t)h * d;
+#pragma unroll 4
+      for (int s = sub; s < f; s += sp) {
+        const int j = j_s[s];
+        float gv = 0.f;
+        if (j >= 0) {
+          const FT* v_h = fts + (size_t)j * kd + (size_t)h * d;
+          for (int c = 0; c < d; c += V) {
+            float x[V], y[V];
+            load_vec<V>(x, v_h + c);
+            load_vec<V>(y, g_h + c);
+#pragma unroll
+            for (int u = 0; u < V; ++u) gv = fmaf(x[u], y[u], gv);
+          }
+        }
+        gv_s[s * k + h] = gv;
+        const bool kept = keep == nullptr || keep[((size_t)row * f + s) * k + h];
+        t = fmaf(e_s[s * k + h] * inv * (kept ? drop_scale : 0.f), gv, t);
+      }
+    }
+    for (int o = kp; o < 32; o <<= 1) t += __shfl_xor_sync(FULL_MASK, t, o);
+
+    // dz: dls of each valid child, dld as the row sum; c~ into e_s for dv
+    float sdz = 0.f;
+    if (hv) {
+#pragma unroll 4
+      for (int s = sub; s < f; s += sp) {
+        const int j = j_s[s];
+        const bool kept = keep == nullptr || keep[((size_t)row * f + s) * k + h];
+        const float mk = kept ? drop_scale : 0.f;
+        const float c = e_s[s * k + h] * inv;
+        if (j >= 0) {
+          const float dz = c * (mk * gv_s[s * k + h] - t) * lk_s[s * k + h];
+          dls[(size_t)j * k + h] = dz;
+          sdz += dz;
+        }
+        e_s[s * k + h] = c * mk;
+      }
+    }
+    for (int o = kp; o < 32; o <<= 1) sdz += __shfl_xor_sync(FULL_MASK, sdz, o);
+    if (hv && sub == 0) dld[(size_t)row * k + h] = sdz;
+  }
+  __syncwarp();  // c~ of every (slot, head)
+
+  // dv of each valid child: c~ times the row's g, lane groups of V channels
+  for (int q = lane; q < kd / V; q += 32) {
+    const int c0 = q * V;
+    const float* ct = e_s + c0 / d;
+    float y[V];
+    load_vec<V>(y, g_r + c0);
+    for (int s = 0; s < f; ++s) {
+      const int j = j_s[s];
+      if (j >= 0) store_vec<V>(dv + (size_t)j * kd + c0, y, ct[s * k]);
+    }
+  }
+}
+
+template <int V, typename FT>
+int launch_bwd(const void* nbr, const void* parent_row, const void* parent_slot,
+               const void* ld, const void* ls, const void* fts, const void* keep,
+               const void* g, void* dv, void* dld, void* dls, int n, int f, int k, int d,
+               float slope, float drop_scale, cudaStream_t stream) {
+  const size_t smem = (size_t)WARPS * bwd_warp_floats(f, k) * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tree_ell_bwd_kernel<V, FT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, or the next launch's check reports it
+      return (int)err;
+    }
+  }
+  const int blocks = (n + WARPS - 1) / WARPS;
+  tree_ell_bwd_kernel<V, FT><<<blocks, WARPS * 32, smem, stream>>>(
+      (const int*)nbr, (const int*)parent_row, (const int*)parent_slot, (const float*)ld,
+      (const float*)ls, (const FT*)fts, (const uint8_t*)keep, (const FT*)g, (FT*)dv,
+      (float*)dld, (float*)dls, n, f, k, d, slope, drop_scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 struct Type {
   using type = T;
 };
+
+// V channels a lane (the forward's rule): V elements of every feature-
+// shaped pointer in `at` must be one aligned load or store
+inline int vec_width(int k, int d, uintptr_t at, size_t es) {
+  const int kd = k * d;
+  return d % 4 == 0 && kd >= 128 && at % (4 * es) == 0   ? 4
+         : d % 2 == 0 && kd >= 64 && at % (2 * es) == 0 ? 2
+                                                         : 1;
+}
 
 }  // namespace
 
@@ -266,19 +459,42 @@ int han_ell_fused_fwd(const void* nbr, const void* ld, const void* ls,
   if (n < 0 || f <= 0 || k <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  // V channels a lane: V elements of fts and out must be one aligned load
-  // and store (fts and out share their row pitch and base alignment)
-  const size_t es = fts_bf16 ? 2 : 4;
-  const uintptr_t at = (uintptr_t)fts | (uintptr_t)out;
-  const int kd = k * d;
-  const int v = d % 4 == 0 && kd >= 128 && at % (4 * es) == 0   ? 4
-                : d % 2 == 0 && kd >= 64 && at % (2 * es) == 0 ? 2
-                                                                : 1;
+  // fts and out share their row pitch and base alignment
+  const int v = vec_width(k, d, (uintptr_t)fts | (uintptr_t)out, fts_bf16 ? 2 : 4);
   auto go = [&](auto tag) {
     using FT = typename decltype(tag)::type;
     if (v == 4) return launch<4, FT>(nbr, ld, ls, fts, keep, out, n, f, k, d, slope, drop_scale, st);
     if (v == 2) return launch<2, FT>(nbr, ld, ls, fts, keep, out, n, f, k, d, slope, drop_scale, st);
     return launch<1, FT>(nbr, ld, ls, fts, keep, out, n, f, k, d, slope, drop_scale, st);
+  };
+  return fts_bf16 ? go(Type<__nv_bfloat16>{}) : go(Type<float>{});
+}
+
+// Tree backward (tree_ell_bwd_kernel): the forward's arguments, the
+// parent maps parent_row, parent_slot int32 [n] (parent_row >= n or < 0:
+// no parent) and g [n, k*d] in fts's type -> dv [n, k*d] in fts's type,
+// dld, dls f32 [n, k], every element written. nbr must be a tree whose
+// every valid slot (r, f) holds a row j with parent_row[j] = r and
+// parent_slot[j] = f. Returns a cudaError_t code (0 = launched).
+int han_tree_ell_bwd(const void* nbr, const void* parent_row, const void* parent_slot,
+                     const void* ld, const void* ls, const void* fts, const void* keep,
+                     const void* g, void* dv, void* dld, void* dls, int n, int f, int k,
+                     int d, int fts_bf16, float slope, float drop_scale, void* stream) {
+  if (n < 0 || f <= 0 || k <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int v = vec_width(k, d, (uintptr_t)fts | (uintptr_t)g | (uintptr_t)dv,
+                          fts_bf16 ? 2 : 4);
+  auto go = [&](auto tag) {
+    using FT = typename decltype(tag)::type;
+    if (v == 4)
+      return launch_bwd<4, FT>(nbr, parent_row, parent_slot, ld, ls, fts, keep, g, dv, dld,
+                               dls, n, f, k, d, slope, drop_scale, st);
+    if (v == 2)
+      return launch_bwd<2, FT>(nbr, parent_row, parent_slot, ld, ls, fts, keep, g, dv, dld,
+                               dls, n, f, k, d, slope, drop_scale, st);
+    return launch_bwd<1, FT>(nbr, parent_row, parent_slot, ld, ls, fts, keep, g, dv, dld,
+                             dls, n, f, k, d, slope, drop_scale, st);
   };
   return fts_bf16 ? go(Type<__nv_bfloat16>{}) : go(Type<float>{});
 }

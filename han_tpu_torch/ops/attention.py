@@ -17,8 +17,9 @@ One mathematical spec, several executions:
 - ``flash`` — the fused block-sparse CUDA kernels over the occupied tiles
   of a BCSRGraph (ops/flash_gat.py).
 
-A TreeEllGraph (device-sampled block) goes to the gather-only tree
-attention (ops/tree_ell.py), a PartitionedBCSR to the edge-partitioned flash
+A TreeEllGraph (device-sampled block) goes to the tree attention
+(ops/tree_ell.py: the ELL forward, a backward that writes each child row
+from its parent's slot), a PartitionedBCSR to the edge-partitioned flash
 backend (parallel/flash_shard.py), a RingBCSR to the ring backend
 (parallel/ring_bcsr.py), a PartitionedCSR to the sharded csr backend
 (parallel/shard_attn.py) and a PartitionedCSR2D to the csr ring
@@ -282,8 +283,8 @@ def attention_aggregate(
             coef_dropout=coef_dropout, generator=generator, impl=impl)
             for p in range(fts.shape[0])])
     if isinstance(graph, TreeEllGraph):
-        # device-sampled tree blocks: gather-only backward through the
-        # parent maps (ops/tree_ell.py)
+        # device-sampled tree blocks: the backward writes each child row
+        # from its parent's slot (ops/tree_ell.py)
         if return_coefs:
             raise NotImplementedError("return_coefs unsupported on TreeEllGraph")
         return tree_ell_attention(

@@ -137,53 +137,67 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The built library with its entry point's signature declared."""
+    """The built library with its entry points' signatures declared."""
     from han_tpu_torch.ops import _build
 
     lib = _build.load("ell_fused")
     lib.han_ell_fused_fwd.argtypes = [_P] * 6 + [_I] * 5 + [_F, _F, _P]
     lib.han_ell_fused_fwd.restype = ctypes.c_int
+    lib.han_tree_ell_bwd.argtypes = [_P] * 11 + [_I] * 5 + [_F, _F, _P]  # ops/tree_ell.py
+    lib.han_tree_ell_bwd.restype = ctypes.c_int
     lib.han_error_string.argtypes = [ctypes.c_int]
     lib.han_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def check_inputs(kernel: str, dev: torch.device, fts_dtype: torch.dtype,
+                 want: dict) -> None:
+    """Raises unless ``dev`` is a CUDA device, the kernel takes features of
+    ``fts_dtype`` and every ``name: (tensor, dtype, shape)`` of ``want`` is
+    a contiguous tensor of that dtype and shape on ``dev``."""
+    if dev.type != "cuda":
+        raise ValueError(f"the {kernel} kernel takes CUDA tensors, got {dev}")
+    if not kernel_takes(fts_dtype):
+        raise NotImplementedError(
+            f"the {kernel} kernel takes float32 or bfloat16 features, got {fts_dtype}")
+    for name, (t, dt, shape) in want.items():
+        if (t.device != dev or t.dtype != dt or not t.is_contiguous()
+                or tuple(t.shape) != shape):
+            raise ValueError(f"{name}: need a contiguous {dt} {shape} tensor on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def check_launch(rc: int, kernel: str, f: int, k: int) -> None:
+    """Raises on an entry point's nonzero return code (a cudaError_t)."""
+    if rc == 1:  # cudaErrorInvalidValue: the per-warp buffers of F x K outgrow a block
+        raise NotImplementedError(
+            f"the {kernel} kernel does not take fanout {f} x {k} heads: its per-warp "
+            f"buffers exceed a block's shared memory ({_lib().han_error_string(rc).decode()})")
+    if rc != 0:
+        raise RuntimeError(f"the {kernel} kernel's launch failed: CUDA error {rc} "
+                           f"({_lib().han_error_string(rc).decode()})")
 
 
 def ell_fused_fwd_cuda(nbr, ld, ls, fts, keep, slope: float, p: float):
     """The forward kernel; same contract as :func:`ell_fused_fwd_plain`."""
     global ell_fused_launches
     dev = ld.device
-    if dev.type != "cuda":
-        raise ValueError(f"the ell_fused kernel takes CUDA tensors, got {dev}")
     n, k = ld.shape
     f = nbr.shape[1]
     d = fts.shape[1] // k
-    if not kernel_takes(fts.dtype):
-        raise NotImplementedError(
-            f"the ell_fused kernel takes float32 or bfloat16 features, got {fts.dtype}")
     want = {"nbr": (nbr, torch.int32, (n, f)), "ld": (ld, torch.float32, (n, k)),
             "ls": (ls, torch.float32, (n, k)), "fts": (fts, fts.dtype, (n, k * d))}
     if keep is not None:
         want["keep"] = (keep, torch.uint8, (n, f, k))
-    for name, (t, dt, shape) in want.items():
-        if (t.device != dev or t.dtype != dt or not t.is_contiguous()
-                or tuple(t.shape) != shape):
-            raise ValueError(f"{name}: need a contiguous {dt} {shape} tensor on "
-                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    check_inputs("ell_fused", dev, fts.dtype, want)
     out = torch.empty((n, k * d), dtype=fts.dtype, device=dev)
-    lib = _lib()
-    rc = lib.han_ell_fused_fwd(
+    rc = _lib().han_ell_fused_fwd(
         nbr.data_ptr(), ld.data_ptr(), ls.data_ptr(), fts.data_ptr(),
         keep.data_ptr() if keep is not None else None, out.data_ptr(),
         n, f, k, d, int(fts.dtype == torch.bfloat16), float(slope),
         1.0 / (1.0 - p) if keep is not None else 1.0,
         torch.cuda.current_stream(dev).cuda_stream)
-    if rc == 1:  # cudaErrorInvalidValue: the per-warp buffers of F x K outgrow a block
-        raise NotImplementedError(
-            f"the ell_fused kernel does not take fanout {f} x {k} heads: its per-warp "
-            f"buffers exceed a block's shared memory ({lib.han_error_string(rc).decode()})")
-    if rc != 0:
-        raise RuntimeError(f"han_ell_fused_fwd launch failed: CUDA error {rc} "
-                           f"({lib.han_error_string(rc).decode()})")
+    check_launch(rc, "ell_fused", f, k)
     ell_fused_launches += 1
     return out
 
