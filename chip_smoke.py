@@ -61,8 +61,9 @@ together, and the C++ sampler), then drives the ported paths:
   the BCSR graph's edge view, no flash launch; at dropout 0 its losses
   against csr's), captured, and profiles the flash and csr steps captured
   and eager; then trains the ppi preset (the inductive trainer, captured;
-  dense attention) 3 epochs at full width on 24 synthetic graphs of PPI's
-  size, held to an eager run (CAPTURE_TOL), and one epoch of its
+  each batch one block-diagonal graph on the flash kernels) 3 epochs at
+  full width on 24 synthetic graphs of PPI's size, held to an eager run
+  and to the dense path (CAPTURE_TOL, phase 4e''), and one epoch of its
   data-parallel batches on a one-rank NCCL world (captured) against the
   one-device trainer (phase 4e', DP_TOL);
 - multi-device: in a world of torch.cuda.device_count() NCCL ranks (one
@@ -153,6 +154,7 @@ packed bf16, the SFU rate for exp).
     python3 chip_smoke.py --only ell_fused   # the ell_fused kernel at the block shape
     python3 chip_smoke.py --only calibrate   # the calibration kernels, and the strips
                                              # against the flash kernels they track
+    python3 chip_smoke.py --only inductive   # the ppi preset's inductive trainer
 
 Exits non-zero, printing no result, when CUDA is unavailable or any phase
 fails. The last line is ``{"ok": true, "device": {...}}``; the line before
@@ -295,7 +297,7 @@ def flash_bounds(graph, k, d, v_bytes=4) -> dict:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--only", choices=("flash_gat", "ell_fused", "tree_ell", "calibrate"),
+        "--only", choices=("flash_gat", "ell_fused", "tree_ell", "calibrate", "inductive"),
         help="build only csrc/ONLY.cu, hold its kernels to their plain versions (the flash "
              "kernels at the DBLP shape, ell_fused at the sampled block's), print their "
              "device times at dropout 0 and 0.6 as one JSON line and stop; a copy of this "
@@ -303,7 +305,8 @@ def main(argv=None) -> None:
              "tree_ell builds ell_fused.cu and holds the tree attention's forward and "
              "backward kernels at the sampled block and a two-hop block (phase 6t); "
              "calibrate builds calibrate.cu and flash_gat.cu, runs phases 8a and 8b and "
-             "prints each strip's time a tile-head beside its flash kernel's")
+             "prints each strip's time a tile-head beside its flash kernel's; inductive "
+             "builds flash_gat.cu and trains the ppi preset (phases 4e, 4e'' and 4e')")
     args = parser.parse_args(argv)
     import torch
 
@@ -330,7 +333,8 @@ def main(argv=None) -> None:
     # -- phase 2: build (nvcc per kernel source and g++ for the sampler, all
     # at once) ----------------------------------------------------------------
     names = {None: ("flash_gat", "ell_fused", "calibrate"), "tree_ell": ("ell_fused",),
-             "calibrate": ("flash_gat", "calibrate")}.get(args.only, (args.only,))
+             "calibrate": ("flash_gat", "calibrate"),
+             "inductive": ("flash_gat",)}.get(args.only, (args.only,))
     cached = [n for n in names if _build.library_path(n).exists()]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=1) as pool:
@@ -345,6 +349,12 @@ def main(argv=None) -> None:
           f"{'' if args.only else f' and {native.library_path().relative_to(root)}'} "
           f"{f'(already built: {cached}) ' if cached else ''}"
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    if args.only == "inductive":
+        torch.empty(0, device=dev)  # the context, before the peaks are reset
+        train_ppi(dev, card)
+        print(json.dumps({"ok": True, "card": card}), flush=True)
+        return
 
     if args.only == "tree_ell":
         print(json.dumps({"card": card, **{
@@ -2818,17 +2828,24 @@ def train_pubmed(dev, card: str, epochs: int = 10) -> dict:
 
 def train_ppi(dev, card: str, epochs: int = 3) -> None:
     """Phase 4e: the ppi preset (GAT, hid (256, 256), heads (4, 4, 6),
-    residual, no dropout; batches of 2 graphs, dense attention) through
-    run() at full width on ppi_synthetic with PPI's shape: 24 graphs of
-    1,600-3,200 nodes (about 2,400 a graph), 50 features, 121 labels;
-    its train step and evaluation batches captured as CUDA graphs. Losses
-    finite, the train loss falling, micro-F1 in [0, 1], the losses within
-    CAPTURE_TOL of an eager run of the same trainer (capture=False; the
-    preset has no dropout), both median steps printed. Phase 4e': the
-    inductive trainer's data-parallel batches on a one-rank NCCL world
+    residual, no dropout; batches of 2 graphs, each one block-diagonal
+    graph on the route impl=auto takes, flash here) through run() at full
+    width on ppi_synthetic with PPI's shape: 24 graphs of 1,600-3,200
+    nodes (about 2,400 a graph), 50 features, 121 labels; its train step
+    and evaluation batches captured as CUDA graphs. Losses finite, the
+    train loss falling, micro-F1 in [0, 1]. Then in deterministic mode
+    (the flash kernels' split backward) the preset captured against an
+    eager run of the same trainer (capture=False; the preset has no
+    dropout): losses within CAPTURE_TOL. Phase 4e'': that deterministic
+    run against the dense path (impl dense, captured): losses
+    within CAPTURE_TOL, median steps and peaks printed. Phase 4e' (in
+    deterministic mode): the inductive trainer's data-parallel batches on
+    a one-rank NCCL world
     (the preset's widths, batches of 2, one epoch; captured, its axis
     holding no process group) against the one-device trainer (captured):
     train loss, test loss and micro-F1 within DP_TOL."""
+    import copy
+
     import numpy as np
     import torch
 
@@ -2865,23 +2882,52 @@ def train_ppi(dev, card: str, epochs: int = 3) -> None:
           f"{result['test_micro_f1']:.4f}; median step {result['median_step_time_s'] * 1e3:.3f} "
           f"ms, max_memory_allocated {result['max_memory_allocated']} B; "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    m = cfg.model
-    kw = dict(hid_units=tuple(m.hid_units), n_heads=tuple(m.n_heads), lr=cfg.train.lr,
-              l2_coef=cfg.train.l2_coef, residual=m.residual, attn_drop=m.attn_drop,
-              ffd_drop=m.ffd_drop, batch_size=2, seed=cfg.train.seed)
+    cfg.train.checkpoint_dir = ""
+
+    def deterministic(**kw):
+        # the flash kernels' split backward (no atomics): trajectories that
+        # differ only in how the step is dispatched stay equal, where the
+        # fused backward's atomic sums and Adam's first steps on gradients
+        # of round-off make two runs of 30 steps part by 1e-4
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            torch.cuda.reset_peak_memory_stats(dev)
+            return InductiveTrainer.from_config(ds, cfg, **kw).fit(epochs=epochs,
+                                                                   log=lambda rec: None)
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    def largest_gap(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    split = deterministic(device=dev)
+    eager = deterministic(device=dev, capture=False)
+    if (not split["captured"] or eager["captured"]
+            or not np.allclose(split["epoch_train_loss"], eager["epoch_train_loss"],
+                               **CAPTURE_TOL)):
+        fail(f"ppi: captured losses {split['epoch_train_loss']} against eager "
+             f"{eager['epoch_train_loss']} (captured {split['captured']}, {eager['captured']})")
+    print(f"ppi preset, deterministic mode (the split backward), captured against eager "
+          f"({epochs} epochs): losses within {CAPTURE_TOL} (largest relative difference "
+          f"{largest_gap(split['epoch_train_loss'], eager['epoch_train_loss']):.3e}); "
+          f"median step {split['median_step_time_s'] * 1e3:.3f} ms captured, "
+          f"{eager['median_step_time_s'] * 1e3:.3f} ms eager; {card}", flush=True)
+    # -- phase 4e'': the sparse batches (the preset) against the dense path
+    dense_cfg = copy.deepcopy(cfg)
+    dense_cfg.model.impl = "dense"
     torch.cuda.reset_peak_memory_stats(dev)
-    eager = InductiveTrainer(ds, **kw, device=dev, capture=False).fit(
+    dense = InductiveTrainer.from_config(ds, dense_cfg, device=dev).fit(
         epochs=epochs, log=lambda rec: None)
-    if eager["captured"] or not np.allclose(losses, eager["epoch_train_loss"], **CAPTURE_TOL):
-        fail(f"ppi: captured losses {losses} against eager {eager['epoch_train_loss']} "
-             f"(captured {eager['captured']})")
-    print(f"ppi preset, captured against eager ({epochs} epochs): losses within {CAPTURE_TOL} "
-          f"(largest relative difference "
-          f"{max(abs(a - b) / abs(b) for a, b in zip(losses, eager['epoch_train_loss'])):.3e}); "
-          f"median step captured {result['median_step_time_s'] * 1e3:.3f} ms, eager "
-          f"{eager['median_step_time_s'] * 1e3:.3f} ms (eager 27.647 ms before capture), "
-          f"max_memory_allocated {result['max_memory_allocated']} / "
-          f"{eager['max_memory_allocated']} B; {card}", flush=True)
+    if not np.allclose(split["epoch_train_loss"], dense["epoch_train_loss"], **CAPTURE_TOL):
+        fail(f"ppi: sparse losses {split['epoch_train_loss']} against dense "
+             f"{dense['epoch_train_loss']}")
+    print(f"ppi preset, sparse ({result['route']}, the split backward) against dense "
+          f"({epochs} epochs, both captured): losses within {CAPTURE_TOL} (largest relative "
+          f"difference {largest_gap(split['epoch_train_loss'], dense['epoch_train_loss']):.3e}); "
+          f"median step {result['median_step_time_s'] * 1e3:.3f} (the fused backward) against "
+          f"{dense['median_step_time_s'] * 1e3:.3f} ms, max_memory_allocated "
+          f"{result['max_memory_allocated']} / {dense['max_memory_allocated']} B; {card}",
+          flush=True)
 
     # -- phase 4e': the data-parallel batches on a one-rank NCCL world
     with OneRankNCCL(dev):
@@ -2889,8 +2935,13 @@ def train_ppi(dev, card: str, epochs: int = 3) -> None:
         for label, extra in (("one device", dict(device=dev)),
                              ("data-parallel", dict(mesh=make_mesh(graph=1, device=dev)))):
             t0 = time.perf_counter()
-            r = InductiveTrainer(ds, **kw, **extra).fit(epochs=1, log=lambda rec: None)
-            torch.cuda.synchronize()
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                r = InductiveTrainer.from_config(ds, cfg, **extra).fit(epochs=1,
+                                                                       log=lambda rec: None)
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
             runs[label] = dict(r, s=time.perf_counter() - t0)
     one, dp = runs["one device"], runs["data-parallel"]
     if not (one["captured"] and dp["captured"]):
@@ -2905,7 +2956,7 @@ def train_ppi(dev, card: str, epochs: int = 3) -> None:
           f"captured: train loss {dp['epoch_train_loss'][0]:.6f} against "
           f"{one['epoch_train_loss'][0]:.6f}, test micro-F1 {dp['test_micro_f1']:.4f} "
           f"({DP_TOL}); median step {dp['median_step_time_s'] * 1e3:.3f} / "
-          f"{one['median_step_time_s'] * 1e3:.3f} ms (eager 27.680 / 27.588 ms before capture); "
+          f"{one['median_step_time_s'] * 1e3:.3f} ms; "
           f"{dp['s']:.2f} / {one['s']:.2f} s; {card}", flush=True)
 
 

@@ -9,6 +9,13 @@ connected components, assign each component wholly to train/val/test
 component to the largest component's size — dense [G, N_max, *] batches
 with per-graph node masks.
 
+Beside the dense ``adj`` a dataset may hold each graph's edge list
+(``edges``), which the inductive trainer's sparse attention reads
+(:meth:`MultiGraphDataset.graph_edges`): a dataset made from edge lists
+alone (``adj`` None) never builds the (G, N_max, N_max) adjacency unless
+the dense path asks for it, and one made from ``adj`` derives each edge
+list from it once.
+
 The raw PPI files are not in the repository, so a deterministic synthetic
 multi-graph fixture with the same schema (``ppi_synthetic``) stands in for
 tests and for the ``ppi`` name when the files are absent.
@@ -24,25 +31,55 @@ import numpy as np
 import scipy.sparse as sp
 
 
+SPLITS = {"train": 0, "val": 1, "test": 2}
+
+
 @dataclasses.dataclass
 class MultiGraphDataset:
-    """Fixed-shape batched multi-graph dataset (host arrays)."""
+    """Fixed-shape batched multi-graph dataset (host arrays). ``adj`` may
+    be None where ``edges`` holds every graph's edge list (the module
+    docstring)."""
 
-    adj: np.ndarray       # bool [G, N_max, N_max]
+    adj: np.ndarray | None  # bool [G, N_max, N_max]
     features: np.ndarray  # float32 [G, N_max, F]
     labels: np.ndarray    # float32 [G, N_max, C] (multi-hot for PPI)
     node_mask: np.ndarray  # bool [G, N_max]
     graph_split: np.ndarray  # int8 [G]: 0 train / 1 val / 2 test
     name: str = "ppi"
+    # per graph (rows, cols) int32 arrays: node i attends to node j, local
+    # indices, as ``adj[g]``'s nonzeros in row-major order
+    edges: list | None = None
+
+    def __post_init__(self):
+        if self.adj is None and self.edges is None:
+            raise ValueError("a MultiGraphDataset needs adj or edges")
 
     @property
     def n_graphs(self) -> int:
-        return int(self.adj.shape[0])
+        return int(self.features.shape[0])
+
+    def graph_ids(self, which: str) -> np.ndarray:
+        """The indices of the split's graphs, in dataset order."""
+        return np.flatnonzero(self.graph_split == SPLITS[which])
+
+    def graph_edges(self, g: int) -> tuple[np.ndarray, np.ndarray]:
+        """Graph ``g``'s edges (rows, cols), derived from ``adj`` once."""
+        if self.edges is None:
+            self.edges = [tuple(x.astype(np.int32) for x in np.nonzero(a)) for a in self.adj]
+        return self.edges[g]
+
+    def dense_adj(self) -> np.ndarray:
+        """``adj``, built from ``edges`` at its first use where it is None."""
+        if self.adj is None:
+            g, n = self.node_mask.shape
+            self.adj = np.zeros((g, n, n), dtype=bool)
+            for i, (r, c) in enumerate(self.edges):
+                self.adj[i, r, c] = True
+        return self.adj
 
     def split(self, which: str):
-        idx = {"train": 0, "val": 1, "test": 2}[which]
-        sel = self.graph_split == idx
-        return (self.adj[sel], self.features[sel], self.labels[sel],
+        sel = self.graph_split == SPLITS[which]
+        return (self.dense_adj()[sel], self.features[sel], self.labels[sel],
                 self.node_mask[sel])
 
 

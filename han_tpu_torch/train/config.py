@@ -91,6 +91,12 @@ def preset(name: str) -> Config:
     elif name in ("imdb", "imdb_strict"):
         pass
     elif name == "ppi":
+        # batches of 2 graphs, each batch one block-diagonal graph on the
+        # sparse path (train/inductive.py, whose format follows impl);
+        # auto: flash on PPI's tiles, a BCSR union
+        cfg.data.graph_format = "bcsr"
+        cfg.model.impl = "auto"
+        cfg.train.batch_size = 2
         cfg.model.arch = "gat"
         cfg.model.hid_units = (256, 256)
         cfg.model.n_heads = (4, 4, 6)

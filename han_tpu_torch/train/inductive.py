@@ -1,19 +1,41 @@
 """Inductive multi-graph trainer, PPI-style (port of
-han_tpu/train/inductive.py:29-281): GAT over padded graph batches with the
+han_tpu/train/inductive.py:29-281): GAT over graph batches with the
 multi-label sigmoid loss and micro-F1 (reference base_gattn.py:50-59,71-94;
 batching semantics from utils/process_ppi.py).
 
-The B graphs of a batch run as a loop over ``DenseGraph``s (han_tpu vmaps
-them); the logits are stacked and the per-graph losses averaged. On a CUDA
-device the train step and each evaluation batch are captured as CUDA
-graphs over the static (B, N_max, N_max) batch (train/graphed.py; han_tpu
-jits them, inductive.py:114-121): the first train step runs eagerly (it
-creates Adam's state, ``capturable``), the second captures, and each
-evaluation step captures at its second call; one step a batch shape. The
-batch is copied into the step's static buffers, and the graph replays the
-per-graph loop without its launches. A run whose graph axis holds a
-process group runs eagerly (NCCL collectives inside a captured graph are
-not ported), and so does the CPU.
+Two attention paths, by ``impl``:
+
+- ``dense`` (han_tpu's, the default): the B graphs of a batch run as a
+  loop over ``DenseGraph``s of the padded (B, N_max, N_max) batch (han_tpu
+  vmaps them); the logits are stacked and the per-graph losses averaged.
+- ``flash``, ``csr`` or ``auto``: the batch is ONE block-diagonal graph of
+  B slots of S rows (S = N_max rounded up to a tile; graph/union.py) and
+  goes through the model once, on the flash kernels (a union of BCSR
+  tiles) or the csr backend (its edge list). Each graph of a split is
+  built once into a piece on the device, and a batch's union is assembled
+  there from the pieces, padded to the split's static budget, so every
+  batch of a split has one shape. ``auto`` takes flash or csr once for the
+  dataset, by ``attention_aggregate``'s rule applied to all of its graphs:
+  the tile elements they occupy over their real edges against
+  ``flash_csr_threshold``. The losses are the dense path's: each graph's
+  masked mean over its own slot, summed over B and divided by B.
+
+On a CUDA device the train step and each evaluation batch are captured as
+CUDA graphs over the static batch (train/graphed.py; han_tpu jits them,
+inductive.py:114-121): the first train step runs eagerly (it creates
+Adam's state, ``capturable``), the second captures, and each evaluation
+step captures at its second call; one step a batch shape, so one train
+step and one evaluation step a split. The batch is copied into the step's
+static buffers, and the graph replays the step without its launches. A run
+whose graph axis holds a process group runs eagerly (NCCL collectives
+inside a captured graph are not ported), and so does the CPU.
+
+Spans (utils/prof.span) and counters: ``han.next_batch`` around a batch's
+selection, union and upload, ``han.train_step`` and ``han.eval_step``
+around each step's dispatch; ``counters`` sums, over the sparse batches
+made, the tile elements of their unions' BCSR (``tile_elems``: what the
+flash kernels sweep) and their real edges (``edges``), for the tile
+elements an edge that node order decides.
 
 Data parallelism (``mesh``, one process a rank; han_tpu shards the batch
 axis over the mesh's graph axis): every rank draws the same shuffled order
@@ -25,7 +47,8 @@ equals the one-device step on the whole batch. Evaluation gathers the
 batch's logits, labels and masks and scores them as one device does. Each
 rank draws its dropout from a generator of its own (``seed + 1 +
 rank·1,000,003``; rank 0 draws the one-device stream), where han_tpu
-splits one key into a stream a graph of the batch. Rank 0 saves, with every
+splits one key into a stream a graph of the batch. On a sparse path each
+rank's share of the batch is a union of its own. Rank 0 saves, with every
 rank's generator state; every rank loads.
 
 The resilience contract is the other trainers' (train/trainer.py): with a
@@ -41,22 +64,29 @@ from __future__ import annotations
 
 import statistics
 import time
-import warnings
 from typing import Any
 
 import numpy as np
 import torch
 
 from han_tpu_torch.datasets.ppi import MultiGraphDataset
+from han_tpu_torch.graph.bcsr import DEF_BM, DEF_BN
 from han_tpu_torch.graph.containers import DenseGraph
+from han_tpu_torch.graph.union import GraphUnion, slot_rows, tile_count, union_graph
 from han_tpu_torch.nn.layers import DropoutGenerators
 from han_tpu_torch.nn.losses import l2_regularizer, masked_sigmoid_cross_entropy, micro_f1
 from han_tpu_torch.nn.models import GAT
+from han_tpu_torch.ops.attention import flash_csr_threshold
 from han_tpu_torch.parallel.mesh import (Axis, Mesh, all_gather_rows, all_reduce_grads,
                                          all_sum, gather_rows)
 from han_tpu_torch.train.graphed import GraphedStep, want_capture
 from han_tpu_torch.train.trainer import CheckpointStore, load_training_state, training_state
 from han_tpu_torch.utils.device import resolve_device
+from han_tpu_torch.utils.prof import span
+
+IMPLS = ("dense", "csr", "flash", "auto")
+# the graph format of each route
+ROUTE_FORMATS = {"dense": "dense", "csr": "csr", "flash": "bcsr"}
 
 
 class InductiveTrainer:
@@ -64,15 +94,17 @@ class InductiveTrainer:
     batches of ``batch_size`` train graphs, early stopping on validation
     micro-F1 and loss, restore-best-then-test; data-parallel over
     ``mesh``'s graph axis when given (the module docstring; the device is
-    the mesh's). ``capture``: None captures the steps on a CUDA device
-    whose graph axis holds no process group and runs them eagerly
-    elsewhere; True on the CPU raises ValueError, with a process group
-    NotImplementedError; False runs them eagerly on the card."""
+    the mesh's). ``impl`` (dense | csr | flash | auto) picks the attention
+    path (the module docstring). ``capture``: None captures
+    the steps on a CUDA device whose graph axis holds no process group and
+    runs them eagerly elsewhere; True on the CPU raises ValueError, with a
+    process group NotImplementedError; False runs them eagerly on the
+    card."""
 
     def __init__(self, ds: MultiGraphDataset, *, hid_units=(256, 256),
                  n_heads=(4, 4, 6), lr=0.005, l2_coef=0.0, residual=True,
                  attn_drop: float = 0.0, ffd_drop: float = 0.0,
-                 patience: int | None = None, impl: str = "auto",
+                 patience: int | None = None, impl: str = "dense",
                  batch_size: int = 2, mesh: Mesh | None = None, seed: int = 0,
                  device: torch.device | str | None = None,
                  checkpoint_dir: str = "", checkpoint_every: int = 0,
@@ -97,17 +129,21 @@ class InductiveTrainer:
         self.checkpoint_every = checkpoint_every
         self.store = (CheckpointStore(checkpoint_dir, f"{ds.name}_inductive")
                       if checkpoint_dir else None)
-        if impl not in ("auto", "dense"):
-            # the padded multi-graph batch (G, N_max, N_max) holds one dense
-            # adjacency per component (reference process_ppi.py pads dense
-            # adjs)
-            warnings.warn(f"InductiveTrainer ignores impl={impl!r}: padded "
-                          "multi-graph batching is dense by design")
+        if impl not in IMPLS:
+            raise ValueError(f"the inductive trainer takes impl in {IMPLS}; got {impl!r}")
+        self.share = batch_size // self.axis.size  # a rank's graphs of a batch
+        # the graphs' tile counts: the unions' budgets, the counters and
+        # auto's rule
+        self._graph_tiles = None if impl == "dense" else np.array(
+            [tile_count(*ds.graph_edges(g)) for g in range(ds.n_graphs)])
+        self.route = self._route(impl)
+        self.graph_format = ROUTE_FORMATS[self.route]
+        self.counters = {"tile_elems": 0, "edges": 0}
         self.use_dropout = attn_drop > 0.0 or ffd_drop > 0.0
         self.rngs = DropoutGenerators(device=torch.Generator(self.device).manual_seed(
             seed + 1 + self.axis.rank * 1_000_003))
         self.model = GAT(ds.features.shape[-1], ds.labels.shape[-1], hid_units=hid_units,
-                         n_heads=n_heads, residual=residual, impl="dense",
+                         n_heads=n_heads, residual=residual, impl=self.route,
                          attn_drop=attn_drop, ffd_drop=ffd_drop,
                          generator=torch.Generator().manual_seed(seed)).to(self.device)
         # capturable: the step counts and the bias correction stay on the
@@ -119,6 +155,31 @@ class InductiveTrainer:
         self._train_steps: dict[tuple, GraphedStep] = {}
         self._eval_steps: dict[tuple, GraphedStep] = {}
 
+    @classmethod
+    def from_config(cls, ds: MultiGraphDataset, cfg, *, batch_size: int | None = None,
+                    mesh: Mesh | None = None, device: torch.device | str | None = None,
+                    logger=None, guard=None, capture: bool | None = None):
+        """The trainer of a ``train/config.Config``: its model (``impl``
+        picks the path) and train settings (``batch_size``: in place of
+        ``cfg.train.batch_size``)."""
+        m, t = cfg.model, cfg.train
+        return cls(ds, hid_units=tuple(m.hid_units), n_heads=tuple(m.n_heads), lr=t.lr,
+                   l2_coef=t.l2_coef, residual=m.residual, attn_drop=m.attn_drop,
+                   ffd_drop=m.ffd_drop, patience=t.patience, impl=m.impl,
+                   batch_size=t.batch_size if batch_size is None else batch_size, mesh=mesh,
+                   seed=t.seed, device=device, checkpoint_dir=t.checkpoint_dir,
+                   checkpoint_every=t.checkpoint_every, logger=logger, guard=guard,
+                   capture=capture)
+
+    def _route(self, impl: str) -> str:
+        """The attention path of the run: dense, flash or csr (auto: by
+        the tile elements the dataset's graphs occupy an edge)."""
+        if impl != "auto":
+            return impl
+        edges = sum(self.ds.graph_edges(g)[0].shape[0] for g in range(self.ds.n_graphs))
+        per_edge = self._graph_tiles.sum() * DEF_BM * DEF_BN / max(edges, 1)
+        return "csr" if per_edge > flash_csr_threshold(DEF_BM, DEF_BN) else "flash"
+
     def _snapshot(self) -> dict[str, torch.Tensor]:
         return {k: v.detach().clone() for k, v in self.model.state_dict().items()}
 
@@ -129,32 +190,73 @@ class InductiveTrainer:
                                         for a in self.ds.split(which))
         return self._splits[which]
 
-    def _batches(self, which: str, rng: np.random.Generator | None = None):
+    def _sparse_split(self, which: str) -> tuple:
+        """(union, features, labels, node_mask) of a split on a sparse path:
+        its graphs' pieces (graph/union.py) and its arrays padded to the
+        slot's S rows, on the device."""
+        if which not in self._splits:
+            ids = self.ds.graph_ids(which)
+            rows = slot_rows(self.ds.node_mask.shape[1])
+            union = GraphUnion([self.ds.graph_edges(g) for g in ids], slots=self.share,
+                               rows=rows, fmt=self.graph_format, device=self.device,
+                               n_tiles=self._graph_tiles[ids])
+            pad = rows - self.ds.node_mask.shape[1]
+            arrays = tuple(
+                torch.from_numpy(np.ascontiguousarray(np.pad(
+                    a[ids], [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2)))).to(self.device)
+                for a in (self.ds.features, self.ds.labels, self.ds.node_mask))
+            self._splits[which] = (union, *arrays)
+        return self._splits[which]
+
+    def batches(self, which: str, rng: np.random.Generator | None = None):
         """Batches of batch_size graphs, shuffled by rng when given; the
         last batch is padded with zero-node graphs, which the node masks
         leave out of the loss. On a mesh, this rank's contiguous share of
-        each batch."""
-        arrays = self._split(which)
-        idx = np.arange(arrays[0].shape[0])
+        each batch. A batch is the step's inputs: (adj, features, labels,
+        node_mask) on the dense path, the union's tensors and then
+        (features, labels, node_mask) on a sparse one; each is made inside
+        the span ``han.next_batch``."""
+        n = len(self.ds.graph_ids(which))
+        idx = np.arange(n)
         if rng is not None:
             rng.shuffle(idx)
-        b = self.batch_size
-        share = b // self.axis.size
-        lo = self.axis.rank * share
-        for s in range(0, len(idx), b):
-            sel = torch.from_numpy(idx[s:s + b][lo:lo + share]).to(self.device)
-            pad = share - sel.numel()
-            yield tuple(torch.cat([a[sel], a.new_zeros((pad,) + a.shape[1:])]) if pad else a[sel]
-                        for a in arrays)
+        lo = self.axis.rank * self.share
+        for s in range(0, n, self.batch_size):
+            with span("han.next_batch"):
+                batch = self._batch(which, idx[s:s + self.batch_size][lo:lo + self.share])
+            yield batch
 
-    def _apply(self, adj_b, x_b, *, train: bool) -> torch.Tensor:
-        """(B, N_max, C) logits, one DenseGraph a graph."""
-        n_max = adj_b.shape[1]
+    def _batch(self, which: str, chosen: np.ndarray) -> tuple[torch.Tensor, ...]:
+        """The inputs of a step over the split's graphs ``chosen``, padded
+        to the rank's share with zero-node graphs."""
+        pad = self.share - len(chosen)
+        if self.route == "dense":
+            arrays, graph = self._split(which), ()
+        else:
+            union, *arrays = self._sparse_split(which)
+            sel = [*chosen.tolist(), *[-1] * pad]
+            tiles, edges = union.counts(sel)
+            self.counters["tile_elems"] += tiles
+            self.counters["edges"] += edges
+            graph = union.union(sel)
+        idx = torch.from_numpy(chosen).to(self.device)
+        return (*graph, *(torch.cat([a[idx], a.new_zeros((pad,) + a.shape[1:])]) if pad
+                          else a[idx] for a in arrays))
+
+    def _apply(self, inputs, *, train: bool) -> torch.Tensor:
+        """(B, S, C) logits of a batch's graph inputs and features: one
+        DenseGraph a graph (S = N_max), or the union once."""
+        *graph, x_b = inputs
         drop = train and self.use_dropout
-        return torch.stack([
-            self.model(DenseGraph(adj=adj, n_nodes=n_max), x, deterministic=not drop,
-                       rngs=self.rngs if drop else None)
-            for adj, x in zip(adj_b, x_b)])
+        kw = dict(deterministic=not drop, rngs=self.rngs if drop else None)
+        if self.route == "dense":
+            (adj_b,) = graph
+            n_max = adj_b.shape[1]
+            return torch.stack([self.model(DenseGraph(adj=adj, n_nodes=n_max), x, **kw)
+                                for adj, x in zip(adj_b, x_b)])
+        b, rows = x_b.shape[:2]
+        union = union_graph(graph, self.graph_format)
+        return self.model(union, x_b.reshape(b * rows, -1), **kw).view(b, rows, -1)
 
     def _loss(self, logits, y_b, m_b) -> torch.Tensor:
         """The graphs' losses summed over the batch size B: the batch mean,
@@ -170,20 +272,22 @@ class InductiveTrainer:
             steps[key] = GraphedStep(body, capture=self.capture, device=self.device, **kw)
         return steps[key]
 
-    def train_step(self, adj_b, x_b, y_b, m_b) -> torch.Tensor:
-        """One Adam step on a batch (this rank's share of it on a mesh);
-        returns the batch loss (device tensor). Captured: the first call
-        runs eagerly, the second captures and every later call replays,
-        rewriting the returned tensor: read it before the next call."""
-        batch = (adj_b, x_b, y_b, m_b)
-        step = self._step(self._train_steps, self._train_body, batch,
-                          generators=(self.rngs.device,),
-                          warmup=0 if self._train_steps else 1)
-        return step(*batch)
+    def train_step(self, *batch: torch.Tensor) -> torch.Tensor:
+        """One Adam step on a batch (this rank's share of it on a mesh; one
+        of :meth:`batches`); returns the batch loss (device tensor).
+        Captured: the first call runs eagerly, the second captures and
+        every later call replays, rewriting the returned tensor: read it
+        before the next call. The call is the span ``han.train_step``."""
+        with span("han.train_step"):
+            step = self._step(self._train_steps, self._train_body, batch,
+                              generators=(self.rngs.device,),
+                              warmup=0 if self._train_steps else 1)
+            return step(*batch)
 
-    def _train_body(self, adj_b, x_b, y_b, m_b) -> torch.Tensor:
+    def _train_body(self, *batch: torch.Tensor) -> torch.Tensor:
+        *inputs, y_b, m_b = batch
         self.opt.zero_grad(set_to_none=True)
-        loss = self._loss(self._apply(adj_b, x_b, train=True), y_b, m_b)
+        loss = self._loss(self._apply(inputs, train=True), y_b, m_b)
         loss.backward()
         all_reduce_grads(self.model.parameters(), self.axis)
         l2 = l2_regularizer(self.model.parameters(), self.l2_coef)
@@ -192,10 +296,11 @@ class InductiveTrainer:
         return (all_sum(loss, self.axis) + l2).detach()
 
     @torch.no_grad()
-    def _eval_body(self, adj_b, x_b, y_b, m_b) -> torch.Tensor:
+    def _eval_body(self, *batch: torch.Tensor) -> torch.Tensor:
         """(loss, micro-F1) of a batch as one (2,) tensor (on a mesh, of
         the whole batch, gathered)."""
-        logits = self._apply(adj_b, x_b, train=False)
+        *inputs, y_b, m_b = batch
+        logits = self._apply(inputs, train=False)
         logits, y_b, m_b = (gather_rows(t.float(), self.axis) for t in (logits, y_b, m_b))
         c = logits.shape[-1]
         return torch.stack([self._loss(logits, y_b, m_b),
@@ -204,16 +309,20 @@ class InductiveTrainer:
 
     def evaluate(self, which: str) -> dict[str, float]:
         """Mean over the split's batches of the loss and the micro-F1 (on a
-        mesh, of the whole batches, gathered)."""
+        mesh, of the whole batches, gathered); each step's dispatch is the
+        span ``han.eval_step``."""
         losses, f1s = [], []
-        for batch in self._batches(which):
-            loss, f1 = self._step(self._eval_steps, self._eval_body, batch)(*batch).tolist()
+        for batch in self.batches(which):
+            with span("han.eval_step"):
+                out = self._step(self._eval_steps, self._eval_body, batch)(*batch)
+            loss, f1 = out.tolist()
             losses.append(loss)
             f1s.append(f1)
         return {"loss": float(np.mean(losses)), "micro_f1": float(np.mean(f1s))}
 
-    def _order_rng(self, epoch: int) -> np.random.Generator:
-        """The batch-order generator of an epoch."""
+    def order_rng(self, epoch: int) -> np.random.Generator:
+        """The batch-order generator of an epoch (``fit`` shuffles epoch
+        ``epoch``'s train batches with it)."""
         return np.random.default_rng(self.seed * 1_000_003 + epoch)
 
     def restore_latest(self, step: int | None = None) -> dict[str, Any] | None:
@@ -226,7 +335,7 @@ class InductiveTrainer:
         if self.axis.rank == 0:  # rank 0 saves, with every rank's generator state
             self.store.save(epoch, training_state(
                 self.model, self.opt, self.rngs.device,
-                order_rng=self._order_rng(epoch + 1).bit_generator.state, epoch=epoch,
+                order_rng=self.order_rng(epoch + 1).bit_generator.state, epoch=epoch,
                 best_f1=best["f1"], best_loss=best["loss"], bad_epochs=bad_epochs,
                 best_step=best_step, rank_rngs=rank_rngs))
 
@@ -265,8 +374,8 @@ class InductiveTrainer:
         for epoch in range(start_epoch, epochs):
             t0 = time.perf_counter()
             losses = []
-            rng = order_rng if epoch == start_epoch and order_rng else self._order_rng(epoch)
-            for batch in self._batches("train", rng):
+            rng = order_rng if epoch == start_epoch and order_rng else self.order_rng(epoch)
+            for batch in self.batches("train", rng):
                 t1 = time.perf_counter()
                 losses.append(float(self.train_step(*batch)))  # waits for the step
                 step_times.append(time.perf_counter() - t1)
@@ -305,7 +414,7 @@ class InductiveTrainer:
                   **{f"test_{k}": v for k, v in test.items()},
                   "epoch_train_loss": [h["train_loss"] for h in history],
                   "median_step_time_s": statistics.median(step_times) if step_times else None,
-                  "captured": self.capture}
+                  "captured": self.capture, "route": self.route}
         if self.device.type == "cuda":
             result["max_memory_allocated"] = torch.cuda.max_memory_allocated(self.device)
         return result

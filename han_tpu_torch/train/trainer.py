@@ -553,17 +553,10 @@ def run(cfg: Config, ds: HeteroDataset | MultiGraphDataset | None = None, *,
         mesh = (make_mesh(graph=cfg.mesh.graph_axis, device=device)
                 if cfg.mesh.graph_axis > 1 else None)
         coordinator = mesh is None or mesh.rank == 0
-        trainer = InductiveTrainer(
-            ds, hid_units=tuple(cfg.model.hid_units), n_heads=tuple(cfg.model.n_heads),
-            lr=cfg.train.lr, l2_coef=cfg.train.l2_coef, residual=cfg.model.residual,
-            attn_drop=cfg.model.attn_drop, ffd_drop=cfg.model.ffd_drop,
-            patience=cfg.train.patience, impl=cfg.model.impl,
-            batch_size=max(2, cfg.mesh.graph_axis), mesh=mesh, seed=cfg.train.seed,
-            device=device,
-            # the inductive trainer shares the other trainers' resilience
-            # contract
-            checkpoint_dir=cfg.train.checkpoint_dir,
-            checkpoint_every=cfg.train.checkpoint_every,
+        # the inductive trainer shares the other trainers' resilience
+        # contract (checkpoint_dir, checkpoint_every)
+        trainer = InductiveTrainer.from_config(
+            ds, cfg, batch_size=max(2, cfg.mesh.graph_axis), mesh=mesh, device=device,
             logger=MetricLogger(cfg.train.log_file if coordinator else "", echo=coordinator))
         result = trainer.fit(epochs=cfg.train.epochs)
         return {k: v for k, v in result.items() if k != "history"}

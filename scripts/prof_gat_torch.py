@@ -66,10 +66,8 @@ def main(argv=None):
                         avg_degree=28, seed=0)
     cfg = preset("ppi")
     torch.cuda.reset_peak_memory_stats()
-    t = InductiveTrainer(ppi, hid_units=cfg.model.hid_units, n_heads=cfg.model.n_heads,
-                         lr=cfg.train.lr, l2_coef=cfg.train.l2_coef,
-                         residual=cfg.model.residual, seed=cfg.train.seed)
-    batch = next(t._batches("train"))
+    t = InductiveTrainer.from_config(ppi, cfg)
+    batch = next(t.batches("train"))
     results.append({"run": "ppi", **profile_steps(lambda: t.train_step(*batch), args.steps)})
     write_runs(args.out, card_line, results)
 

@@ -498,14 +498,17 @@ MESH_FORMATS = {"partitioned_bcsr": ("partitioned_bcsr", False),
                 "partitioned_bcsr stacked": ("partitioned_bcsr", True)}
 
 
-@pytest.mark.parametrize("case", [*MESH_FORMATS, "host sampler", "inductive"])
+@pytest.mark.parametrize("case", [*MESH_FORMATS, "host sampler", "inductive",
+                                  "inductive sparse"])
 def test_steps_read_nothing_back_to_the_host(tiny_ds, monkeypatch, case):
     """A train step (Adam's update aside: PyTorch's capturable Adam) and an
     evaluation of every format a one-rank mesh runs (the dblp preset,
     dropout 0.6), of the host sampler and of the inductive trainer neither
     read a device value back to the host nor make a tensor from host data:
     either would fail or be frozen inside a captured graph. The kernels'
-    plain versions, which stand in for them on the CPU, are left out."""
+    plain versions, which stand in for them on the CPU, are left out. The
+    inductive trainer's sparse step builds its union's container from the
+    static inputs' shapes alone."""
     quiet = ttrainer.MetricLogger(echo=False)
     if case in MESH_FORMATS:
         cfg = tpreset("dblp")
@@ -520,9 +523,12 @@ def test_steps_read_nothing_back_to_the_host(tiny_ds, monkeypatch, case):
         train = lambda: t._host_train_body(*flat)
         evaluate = lambda: t._host_eval_body(*flat)
     else:
+        # the sparse case through csr: the flash kernels' plain versions are
+        # left out, and csr's segment ops are all torch
+        fmt = dict(impl="csr") if case == "inductive sparse" else {}
         t = tinductive.InductiveTrainer(ppi_synthetic(**PPI), batch_size=2, device="cpu",
-                                        attn_drop=0.2, ffd_drop=0.2, **PPI_MODEL)
-        batch = next(t._batches("train"))
+                                        attn_drop=0.2, ffd_drop=0.2, **fmt, **PPI_MODEL)
+        batch = next(t.batches("train"))
         train, evaluate = lambda: t._train_body(*batch), lambda: t._eval_body(*batch)
     train()  # the first step makes Adam's state
     monkeypatch.setattr(t.opt, "step", lambda: None)

@@ -40,7 +40,7 @@ def test_batches_match_jax(batch_size):
     jt, tt = pair(batch_size)
     for which, epoch in (("train", 0), ("train", 5), ("val", None)):
         rng = lambda: None if epoch is None else np.random.default_rng(4 * 1_000_003 + epoch)
-        got, want = list(tt._batches(which, rng())), list(jt._batches(which, rng()))
+        got, want = list(tt.batches(which, rng())), list(jt._batches(which, rng()))
         assert len(got) == len(want)
         for gb, wb in zip(got, want):
             for g, w in zip(gb, wb):
@@ -96,7 +96,9 @@ def test_graph_axis_and_impl(monkeypatch):
     han_tpu's run() does: the mesh's graph axis and a global batch of
     max(2, S) graphs (here a stand-in for the mesh of S ranks, recorded
     instead of trained); a batch that does not split over the axis raises
-    ValueError; an impl other than auto/dense warns and stays dense."""
+    ValueError; impl="csr" takes the sparse path on the csr format (its
+    layers on csr, no dense adjacency in a batch), and an impl the trainer
+    does not take raises ValueError."""
     from torch_parallel_ranks import stand_in_mesh
 
     built = []
@@ -113,9 +115,14 @@ def test_graph_axis_and_impl(monkeypatch):
         assert t.device == torch.device("cpu")
     with pytest.raises(ValueError, match="not divisible by the graph axis"):
         InductiveTrainer(ds, batch_size=3, mesh=stand_in_mesh(2), **MODEL)
-    with pytest.warns(UserWarning, match="dense by design"):
-        t = InductiveTrainer(ds, impl="csr", device="cpu", **MODEL)
-    assert all(layer.impl == "dense" for layer in t.model.layers)
+    t = InductiveTrainer(ds, impl="csr", device="cpu", **MODEL)
+    assert t.graph_format == "csr" and t.route == "csr"
+    assert all(layer.impl == "csr" for layer in t.model.layers)
+    batch = next(t.batches("train"))
+    assert not any(b.dim() == 3 and b.shape[1] == b.shape[2] for b in batch)
+    assert batch[3].shape == (2, 128, ds.features.shape[-1])
+    with pytest.raises(ValueError, match="takes impl in"):
+        InductiveTrainer(ds, impl="ell_fused", device="cpu", **MODEL)
 
 
 def test_no_cpu_fallback_without_a_card(monkeypatch):
