@@ -1,15 +1,20 @@
 """Smoke test of han_tpu_torch on CUDA cards. Builds the kernels (the
 flash-GAT kernels and the fused ELL forward, one nvcc per source, started
-together, and the C++ sampler), then drives the ported paths:
+together, and the C++ sampler; fails where ptxas reports that it
+serialized a kernel's wgmma products), then drives the ported paths:
 
 - full-graph: holds the flash kernels (forward, fused backward, and the
   split backward's row and column sweeps) against their plain PyTorch
   versions at the DBLP shape (times at dropout 0 and 0.6; a control shows
   that their products, the row sweep's included, are more accurate than one
   TF32 product; the split backward twice, bitwise), at D = 32 there
-  (times), at D = 64, 128 and 256 there (and 64 with bf16 v: each head in
+  (times), at D = 64, 128 and 256 there (and 64 with bf16 v: the forward
+  and the fused backward through their wide bodies, the split backward in
   chunks of 32 columns on the kernels' grid; times beside their bounds
-  and, for the forward, SDPA's), at D = 3, 4, 16, 32, 33, 40, 64 and 121 on a small
+  and, for the forward, SDPA's), the wide bodies at PPI's union (K = 4,
+  D = 256; K = 6, D = 121) and DBLP's three meta-paths in one launch
+  (K = 8, D = 64, dropout 0.6) beside the chunked route's times (phase
+  3x), at D = 3, 4, 16, 32, 33, 40, 64 and 121 on a small
   graph with a single-edge tile and rows without edges (D = 3 zero-padded
   to 4 by the wrappers), and on the strips of a 4-way partition of DBLP's
   largest meta-path (every shard of partition_bcsr, and ring cells with a
@@ -344,6 +349,21 @@ def main(argv=None) -> None:
             fail("the C++ sampler (han_tpu_torch/native/graphcore.cpp) did not build")
     for name in names:
         _build.load(name)
+        # ptxas serializes a kernel's wgmma products ("Potential Performance
+        # Loss: wgmma.mma_async instructions are serialized", C7511 and kin)
+        # when, say, an accumulator is touched between them: the wide bodies
+        # then run 1.5-2x slower and nothing else would say so. The
+        # warpgroup arrives and waits it injects (C7517, C7519) are printed
+        report = _build.ptxas_report(name).splitlines()
+        serialized = [ln.strip() for ln in report
+                      if re.search(r"wgmma\S* instructions are serialized", ln)]
+        if serialized:
+            fail(f"{name}: ptxas serialized wgmma products:\n" + "\n".join(serialized))
+        injected = sum(bool(re.search(r"warpgroup\.(arrive|wait) is injected", ln))
+                       for ln in report)
+        if injected:
+            print(f"{name}: ptxas injected {injected} warpgroup arrive or wait instructions "
+                  "(C7517, C7519)", flush=True)
     root = pathlib.Path(__file__).resolve().parent
     print(f"build: {', '.join(str(so.relative_to(root)) for so in libs)}"
           f"{'' if args.only else f' and {native.library_path().relative_to(root)}'} "
@@ -401,16 +421,20 @@ def main(argv=None) -> None:
     stats = check_dblp(graph, ld, ls, v, g)
     # -- phase 3e: the batched kernels, one launch for the meta-paths --------
     batched = check_batched(dev, ds, card)
-    # -- phase 3w: head dims above 32, in chunks on the kernels' grid --------
+    # -- phase 3w: head dims above 32 (the wide bodies, the split backward
+    # in chunks of 32) ---------------------------------------------------------
     wide = check_wide_heads(graph, gen, ds.n_nodes, card)
+    # -- phase 3x: the wide body at PPI's and APTPA's shapes, beside the
+    # chunked route ------------------------------------------------------------
+    wide_body = check_wide_body(dev, ds, card)
     if args.only == "flash_gat":
         print(json.dumps({"card": card, "flash": {
             key: {"ms_by_dropout": st["ms_by_dropout"], "plain_ms": st["plain_ms"]}
             for key, st in stats.items()}, "batched": batched,
             "wide": {tag: {key: {"ms_by_dropout": x["ms_by_dropout"], "plain_ms": x["plain_ms"],
                                  "bound_ms": x["bound"][0], "library_ms": x.get("library_ms")}
-                           for key, x in st.items()} for tag, st in wide.items()}}),
-              flush=True)
+                           for key, x in st.items()} for tag, st in wide.items()},
+            "wide_body": wide_body}), flush=True)
         return
     for p in (0.0, 0.6):
         tf32_control(f"DBLP, dropout {p}", graph, ld, ls, v, g,
@@ -651,7 +675,8 @@ def dblp_inputs(gen, n: int, n_nodes: int, k: int, d: int):
 
 def check_dblp(graph, ld, ls, v, g, ps=(0.0, 0.6)) -> dict:
     """Phase 3: the flash kernels at the DBLP shape (K from ld, D from v;
-    above 32 each head in chunks of ops/flash_gat.py:HEAD_CHUNK columns on
+    above 32 the forward and the fused backward through their wide bodies,
+    the split backward in chunks of ops/flash_gat.py:HEAD_CHUNK columns on
     the kernels' grid), at each dropout of ``ps``: the forward (atol 1e-5,
     rtol 1e-4), the fused backward and the split backward's row and column
     sweeps (atol 1e-4, rtol 1e-3: dld is summed with atomicAdd in a varying
@@ -671,7 +696,11 @@ def check_dblp(graph, ld, ls, v, g, ps=(0.0, 0.6)) -> dict:
     stats = {name: {"err": 0.0, "ms_by_dropout": {}} for name in ("fwd", "bwd", "row", "col")}
     for p in ps:
         meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=fg.seed_tensor(1234567, ld.device))
-        print(f"{tag}, dropout {p} ((width, chunks) {fg.head_plan(d)}):", flush=True)
+        wide = fg.takes_wide(graph)
+        print(f"{tag}, dropout {p} ((width, chunks) forward "
+              f"{fg.head_plan(d, fg.WIDE_HEAD_DIMS if wide else ())}, fused backward "
+              f"{fg.head_plan(d, fg.BWD_WIDE_DIMS if wide else ())}, sweeps {fg.head_plan(d)}):",
+              flush=True)
         out_k, lse_k = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
         out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
         torch.cuda.synchronize()
@@ -747,6 +776,108 @@ def check_wide_heads(graph, gen, n_nodes: int, card: str) -> dict:
                   + f"; {card}", flush=True)
         res[tag] = st
         del ld, ls, v, g
+        torch.cuda.empty_cache()
+    return res
+
+
+def ppi_union(dev, n_graph: int = 2300, slot: int = 3584, undirected: int = 34000,
+              seed: int = 1):
+    """A PPI-shaped batch on the card: two graphs of ``n_graph`` nodes (PPI's
+    mean is 2,372) in slots of ``slot`` rows, each with ``undirected``
+    uniform pairs taken both ways and a self-loop a node (PPI: 818,716
+    undirected edges over 24 graphs), as InductiveTrainer's block-diagonal
+    union lays them out (128 x 128 tiles, about 650 occupied)."""
+    import numpy as np
+
+    from han_tpu_torch.graph.bcsr import bcsr_from_coo
+
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for base in (0, slot):
+        e = rng.integers(0, n_graph, (undirected, 2))
+        loops = base + np.arange(n_graph)
+        rows += [base + e[:, 0], base + e[:, 1], loops]
+        cols += [base + e[:, 1], base + e[:, 0], loops]
+    pairs = np.unique(np.stack([np.concatenate(rows), np.concatenate(cols)], 1), axis=0)
+    return bcsr_from_coo(pairs[:, 0], pairs[:, 1], 2 * slot).to(dev)
+
+
+def check_wide_body(dev, ds, card: str) -> dict:
+    """Phase 3x: the wide bodies (head dims above 32 on wgmma: the forward
+    sweeps each tile once a head, or a half of a head above 128; the fused
+    backward once a chunk of 64) at the shapes that run them: PPI's union
+    (ppi_union) at K = 4, D = 256 and K = 6, D = 121, dropout 0 (the ppi
+    preset's), and DBLP's three meta-paths stacked (one launch) at K = 8,
+    D = 64, dropout 0.6 (HAN at hid 64). Per shape: the wide forward and
+    fused backward against their plain versions (phase 3's tolerances),
+    both launched as the chunked route (chunks of 32, through the
+    wrappers' own helpers fg.fwd_chunked / fg.bwd_chunked with
+    ``wide=False``) against them too; the device times of both routes beside the bounds;
+    the wide bodies' launches counted. Returns per shape the errors, times
+    and bounds."""
+    import torch
+
+    from han_tpu_torch.graph.build import metapath_to_bcsr
+    from han_tpu_torch.graph.stack import stack_graphs
+    from han_tpu_torch.ops import flash_gat as fg
+
+    union = ppi_union(dev)
+    paths = [metapath_to_bcsr(a).to(dev) for a in ds.metapath_adjs]
+    stack = stack_graphs(paths)
+    gen = torch.Generator(dev).manual_seed(21)
+    res = {}
+    for tag, graph, parts, k, d, p in (("ppi_k4_d256", union, [union], 4, 256, 0.0),
+                                       ("ppi_k6_d121", union, [union], 6, 121, 0.0),
+                                       ("aptpa_k8_d64_3paths", stack, paths, 8, 64, 0.6)):
+        n_p = graph.n_paths
+        per = [dblp_inputs(gen, graph.n_pad, graph.n_pad if n_p is None else ds.n_nodes, k, d)
+               for _ in range(n_p or 1)]
+        ld, ls, v, g = (torch.stack([x[i] for x in per]) if n_p else per[0][i] for i in range(4))
+        seeds = torch.tensor([1234567, 7654321, 2468013][:n_p or 1], dtype=torch.int32,
+                             device=dev)
+        meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=seeds)
+        print(f"wide body, {tag} ({graph.n_tiles} tiles{f', {n_p} paths' if n_p else ''}, "
+              f"(width, chunks) forward {fg.head_plan(d, fg.WIDE_HEAD_DIMS)}, fused backward "
+              f"{fg.head_plan(d, fg.BWD_WIDE_DIMS)}, chunked {fg.head_plan(d)}), dropout {p}:",
+              flush=True)
+        launches = fg.flash_fwd_wide_launches
+        out, lse = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
+        if fg.flash_fwd_wide_launches == launches:
+            fail(f"wide body, {tag}: the forward did not launch the wide body")
+        fwd_chunked = lambda: fg.fwd_chunked(fg._fwd_launch, graph, ld, ls, v, meta, wide=False)
+        out_c, lse_c = fwd_chunked()
+        out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, meta)
+        torch.cuda.synchronize()
+        err = {"fwd": max(check("out", out, out_p, 1e-5, 1e-4), check("lse", lse, lse_p, 1e-5, 1e-4)),
+               "fwd_chunked": max(check("out (chunked)", out_c, out_p, 1e-5, 1e-4),
+                                  check("lse (chunked)", lse_c, lse_p, 1e-5, 1e-4))}
+        del out_p, lse_p, out_c, lse_c
+        args = (graph, ld, ls, v, g, lse, fg.head_delta(g, out, k), meta)
+        bwd_chunked = lambda: fg.bwd_chunked(fg._bwd_launch, *args, wide=False)
+        launches = fg.flash_bwd_wide_launches
+        got = fg.flash_bwd_cuda(*args)
+        if fg.flash_bwd_wide_launches == launches:
+            fail(f"wide body, {tag}: the fused backward did not launch the wide body")
+        want = fg.flash_bwd_plain(*args)
+        err["bwd"] = max(check(name, a, b, 1e-4, 1e-3)
+                         for name, a, b in zip(("dld", "dls", "dv"), got, want))
+        err["bwd_chunked"] = max(
+            check(f"{name} (chunked)", a, b, 1e-4, 1e-3)
+            for name, a, b in zip(("dld", "dls", "dv"), bwd_chunked(), want))
+        del got, want
+        torch.cuda.synchronize()
+        t = {"fwd": timed(lambda: fg.flash_fwd_cuda(graph, ld, ls, v, meta)),
+             "fwd_chunked": timed(fwd_chunked),
+             "bwd": timed(lambda: fg.flash_bwd_cuda(*args)),
+             "bwd_chunked": timed(bwd_chunked)}
+        bounds = [flash_bounds(gp, k, d) for gp in parts]
+        bnd = {key: sum(b[key][0] for b in bounds) for key in ("fwd", "bwd")}
+        print(f"  {tag}: device ms forward {t['fwd']:.4f} (chunked route {t['fwd_chunked']:.4f}, "
+              f"{t['fwd_chunked'] / t['fwd']:.2f}x), bound {bnd['fwd']:.4f}; fused backward "
+              f"{t['bwd']:.4f} (chunked route {t['bwd_chunked']:.4f}, "
+              f"{t['bwd_chunked'] / t['bwd']:.2f}x), bound {bnd['bwd']:.4f}; {card}", flush=True)
+        res[tag] = {"err": err, "ms": t, "bound_ms": bnd}
+        del ld, ls, v, g, out, lse, args
         torch.cuda.empty_cache()
     return res
 
@@ -897,7 +1028,7 @@ def check_batched(dev, ds, card: str, d: int = 8, timing: bool = True) -> dict:
         torch.cuda.synchronize()
         e = max(check("out", out, out_p, 1e-5, 1e-4), check("lse", lse, lse_p, 1e-5, 1e-4))
         stats["fwd"]["err"] = max(stats["fwd"]["err"], e)
-        delta = fg.head_delta(g, out, k)  # (P, [nc,] K, n)
+        delta = fg.head_delta(g, out, k)  # (P, 1, K, n)
         args = (st, ld, ls, v, g, lse, delta, meta)
         fused = fg.flash_bwd_cuda(*args)
         row = fg.flash_bwd_row_cuda(*args)
@@ -1007,7 +1138,7 @@ def check_head_offset(dev, adj, d: int = 8) -> dict:
             out_p, lse_p = fg.flash_fwd_plain(graph, ld, ls, v, full)
             errs["fwd"] = max(errs["fwd"], check(f"{label} out vs plain", out, out_p, 1e-5, 1e-4),
                               check(f"{label} lse vs plain", lse, lse_p, 1e-5, 1e-4))
-        delta = fg.head_delta(g, out, k)  # ([nc,] K, n)
+        delta = fg.head_delta(g, out, k)  # (1, K, n)
         args = (graph, ld, ls, v, g, lse, delta, full)
         args4 = (graph, ld[h0:].contiguous(), ls[h0:].contiguous(), hi(v), hi(g),
                  lse[h0:].contiguous(), delta[..., h0:, :].contiguous(), part)
@@ -2835,8 +2966,11 @@ def train_ppi(dev, card: str, epochs: int = 3) -> None:
     and evaluation batches captured as CUDA graphs. Losses finite, the
     train loss falling, micro-F1 in [0, 1]. Then in deterministic mode
     (the flash kernels' split backward) the preset captured against an
-    eager run of the same trainer (capture=False; the preset has no
-    dropout): losses within CAPTURE_TOL. Phase 4e'': that deterministic
+    eager run of the same trainer (capture=False, with capturable Adam as
+    the captured run's; the preset has no dropout): losses within
+    CAPTURE_TOL. Every flash forward and fused backward launch of the
+    preset's run, the replays included, must be a wide body's (each head
+    is wider than 32). Phase 4e'': that deterministic
     run against the dense path (impl dense, captured): losses
     within CAPTURE_TOL, median steps and peaks printed. Phase 4e' (in
     deterministic mode): the inductive trainer's data-parallel batches on
@@ -2850,6 +2984,7 @@ def train_ppi(dev, card: str, epochs: int = 3) -> None:
     import torch
 
     from han_tpu_torch.datasets.ppi import ppi_synthetic
+    from han_tpu_torch.ops import flash_gat as fg
     from han_tpu_torch.parallel.mesh import make_mesh
     from han_tpu_torch.train.config import preset
     from han_tpu_torch.train.inductive import InductiveTrainer
@@ -2867,9 +3002,20 @@ def train_ppi(dev, card: str, epochs: int = 3) -> None:
     cfg.train.epochs = epochs
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
+    names = ("flash_fwd_launches", "flash_fwd_wide_launches", "flash_bwd_launches",
+             "flash_bwd_wide_launches")
+    before = [getattr(fg, name) for name in names]
     result = run(cfg, ds, device=dev)
     if not result["captured"]:
         fail("ppi: the inductive trainer's steps were not captured")
+    # every head is wider than 32 on 128 x 128 tiles: each forward and fused
+    # backward launch, the captured steps' replays included, is a wide body's
+    fwd, fwd_wide, bwd, bwd_wide = (getattr(fg, name) - n for name, n in zip(names, before))
+    if not (fwd_wide == fwd > 0 and bwd_wide == bwd > 0):
+        fail("ppi: the trainer's flash launches were not all the wide bodies' "
+             f"(forward {fwd_wide} of {fwd}, fused backward {bwd_wide} of {bwd})")
+    print(f"ppi: flash launches forward {fwd_wide} of {fwd} wide, fused backward "
+          f"{bwd_wide} of {bwd} wide", flush=True)
     losses = result["epoch_train_loss"]
     if len(losses) != epochs or not all(np.isfinite(losses)) or not np.isfinite(result["test_loss"]):
         fail(f"ppi: losses {losses}, test loss {result['test_loss']}")
@@ -2884,16 +3030,22 @@ def train_ppi(dev, card: str, epochs: int = 3) -> None:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     cfg.train.checkpoint_dir = ""
 
-    def deterministic(**kw):
+    def deterministic(capturable_adam: bool = False, **kw):
         # the flash kernels' split backward (no atomics): trajectories that
         # differ only in how the step is dispatched stay equal, where the
         # fused backward's atomic sums and Adam's first steps on gradients
-        # of round-off make two runs of 30 steps part by 1e-4
+        # of round-off make two runs of 30 steps part by 1e-4. An eager run
+        # takes capturable Adam, as the captured one must: eager Adam's
+        # bias correction on the host parts the two from step 3 on (4.5e-6
+        # of the loss) and 30 steps grow that to 1e-4-7e-4 a step
         torch.use_deterministic_algorithms(True, warn_only=True)
         try:
             torch.cuda.reset_peak_memory_stats(dev)
-            return InductiveTrainer.from_config(ds, cfg, **kw).fit(epochs=epochs,
-                                                                   log=lambda rec: None)
+            trainer = InductiveTrainer.from_config(ds, cfg, **kw)
+            if capturable_adam:
+                trainer.opt = torch.optim.Adam(trainer.model.parameters(), lr=cfg.train.lr,
+                                               capturable=True)
+            return trainer.fit(epochs=epochs, log=lambda rec: None)
         finally:
             torch.use_deterministic_algorithms(False)
 
@@ -2901,7 +3053,7 @@ def train_ppi(dev, card: str, epochs: int = 3) -> None:
         return max(abs(x - y) / abs(y) for x, y in zip(a, b))
 
     split = deterministic(device=dev)
-    eager = deterministic(device=dev, capture=False)
+    eager = deterministic(device=dev, capture=False, capturable_adam=True)
     if (not split["captured"] or eager["captured"]
             or not np.allclose(split["epoch_train_loss"], eager["epoch_train_loss"],
                                **CAPTURE_TOL)):

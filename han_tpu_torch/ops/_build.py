@@ -4,7 +4,10 @@ load it with ctypes.
 The library name carries a hash of the source, the headers under ``csrc/``
 (``*.cuh``, which the sources include) and the flags, so an edited source or
 header is rebuilt and a stale library is never loaded. There is no
-fallback: a missing nvcc or a failed build raises.
+fallback: a missing nvcc or a failed build raises. ptxas reports each
+kernel's registers and spills (``-Xptxas -v``); the build keeps that report
+beside the library (:func:`ptxas_report`), where a check can read, say, the
+lines in which ptxas says it serialized a kernel's wgmma products.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import subprocess
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -61,6 +64,7 @@ def build_all(names) -> list[pathlib.Path]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                                f"{out}{err}")
+        so.with_suffix(".ptxas.txt").write_text(out + err)
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
     return [library_path(name) for name in names]
 
@@ -68,6 +72,12 @@ def build_all(names) -> list[pathlib.Path]:
 def build(name: str) -> pathlib.Path:
     """Compile csrc/<name>.cu unless its library is already built."""
     return build_all([name])[0]
+
+
+def ptxas_report(name: str) -> str:
+    """What nvcc and ptxas printed when csrc/<name>.cu was built (built
+    first if needed)."""
+    return build(name).with_suffix(".ptxas.txt").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

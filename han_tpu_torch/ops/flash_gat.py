@@ -33,28 +33,42 @@ D-wide products (P·V; g·v and C'·g) run as 3xTF32 products, which
 :func:`split_tf32` and :func:`mm_3xtf32` mirror in plain torch (the plain
 versions take their products through ``mm``, so ``chip_smoke.py`` can show
 that the tolerances reject a single TF32 product, :func:`mm_1xtf32`).
-The row sweep is the forward's sweep with g·vᵀ, a 3xTF32 product, in place
+The wide bodies take their products on ``wgmma`` instead: the forward's
+(a head of 64 or 128 columns) forms p the same way against v split into
+TF32 hi and lo once for both warpgroups of a block, taking each row's max
+over its whole walk first so that it never rescales; the fused backward's
+(a chunk of 64) forms g·v against the block's v held as registers and
+takes c'ᵀg against g split and transposed once a window of 16 rows. The
+row sweep is the forward's sweep with g·vᵀ, a 3xTF32 product, in place
 of P·V, and sums dld per row in registers. Tiles stage through shared
 memory by ``cp.async``, double-buffered. :func:`check_layout` raises on a
 tile geometry the kernels do not take (graph/bcsr.py:tile_error) and on
 arrays that are not 16-byte aligned.
 
-The kernels are instantiated at D ∈ ``KERNEL_HEAD_DIMS``; the CUDA
-wrappers take any D (:func:`head_plan`). Up to the largest instantiation
-they zero-pad v's and g's head dim to the next instantiated one and slice
-out and dv back: zero columns of v change neither the logits nor the
-softmax, and zero columns of g add nothing to g·v or to delta. A wider
-head runs as nc chunks of an instantiated dc (``HEAD_CHUNK``), each head
-zero-padded to nc·dc, chunk c of head h on the kernels' grid beside the
-heads (:func:`fwd_chunked`, :func:`bwd_chunked`).
+The kernels are instantiated at D ∈ ``KERNEL_HEAD_DIMS``, the forward
+also at ``WIDE_HEAD_DIMS`` and the fused backward at ``BWD_WIDE_DIMS``,
+their wide bodies; the CUDA wrappers take any D (:func:`head_plan`). Up to
+the largest instantiation they zero-pad v's and g's head dim to the next
+instantiated one and slice out and dv back: zero columns of v change
+neither the logits nor the softmax, and zero columns of g add nothing to
+g·v or to delta. A wider head runs, on 128 × 128 tiles
+(:func:`takes_wide`), through the forward's wide body (one sweep of each
+tile a head, or half a head above 128) and the fused backward's (one a
+chunk of 64), and everywhere else (the split backward, other tiles) as nc
+chunks of an instantiated dc (``HEAD_CHUNK``); each head is zero-padded
+to nc·dc, chunk c of head h on the kernels' grid beside the heads
+(:func:`fwd_chunked`, :func:`bwd_chunked`).
 The softmax does not depend on v, so a chunk's forward is the dc-wide one
 on its columns (lse written once); dz is linear in g·v and delta, so with
-delta split per chunk each chunk's backward is the dc-wide one on its
-columns, writing its columns of dv and its partial dld and dls, which are
-summed in chunk order (:func:`sum_chunks`). Every backward, kernel or
-plain version, takes delta in one layout, ([P,] nc, K, n) with nc = 1 up
-to the largest instantiation (:func:`head_delta`); the plain versions add
-its chunks. The ``*_chunked_plain`` functions run the decomposition over
+delta split over the chunks (the head's in chunk 0, zero in the others)
+each chunk's backward is the dc-wide one on its columns, writing its
+columns of dv and its partial dld and dls, which are summed in chunk order
+(:func:`sum_chunks`). Every backward, kernel or plain version, takes delta
+in one layout, ([P,] nc, K, n) partial sums that add up to the head's;
+:func:`head_delta` gives the head's whole g·out as one, ([P,] 1, K, n),
+the plain versions add them, and each launch splits it over its own
+chunks (:func:`bwd_chunked`), so that :func:`head_plan` alone knows the
+widths. The ``*_chunked_plain`` functions run the decomposition over
 the plain versions, which the CPU tests hold to the full-D plain versions
 and to han_tpu; the card holds each kernel to the full-D plain version.
 
@@ -91,7 +105,9 @@ backward's dv is cast back to v's type outside them, as han_tpu does
 Every wrapper uses the plain version only for tensors on the CPU. For a
 CUDA tensor it launches the kernel or raises; there is no fallback.
 ``flash_fwd_launches``, ``flash_bwd_launches``, ``flash_bwd_row_launches``
-and ``flash_bwd_col_launches`` count kernel launches.
+and ``flash_bwd_col_launches`` count kernel launches, and
+``flash_fwd_wide_launches`` and ``flash_bwd_wide_launches`` those of the
+wide bodies.
 
 Every function also takes a stack of P graphs of one geometry
 (graph/stack.py: a leading P axis on the graph's arrays and on ld, ls, v,
@@ -115,11 +131,16 @@ from han_tpu_torch.graph.bcsr import BCSRGraph, tile_error
 from han_tpu_torch.graph.containers import MASK_VALUE
 
 flash_fwd_launches = 0
+flash_fwd_wide_launches = 0  # of flash_fwd_launches, those of the wide body
 flash_bwd_launches = 0
+flash_bwd_wide_launches = 0  # of flash_bwd_launches, those of the wide body
 flash_bwd_row_launches = 0
 flash_bwd_col_launches = 0
 
 KERNEL_HEAD_DIMS = (4, 8, 16, 32)  # the D instantiated in csrc/flash_gat.cu
+WIDE_HEAD_DIMS = (64, 128)  # the forward's wide body, on 128 x 128 tiles (takes_wide)
+BWD_WIDE_DIMS = (64,)  # the fused backward's wide body, likewise
+WIDE_TILE = 128  # the wide bodies' tile rows and columns: two warpgroups of 64
 V_DTYPES = (torch.float32, torch.bfloat16)  # v's types; all else is float32
 
 _M32 = 0xFFFFFFFF
@@ -394,22 +415,41 @@ def flash_bwd_col_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashM
 # ---------------------------------------------------------------------------
 
 # the instantiated head dim a chunk of a head wider than KERNEL_HEAD_DIMS[-1]
-# runs at, for all four kernels (one width, so that the fused and the split
-# backward take one delta). scripts/flash_chunk_width_torch.py times chunks
-# of 16 against 32 at D = 64: on an NVIDIA H100 80GB HBM3 at a 700 W limit
-# the forward and the row sweep ran 1.23-1.41x slower in chunks of 16, the
-# fused backward and the column sweep 0.92-0.99x (PERF.md §6).
+# runs at in the split backward, and in the forward and the fused backward
+# where the wide bodies do not take the tiles. scripts/flash_chunk_width_torch.py
+# times the split backward's sweeps in chunks of 16 against 32 at D = 64: on
+# an NVIDIA H100 80GB HBM3 at a 700 W limit the row sweep ran 1.23-1.41x
+# slower in chunks of 16, the column sweep 0.92-0.99x (PERF.md §6).
 HEAD_CHUNK = 32
 
 
-def head_plan(d: int) -> tuple[int, int]:
+def head_plan(d: int, wide: tuple = ()) -> tuple[int, int]:
     """(dc, nc): the kernels run a head of D columns as nc chunks of an
-    instantiated dc. D up to the largest instantiation is one chunk of the
-    smallest dc that holds it; a wider D is ⌈D / HEAD_CHUNK⌉ chunks of
-    ``HEAD_CHUNK``. The head is zero-padded to nc·dc either way."""
+    instantiated dc. D up to the largest of ``KERNEL_HEAD_DIMS`` is one
+    chunk of the smallest dc that holds it. A wider D is, with ``wide`` the
+    widths of a wide body (``WIDE_HEAD_DIMS``, the forward's;
+    ``BWD_WIDE_DIMS``, the fused backward's; on tiles it takes,
+    :func:`takes_wide`), one chunk of the smallest that holds it, or
+    ⌈D / w⌉ chunks of the largest, w (the forward's 128: two accumulators
+    of 64 rows × 256 would not fit a thread's registers, so a block owns
+    half of a head of 256; the backward's 64: v as registers and dv's two
+    accumulators); else ⌈D / 32⌉ chunks of ``HEAD_CHUNK``. The head is
+    zero-padded to nc·dc either way."""
     if d <= KERNEL_HEAD_DIMS[-1]:
         return next(dp for dp in KERNEL_HEAD_DIMS if d <= dp), 1
+    if wide and d <= wide[-1]:
+        return next(dp for dp in wide if d <= dp), 1
+    if wide:
+        return wide[-1], -(-d // wide[-1])
     return HEAD_CHUNK, -(-d // HEAD_CHUNK)
+
+
+def takes_wide(graph: BCSRGraph) -> bool:
+    """Whether the wide bodies take this graph's tiles: 128 × 128
+    (``WIDE_TILE``; two warpgroups of 64 rows or columns a block, eight
+    windows of 16 a tile); a head wider than 32 on other tiles runs in
+    chunks of 32."""
+    return graph.bm == graph.bn == WIDE_TILE
 
 
 def padded_head_dim(d: int) -> int:
@@ -436,17 +476,13 @@ def unpad_heads(x: torch.Tensor, k: int, d: int) -> torch.Tensor:
 
 def head_delta(g: torch.Tensor, out: torch.Tensor, k: int) -> torch.Tensor:
     """The backward's delta from g and out (([P,] n, K·D) each), formed in
-    torch before the launch as han_tpu forms it (_flash_core_flat_bwd), in
-    the one layout every backward takes: ([P,] nc, K, n), chunk c's share
-    g_i[c] · out_i[c] of g_i · out_i for the nc chunks of
-    :func:`head_plan` (nc = 1 up to the largest instantiation), so that
-    each chunk's backward is the dc-wide one on its own columns."""
+    torch before the launch as han_tpu forms it (_flash_core_flat_bwd): g_i
+    · out_i summed over each head's D columns, in the layout every backward
+    takes, ([P,] 1, K, n); each launch splits it over its chunks
+    (:func:`bwd_chunked`)."""
     lead, n = g.shape[:-2], g.shape[-2]
-    d = g.shape[-1] // k
-    dc, nc = head_plan(d)
-    # one chunk sums the head's D columns as they are (no zero padding)
-    parts = pad_heads(g * out, k, nc * dc if nc > 1 else d).view(*lead, n, k, nc, -1).sum(-1)
-    return parts.movedim((-3, -2, -1), (-1, -2, -3)).contiguous()
+    delta = (g * out).view(*lead, n, k, -1).sum(-1)
+    return delta.movedim(-1, -2).unsqueeze(-3).contiguous()
 
 
 def sum_chunks(x: torch.Tensor) -> torch.Tensor:
@@ -458,32 +494,46 @@ def sum_chunks(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def fwd_chunked(launch, graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
+def fwd_chunked(launch, graph: BCSRGraph, ld, ls, v, meta: FlashMeta, wide: bool | None = None):
     """The forward as the kernel computes it: each head of v zero-padded to
-    nc·dc (:func:`head_plan`), ``launch(graph, ld, ls, v_padded, meta, nc)``
-    (the kernel, or :func:`_fwd_chunks_plain`), out sliced back. Zero
-    columns of v change neither the logits nor the softmax, and lse does
-    not depend on v."""
+    nc·dc (:func:`head_plan`; ``wide`` defaults to :func:`takes_wide`, and
+    False runs a wide head in chunks of 32, as other tiles do),
+    ``launch(graph, ld, ls, v_padded, meta, nc)`` (the kernel, or
+    :func:`_fwd_chunks_plain`), out sliced back. Zero columns of v change
+    neither the logits nor the softmax, and lse does not depend on v."""
     k = ld.shape[-2]
     d = v.shape[-1] // k
-    dc, nc = head_plan(d)
+    wide = takes_wide(graph) if wide is None else wide
+    dc, nc = head_plan(d, WIDE_HEAD_DIMS if wide else ())
     if dc * nc == d:
         return launch(graph, ld, ls, v, meta, nc)
     out, lse = launch(graph, ld, ls, pad_heads(v, k, dc * nc), meta, nc)
     return unpad_heads(out, k, d), lse
 
 
-def bwd_chunked(launch, graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
+def split_delta(delta: torch.Tensor, nc: int) -> torch.Tensor:
+    """:func:`head_delta`'s ([P,] 1, K, n) as the nc chunks a launch takes:
+    the head's delta in chunk 0, zero in the others. dz is linear in
+    delta, so the chunks' partial dld and dls still add up to the
+    head's."""
+    return F.pad(delta, (0, 0, 0, 0, 0, nc - 1)) if nc > 1 else delta
+
+
+def bwd_chunked(launch, graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta,
+                wide: bool = False):
     """A backward as the kernels compute it: v and g padded as in
-    :func:`fwd_chunked`, delta per chunk (:func:`head_delta`),
-    ``launch(..., nc)`` (a kernel, or a chunk loop over a plain version)
-    giving the chunks' partial dld and dls ([P,] nc, K, n) and dv at the
-    padded width; the partials summed in chunk order (:func:`sum_chunks`),
-    dv sliced back. Zero columns of g add nothing to g·v. Returns dld
-    alone, or a tuple ending in dv, as the plain version does."""
+    :func:`fwd_chunked` (with ``wide``, the fused backward's wide body:
+    chunks of 64, ``BWD_WIDE_DIMS``), delta split over the chunks
+    (:func:`split_delta`), ``launch(..., nc)`` (a kernel, or a chunk loop
+    over a plain version) giving the chunks' partial dld and dls ([P,] nc,
+    K, n) and dv at the padded width; the partials summed in chunk order
+    (:func:`sum_chunks`), dv sliced back. Zero columns of g add nothing to
+    g·v. Returns dld alone, or a tuple ending in dv, as the plain version
+    does."""
     k = ld.shape[-2]
     d = v.shape[-1] // k
-    dc, nc = head_plan(d)
+    dc, nc = head_plan(d, BWD_WIDE_DIMS if wide else ())
+    delta = split_delta(delta, nc)
     if dc * nc != d:
         v, g = pad_heads(v, k, dc * nc), pad_heads(g, k, dc * nc)
     res = launch(graph, ld, ls, v, g, lse, delta, meta, nc)
@@ -538,10 +588,11 @@ def flash_fwd_chunked_plain(graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
 
 
 def flash_bwd_chunked_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
-    """The fused backward's chunk decomposition (:func:`bwd_chunked`) on
+    """The fused backward's chunk decomposition (:func:`bwd_chunked`: its
+    wide body's chunks of 64 where :func:`takes_wide`) on
     :func:`flash_bwd_plain`."""
     return bwd_chunked(_bwd_chunks_plain(flash_bwd_plain), graph, ld, ls, v, g, lse, delta,
-                       meta)
+                       meta, takes_wide(graph))
 
 
 def flash_bwd_row_chunked_plain(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
@@ -584,8 +635,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(graph: BCSRGraph, maps: str, floats: dict,
-           nc: int) -> tuple[int, int, int, int, int]:
+def _check(graph: BCSRGraph, maps: str, floats: dict, nc: int,
+           dims: tuple = KERNEL_HEAD_DIMS) -> tuple[int, int, int, int, int]:
     """Raise on anything the kernels do not take; returns (k, d, n_rows,
     n_cols, n_paths), d the instantiated head dim of each of a head's nc
     chunks. The row domain is ``ld.shape[-1]`` and the column domain
@@ -594,7 +645,8 @@ def _check(graph: BCSRGraph, maps: str, floats: dict,
     argument's name to (tensor, expected shape as letters: K heads, R rows,
     C columns, N = nc chunks, F = K·nc·d flat features), each with a
     leading P axis when the graph is a stack of P. Every float argument is
-    float32, except ``v``, which may be bfloat16."""
+    float32, except ``v``, which may be bfloat16. ``dims``: the chunk
+    widths the kernel takes."""
     dev = floats["ld"][0].device
     if dev.type != "cuda":
         raise ValueError(f"the flash kernels take CUDA tensors, got {dev}")
@@ -605,17 +657,17 @@ def _check(graph: BCSRGraph, maps: str, floats: dict,
     k, n_rows = floats["ld"][0].shape[-2:]
     n_cols = floats["ls"][0].shape[-1]
     d = floats["v"][0].shape[-1] // (k * nc)
-    if d not in KERNEL_HEAD_DIMS or floats["v"][0].shape[-1] != k * nc * d:
+    if d not in dims or floats["v"][0].shape[-1] != k * nc * d:
         raise NotImplementedError(
             f"head dim {floats['v'][0].shape[-1] // k} is not {nc} chunk(s) of a kernel "
-            f"instantiation {KERNEL_HEAD_DIMS}")
+            f"instantiation {dims}")
     if (n_rows != graph.nb_r * graph.bm or n_cols != graph.nb_c * graph.bn):
         raise ValueError(f"the graph's maps cover {graph.nb_r * graph.bm} rows x "
                          f"{graph.nb_c * graph.bn} columns, the tensors "
                          f"{n_rows} x {n_cols}")
-    dims = {"K": k, "F": k * nc * d, "R": n_rows, "C": n_cols, "N": nc}
+    sizes = {"K": k, "F": k * nc * d, "R": n_rows, "C": n_cols, "N": nc}
     for name, (t, shape) in floats.items():
-        want = lead + tuple(dims[s] for s in shape)
+        want = lead + tuple(sizes[s] for s in shape)
         dtypes = V_DTYPES if name == "v" else (torch.float32,)
         if (t.device != dev or t.dtype not in dtypes or not t.is_contiguous()
                 or tuple(t.shape) != want):
@@ -689,9 +741,10 @@ def _raise_on(rc: int, lib, name: str) -> None:
 
 
 def _fwd_launch(graph: BCSRGraph, ld, ls, v, meta: FlashMeta, nc: int):
-    global flash_fwd_launches
-    k, d, n_rows, n_cols, n_paths = _check(graph, "fwd", {
-        "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF")}, nc)
+    global flash_fwd_launches, flash_fwd_wide_launches
+    k, d, n_rows, n_cols, n_paths = _check(
+        graph, "fwd", {"ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF")}, nc,
+        KERNEL_HEAD_DIMS + (WIDE_HEAD_DIMS if takes_wide(graph) else ()))
     lead = ld.shape[:-2]
     out = torch.empty((*lead, n_rows, k * nc * d), dtype=torch.float32, device=ld.device)
     lse = torch.empty((*lead, k, n_rows), dtype=torch.float32, device=ld.device)
@@ -703,6 +756,7 @@ def _fwd_launch(graph: BCSRGraph, ld, ls, v, meta: FlashMeta, nc: int):
         lse.data_ptr(), *_scalars(graph, v, n_rows, n_cols, k, d, nc, n_paths, meta))
     _raise_on(rc, lib, "han_flash_fwd")
     flash_fwd_launches += 1
+    flash_fwd_wide_launches += d in WIDE_HEAD_DIMS
     return out, lse
 
 
@@ -713,7 +767,8 @@ def _bwd_col_sweep(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta, 
     dld and dls the chunks' partial sums ([P,] nc, K, n)."""
     k, d, n_rows, n_cols, n_paths = _check(graph, "bwd", {
         "ld": (ld, "KR"), "ls": (ls, "KC"), "v": (v, "CF"), "g": (g, "RF"),
-        "lse": (lse, "KR"), "delta": (delta, "NKR")}, nc)
+        "lse": (lse, "KR"), "delta": (delta, "NKR")}, nc,
+        KERNEL_HEAD_DIMS + (BWD_WIDE_DIMS if fuse_dld and takes_wide(graph) else ()))
     lead = ld.shape[:-2]
     dld = (torch.zeros((*lead, nc, k, n_rows), dtype=torch.float32, device=ld.device)
            if fuse_dld else None)
@@ -733,9 +788,10 @@ def _bwd_col_sweep(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta, 
 
 
 def _bwd_launch(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta, nc: int):
-    global flash_bwd_launches
+    global flash_bwd_launches, flash_bwd_wide_launches
     out = _bwd_col_sweep(graph, ld, ls, v, g, lse, delta, meta, nc, fuse_dld=True)
     flash_bwd_launches += 1
+    flash_bwd_wide_launches += v.shape[-1] // (ld.shape[-2] * nc) in BWD_WIDE_DIMS
     return out
 
 
@@ -766,13 +822,15 @@ def _bwd_col_launch(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta,
 
 def flash_fwd_cuda(graph: BCSRGraph, ld, ls, v, meta: FlashMeta):
     """The forward kernel; same contract as :func:`flash_fwd_plain`, any D
-    (:func:`head_plan`)."""
+    (:func:`head_plan`: a head wider than 32 through the wide body where
+    :func:`takes_wide`)."""
     return fwd_chunked(_fwd_launch, graph, ld, ls, v, meta)
 
 
 def flash_bwd_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
-    """The fused backward kernel; same contract as :func:`flash_bwd_plain`."""
-    return bwd_chunked(_bwd_launch, graph, ld, ls, v, g, lse, delta, meta)
+    """The fused backward kernel; same contract as :func:`flash_bwd_plain`
+    (a head wider than 32 through the wide body where :func:`takes_wide`)."""
+    return bwd_chunked(_bwd_launch, graph, ld, ls, v, g, lse, delta, meta, takes_wide(graph))
 
 
 def flash_bwd_row_cuda(graph: BCSRGraph, ld, ls, v, g, lse, delta, meta: FlashMeta):
@@ -835,7 +893,7 @@ class _FlashGAT(torch.autograd.Function):
     def backward(ctx, g):
         ld, ls, v, out, lse = ctx.saved_tensors
         g = g.contiguous()
-        # delta_i = g_i · out_i, per head-dim chunk (head_delta)
+        # delta_i = g_i · out_i over each head (head_delta)
         delta = head_delta(g, out, ld.shape[-2])
         dld, dls, dv = flash_bwd(ctx.graph, ld, ls, v, g, lse, delta, ctx.meta)
         # dv is f32 from the kernels, cast to v's type outside them as in

@@ -54,8 +54,8 @@ from han_tpu_torch.ops import ell_fused, flash_gat, tree_ell
 # the launch counters of the kernels (and the tree attention's call count)
 # a step may run: (module, attribute)
 COUNTERS = tuple((mod, name) for mod, names in (
-    (flash_gat, ("flash_fwd_launches", "flash_bwd_launches", "flash_bwd_row_launches",
-                 "flash_bwd_col_launches")),
+    (flash_gat, ("flash_fwd_launches", "flash_fwd_wide_launches", "flash_bwd_launches",
+                 "flash_bwd_wide_launches", "flash_bwd_row_launches", "flash_bwd_col_launches")),
     (ell_fused, ("ell_fused_launches",)),
     (tree_ell, ("tree_ell_calls", "tree_ell_bwd_launches"))) for name in names)
 

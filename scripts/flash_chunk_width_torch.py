@@ -1,17 +1,18 @@
-"""The width of a head-dim chunk of the flash kernels, measured on the card.
+"""The width of a head-dim chunk of the split backward, measured on the card.
 
-A head wider than the kernels' largest instantiation (32) runs as chunks
-of ``ops/flash_gat.py:HEAD_CHUNK`` columns on the kernels' grid. This
-script holds the forward, the fused backward and the row and column
-sweeps at D = 64 on DBLP's largest meta-path (dblp_synthetic's APTPA,
-K = 8, f32 v) in chunks of 16 (four a head) and of 32 (two) to their
-full-D plain versions (forward atol 1e-5, rtol 1e-4; backwards atol 1e-4,
-rtol 1e-3), then times each kernel at both widths in turns (16, 32, 32,
-16) at dropout 0 and 0.6. The width is set by rebinding the module's
-constant for the run, which every wrapper reads through ``head_plan``.
-Device times as ``chip_smoke.timed`` takes them. Prints one JSON line:
-ms per kernel, dropout and width, the ratio t16 / t32, and the card's
-name and power limit.
+The split backward (the row and column sweeps, the deterministic path)
+runs a head wider than the kernels' largest instantiation (32) as chunks
+of ``ops/flash_gat.py:HEAD_CHUNK`` columns on the kernels' grid; the
+forward and the fused backward take such a head through their wide
+bodies on these tiles. This script holds the row and column sweeps at
+D = 64 on DBLP's largest meta-path (dblp_synthetic's APTPA, K = 8, f32
+v) in chunks of 16 (four a head) and of 32 (two) to their full-D plain
+versions (atol 1e-4, rtol 1e-3), then times each sweep at both widths in
+turns (16, 32, 32, 16) at dropout 0 and 0.6. The width is set by
+rebinding the module's constant for the run, which the wrappers read
+through ``head_plan``. Device times as ``chip_smoke.timed`` takes them.
+Prints one JSON line: ms per sweep, dropout and width, the ratio
+t16 / t32, and the card's name and power limit.
 
     python3 scripts/flash_chunk_width_torch.py
 
@@ -51,7 +52,7 @@ def main() -> None:
     ld, ls, v, g = dblp_inputs(torch.Generator(dev).manual_seed(0), graph.n_pad, ds.n_nodes,
                                k, d)
     in_use = fg.HEAD_CHUNK
-    ms = {key: {} for key in ("fwd", "bwd", "row", "col")}
+    ms = {key: {} for key in ("row", "col")}
     try:
         for p in DROPOUTS:
             meta = fg.FlashMeta(slope=0.2, dropout_p=p, seed=fg.seed_tensor(7654321, dev))
@@ -60,20 +61,13 @@ def main() -> None:
             for w in WIDTHS:
                 fg.HEAD_CHUNK = w
                 tag = f"chunks of {w}, dropout {p}"
-                out, lse = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
-                check(f"{tag}: out", out, out_p, 1e-5, 1e-4)
-                check(f"{tag}: lse", lse, lse_p, 1e-5, 1e-4)
-                # delta in the width's chunks; the plain versions add them up
                 args = (graph, ld, ls, v, g, lse_p, fg.head_delta(g, out_p, k), meta)
                 for key, got, want in (
-                        ("bwd", fg.flash_bwd_cuda(*args), fg.flash_bwd_plain(*args)),
                         ("row", (fg.flash_bwd_row_cuda(*args),), (fg.flash_bwd_row_plain(*args),)),
                         ("col", fg.flash_bwd_col_cuda(*args), fg.flash_bwd_col_plain(*args))):
                     for a, b in zip(got, want):
                         check(f"{tag}: {key}", a, b, 1e-4, 1e-3)
-                fns[w] = {"fwd": lambda: fg.flash_fwd_cuda(graph, ld, ls, v, meta),
-                          "bwd": lambda a=args: fg.flash_bwd_cuda(*a),
-                          "row": lambda a=args: fg.flash_bwd_row_cuda(*a),
+                fns[w] = {"row": lambda a=args: fg.flash_bwd_row_cuda(*a),
                           "col": lambda a=args: fg.flash_bwd_col_cuda(*a)}
             for key in ms:
                 t = {w: [] for w in WIDTHS}

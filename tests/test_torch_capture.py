@@ -289,6 +289,18 @@ def test_graphed_step_counts_launches_once_per_replay(fake_cuda_graph, monkeypat
     assert len(_FakeGraph.made) == 2 and fg.flash_fwd_launches == 18
 
 
+@pytest.mark.parametrize("module", ["flash_gat", "ell_fused", "tree_ell"])
+def test_counters_name_every_launch_count(module):
+    """Every launch count a kernel module keeps (an int attribute ending in
+    ``_launches``) is in graphed.COUNTERS, so that a capture puts it back
+    and a replay adds its gain: one left out would count the capture's
+    wrapper calls, which launch nothing, and miss every replay."""
+    mod = getattr(graphed, module)
+    counts = {name for name, x in vars(mod).items()
+              if name.endswith("_launches") and isinstance(x, int)}
+    assert counts and counts <= {name for m, name in graphed.COUNTERS if m is mod}
+
+
 def test_device_time_skips_annotation_ranges():
     """utils/prof.device_events keeps kernels, copies and fills and drops a
     record_function range shown on the device (Optimizer.step#Adam.step

@@ -1,13 +1,18 @@
 """Head dims the flash kernels are not instantiated at. Up to the largest of
 ``KERNEL_HEAD_DIMS`` the CUDA wrappers zero-pad v's and g's head dim to the
-next instantiation and slice out and dv back; a wider head runs as chunks
-of 32 columns on the kernels' grid (``head_plan``, ``fwd_chunked``,
-``bwd_chunked``), delta in one layout, ([P,] nc, K, n), for every
-backward (``head_delta``). The CPU holds that decomposition, run
-over the kernels' plain versions (``flash_*_chunked_plain``), to the
-full-D plain versions (float64), to the unchunked call at one chunk
-(bitwise) and to han_tpu's flash attention (interpret mode), which takes
-any D."""
+next instantiation and slice out and dv back; a wider head runs in the
+backward kernels as chunks of 32 columns on the kernels' grid
+(``head_plan``, ``fwd_chunked``, ``bwd_chunked``), delta the head's whole
+g·out, ([P,] 1, K, n), for every backward (``head_delta``), which each
+launch splits over its chunks (``split_delta``: chunk 0 takes it); on
+128 x 128 tiles (``takes_wide``) the forward runs it through its wide body
+(one chunk of 64 or 128, or chunks of 128: ``head_plan(d,
+WIDE_HEAD_DIMS)``) and the fused backward through its own (chunks of 64,
+``BWD_WIDE_DIMS``), while the split backward keeps the chunks of 32. The CPU holds
+those decompositions, run over the kernels' plain versions
+(``flash_*_chunked_plain``), to the full-D plain versions (float64), to each
+other, to the unchunked call at one chunk (bitwise) and to han_tpu's flash
+attention (interpret mode), which takes any D."""
 
 import numpy as np
 import pytest
@@ -39,16 +44,20 @@ def test_padded_head_dim(d, dp):
 def test_head_chunk_plan():
     """Above the largest instantiation (32) a head runs as ⌈D / 32⌉ chunks
     of 32: D = 33, 64, 121, 128 and 300 give their chunk counts and padded
-    widths, and nothing raises; delta has that many chunks, which add up to
-    the head's g · out. Up to 32 a head is one chunk, and delta keeps its
-    chunk axis (one layout for every backward)."""
+    widths, and nothing raises; delta is the head's g · out in one chunk,
+    which a launch splits into that many (chunk 0 takes it, the others are
+    zero). Up to 32 a head is one chunk, and delta keeps its chunk axis
+    (one layout for every backward)."""
     assert fg.KERNEL_HEAD_DIMS[-1] == fg.HEAD_CHUNK == 32
     for d, nc in ((33, 2), (64, 2), (121, 4), (128, 4), (300, 10)):
         assert fg.head_plan(d) == (32, nc)
         g, out = torch.ones(5, 2 * d), torch.ones(5, 2 * d)
         delta = fg.head_delta(g, out, 2)
-        assert delta.shape == (nc, 2, 5) and delta.is_contiguous()
-        assert fg.sum_chunks(delta).tolist() == [[float(d)] * 5] * 2
+        assert delta.shape == (1, 2, 5) and delta.is_contiguous()
+        assert delta.tolist() == [[[float(d)] * 5] * 2]
+        split = fg.split_delta(delta, nc)
+        assert split.shape == (nc, 2, 5) and split.is_contiguous()
+        assert torch.equal(split[0], delta[0]) and not split[1:].any()
     for d, dc in ((3, 4), (8, 8), (32, 32)):
         assert fg.head_plan(d) == (dc, 1)
         delta = fg.head_delta(torch.ones(5, 2 * d), torch.ones(5, 2 * d), 2)
@@ -162,7 +171,8 @@ def test_one_chunk_is_the_unchunked_call(d):
 def test_chunks_give_the_full_head_plain_versions(d, p):
     """D = 40 and 64 (two chunks of 32 a head) and 100 and 128 (four)
     against the full-D plain versions (float64 inputs, atol 1e-12): out and
-    lse, and each backward, both given the same delta per chunk."""
+    lse, and each backward, given the head's delta (split over the
+    chunks by each launch)."""
     graph, ld, ls, v, g = _case(d)
     k = 2
     meta = fg.FlashMeta(dropout_p=p, seed=23, head_offset=1)
@@ -171,7 +181,7 @@ def test_chunks_give_the_full_head_plain_versions(d, p):
     np.testing.assert_allclose(cout.numpy(), out.numpy(), atol=1e-12)
     assert torch.equal(clse, lse)
     delta = fg.head_delta(g, out, k)
-    assert delta.shape == (-(-d // 32), k, graph.n_pad)
+    assert delta.shape == (1, k, graph.n_pad)
     args = (graph, ld, ls, v, g, lse, delta, meta)
     for plain, chunked in BACKWARDS:
         want, got = plain(*args), chunked(*args)
@@ -184,7 +194,7 @@ def test_chunks_give_the_full_head_plain_versions(d, p):
 def test_chunks_of_a_stack_are_per_path():
     """A stack of 2 graphs at D = 64, dropout 0.6 (a seed a path): the chunk
     decomposition against the full-D plain versions (atol 1e-12), delta
-    per chunk ([P,] nc, K, n)."""
+    the head's ([P,] 1, K, n)."""
     graph, ld, ls, v, g = _case(64, n_paths=2, seed=8)
     meta = fg.FlashMeta(dropout_p=0.6, seed=torch.tensor([11, 12], dtype=torch.int32))
     out, lse = fg.flash_fwd_plain(graph, ld, ls, v, meta)
@@ -192,7 +202,7 @@ def test_chunks_of_a_stack_are_per_path():
     np.testing.assert_allclose(cout.numpy(), out.numpy(), atol=1e-12)
     assert torch.equal(clse, lse)
     delta = fg.head_delta(g, out, 2)
-    assert delta.shape == (2, 2, 2, graph.n_pad)
+    assert delta.shape == (2, 1, 2, graph.n_pad)
     for plain, chunked in BACKWARDS:
         want, got = plain(graph, ld, ls, v, g, lse, delta, meta), chunked(
             graph, ld, ls, v, g, lse, delta, meta)
@@ -281,3 +291,109 @@ def test_head_chunks_match_jax_interpreted(d, monkeypatch):
     for name, x, y in zip(("out", "d_fts", "d_logit_dst", "d_logit_src"), got, want):
         assert np.abs(y).max() > 0, name
         np.testing.assert_allclose(x, y, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("d,wide,bwd,chunks", [
+    (3, (4, 1), (4, 1), (4, 1)), (32, (32, 1), (32, 1), (32, 1)),
+    (33, (64, 1), (64, 1), (32, 2)), (64, (64, 1), (64, 1), (32, 2)),
+    (65, (128, 1), (64, 2), (32, 3)), (121, (128, 1), (64, 2), (32, 4)),
+    (128, (128, 1), (64, 2), (32, 4)), (256, (128, 2), (64, 4), (32, 8)),
+    (300, (128, 3), (64, 5), (32, 10))])
+def test_wide_head_plan(d, wide, bwd, chunks):
+    """The forward's wide body takes a padded head of 64 or 128 in one
+    chunk, and a wider one in chunks of 128 (half a head of 256 a block);
+    the fused backward's takes chunks of 64; up to 32 the plan is today's;
+    the split backward keeps its chunks of 32. One delta, the head's,
+    serves both backwards: each launch splits it over its own chunks."""
+    assert fg.head_plan(d, fg.WIDE_HEAD_DIMS) == wide
+    assert fg.head_plan(d, fg.BWD_WIDE_DIMS) == bwd
+    assert fg.head_plan(d) == chunks
+    delta = fg.head_delta(torch.ones(5, 2 * d), torch.ones(5, 2 * d), 2)
+    assert delta.shape == (1, 2, 5)
+    for nc in (bwd[1], chunks[1]):
+        split = fg.split_delta(delta, nc)
+        assert split.shape == (nc, 2, 5) and split.is_contiguous()
+        assert fg.sum_chunks(split).tolist() == [[float(d)] * 5] * 2
+
+
+def _wide_graph(n_paths=None, seed=0):
+    """A graph of 300 nodes (or a stack of n_paths) on 128 x 128 tiles, the
+    wide body's: rows and columns past the nodes, a row without an edge."""
+    graphs = [t_bcsr(small_graph(300, 0.08, seed + s)) for s in range(n_paths or 1)]
+    assert all(gr.bm == gr.bn == 128 for gr in graphs)
+    return graphs[0] if n_paths is None else stack_graphs(graphs)
+
+
+@pytest.mark.parametrize("bm", [64, 128])
+@pytest.mark.parametrize("d", [8, 64, 121, 256])
+def test_launchers_pick_the_body(bm, d, monkeypatch):
+    """Through the CUDA wrappers (their launches replaced by the plain
+    versions' chunk loops): on 128 x 128 tiles the forward and the fused
+    backward launch a head above 32 as their wide plans' chunks, on other
+    tiles as chunks of 32; the split backward always as chunks of 32."""
+    graph = t_bcsr(small_graph(300, 0.08, 1), bm=bm, bn=bm)
+    k, n = 2, graph.n_pad
+    gen = torch.Generator().manual_seed(d)
+    ld, ls, v, g = (torch.randn(*s, generator=gen, dtype=torch.float64)
+                    for s in ((k, n), (k, n), (n, k * d), (n, k * d)))
+    meta = fg.FlashMeta(dropout_p=0.6, seed=7)
+    seen = []
+
+    def spy(name, launch):
+        def call(graph, ld, ls, v, *rest):
+            seen.append((name, v.shape[-1] // (k * rest[-1]), rest[-1]))
+            return launch(graph, ld, ls, v, *rest)
+        return call
+
+    monkeypatch.setattr(fg, "_fwd_launch", spy("fwd", fg._fwd_chunks_plain))
+    for name, plain in (("bwd", fg.flash_bwd_plain), ("row", fg.flash_bwd_row_plain),
+                        ("col", fg.flash_bwd_col_plain)):
+        monkeypatch.setattr(fg, f"_{name}_launch" if name == "bwd" else f"_bwd_{name}_launch",
+                            spy(name, fg._bwd_chunks_plain(plain)))
+    out, lse = fg.flash_fwd_cuda(graph, ld, ls, v, meta)
+    args = (graph, ld, ls, v, g, lse, fg.head_delta(g, out, k), meta)
+    fg.flash_bwd_cuda(*args)
+    fg.flash_bwd_row_cuda(*args)
+    fg.flash_bwd_col_cuda(*args)
+    fwd_plan = fg.head_plan(d, fg.WIDE_HEAD_DIMS if bm == 128 else ())
+    bwd_plan = fg.head_plan(d, fg.BWD_WIDE_DIMS if bm == 128 else ())
+    assert seen == ([("fwd", *fwd_plan), ("bwd", *bwd_plan)]
+                    + [(name, *fg.head_plan(d)) for name in ("row", "col")])
+    assert (fwd_plan[0] in fg.WIDE_HEAD_DIMS) == (bm == 128 and d > 32)
+    assert (bwd_plan[0] in fg.BWD_WIDE_DIMS) == (bm == 128 and d > 32)
+
+
+@pytest.mark.parametrize("d", [64, 121, 256])
+@pytest.mark.parametrize("p", [0.0, 0.6])
+@pytest.mark.parametrize("n_paths", [None, 2])
+def test_wide_plan_gives_the_chunked_route(d, p, n_paths):
+    """The forward through the wide body's plan (one chunk of 64 or 128, two
+    of 128 at D = 256) and the fused backward through its own (chunks of
+    64), as the wrappers take them on these tiles, against the chunked
+    route (chunks of 32, the wrappers' helpers with wide=False) and the
+    full-D plain versions, on 128 x 128 tiles, with and without dropout
+    0.6, one graph or a stack of two (a seed a path; float64 inputs, atol
+    1e-12: they differ by round-off alone)."""
+    graph = _wide_graph(n_paths, seed=d)
+    lead = () if n_paths is None else (n_paths,)
+    k, n = 2, graph.n_pad
+    gen = torch.Generator().manual_seed(d + 1)
+    rnd = lambda *s: torch.randn(*lead, *s, generator=gen, dtype=torch.float64)
+    ld, ls, v, g = rnd(k, n), rnd(k, n), rnd(n, k * d), rnd(n, k * d)
+    seed = 41 if n_paths is None else torch.tensor([41, 42], dtype=torch.int32)
+    meta = fg.FlashMeta(dropout_p=p, seed=seed, head_offset=1)
+    assert fg.takes_wide(graph)
+    out, lse = fg.flash_fwd_chunked_plain(graph, ld, ls, v, meta)
+    cout, clse = fg.fwd_chunked(fg._fwd_chunks_plain, graph, ld, ls, v, meta, wide=False)
+    fout, flse = fg.flash_fwd_plain(graph, ld, ls, v, meta)
+    assert out.shape == fout.shape and out.is_contiguous() and (out != 0).any()
+    for a, b in ((out, cout), (out, fout)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-12)
+    assert torch.equal(lse, clse) and torch.equal(lse, flse)
+    args = (graph, ld, ls, v, g, lse, fg.head_delta(g, out, k), meta)
+    wide = fg.flash_bwd_chunked_plain(*args)
+    chunked = fg.bwd_chunked(fg._bwd_chunks_plain(fg.flash_bwd_plain), *args, wide=False)
+    for want in (chunked, fg.flash_bwd_plain(*args)):
+        for a, b in zip(wide, want):
+            assert a.shape == b.shape and a.is_contiguous() and (b != 0).any()
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-12)
